@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port's serving step on one NVIDIA H100.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; there is no CPU path):
+
+1. Build every CUDA kernel from ``ircolor_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together) and print the card.
+2. Hold each kernel against its plain PyTorch version at the flagship
+   shapes (32×512×640, ngf=64) and time both with CUDA events.
+3. Drive ``make_infer_fn`` + ``IRColorizationModel`` from
+   ``configs/flagship_512x640.json`` (bf16, 512×640, batch 32, random
+   weights from a seed) on 3 batches of synthetic uint16 IR / uint8 GT, once
+   with the int8 default and once with ``quant_int8=False``. The launch
+   counts are set to 0 just before each mode's run and read just after; a
+   forward must launch 18 block convs, 2 blur tails and 1 head.
+4. One batch-2 step (the small-batch band routes everything through the
+   kernels) against the same step with the kernel entry points swapped for
+   their plain versions.
+
+Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+FLAGSHIP = REPO / "configs" / "flagship_512x640.json"
+B, H, W, NGF = 32, 512, 640, 64
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_kernels(torch, results: list) -> None:
+    """Phase 2: every kernel against its plain version at flagship shapes."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, blur, head, resblock
+    from ircolor_tpu_torch.ops.norm import instance_norm_stats
+    from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    before = dict(LAUNCHES)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def bf16_err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    def bf16_mean_err(got, want):
+        return float((got.float() - want.float()).abs().mean())
+
+    # bf16 block conv (#2): conv1 form (raw input) and conv2 form
+    # (normalize + ReLU on load) at the bottleneck, 32×128×160×256 → 256.
+    # Tolerance: 2 bf16 ulps at the output's largest magnitude (both round
+    # the same f32 sum, accumulated in another order), and 1e-3 relative on
+    # the IN moments.
+    hb, wb, cb = H // 4, W // 4, NGF * 4
+    x = randn(B, hb, wb, cb).to(torch.bfloat16)
+    k = randn(3, 3, cb, cb, scale=0.05).to(torch.bfloat16)
+    m0, i0 = instance_norm_stats(x)
+    errs, times, ptimes = [], [], []
+    for label, args in (("raw", ()), ("norm-on-load", (m0, i0))):
+        got = resblock.conv3x3_reflect_fused(x, k, *args)
+        want = resblock.conv3x3_reflect_fused_plain(x, k, *args)
+        scale = float(want[0].float().abs().max())
+        err = bf16_err(got[0], want[0])
+        tol = 2 * 2.0**-8 * scale
+        merr = float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp(min=1e-6))
+        ierr = float(((got[2] - want[2]) / want[2]).abs().max())
+        log(f"[conv3x3_reflect_fused {label}] max|d|={err:.4g} mean|d|="
+            f"{bf16_mean_err(got[0], want[0]):.3g} tol={tol:.4g} "
+            f"mean rel={merr:.3g} inv rel={ierr:.3g} (tol 1e-3)")
+        if not (err <= tol and merr <= 1e-3 and ierr <= 1e-3):
+            raise AssertionError(f"conv3x3_reflect_fused {label} disagrees with its plain version")
+        errs.append(err)
+        times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused(x, k, *args), 10))
+        ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_plain(x, k, *args), 3, 1))
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+    cudnn_ms = cuda_time_ms(
+        lambda: torch.nn.functional.conv2d(
+            torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
+            k.permute(3, 2, 0, 1)), 10)
+    log(f"    (for scale: cuDNN bf16 reflect-pad + conv alone {cudnn_ms:.3f} ms)")
+    results.append(dict(name="conv3x3_reflect_fused", route="cuda",
+                        source="ircolor_tpu_torch/csrc/resblock.cu",
+                        replaces="ircolor_tpu/ops/pallas_resblock.py:280",
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2))
+
+    # int8 block conv (#1): conv1 (per-sample 127/amax) and conv2 (fixed
+    # 127/6 grid after normalize + ReLU). Bound: ≤ 2.5 quant steps, where a
+    # step is one int8 input step through the channel's largest weight
+    # (sc[b, co]·127), and ≤ 1e-3 of elements differing by more than one
+    # bf16 ulp.
+    kq, sw = quantize_weight_per_channel(k)
+    amax = x.abs().amax(dim=(1, 2, 3)).float().clamp(min=1e-12)
+    sc1 = ((amax / 127.0)[:, None] * sw[None, :]).contiguous()
+    sc2 = ((_QCLIP / 127.0) * sw[None, :]).expand(B, -1).contiguous()
+    cases = (("conv1", sc1, dict(qscale=(127.0 / amax).contiguous())),
+             ("conv2", sc2, dict(mean=m0, inv=i0)))
+    errs, times, ptimes = [], [], []
+    for label, sc, kw in cases:
+        got = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
+        want = resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw)
+        d = (got[0].float() - want[0].float()).abs()
+        step = (sc * 127.0)[:, None, None, :]
+        steps = float((d / step).max())
+        ulp = want[0].float().abs() * 2.0**-8
+        frac = float((d > ulp).float().mean())
+        log(f"[conv3x3_reflect_fused_q {label}] max|d|={float(d.max()):.4g} "
+            f"= {steps:.3g} quant steps (tol 2.5), mean|d|={float(d.mean()):.3g}, "
+            f"differing {frac:.3g} (tol 1e-3)")
+        if not (steps <= 2.5 and frac <= 1e-3):
+            raise AssertionError(f"conv3x3_reflect_fused_q {label} disagrees with its plain version")
+        errs.append(float(d.max()))
+        times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw), 10))
+        ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw), 2, 1))
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+    results.append(dict(name="conv3x3_reflect_fused_q", route="cuda",
+                        source="ircolor_tpu_torch/csrc/resblock.cu",
+                        replaces="ircolor_tpu/ops/pallas_resblock.py:1385",
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2))
+    del x
+
+    # norm_relu_blur_down (#3) at both down-stage tails. Same additions in
+    # the same order: tolerance 1 bf16 ulp at the output's largest value.
+    errs, times, ptimes = [], [], []
+    for hh, ww, cc in ((H, W, NGF * 2), (H // 2, W // 2, NGF * 4)):
+        xt = randn(B, hh, ww, cc).to(torch.bfloat16)
+        mt, it = instance_norm_stats(xt)
+        got = blur.norm_relu_blur_down_pallas(xt, mt, it)
+        want = blur.norm_relu_blur_down_plain(xt, mt, it)
+        err, tol = bf16_err(got, want), 2.0**-8 * float(want.float().abs().max())
+        log(f"[norm_relu_blur_down {hh}x{ww}x{cc}] max|d|={err:.4g} "
+            f"mean|d|={bf16_mean_err(got, want):.3g} tol={tol:.4g}")
+        if err > tol:
+            raise AssertionError("norm_relu_blur_down disagrees with its plain version")
+        errs.append(err)
+        times.append(cuda_time_ms(lambda: blur.norm_relu_blur_down_pallas(xt, mt, it), 20))
+        ptimes.append(cuda_time_ms(lambda: blur.norm_relu_blur_down_plain(xt, mt, it), 5))
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+        del xt
+    results.append(dict(name="norm_relu_blur_down", route="cuda",
+                        source="ircolor_tpu_torch/csrc/blur.cu",
+                        replaces="ircolor_tpu/ops/pallas_blur.py:218",
+                        max_abs_err=max(errs), ms=sum(times), plain_ms=sum(ptimes)))
+
+    # 7×7 head (#4), 32×512×640×64 → 3. f32 sums in another order, rounded
+    # to bf16: tolerance 2 bf16 ulps at the output's largest magnitude.
+    xt = randn(B, H, W, NGF).to(torch.bfloat16)
+    kh = randn(7, 7, NGF, 3, scale=0.02).to(torch.bfloat16)
+    mt, it = instance_norm_stats(xt)
+    got = head.conv7x7_head_pallas(xt, mt, it, kh)
+    want = head.conv7x7_head_plain(xt, mt, it, kh)
+    err, tol = bf16_err(got, want), 2 * 2.0**-8 * float(want.float().abs().max())
+    log(f"[conv7x7_head] max|d|={err:.4g} mean|d|={bf16_mean_err(got, want):.3g} tol={tol:.4g}")
+    if err > tol:
+        raise AssertionError("conv7x7_head disagrees with its plain version")
+    ms = cuda_time_ms(lambda: head.conv7x7_head_pallas(xt, mt, it, kh), 10)
+    pms = cuda_time_ms(lambda: head.conv7x7_head_plain(xt, mt, it, kh), 5)
+    log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms")
+    results.append(dict(name="conv7x7_head", route="cuda",
+                        source="ircolor_tpu_torch/csrc/head.cu",
+                        replaces="ircolor_tpu/ops/pallas_head.py:286",
+                        max_abs_err=err, ms=ms, plain_ms=pms))
+    # These launches were comparisons, not the main path: leave the counts
+    # as they were.
+    LAUNCHES.update(before)
+
+
+def synthetic_batches(np, n: int, b: int):
+    """IR-like frames (smooth gradients + a warm blob, a little sensor
+    noise) with the RGB a fixed colormap of the IR, as uint16 / uint8 — the
+    pattern of ``ircolor_tpu/data/synthetic.py``, made here with numpy."""
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    out = []
+    for _ in range(n):
+        ir = np.empty((b, H, W, 1), np.uint16)
+        gt = np.empty((b, H, W, 3), np.uint8)
+        for j in range(b):
+            phase = rng.uniform(0, 2 * np.pi)
+            f = 0.5 + 0.4 * np.sin(xx / W * 4 * np.pi + phase) * np.cos(yy / H * 2 * np.pi)
+            cx, cy = rng.randint(0, W), rng.randint(0, H)
+            f = f + 0.5 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * (H / 4) ** 2))
+            f = np.clip(f + rng.normal(0, 0.01, f.shape), 0, 1).astype(np.float32)
+            ir[j, :, :, 0] = np.rint(f * 65535)
+            rgb = np.stack([np.clip(1.5 * f - 0.2, 0, 1), np.clip(1 - np.abs(f - 0.5) * 2, 0, 1),
+                            np.clip(0.9 - f, 0, 1)], axis=2)
+            gt[j] = np.rint(rgb * 255)
+        out.append((ir, gt))
+    return out
+
+
+def serve(torch, np, quant: bool, results_counts: dict) -> float:
+    """Phase 3 for one mode: returns frames/s over 3 batches of 32."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    cfg = Config.from_json(FLAGSHIP.read_text()).replace(mode="test", seed=SEED)
+    if not quant:
+        cfg = cfg.replace(quant_int8=False)
+    if (cfg.resolved_hw, cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != ((H, W), B, quant):
+        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to {H}x{W} b{B} int8={quant}")
+    model = IRColorizationModel(cfg, "cuda")
+    infer = make_infer_fn(model.module)
+    batches = [
+        (torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+        for ir, gt in synthetic_batches(np, 3, B)
+    ]
+    pred, m = infer(*batches[0])  # warm-up: cuDNN algorithm picks
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [infer(ir, gt) for ir, gt in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    fps = len(batches) * B / dt
+    conv = "conv3x3_reflect_fused_q" if quant else "conv3x3_reflect_fused"
+    other = "conv3x3_reflect_fused" if quant else "conv3x3_reflect_fused_q"
+    want = {conv: 18 * 3, other: 0, "norm_relu_blur_down": 2 * 3, "conv7x7_head": 1 * 3}
+    mode = "int8" if quant else "float"
+    log(f"[serve {mode}] launches over 3 forwards: {counts} (per forward "
+        f"{counts[conv] // 3}/{counts['norm_relu_blur_down'] // 3}/{counts['conv7x7_head'] // 3})")
+    if counts != want:
+        raise AssertionError(f"serve {mode}: launch counts {counts} != {want}")
+    for pred, m in outs:
+        if pred.shape != (B, H, W, 3) or pred.dtype != torch.uint8:
+            raise AssertionError(f"serve {mode}: prediction {pred.shape} {pred.dtype}")
+        for key, v in m.items():
+            if v.shape != (B,) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"serve {mode}: metric {key} not finite: {v}")
+    mm = {k: float(v.mean()) for k, v in outs[-1][1].items()}
+    log(f"[serve {mode}] {fps:.2f} frames/s (3 batches of {B} at {H}x{W}, "
+        f"{1e3 * dt / 3:.1f} ms per batch); last-batch metrics {mm}")
+    results_counts[mode] = counts
+    del model, batches, outs
+    torch.cuda.empty_cache()
+    return fps
+
+
+def kernel_vs_plain_route(torch, np, quant: bool) -> None:
+    """Phase 4: the b2 step through the kernels against the same step with
+    the kernel entry points replaced by their plain versions. The kernel
+    route also runs twice and must repeat bit for bit (the kernels'
+    statistics are deterministic)."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.kernels import LAUNCHES, blur, head, resblock
+    from ircolor_tpu_torch.models import generator as gen_mod
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    cfg = Config.from_json(FLAGSHIP.read_text()).replace(
+        mode="test", seed=SEED, test_batch_size=2, quant_int8=quant)
+    model = IRColorizationModel(cfg, "cuda")
+    infer = make_infer_fn(model.module)
+    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, 2)[0])
+    before = dict(LAUNCHES)
+    pred_k, m_k = infer(ir, gt)
+    ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    pred_k2, _ = infer(ir, gt)
+    repeat = bool(torch.equal(pred_k, pred_k2))
+
+    def plain_block(x, k1, k2):
+        raw1, m1, i1 = resblock.conv3x3_reflect_fused_plain(x, k1)
+        raw2, m2, i2 = resblock.conv3x3_reflect_fused_plain(raw1, k2, m1, i1)
+        return resblock._block_epilogue(x, raw2, m2, i2)
+
+    def plain_block_q(x, k1, k2):
+        resblock.conv3x3_reflect_fused_q = resblock.conv3x3_reflect_fused_q_plain
+        try:
+            return resblock.resnet_block_pallas_q(x, k1, k2)
+        finally:
+            resblock.conv3x3_reflect_fused_q = kernel_q
+
+    def plain_nrbd(x):
+        mean, inv = blur.instance_norm_stats(x)
+        return blur.norm_relu_blur_down_plain(x, mean, inv)
+
+    def plain_head(x, k):
+        mean, inv = head.instance_norm_stats(x)
+        return head.conv7x7_head_plain(x, mean, inv, k)
+
+    kernel_q = resblock.conv3x3_reflect_fused_q
+    swaps = {"resnet_block_pallas": plain_block, "resnet_block_pallas_q": plain_block_q,
+             "norm_relu_blur_down": plain_nrbd, "outc_head": plain_head}
+    saved = {name: getattr(gen_mod, name) for name in swaps}
+    try:
+        for name, fn in swaps.items():
+            setattr(gen_mod, name, fn)
+        mid = dict(LAUNCHES)
+        pred_p, m_p = infer(ir, gt)
+        if LAUNCHES != mid:
+            raise AssertionError("the plain route launched a kernel")
+    finally:
+        for name, fn in saved.items():
+            setattr(gen_mod, name, fn)
+    LAUNCHES.update(before)
+    d = (pred_k.int() - pred_p.int()).abs()
+    mean_d = float(d.float().mean())
+    hist = [float((d <= j).float().mean()) for j in (0, 1, 2, 4)]
+    dpsnr = float((m_k["psnr"] - m_p["psnr"]).abs().max())
+    dssim = float((m_k["ssim"] - m_p["ssim"]).abs().max())
+    mode = "int8" if quant else "float"
+    log(f"[b2 kernel vs plain route, {mode}] kernels run {ran}; "
+        f"repeat bit-identical: {repeat}; uint8 max|d|={int(d.max())} "
+        f"mean|d|={mean_d:.4f}; share with |d|<=0/1/2/4: "
+        f"{', '.join(f'{h:.4f}' for h in hist)}; |dPSNR|={dpsnr:.5f} dB |dSSIM|={dssim:.6f}")
+    conv = "conv3x3_reflect_fused_q" if quant else "conv3x3_reflect_fused"
+    if ran[conv] != 18 or ran["norm_relu_blur_down"] != 2 or ran["conv7x7_head"] != 1:
+        raise AssertionError(f"b2 step did not run every kernel: {ran}")
+    if not repeat:
+        raise AssertionError(f"b2 {mode}: two kernel-route runs differ")
+    # Bound: the repository's int8 serving budget on the metrics (0.02 dB
+    # PSNR, 0.002 SSIM per image), and on the uint8 image a mean difference
+    # of at most 2 levels with 95% of values within 4. Each kernel alone
+    # matches its plain version bit for bit or to one bf16 ulp (phase 2);
+    # here the conv statistics, summed in another order, move the next
+    # conv's normalize (and, for int8, its rounding) by an ulp here and
+    # there, and 9 blocks of a random-weight network compound that, while
+    # the bf16 output grid makes one ulp of the prediction 1-2 uint8 levels.
+    if not (mean_d <= 2.0 and hist[3] >= 0.95 and dpsnr <= 0.02 and dssim <= 0.002):
+        raise AssertionError(f"b2 {mode}: kernel route disagrees with the plain route")
+    del model
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    if not (REPO / "ircolor_tpu_torch").is_dir() or not FLAGSHIP.is_file():
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from ircolor_tpu_torch.kernels import build
+
+    # The plain versions are the f32 reference: no TF32 anywhere.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[build] {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
+    for name, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"    {name}: {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[card] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
+
+    results: list = []
+    check_kernels(torch, results)
+    counts: dict = {}
+    fps_int8 = serve(torch, np, True, counts)
+    fps_float = serve(torch, np, False, counts)
+    kernel_vs_plain_route(torch, np, True)
+    kernel_vs_plain_route(torch, np, False)
+    log(f"[serve] 512x640 b32: int8 {fps_int8:.2f} frames/s, float {fps_float:.2f} frames/s")
+
+    main_run = {"conv3x3_reflect_fused_q": counts["int8"], "conv3x3_reflect_fused": counts["float"],
+                "norm_relu_blur_down": counts["int8"], "conv7x7_head": counts["int8"]}
+    for r in results:
+        r["launches"] = main_run[r["name"]][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""The port's hand-written Hopper kernels, each behind a Python wrapper.
+
+Every wrapper takes the JAX function's NHWC signature and dispatches on the
+device of its input alone: a CPU tensor runs the plain PyTorch version in
+the same module; a CUDA tensor launches the kernel (built from ``csrc/`` at
+first use) or raises — no fallback, no silent move to the CPU. The wrapper
+adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
+
+  resblock.conv3x3_reflect_fused    ← pallas_resblock.conv3x3_reflect_fused
+  resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
+  blur.norm_relu_blur_down_pallas   ← pallas_blur.norm_relu_blur_down_pallas
+  head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {
+    "conv3x3_reflect_fused": 0,
+    "conv3x3_reflect_fused_q": 0,
+    "norm_relu_blur_down": 0,
+    "conv7x7_head": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` (a ``None`` entry matches any size)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+        want is not None and got != want for got, want in zip(t.shape, shape)
+    ):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream

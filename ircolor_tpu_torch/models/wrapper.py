@@ -1,0 +1,112 @@
+"""Generator wrapper: construction from Config, weight loading, forward
+(``ircolor_tpu/models/wrapper.py``).
+
+Random init is N(0, init_gain) kernels and zero biases from a
+``torch.Generator`` seeded with ``cfg.seed`` — the same distribution as the
+JAX package, not the same numbers. ``.pth`` loading is permissive like the
+reference: a ``{'state_dict': ...}`` wrapper is unwrapped, missing keys keep
+their init, extra or mis-shaped keys are ignored, with a warning either way.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ircolor_tpu_torch.config import Config
+from ircolor_tpu_torch.models.generator import ResnetUNetGenerator
+from ircolor_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _reject_unported(cfg: Config) -> None:
+    unported = {
+        "no_antialias": cfg.no_antialias,
+        "no_antialias_up": cfg.no_antialias_up,
+        "use_pallas": cfg.use_pallas,
+        "remat": cfg.remat,
+        "sp_devices > 1": cfg.sp_devices > 1,
+        "dp_devices > 1": cfg.dp_devices > 1,
+    }
+    for name, on in unported.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, Queue 1)")
+
+
+def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
+    """Build the generator per cfg. On the f32 parity path TF32 is turned
+    off for convolutions and matmuls: the JAX f32 path runs
+    HIGHEST-precision convs."""
+    _reject_unported(cfg)
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+    if cfg.compute_dtype == "f32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return ResnetUNetGenerator(
+        input_nc=cfg.input_nc,
+        output_nc=cfg.output_nc,
+        ngf=cfg.ngf,
+        n_blocks=cfg.n_blocks,
+        norm=cfg.norm,
+        dtype=_DTYPES[cfg.compute_dtype],
+        pallas_block=cfg.pallas_block,
+        pallas_norm_blur=cfg.pallas_norm_blur,
+        pallas_norm_blur_min_area=cfg.pallas_norm_blur_min_area,
+        pallas_norm_blur_min_launch=cfg.pallas_norm_blur_min_launch,
+        pallas_head=cfg.pallas_head,
+        pallas_head_min_area=cfg.pallas_head_min_area,
+        pallas_head_min_launch=cfg.pallas_head_min_launch,
+        quant_int8=cfg.resolved_quant_int8,
+        quant_fixed_u2=cfg.quant_fixed_u2,
+        quant_head=cfg.quant_head,
+    )
+
+
+def load_state_permissive(module: torch.nn.Module, state: dict) -> None:
+    """``load_state_dict(strict=False)`` that also skips mis-shaped entries."""
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    own = module.state_dict()
+    usable = {
+        k: v for k, v in state.items() if k in own and tuple(v.shape) == tuple(own[k].shape)
+    }
+    missing = sorted(set(own) - set(usable))
+    unused = sorted(set(state) - set(usable))
+    if missing:
+        log.warning("load_weights: %d entries kept their init (missing in ckpt): %s",
+                    len(missing), missing[:5])
+    if unused:
+        log.warning("load_weights: %d ckpt entries unused: %s", len(unused), unused[:5])
+    module.load_state_dict(usable, strict=False)
+
+
+class IRColorizationModel:
+    """Holds the generator on an explicit device."""
+
+    def __init__(self, cfg: Config, device: str | torch.device | None = None):
+        self.cfg = cfg
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        module = generator_from_config(cfg)
+        module.init_weights(
+            cfg.init_type, cfg.init_gain, torch.Generator().manual_seed(cfg.seed)
+        )
+        self.module = module.to(self.device).eval()
+
+    def load_weights(self, path: str) -> None:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(path)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        load_state_permissive(self.module, state)
+        self.module.to(self.device)
+
+    @torch.inference_mode()
+    def __call__(self, ir: torch.Tensor) -> torch.Tensor:
+        """IR (B, H, W, 1) in [-1, 1] → RGB (B, H, W, 3) in [-1, 1]."""
+        return self.module(ir.to(self.device))
