@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's serving step on one NVIDIA H100.
+"""Drive the PyTorch + CUDA port's serving and training steps on one NVIDIA
+H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,8 +10,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. Build every CUDA kernel from ``ircolor_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together) and print the card.
-2. Hold each kernel against its plain PyTorch version at the flagship
-   shapes (32×512×640, ngf=64) and time both with CUDA events.
+2. Hold each serving kernel against its plain PyTorch version at the
+   flagship shapes (32×512×640, ngf=64); time both, and a PyTorch library
+   call of the same function where there is one, with CUDA events.
+2b. The same for the block backward kernels (dgrad in both launch forms,
+   wgrad with and without the normalize on load) at the flagship training
+   bottleneck (8×128×160×256, k 3×3×256×256), beside cuDNN's bf16
+   ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded conv.
 3. Drive ``make_infer_fn`` + ``IRColorizationModel`` from
    ``configs/flagship_512x640.json`` (bf16, 512×640, batch 32, random
    weights from a seed) on 3 batches of synthetic uint16 IR / uint8 GT, once
@@ -20,6 +26,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 4. One batch-2 step (the small-batch band routes everything through the
    kernels) against the same step with the kernel entry points swapped for
    their plain versions.
+5. The training step of the same config (``mode="train"``: bf16, 512×640,
+   batch 8, random G/D weights and random VGG tower from seed 0):
+   ``create_train_state`` + ``make_train_step`` on synthetic batches, one
+   warm-up step and 3 timed ones; each step must launch 18 block convs,
+   18 dgrads and 18 wgrads and nothing else. Prints frames/s, peak memory
+   and a ``torch.profiler`` breakdown of one more step.
+6. The generator gradient of one batch through the kernel backward
+   (``fused_wg``) against the plain-torch + cuDNN backward (``"xla"``):
+   identical losses, per-block weight gradients within 1e-2 relative L2,
+   and the kernel route repeating bit for bit.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -28,6 +44,7 @@ and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,7 +53,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "configs" / "flagship_512x640.json"
 B, H, W, NGF = 32, 512, 640, 64
+TRAIN_B = 8
 SEED = 0
+# Dense H100 SXM peaks (NVIDIA's data sheet) for the bound column.
+PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -56,6 +76,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(ops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    """(least ms, what bounds it): operations over the peak for their type,
+    or bytes moved (each input read once, each output written once) over
+    the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_kernels(torch, results: list) -> None:
@@ -109,10 +137,13 @@ def check_kernels(torch, results: list) -> None:
             torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
             k.permute(3, 2, 0, 1)), 10)
     log(f"    (for scale: cuDNN bf16 reflect-pad + conv alone {cudnn_ms:.3f} ms)")
+    act = B * hb * wb * cb * 2
+    b_ms, b_by = bound(2 * B * hb * wb * 9 * cb * cb, 2 * act + 9 * cb * cb * 2 + B * cb * 16)
     results.append(dict(name="conv3x3_reflect_fused", route="cuda",
                         source="ircolor_tpu_torch/csrc/resblock.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:280",
-                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2))
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=cudnn_ms))
 
     # int8 block conv (#1): conv1 (per-sample 127/amax) and conv2 (fixed
     # 127/6 grid after normalize + ReLU). Bound: ≤ 2.5 quant steps, where a
@@ -143,15 +174,19 @@ def check_kernels(torch, results: list) -> None:
         times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw), 10))
         ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw), 2, 1))
         log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+    # No stock int8 convolution in PyTorch: library_ms is null.
+    b_ms, b_by = bound(2 * B * hb * wb * 9 * cb * cb,
+                       2 * act + 9 * cb * cb + B * cb * 4 * 3, PEAK_INT8)
     results.append(dict(name="conv3x3_reflect_fused_q", route="cuda",
                         source="ircolor_tpu_torch/csrc/resblock.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:1385",
-                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2))
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     del x
 
     # norm_relu_blur_down (#3) at both down-stage tails. Same additions in
     # the same order: tolerance 1 bf16 ulp at the output's largest value.
-    errs, times, ptimes = [], [], []
+    errs, times, ptimes, bounds = [], [], [], []
     for hh, ww, cc in ((H, W, NGF * 2), (H // 2, W // 2, NGF * 4)):
         xt = randn(B, hh, ww, cc).to(torch.bfloat16)
         mt, it = instance_norm_stats(xt)
@@ -166,11 +201,16 @@ def check_kernels(torch, results: list) -> None:
         times.append(cuda_time_ms(lambda: blur.norm_relu_blur_down_pallas(xt, mt, it), 20))
         ptimes.append(cuda_time_ms(lambda: blur.norm_relu_blur_down_plain(xt, mt, it), 5))
         log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+        n_in, n_out = B * hh * ww * cc, B * (hh // 2) * (ww // 2) * cc
+        bounds.append(bound(3 * n_in + 18 * n_out, 2 * (n_in + n_out) + B * cc * 8, PEAK_F32))
         del xt
+    # No single PyTorch call computes normalize + ReLU + blur-pool: null.
     results.append(dict(name="norm_relu_blur_down", route="cuda",
                         source="ircolor_tpu_torch/csrc/blur.cu",
                         replaces="ircolor_tpu/ops/pallas_blur.py:218",
-                        max_abs_err=max(errs), ms=sum(times), plain_ms=sum(ptimes)))
+                        max_abs_err=max(errs), ms=sum(times), plain_ms=sum(ptimes),
+                        bound_ms=sum(b for b, _ in bounds), bound_by=bounds[0][1],
+                        library_ms=None))
 
     # 7×7 head (#4), 32×512×640×64 → 3. f32 sums in another order, rounded
     # to bf16: tolerance 2 bf16 ulps at the output's largest magnitude.
@@ -185,14 +225,120 @@ def check_kernels(torch, results: list) -> None:
         raise AssertionError("conv7x7_head disagrees with its plain version")
     ms = cuda_time_ms(lambda: head.conv7x7_head_pallas(xt, mt, it, kh), 10)
     pms = cuda_time_ms(lambda: head.conv7x7_head_plain(xt, mt, it, kh), 5)
-    log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms")
+    # Library yardstick: cuDNN's bf16 7×7 conv of the reflect-padded,
+    # normalized input (the normalize and the pad made outside the timing).
+    zp = torch.nn.functional.pad(
+        torch.relu((xt.float() - mt[:, None, None, :]) * it[:, None, None, :])
+        .to(torch.bfloat16).permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect")
+    lib_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(zp, kh.permute(3, 2, 0, 1)), 10)
+    del zp
+    log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN 7x7 conv alone {lib_ms:.3f} ms")
+    b_ms, b_by = bound(2 * B * H * W * 49 * NGF * 3, B * H * W * (NGF + 3) * 2 + 49 * NGF * 3 * 2)
     results.append(dict(name="conv7x7_head", route="cuda",
                         source="ircolor_tpu_torch/csrc/head.cu",
                         replaces="ircolor_tpu/ops/pallas_head.py:286",
-                        max_abs_err=err, ms=ms, plain_ms=pms))
+                        max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     # These launches were comparisons, not the main path: leave the counts
     # as they were.
     LAUNCHES.update(before)
+
+
+def check_bwd_kernels(torch, results: list) -> None:
+    """Phase 2b: the block backward kernels against their plain versions at
+    the flagship training bottleneck, 8×128×160×256, k 3×3×256×256.
+
+    Tolerances: bf16 outputs within 2 bf16 ulps at the output's largest
+    magnitude (both round the same f32 sums, taken in another order); the
+    dgrad statistics within 1e-3 of the largest |stat|; dk within 1e-3 of
+    max|dk| (f32 sums over 163,840 pixels in another order)."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, resblock
+    from ircolor_tpu_torch.ops.norm import instance_norm_stats
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    before = dict(LAUNCHES)
+    bb, hb, wb, cb = TRAIN_B, H // 4, W // 4, NGF * 4
+
+    def bf16(scale=1.0):
+        return (torch.randn(bb, hb, wb, cb, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    def small(scale):
+        return torch.randn(bb, cb, device=dev, generator=gen) * scale
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    g, raw2, raw1, x = bf16(), bf16(), bf16(), bf16()
+    k = (torch.randn(3, 3, cb, cb, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    m2, i2 = instance_norm_stats(raw2)
+    m1, i1 = instance_norm_stats(raw1)
+    gm, gy = small(0.01), small(0.01)
+    act = bb * hb * wb * cb * 2
+    flops = 2 * bb * hb * wb * 9 * cb * cb
+
+    # dgrad: launch 1 (ReLU mask + stats, dy emitted once to check it) and
+    # launch 2 (residual add).
+    errs, times, ptimes, bounds = [], [], [], []
+    forms = (("mask_stats", (g, raw2, raw1, k, m2, i2, gm, gy), dict(mask_stats=(m1, i1))),
+             ("residual", (raw1, raw2, g, k, m1, i1, gm, gy), {}))
+    for label, args, kw in forms:
+        got = resblock.conv3x3_dgrad_fused(*args, **kw)
+        want = resblock.conv3x3_dgrad_fused_plain(*args, **kw)
+        ulps = float((got[0].float() - want[0].float()).abs().max()
+                     / (2.0**-8 * want[0].float().abs().max()))
+        dy_err = float((got[1].float() - want[1].float()).abs().max())
+        srel = rel(got[2], want[2]) if kw else 0.0
+        log(f"[conv3x3_dgrad_fused {label}] max|d| = {ulps:.3g} bf16 ulps (tol 2), "
+            f"dy max|d| {dy_err:.3g}, stats rel {srel:.3g} (tol 1e-3)")
+        if not (ulps <= 2 and srel <= 1e-3 and dy_err <= 2.0**-8 * float(want[1].float().abs().max())):
+            raise AssertionError(f"conv3x3_dgrad_fused {label} disagrees with its plain version")
+        errs.append(float((got[0].float() - want[0].float()).abs().max()))
+        del got, want
+        times.append(cuda_time_ms(
+            lambda: resblock.conv3x3_dgrad_fused(*args, emit_dy=False, **kw), 10))
+        ptimes.append(cuda_time_ms(
+            lambda: resblock.conv3x3_dgrad_fused_plain(*args, emit_dy=False, **kw), 3, 1))
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+        bounds.append(bound(flops, 4 * act + 9 * cb * cb * 2 + bb * cb * 4 * 8))
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    g_nchw = g.permute(0, 3, 1, 2)
+    lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(xp.shape, w_oihw, g_nchw), 10)
+    log(f"    (for scale: cuDNN bf16 conv2d_input of the reflect-padded conv {lib:.3f} ms)")
+    results.append(dict(name="conv3x3_dgrad_fused", route="cuda",
+                        source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+                        replaces="ircolor_tpu/ops/pallas_resblock.py:692",
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
+                        bound_ms=sum(b for b, _ in bounds) / 2, bound_by=bounds[0][1],
+                        library_ms=lib))
+
+    # wgrad: conv2's (Z = relu(IN(raw1)) on load) and conv1's (Z = x).
+    errs, times, ptimes = [], [], []
+    forms = (("znorm", (raw1, g, raw2, m2, i2, gm, gy), dict(znorm=(m1, i1))),
+             ("raw", (x, raw1, raw2, m2, i2, gm, gy), {}))
+    for label, args, kw in forms:
+        got = resblock.conv3x3_wgrad_fused(*args, **kw)
+        want = resblock.conv3x3_wgrad_fused_plain(*args, **kw)
+        err = rel(got, want)
+        log(f"[conv3x3_wgrad_fused {label}] max|d|/max|dk| = {err:.3g} (tol 1e-3)")
+        if err > 1e-3:
+            raise AssertionError(f"conv3x3_wgrad_fused {label} disagrees with its plain version")
+        errs.append(float((got - want).abs().max()))
+        times.append(cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused(*args, **kw), 10))
+        ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused_plain(*args, **kw), 3, 1))
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+    lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(xp, w_oihw.shape, g_nchw), 10)
+    log(f"    (for scale: cuDNN bf16 conv2d_weight of the reflect-padded conv {lib:.3f} ms)")
+    b_ms, b_by = bound(flops, 3 * act + 9 * cb * cb * 4 + bb * cb * 4 * 6)
+    results.append(dict(name="conv3x3_wgrad_fused", route="cuda",
+                        source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+                        replaces="ircolor_tpu/ops/pallas_resblock.py:956",
+                        max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    LAUNCHES.update(before)
+    del g, raw2, raw1, x, xp
+    torch.cuda.empty_cache()
 
 
 def synthetic_batches(np, n: int, b: int):
@@ -249,7 +395,8 @@ def serve(torch, np, quant: bool, results_counts: dict) -> float:
     fps = len(batches) * B / dt
     conv = "conv3x3_reflect_fused_q" if quant else "conv3x3_reflect_fused"
     other = "conv3x3_reflect_fused" if quant else "conv3x3_reflect_fused_q"
-    want = {conv: 18 * 3, other: 0, "norm_relu_blur_down": 2 * 3, "conv7x7_head": 1 * 3}
+    want = {conv: 18 * 3, other: 0, "norm_relu_blur_down": 2 * 3, "conv7x7_head": 1 * 3,
+            "conv3x3_dgrad_fused": 0, "conv3x3_wgrad_fused": 0}
     mode = "int8" if quant else "float"
     log(f"[serve {mode}] launches over 3 forwards: {counts} (per forward "
         f"{counts[conv] // 3}/{counts['norm_relu_blur_down'] // 3}/{counts['conv7x7_head'] // 3})")
@@ -292,7 +439,7 @@ def kernel_vs_plain_route(torch, np, quant: bool) -> None:
     pred_k2, _ = infer(ir, gt)
     repeat = bool(torch.equal(pred_k, pred_k2))
 
-    def plain_block(x, k1, k2):
+    def plain_block(x, k1, k2, bwd="xla"):
         raw1, m1, i1 = resblock.conv3x3_reflect_fused_plain(x, k1)
         raw2, m2, i2 = resblock.conv3x3_reflect_fused_plain(raw1, k2, m1, i1)
         return resblock._block_epilogue(x, raw2, m2, i2)
@@ -355,6 +502,138 @@ def kernel_vs_plain_route(torch, np, quant: bool) -> None:
     del model
 
 
+def _train_setup(torch, np):
+    """The flagship config in train mode, its state on the card, the random
+    VGG tower, the step, and 4 synthetic batches of 8."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.losses.vgg import load_vgg16
+    from ircolor_tpu_torch.train.state import create_train_state
+    from ircolor_tpu_torch.train.step import make_train_step
+
+    cfg = Config.from_json(FLAGSHIP.read_text()).replace(mode="train", seed=SEED)
+    if (cfg.resolved_hw, cfg.batch_size, cfg.compute_dtype) != ((H, W), TRAIN_B, "bf16"):
+        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to {H}x{W} b{TRAIN_B} bf16 training")
+    state = create_train_state(cfg, steps_per_epoch=1000, device="cuda")
+    vgg = load_vgg16(None, SEED, torch.bfloat16).cuda()
+    batches = [{"ir": torch.from_numpy(ir).cuda(), "rgb": torch.from_numpy(gt).cuda()}
+               for ir, gt in synthetic_batches(np, 4, TRAIN_B)]
+    return cfg, state, vgg, make_train_step(cfg, vgg), batches
+
+
+def _profile_step(torch, step, state, batch) -> None:
+    """torch.profiler over one step: device time by kernel and the busy
+    share of the step's wall time; the full operator table goes to stderr."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and dev_us(e) > 0]
+    kernels.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"[train profile] one step: wall {wall_ms:.1f} ms (profiler on), device busy "
+        f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in kernels[:12]:
+        log(f"    {dev_us(e) / 1e3:8.2f} ms  x{e.count:<4d} {e.key[:90]}")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60),
+          file=sys.stderr, flush=True)
+
+
+def train_step_phase(torch, np) -> tuple[dict, object]:
+    """Phase 5: the flagship training step; returns (launch counts of the 3
+    timed steps, the setup for phase 6)."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ircolor_tpu_torch.train.loop import _check_loss_sanity
+    from ircolor_tpu_torch.train.step import METRIC_KEYS
+
+    cfg, state, vgg, step, batches = _train_setup(torch, np)
+    step(state, batches[0])  # warm-up: cuDNN algorithm picks, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(state, b)[1] for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    n = len(batches) - 1
+    want = {name: 0 for name in counts}
+    want.update(conv3x3_reflect_fused=18 * n, conv3x3_dgrad_fused=18 * n, conv3x3_wgrad_fused=18 * n)
+    log(f"[train] launches over {n} steps: {counts}")
+    if counts != want:
+        raise AssertionError(f"train: launch counts {counts} != {want}")
+    for i, m in enumerate(metrics):
+        vals = {k: float(m[k]) for k in METRIC_KEYS}
+        _check_loss_sanity(vals, cfg, 1, i + 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] 512x640 b{TRAIN_B} bf16: {n * TRAIN_B / dt:.2f} frames/s "
+        f"({1e3 * dt / n:.1f} ms per step), peak memory {peak_gb:.2f} GiB; last losses "
+        + ", ".join(f"{k}={float(metrics[-1][k]):.4f}" for k in METRIC_KEYS))
+    _profile_step(torch, step, state, batches[1])
+    LAUNCHES.update(counts)
+    return counts, (cfg, state, vgg, batches[0])
+
+
+def bwd_vs_xla(torch, setup) -> None:
+    """Phase 6: the G gradient of one batch through the kernel backward
+    against the "xla" backward (plain torch + cuDNN), from the same state.
+    The forwards are the same kernels, so the losses must be bit-identical;
+    each resnet-block weight gradient must agree within 1e-2 relative L2;
+    the kernel route must repeat bit for bit (deterministic algorithms on
+    for the rest of the network)."""
+    from ircolor_tpu_torch.kernels import LAUNCHES
+    from ircolor_tpu_torch.losses.gan import hinge_g_loss
+    from ircolor_tpu_torch.train.step import _decode_transport, composite_g_losses
+
+    cfg, state, vgg, batch = setup
+    g, d = state.g, state.d
+    weights = [w for blk in g.resblocks for w in (blk.conv_block[1].weight, blk.conv_block[5].weight)]
+    ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
+    before = dict(LAUNCHES)
+
+    def grads(bwd):
+        for blk in g.resblocks:
+            blk.pallas_block_bwd = bwd
+        d.requires_grad_(False)
+        fake = g(ir)
+        loss_gan = hinge_g_loss(d(torch.cat([ir, fake.float()], dim=-1)))
+        total, m = composite_g_losses(cfg, vgg, fake, rgb, loss_gan)
+        out = torch.autograd.grad(total, weights)
+        d.requires_grad_(True)
+        return torch.stack([v.detach() for v in m.values()]), out
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss_k, grad_k = grads("fused_wg")
+        loss_x, grad_x = grads("xla")
+        loss_k2, grad_k2 = grads("fused_wg")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        for blk in g.resblocks:
+            blk.pallas_block_bwd = cfg.pallas_block_bwd
+    LAUNCHES.update(before)
+    rels = [float((a.float() - b.float()).norm() / b.float().norm()) for a, b in zip(grad_k, grad_x)]
+    same_loss = bool(torch.equal(loss_k, loss_x))
+    repeat = all(torch.equal(a, b) for a, b in zip(grad_k, grad_k2)) and bool(torch.equal(loss_k, loss_k2))
+    log(f"[bwd vs xla] losses bit-identical: {same_loss}; per-block-weight relative L2 "
+        f"max {max(rels):.3g} mean {sum(rels) / len(rels):.3g} (tol 1e-2); "
+        f"kernel route repeats bit for bit: {repeat}")
+    log("    " + " ".join(f"{r:.2e}" for r in rels))
+    if not (same_loss and max(rels) <= 1e-2 and repeat):
+        raise AssertionError("kernel backward disagrees with the xla backward")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -366,6 +645,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # Deterministic cuBLAS for phase 6 (read when the first handle is made).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from ircolor_tpu_torch.kernels import build
 
     # The plain versions are the f32 reference: no TF32 anywhere.
@@ -387,18 +668,28 @@ def main() -> int:
 
     results: list = []
     check_kernels(torch, results)
+    check_bwd_kernels(torch, results)
     counts: dict = {}
     fps_int8 = serve(torch, np, True, counts)
     fps_float = serve(torch, np, False, counts)
     kernel_vs_plain_route(torch, np, True)
     kernel_vs_plain_route(torch, np, False)
     log(f"[serve] 512x640 b32: int8 {fps_int8:.2f} frames/s, float {fps_float:.2f} frames/s")
+    counts["train"], setup = train_step_phase(torch, np)
+    bwd_vs_xla(torch, setup)
+    del setup
 
-    main_run = {"conv3x3_reflect_fused_q": counts["int8"], "conv3x3_reflect_fused": counts["float"],
-                "norm_relu_blur_down": counts["int8"], "conv7x7_head": counts["int8"]}
+    # launches: each kernel's count in the main-path run at the shape its
+    # row is timed and bounded at — serving (int8 default) for the int8
+    # conv, tails and head; float serving (b32) for the bf16 block conv;
+    # the training step (b8) for the backward kernels.
+    main_run = {"conv3x3_reflect_fused_q": "int8", "norm_relu_blur_down": "int8",
+                "conv7x7_head": "int8", "conv3x3_reflect_fused": "float",
+                "conv3x3_dgrad_fused": "train", "conv3x3_wgrad_fused": "train"}
     for r in results:
-        r["launches"] = main_run[r["name"]][r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+        r["launches"] = counts[main_run[r["name"]]][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,15 @@ Module names mirror the JAX package so a reader can find each counterpart:
               resize, int8 weight quantization (plain torch)
   kernels   — the hand-written Hopper kernels (``csrc/*.cu``) behind Python
               wrappers, each beside its plain PyTorch version
-  models    — ``ResnetUNetGenerator`` with the reference state_dict names
-  compat    — JAX param tree (numpy) → port state_dict
+  models    — ``ResnetUNetGenerator`` and ``NLayerDiscriminator`` with the
+              reference state_dict names
+  losses    — hinge GAN, TV, SSIM, the VGG-16 perceptual tower
+  compat    — JAX param trees (numpy) → port state_dicts
   eval      — the serving step (``make_infer_fn``) and ``run_test``
-  data, export, utils — host-side I/O, Top-K/CSV, logging
+  train     — LR schedule, train state, the D-then-G step, checkpoints,
+              ``train_kaist``
+  data, export, utils — KAIST pairs and batch loading, host-side I/O,
+              Top-K/CSV, logging
 
 Layout: activations are contiguous NHWC tensors, the JAX package's layout
 and the kernels'. torch's NCHW operators receive ``x.permute(0, 3, 1, 2)``,

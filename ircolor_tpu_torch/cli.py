@@ -1,7 +1,8 @@
-"""Command-line entry point: ``python -m ircolor_tpu_torch test [--flag ...]``
-(``ircolor_tpu/cli.py``). Every ``Config`` field is a flag, as in the JAX
-package, plus ``--config path.json``. ``train`` and ``export`` are not
-ported yet."""
+"""Command-line entry point: ``python -m ircolor_tpu_torch train|test
+[--flag ...]`` (``ircolor_tpu/cli.py``). Every ``Config`` field is a flag, as
+in the JAX package, plus ``--config path.json`` and ``--device {cuda,cpu}``
+(default ``cuda``: without a card the run stops; ``--device cpu`` is the one
+way onto the CPU). ``export`` is not ported yet."""
 
 from __future__ import annotations
 
@@ -67,14 +68,16 @@ def build_config(args: argparse.Namespace, mode: str) -> Config:
 def main(argv: Sequence[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="ircolor_tpu_torch",
-        description="LWIR→RGB colorization on PyTorch + CUDA (test mode).",
+        description="LWIR→RGB colorization on PyTorch + CUDA.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for name, desc in (("train", "Train (not ported yet)"),
+    for name, desc in (("train", "Train on KAIST pairs"),
                        ("test", "Run inference + metrics + exports"),
                        ("export", "Write a serving artifact (not ported yet)")):
         p = sub.add_parser(name, help=desc)
         p.add_argument("--config", default=None, help="JSON config file")
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                       help="where to run (default: cuda; no fallback to the CPU)")
         _add_config_flags(p)
 
     args = parser.parse_args(argv)
@@ -82,6 +85,11 @@ def main(argv: Sequence[str] | None = None) -> int:
     log.info("Config mode: %s", cfg.mode)
     log.info("OUTPUT_DIR: %s", cfg.output_dir)
     log.info("TEST_G_WEIGHTS: %s", cfg.test_G_weights)
+    if cfg.mode == "train":
+        from ircolor_tpu_torch.train.loop import train_kaist
+
+        train_kaist(cfg, device=args.device)
+        return 0
     if cfg.mode != "test":
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported yet (ROADMAP.md, Queue 1); "
@@ -89,7 +97,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         )
     from ircolor_tpu_torch.eval.runner import run_test
 
-    run_test(cfg)
+    run_test(cfg, device=args.device)
     return 0
 
 

@@ -91,7 +91,9 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
 
 
 def run_test(cfg: Config, device: str | torch.device | None = None) -> dict[str, Any]:
-    """Batched test mode; returns the summary dict (also logged and saved)."""
+    """Batched test mode on ``device`` (the card by default; raises without
+    one unless ``device="cpu"``); returns the summary dict (also logged and
+    saved)."""
     os.makedirs(cfg.output_dir, exist_ok=True)
     if not cfg.test_roots:
         raise ValueError("cfg.test_roots is empty. Please set cfg.test_roots to KAIST set paths.")

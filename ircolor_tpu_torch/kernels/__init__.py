@@ -8,6 +8,8 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
 
   resblock.conv3x3_reflect_fused    ← pallas_resblock.conv3x3_reflect_fused
   resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
+  resblock.conv3x3_dgrad_fused      ← pallas_resblock.conv3x3_dgrad_fused
+  resblock.conv3x3_wgrad_fused      ← pallas_resblock.conv3x3_wgrad_fused
   blur.norm_relu_blur_down_pallas   ← pallas_blur.norm_relu_blur_down_pallas
   head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
 """
@@ -21,6 +23,8 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_reflect_fused_q": 0,
     "norm_relu_blur_down": 0,
     "conv7x7_head": 0,
+    "conv3x3_dgrad_fused": 0,
+    "conv3x3_wgrad_fused": 0,
 }
 
 

@@ -1,5 +1,5 @@
 """ResNet-bottleneck U-Net generator (``ircolor_tpu/models/generator.py``),
-default topology, inference.
+default topology, inference and training.
 
   encoder    inc: ReflectPad3 + 7×7 conv 1→64 + IN + ReLU
              down1/down2: 3×3 conv + IN + ReLU + blur-pool /2
@@ -101,12 +101,14 @@ class ResnetBlock(nn.Module):
         pallas_block: bool = False,
         pallas_block_min_area: int = _FUSED_MIN_AREA,
         pallas_block_min_launch: int = _FUSED_MIN_LAUNCH,
+        pallas_block_bwd: str = "xla",
         quant_int8: bool = False,
     ):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
         self.pallas_block = pallas_block
+        self.pallas_block_bwd = pallas_block_bwd
         self.pallas_block_min_area = pallas_block_min_area
         self.pallas_block_min_launch = pallas_block_min_launch
         self.quant_int8 = quant_int8
@@ -145,11 +147,14 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv1, conv2 = self.conv_block[1], self.conv_block[5]
         if self.fused(x):
-            k1 = conv1.weight.permute(2, 3, 1, 0).to(self.dtype)  # OIHW → HWIO
+            # OIHW → HWIO in the compute dtype; the block's backward returns
+            # dk in that dtype and autograd carries it back through the cast
+            # and the permute. The biases are inert through IN: no gradient.
+            k1 = conv1.weight.permute(2, 3, 1, 0).to(self.dtype)
             k2 = conv2.weight.permute(2, 3, 1, 0).to(self.dtype)
             if self.quant_int8:
                 return resnet_block_pallas_q(x, k1, k2)
-            return resnet_block_pallas(x, k1, k2)
+            return resnet_block_pallas(x, k1, k2, bwd=self.pallas_block_bwd)
         if self.quant_int8:
             xla_int8_route()
         h = conv_nhwc(conv1, reflect_pad2d(x, 1), self.dtype)
@@ -173,6 +178,7 @@ class ResnetUNetGenerator(nn.Module):
         pallas_block: bool = False,
         pallas_block_min_area: int = _FUSED_MIN_AREA,
         pallas_block_min_launch: int = _FUSED_MIN_LAUNCH,
+        pallas_block_bwd: str = "xla",
         pallas_norm_blur: bool = False,
         pallas_norm_blur_min_area: int = 0,
         pallas_norm_blur_min_launch: int = 0,
@@ -220,7 +226,7 @@ class ResnetUNetGenerator(nn.Module):
                 ngf * 4, use_bias=use_bias, dtype=dtype, pallas_block=pallas_block,
                 pallas_block_min_area=pallas_block_min_area,
                 pallas_block_min_launch=pallas_block_min_launch,
-                quant_int8=quant_int8,
+                pallas_block_bwd=pallas_block_bwd, quant_int8=quant_int8,
             )
             for _ in range(n_blocks)
         ])

@@ -23,7 +23,7 @@ log = get_logger(__name__)
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def _reject_unported(cfg: Config) -> None:
+def reject_unported(cfg: Config) -> None:
     unported = {
         "no_antialias": cfg.no_antialias,
         "no_antialias_up": cfg.no_antialias_up,
@@ -41,7 +41,7 @@ def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
     """Build the generator per cfg. On the f32 parity path TF32 is turned
     off for convolutions and matmuls: the JAX f32 path runs
     HIGHEST-precision convs."""
-    _reject_unported(cfg)
+    reject_unported(cfg)
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     if cfg.compute_dtype == "f32":
@@ -55,6 +55,7 @@ def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
         norm=cfg.norm,
         dtype=_DTYPES[cfg.compute_dtype],
         pallas_block=cfg.pallas_block,
+        pallas_block_bwd=cfg.pallas_block_bwd,
         pallas_norm_blur=cfg.pallas_norm_blur,
         pallas_norm_blur_min_area=cfg.pallas_norm_blur_min_area,
         pallas_norm_blur_min_launch=cfg.pallas_norm_blur_min_launch,
@@ -85,14 +86,25 @@ def load_state_permissive(module: torch.nn.Module, state: dict) -> None:
     module.load_state_dict(usable, strict=False)
 
 
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    the CPU. Raises where CUDA is asked for (or defaulted to) and absent —
+    there is no silent move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: ircolor_tpu_torch runs on the GPU; pass "
+            "device='cpu' (--device cpu) to run on the CPU"
+        )
+    return dev
+
+
 class IRColorizationModel:
-    """Holds the generator on an explicit device."""
+    """Holds the generator on an explicit device (default: the card)."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
         self.cfg = cfg
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         module = generator_from_config(cfg)
         module.init_weights(
             cfg.init_type, cfg.init_gain, torch.Generator().manual_seed(cfg.seed)

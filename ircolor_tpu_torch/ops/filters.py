@@ -1,5 +1,6 @@
-"""Fixed binomial low-pass filters (``ircolor_tpu/ops/filters.py``):
-Pascal-triangle rows of size 1..7, normalized 2-D outer products."""
+"""Fixed filters (``ircolor_tpu/ops/filters.py``): binomial low-pass
+filters (Pascal-triangle rows of size 1..7, normalized 2-D outer products)
+and the SSIM loss's Gaussian window."""
 
 from __future__ import annotations
 
@@ -27,3 +28,10 @@ def binomial_filter_2d(filt_size: int = 3) -> np.ndarray:
     a = binomial_filter_1d(filt_size)
     filt = a[:, None] * a[None, :]
     return (filt / filt.sum()).astype(np.float32)
+
+
+def gaussian_window_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    """1-D Gaussian window normalized to sum 1."""
+    coords = np.arange(window_size, dtype=np.float64) - (window_size - 1) / 2.0
+    g = np.exp(-(coords**2) / (2.0 * sigma**2))
+    return (g / g.sum()).astype(np.float32)

@@ -1,0 +1,155 @@
+"""The train step (``ircolor_tpu/train/step.py``): D update, then G update
+against the updated D, with the composite G loss.
+
+  G forward once: its output, detached, feeds the D phase; the G phase
+      backpropagates through the same output (G is deterministic, so the
+      reference's second no-grad forward would give the same tensor).
+  D phase (hinge): L_D = 0.5·(E[relu(1 − D(ir⊕rgb))] + E[relu(1 + D(ir⊕fake))]),
+      one double-batch forward over [ir⊕rgb ‖ ir⊕fake] with ``d_concat``
+      (exact for instance norm); one Adam step on D.
+  G phase: λ_gan·(−E[D'(ir⊕fake)]) + λ_L1·L1 + λ_perc·VGG-L1 + λ_tv·TV
+      + λ_ssim·(1 − SSIM), with D' the updated D, whose parameters take no
+      gradient here; one Adam step on G.
+
+Losses are computed in float32 whatever the compute dtype, and a λ of 0
+skips its term: the term is never computed. Loss values come back as 0-d
+device tensors; the caller decides when to read them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ircolor_tpu_torch.config import Config
+from ircolor_tpu_torch.losses.gan import hinge_d_loss, hinge_g_loss
+from ircolor_tpu_torch.losses.ssim import ssim_loss
+from ircolor_tpu_torch.losses.tv import tv_loss
+from ircolor_tpu_torch.losses.vgg import VGG16Features
+from ircolor_tpu_torch.train.state import TrainState
+
+METRIC_KEYS = ("loss_D", "loss_G", "loss_G_GAN", "loss_G_L1", "loss_G_perc",
+               "loss_G_TV", "loss_G_SSIM")
+
+
+def _decode_transport(ir: torch.Tensor, rgb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint16 IR and uint8 RGB (the loader's integer transport) → float32 in
+    [−1, 1]; float batches pass through."""
+    if ir.dtype == torch.uint16:
+        ir = ir.float() / 65535.0 * 2.0 - 1.0
+    if rgb.dtype == torch.uint8:
+        rgb = rgb.float() / 255.0 * 2.0 - 1.0
+    return ir, rgb
+
+
+def composite_g_losses(
+    cfg: Config, vgg: VGG16Features | None, fake: torch.Tensor, rgb: torch.Tensor,
+    loss_gan: torch.Tensor,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """λ_gan·loss_gan + λ_L1·L1 + λ_perc·Perc + λ_tv·TV + λ_ssim·(1 − SSIM),
+    each term in float32 and left out entirely when its λ is 0."""
+    zero = torch.zeros((), dtype=torch.float32, device=fake.device)
+    fake32, rgb32 = fake.float(), rgb.float()
+    loss_l1 = (fake32 - rgb32).abs().mean() * cfg.lambda_L1 if cfg.lambda_L1 != 0.0 else zero
+    if cfg.lambda_perc != 0.0:
+        feat_fake, feat_real = vgg(fake), vgg(rgb)
+        loss_perc = (feat_fake.float() - feat_real.float()).abs().mean() * cfg.lambda_perc
+    else:
+        loss_perc = zero
+    loss_tv = tv_loss(fake32) * cfg.lambda_tv if cfg.lambda_tv != 0.0 else zero
+    loss_ssim = (
+        ssim_loss((fake32 + 1.0) / 2.0, (rgb32 + 1.0) / 2.0) * cfg.lambda_ssim
+        if cfg.lambda_ssim != 0.0
+        else zero
+    )
+    total = cfg.lambda_gan * loss_gan + loss_l1 + loss_perc + loss_tv + loss_ssim
+    return total, {
+        "loss_G": total,
+        "loss_G_GAN": loss_gan,
+        "loss_G_L1": loss_l1,
+        "loss_G_perc": loss_perc,
+        "loss_G_TV": loss_tv,
+        "loss_G_SSIM": loss_ssim,
+    }
+
+
+def _adam_step(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+
+
+def make_train_step(
+    cfg: Config, vgg: VGG16Features | None, *, update_d: bool = True
+) -> Callable[[TrainState, dict[str, torch.Tensor]], tuple[TrainState, dict[str, torch.Tensor]]]:
+    """``step(state, batch) → (state, metrics)`` with ``batch = {'ir', 'rgb'}``
+    NHWC tensors on the state's device. ``vgg`` may be None when
+    ``lambda_perc`` is 0. ``update_d=False`` skips the D phase (an ablation
+    knob; the reference always steps D)."""
+
+    def step(state: TrainState, batch: dict[str, torch.Tensor]):
+        g, d = state.g, state.d
+        ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
+        fake = g(ir)
+        fake_detached = fake.detach()
+
+        if update_d:
+            d.requires_grad_(True)
+            if cfg.d_concat:
+                both = torch.cat([
+                    torch.cat([ir, rgb], dim=-1),
+                    torch.cat([ir, fake_detached.float()], dim=-1),
+                ])
+                pred = d(both)
+                loss_d = hinge_d_loss(pred[: ir.shape[0]], pred[ir.shape[0]:])
+            else:
+                loss_d = hinge_d_loss(d(torch.cat([ir, rgb], dim=-1)),
+                                      d(torch.cat([ir, fake_detached.float()], dim=-1)))
+            state.opt_d.zero_grad(set_to_none=True)
+            loss_d.backward()
+            _adam_step(state.opt_d, state.sched_d(state.step))
+        else:
+            loss_d = torch.zeros((), dtype=torch.float32, device=fake.device)
+
+        # G phase against the updated D; D's parameters take no gradient.
+        d.requires_grad_(False)
+        try:
+            if cfg.lambda_gan != 0.0:
+                loss_gan = hinge_g_loss(d(torch.cat([ir, fake.float()], dim=-1)))
+            else:
+                loss_gan = torch.zeros((), dtype=torch.float32, device=fake.device)
+            total, metrics = composite_g_losses(cfg, vgg, fake, rgb, loss_gan)
+            state.opt_g.zero_grad(set_to_none=True)
+            total.backward()
+        finally:
+            d.requires_grad_(True)
+        _adam_step(state.opt_g, state.sched_g(state.step))
+        state.step += 1
+        return state, {"loss_D": loss_d.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+    return step
+
+
+def make_val_step(g: torch.nn.Module) -> Callable[[dict[str, torch.Tensor]], torch.Tensor]:
+    """Per-sample pixel L1, (B,), for the sample-weighted validation mean."""
+
+    @torch.no_grad()
+    def val(batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
+        fake = g(ir)
+        return (fake.float() - rgb.float()).abs().mean(dim=(1, 2, 3))
+
+    return val
+
+
+def make_val_sum_step(g: torch.nn.Module):
+    """(batch, mask) → (Σ l1·mask, Σ mask): the masked form of ``make_val_step``
+    for a zero-padded final batch."""
+    val = make_val_step(g)
+
+    def val_sum(batch: dict[str, torch.Tensor], mask: torch.Tensor):
+        per = val(batch)
+        return (per * mask).sum(), mask.sum()
+
+    return val_sum

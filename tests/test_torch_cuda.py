@@ -79,3 +79,73 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # non-contiguous input
         xt = torch.randn(1, 8, 128, 16, device=cuda, dtype=torch.bfloat16).transpose(2, 3)
         blur.norm_relu_blur_down_pallas(xt, *instance_norm_stats(xt))
+
+
+def _bwd_inputs(g, b, h, w, c):
+    f32 = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=g) * scale  # noqa: E731
+    p, comp, aux, z = (_bf16(g, b, h, w, c) for _ in range(4))
+    k = _bf16(g, 3, 3, c, c, scale=0.05)
+    m, inv = instance_norm_stats(comp)
+    mm, mi = instance_norm_stats(aux)
+    return p, comp, aux, z, k, m, inv, f32(b, c, scale=0.01), f32(b, c, scale=0.01), mm, mi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 16, 256), (2, 13, 21, 128), (1, 4, 4, 128)])
+def test_backward_kernels_match_plain_on_card(cuda, shape):
+    """Full tiles, partial tiles (H, W not multiples of 8×16) and a 4×4
+    plane whose one tile holds rows 1 and H−2 and every fold corner."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    p, comp, aux, z, k, m, inv, gm, gy, mm, mi = _bwd_inputs(g, *shape)
+    before = dict(LAUNCHES)
+    for kw in (dict(mask_stats=(mm, mi)), {}):
+        got = resblock.conv3x3_dgrad_fused(p, comp, aux, k, m, inv, gm, gy, **kw)
+        want = resblock.conv3x3_dgrad_fused_plain(p, comp, aux, k, m, inv, gm, gy, **kw)
+        scale = float(want[0].float().abs().max())
+        assert float((got[0].float() - want[0].float()).abs().max()) <= 2 * 2.0**-8 * scale
+        assert torch.equal(got[1], want[1])  # dy: the same roundings in the same order
+        if kw:
+            d = (got[2] - want[2]).abs().max() / want[2].abs().max()
+            assert float(d) <= 1e-3
+    for znorm in ((mm, mi), None):
+        got = resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=znorm)
+        want = resblock.conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=znorm)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
+    assert LAUNCHES["conv3x3_dgrad_fused"] == before["conv3x3_dgrad_fused"] + 2
+    assert LAUNCHES["conv3x3_wgrad_fused"] == before["conv3x3_wgrad_fused"] + 2
+
+
+@pytest.mark.cuda
+def test_block_kernel_backward_matches_xla_backward_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _bf16(g, 2, 16, 24, 128)
+    k1, k2 = _bf16(g, 3, 3, 128, 128, scale=0.05), _bf16(g, 3, 3, 128, 128, scale=0.05)
+    cot = _bf16(g, 2, 16, 24, 128)
+    grads = {}
+    for bwd in ("fused_wg", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (x, k1, k2)]
+        out = resblock.resnet_block_pallas(*leaves, bwd=bwd)
+        grads[bwd] = torch.autograd.grad(out, leaves, cot)
+    for a, b in zip(grads["fused_wg"], grads["xla"]):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_raise_on_unsupported_cuda_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    p, comp, aux, z, k, m, inv, gm, gy, mm, mi = _bwd_inputs(g, 1, 8, 16, 128)
+    with pytest.raises(TypeError):  # float32 cotangent: the kernels are bf16-only
+        resblock.conv3x3_dgrad_fused(p.float(), comp, aux, k, m, inv, gm, gy)
+    with pytest.raises(ValueError):  # non-contiguous input
+        pt = p.transpose(1, 2).contiguous().transpose(1, 2)
+        resblock.conv3x3_dgrad_fused(pt, comp, aux, k, m, inv, gm, gy)
+    with pytest.raises(ValueError):  # output channels not a multiple of 128
+        resblock.conv3x3_dgrad_fused(p, comp, aux[..., :64].contiguous(), k[:, :, :64].contiguous(),
+                                     m, inv, gm, gy)
+    with pytest.raises(TypeError):
+        resblock.conv3x3_wgrad_fused(z.float(), p, comp, m, inv, gm, gy)
+    with pytest.raises(ValueError):  # Cz not a multiple of 64
+        resblock.conv3x3_wgrad_fused(z[..., :32].contiguous(), p, comp, m, inv, gm, gy)
+    with pytest.raises(ValueError):
+        resblock.conv3x3_wgrad_fused(z.transpose(1, 2).contiguous().transpose(1, 2),
+                                     p, comp, m, inv, gm, gy)

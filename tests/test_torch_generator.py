@@ -72,9 +72,9 @@ def _kernel_route_pair(monkeypatch, quant):
     calls = {}
     monkeypatch.setattr(tgen, "_fused_dtype_ok", lambda d: True)
     for name in ("resnet_block_pallas", "resnet_block_pallas_q", "norm_relu_blur_down", "outc_head"):
-        def counted(*a, _fn=getattr(tgen, name), _name=name):
+        def counted(*a, _fn=getattr(tgen, name), _name=name, **kw):
             calls[_name] = calls.get(_name, 0) + 1
-            return _fn(*a)
+            return _fn(*a, **kw)
 
         monkeypatch.setattr(tgen, name, counted)
     flags = dict(

@@ -85,7 +85,7 @@ def test_cli_test_mode_writes_artifacts(kaist_tree, tmp_path):
     root, _ = kaist_tree
     out = str(tmp_path / "cli")
     proc = subprocess.run(
-        [sys.executable, "-m", "ircolor_tpu_torch", "test", "--img-size", "64",
+        [sys.executable, "-m", "ircolor_tpu_torch", "test", "--device", "cpu", "--img-size", "64",
          "--test-batch-size", "4", "--ngf", "8", "--n-blocks", "1", "--topk", "2",
          "--test-roots", str(root / "set02"), "--output-dir", out],
         cwd=REPO, capture_output=True, text=True, timeout=300,
@@ -102,12 +102,17 @@ def test_cli_test_mode_writes_artifacts(kaist_tree, tmp_path):
     assert os.path.isfile(os.path.join(best, "top_2_ranking.csv"))
 
 
-@pytest.mark.parametrize("mode", ["train", "export"])
-def test_cli_unported_modes_raise(mode):
+@pytest.mark.parametrize(
+    "mode,extra",
+    [("train", ["--device", "cpu", "--dp-devices", "2"]), ("export", [])],
+    ids=["train", "export"],
+)
+def test_cli_unported_modes_raise(mode, extra):
+    """export, and training on more than one device."""
     from ircolor_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="not ported"):
-        main([mode])
+        main([mode, *extra])
 
 
 def test_import_leaves_jax_cv2_pil_triton_out():
@@ -118,6 +123,7 @@ def test_import_leaves_jax_cv2_pil_triton_out():
         "import chip_smoke, ircolor_tpu_torch, ircolor_tpu_torch.cli;"
         "import ircolor_tpu_torch.eval.runner, ircolor_tpu_torch.models.wrapper;"
         "import ircolor_tpu_torch.kernels.build, ircolor_tpu_torch.compat;"
+        "import ircolor_tpu_torch.train.loop, ircolor_tpu_torch.losses;"
         "bad = [m for m in ('jax', 'ircolor_tpu', 'cv2', 'PIL', 'triton') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
