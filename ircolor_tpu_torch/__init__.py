@@ -8,7 +8,8 @@ Module names mirror the JAX package so a reader can find each counterpart:
 
   config    — the same ``Config`` fields and defaults
   ops       — reflect pads, instance norm, blur-pool down/up, align-corners
-              resize, int8 weight quantization (plain torch)
+              resize (plain torch); int8 quantization and the int8 conv
+              route
   kernels   — the hand-written Hopper kernels (``csrc/*.cu``) behind Python
               wrappers, each beside its plain PyTorch version
   models    — ``ResnetUNetGenerator`` and ``NLayerDiscriminator`` with the

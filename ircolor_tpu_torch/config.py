@@ -118,8 +118,10 @@ class Config:
     pallas_head_min_launch: int = 600000
     pallas_head_train: bool = False
     # int8 serving: None → resolved_quant_int8. int8 rides inside the fused
-    # resnet blocks only; up2 and the head stay float (both flags below are
-    # off by default because they failed the JAX package's accuracy gate).
+    # resnet blocks, or on the int8 conv route where the fused tails and
+    # head do not engage; the fixed-scale up2 conv and the int8 head are
+    # opt-in (both flags below are off by default because they failed the
+    # JAX package's accuracy gate).
     quant_int8: bool | None = None
     quant_fixed_u2: bool = False
     quant_head: bool = False
@@ -154,8 +156,11 @@ class Config:
     def resolved_quant_int8(self) -> bool:
         """Explicit value, else ON for bf16 serving at planes of at least
         65,536 px and OFF for the f32 parity path and for training. ON means
-        int8 inside the fused resnet blocks; up2 and the head stay float
-        (``quant_fixed_u2``/``quant_head`` default off)."""
+        the JAX package's int8 routing (``models/generator.py``): inside the
+        fused resnet blocks, or the int8 conv route for down1, down2, the
+        blocks, up1 and up2 where the fused tails and head do not engage;
+        the fixed-scale up2 conv and the int8 head only with
+        ``quant_fixed_u2``/``quant_head`` (default off)."""
         if self.quant_int8 is not None:
             return self.quant_int8
         h, w = self.resolved_hw

@@ -12,6 +12,8 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
   resblock.conv3x3_wgrad_fused      ← pallas_resblock.conv3x3_wgrad_fused
   blur.norm_relu_blur_down_pallas   ← pallas_blur.norm_relu_blur_down_pallas
   head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
+  head.conv7x7_head_pallas(quant=True) ← the same with quant=True (outc_head_q)
+  conv_int8.conv3x3_int8            ← XLA's int8 conv in ops/quant.conv2d_int8(_fixed)
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_reflect_fused_q": 0,
     "norm_relu_blur_down": 0,
     "conv7x7_head": 0,
+    "conv7x7_head_q": 0,
+    "conv3x3_int8": 0,
     "conv3x3_dgrad_fused": 0,
     "conv3x3_wgrad_fused": 0,
 }

@@ -3,7 +3,8 @@ blur-pool at stride 2 (``csrc/blur.cu``).
 
 Counterpart of ``ircolor_tpu/ops/pallas_blur.py``: ``norm_relu_blur_down_pallas``
 (the kernel) and ``norm_relu_blur_down`` (the stats by a plain reduction,
-then the kernel). One read of the conv output, one quarter-size write.
+then the kernel; differentiable, with the JAX package's hand-assembled
+backward). One read of the conv output, one quarter-size write.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import ctypes
 import torch
 
 from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
-from ircolor_tpu_torch.ops.norm import instance_norm_stats
+from ircolor_tpu_torch.ops.blurpool import blur_downsample
+from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 
 _lib = None
 
@@ -65,8 +67,37 @@ def norm_relu_blur_down_pallas(x, mean, inv):
     return out
 
 
+class _NormReluBlurDown(torch.autograd.Function):
+    """The JAX package's ``_nrbd_vjp``: the forward saves x and its IN
+    stats; the backward recomputes ŷ = (x − μ)·inv, applies the adjoint of
+    the plain blur-pool (autograd of ``ops.blurpool.blur_downsample``),
+    masks by ReLU and applies the closed-form IN backward. It does not read
+    the forward's output, so it is the same whether the forward ran the
+    kernel or the plain version."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mean, inv = instance_norm_stats(x)
+        ctx.save_for_backward(x, mean, inv)
+        return norm_relu_blur_down_pallas(x, mean, inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, inv = ctx.saved_tensors
+        yhat = (x.float() - mean[:, None, None, :]) * inv[:, None, None, :]
+        z = torch.relu(yhat).to(x.dtype)
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_()
+            (dz,) = torch.autograd.grad(blur_downsample(zz), zz, g)
+        dn = dz.float() * (yhat > 0)
+        return instance_norm_vjp(dn, yhat, inv).to(x.dtype)
+
+
 def norm_relu_blur_down(x: torch.Tensor) -> torch.Tensor:
-    """``blurpool(relu(IN(x)))``: one-pass IN stats, then the fused pass."""
+    """``blurpool(relu(IN(x)))``: one-pass IN stats, then the fused pass.
+    Differentiable in x."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NormReluBlurDown.apply(x)
     mean, inv = instance_norm_stats(x)
     return norm_relu_blur_down_pallas(x, mean, inv)
 

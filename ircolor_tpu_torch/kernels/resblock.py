@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
+from ircolor_tpu_torch.ops.norm import instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per_channel
 
 _EPS = 1e-5
@@ -162,23 +164,11 @@ def _quantize_input(x, qscale, mean, inv):
     return torch.clamp(torch.round(xf * qscale[:, None, None, None]), -127.0, 127.0)
 
 
-def _int_conv_reflect(q: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """Exact integer ReflectionPad(1) 3×3 conv of integer-valued NHWC ``q``
-    with HWIO int8 ``kq``, as im2col + a float64 matrix product (exact for
-    integers below 2^53, whatever the summation order)."""
-    b, h, w, c = q.shape
-    cout = kq.shape[-1]
-    zp = F.pad(q.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-    cols = F.unfold(zp, 3)                                   # (B, C·9, H·W)
-    wm = kq.permute(3, 2, 0, 1).reshape(cout, c * 9).double()  # OIHW rows
-    return (wm @ cols).reshape(b, cout, h, w).permute(0, 2, 3, 1)
-
-
 def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None):
     """Plain version of ``conv3x3_reflect_fused_q``: the exact integer conv,
     dequantized in float32."""
     q = _quantize_input(x, qscale, mean, inv)
-    y = _int_conv_reflect(q, kq).float() * sc[:, None, None, :]
+    y = int_conv_exact(q, kq, "reflect").float() * sc[:, None, None, :]
     n = y.shape[1] * y.shape[2]
     m, i = _moments(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), n)
     return y.to(x.dtype), m, i
@@ -395,14 +385,6 @@ def _block_forward(x, k1, k2):
     return _block_epilogue(x, raw2, m2, i2), (raw1, m1, i1, raw2, m2, i2)
 
 
-def _in_bwd(g, yhat, inv):
-    """VJP of y → (y − mean(y))·inv(y) over the spatial axes per (b, c):
-    inv·(g − E[g] − ŷ·E[g·ŷ]), with eps folded into inv."""
-    gm = g.mean(dim=(1, 2), keepdim=True)
-    gy = (g * yhat).mean(dim=(1, 2), keepdim=True)
-    return _col(inv) * (g - gm - yhat * gy)
-
-
 def _pad_conv_vjp(z, k, dy, *, need_dz=True):
     """(dz, dk) of ``conv2d(ReflectionPad(1)(z), k)`` at cotangent dy, by
     autograd of the plain conv (cuDNN on the card); dz is None unless
@@ -423,10 +405,10 @@ def _resblock_bwd_xla(saved, g):
     n1 = (raw1.float() - _col(m1)) * _col(i1)
     z1 = torch.relu(n1).to(x.dtype)
     yhat2 = (raw2.float() - _col(m2)) * _col(i2)
-    dy2 = _in_bwd(gf, yhat2, i2)
+    dy2 = instance_norm_vjp(gf, yhat2, i2)
     dz1, dk2 = _pad_conv_vjp(z1, k2, dy2.to(raw2.dtype))
     dn1 = dz1.float() * (n1 > 0)
-    dy1 = _in_bwd(dn1, n1, i1)
+    dy1 = instance_norm_vjp(dn1, n1, i1)
     dxc, dk1 = _pad_conv_vjp(x, k1, dy1.to(raw1.dtype))
     dx = (gf + dxc.float()).to(x.dtype)
     return dx, dk1.to(k1.dtype), dk2.to(k2.dtype)

@@ -22,10 +22,18 @@ the exact routing the card runs. The module-level names
 ``norm_relu_blur_down`` and ``outc_head`` match the JAX module's, so a test
 can monkeypatch both packages the same way.
 
+int8 serving (``quant_int8``) follows the JAX generator too: int8 inside
+the fused blocks where they engage; the int8 route of ``QuantConv``
+(``quant_conv_nhwc``) in down1, down2 and the unfused blocks, and the int8
+``concat_conv3x3`` in up1 and up2, wherever neither the fused tails nor the
+fused head engage (``_quant_convs``: batch 1 at 512×640, small planes);
+``quant_fixed_u2`` (the fixed-scale up2 conv, where the fused kernels took
+int8 off the decoder) and ``quant_head`` (the int8 head) as opt-in modes.
+inc and the float 7×7 head stay float.
+
 Not ported yet (raise ``NotImplementedError``; ``ROADMAP.md``):
 ``no_antialias``, ``no_antialias_up``, zero/replicate pads, dropout,
-batch/none norms, the spatial mesh, remat, the XLA int8 conv route and the
-int8 head / fixed-scale up2.
+batch/none norms, the spatial mesh, remat.
 """
 
 from __future__ import annotations
@@ -34,19 +42,19 @@ import torch
 import torch.nn as nn
 
 from ircolor_tpu_torch.kernels.blur import norm_blur_supported, norm_relu_blur_down
-from ircolor_tpu_torch.kernels.head import head_supported, outc_head
+from ircolor_tpu_torch.kernels.head import head_supported, outc_head, outc_head_q
 from ircolor_tpu_torch.kernels.resblock import resnet_block_pallas, resnet_block_pallas_q
 from ircolor_tpu_torch.models.common import (
     concat_conv3x3,
     conv_nhwc,
     init_conv_,
     norm_nhwc,
+    quant_conv_nhwc,
     use_bias_for_norm,
 )
 from ircolor_tpu_torch.ops.blurpool import blur_downsample, blur_upsample_aa
 from ircolor_tpu_torch.ops.filters import binomial_filter_2d
 from ircolor_tpu_torch.ops.padding import reflect_pad2d
-from ircolor_tpu_torch.ops.quant import xla_int8_route
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners
 
 
@@ -73,10 +81,6 @@ _QUANT_FUSED_MIN_AREA = 4096
 
 def _xla_smallbatch_band(b: int) -> bool:
     return 2 <= b <= 7
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 class _Blur(nn.Module):
@@ -156,7 +160,10 @@ class ResnetBlock(nn.Module):
                 return resnet_block_pallas_q(x, k1, k2)
             return resnet_block_pallas(x, k1, k2, bwd=self.pallas_block_bwd)
         if self.quant_int8:
-            xla_int8_route()
+            h = quant_conv_nhwc(conv1, x, self.dtype, pad="reflect")
+            h = torch.relu(norm_nhwc(h))
+            h = quant_conv_nhwc(conv2, h, self.dtype, pad="reflect")
+            return x + norm_nhwc(h)
         h = conv_nhwc(conv1, reflect_pad2d(x, 1), self.dtype)
         h = torch.relu(norm_nhwc(h))
         h = conv_nhwc(conv2, reflect_pad2d(h, 1), self.dtype)
@@ -191,7 +198,7 @@ class ResnetUNetGenerator(nn.Module):
     ):
         super().__init__()
         if norm != "instance":
-            raise _not_ported(f"norm={norm!r}")
+            raise NotImplementedError(f"norm={norm!r} is not ported yet (ROADMAP.md, Queue 1)")
         use_bias = use_bias_for_norm(norm)
         self.ngf = ngf
         self.n_blocks = n_blocks
@@ -278,8 +285,9 @@ class ResnetUNetGenerator(nn.Module):
         )
 
     def _quant_convs(self, x: torch.Tensor) -> bool:
-        """Whether the XLA int8 enc/dec convs would run: int8 on and neither
-        the fused tails nor the fused head engage for this input."""
+        """The JAX ``quant_convs``: whether down1, down2, up1 and up2 take
+        the int8 route — int8 on and neither the fused tails nor the fused
+        head engage for this input."""
         if not self.quant_int8:
             return False
         if not _fused_dtype_ok(self.dtype):
@@ -304,8 +312,11 @@ class ResnetUNetGenerator(nn.Module):
 
     # --- forward -------------------------------------------------------------
 
-    def _down(self, seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-        y = conv_nhwc(seq[0], x, self.dtype)
+    def _down(self, seq: nn.Sequential, x: torch.Tensor, quant: bool) -> torch.Tensor:
+        if quant:
+            y = quant_conv_nhwc(seq[0], x, self.dtype)
+        else:
+            y = conv_nhwc(seq[0], x, self.dtype)
         if self._norm_blur_ok(y):
             return norm_relu_blur_down(y)
         return blur_downsample(torch.relu(norm_nhwc(y)))
@@ -314,32 +325,33 @@ class ResnetUNetGenerator(nn.Module):
         """IR (B, H, W, input_nc) in [-1, 1] → RGB (B, H, W, output_nc) in
         [-1, 1], in the compute dtype."""
         dt = self.dtype
-        if self._quant_convs(x):
-            xla_int8_route()
+        quant_convs = self._quant_convs(x)
+        dec_quant = "dynamic" if quant_convs else None
 
         x0 = conv_nhwc(self.inc[1], reflect_pad2d(x.to(dt), 3), dt)
         x0 = torch.relu(norm_nhwc(x0))                          # (B, H, W, 64)
-        x1 = self._down(self.down1, x0)                         # (B, H/2, W/2, 128)
-        x2 = self._down(self.down2, x1)                         # (B, H/4, W/4, 256)
+        x1 = self._down(self.down1, x0, quant_convs)            # (B, H/2, W/2, 128)
+        x2 = self._down(self.down2, x1, quant_convs)            # (B, H/4, W/4, 256)
         h = self.resblocks(x2)
 
         y = blur_upsample_aa(h)
         if y.shape[1:3] != x1.shape[1:3]:
             y = bilinear_align_corners(y, tuple(x1.shape[1:3]))
-        y = torch.relu(norm_nhwc(concat_conv3x3(self.up1_conv[0], y, x1, dt)))
+        y = torch.relu(norm_nhwc(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant)))
 
         y = blur_upsample_aa(y)
         if y.shape[1:3] != x0.shape[1:3]:
             y = bilinear_align_corners(y, tuple(x0.shape[1:3]))
-        if self.quant_int8 and self.quant_fixed_u2:
-            raise _not_ported("the fixed-scale int8 up2 conv (quant_fixed_u2)")
-        y = concat_conv3x3(self.up2_conv[0], y, x0, dt)
+        # The fixed-scale int8 up2 conv only where the fused kernels took
+        # the dynamic int8 route off the decoder (the JAX ``quant_fixed``).
+        if self.quant_int8 and not quant_convs and self.quant_fixed_u2:
+            dec_quant = "fixed"
+        y = concat_conv3x3(self.up2_conv[0], y, x0, dt, dec_quant)
 
         outc = self.outc[1]
         if self._head_ok(y):
-            if self.quant_int8 and self.quant_head:
-                raise _not_ported("the int8 fused head (quant_head, kernel 4q)")
             k7 = outc.weight.permute(2, 3, 1, 0).to(dt)         # OIHW → HWIO
-            return torch.tanh(outc_head(y, k7) + outc.bias.to(dt))
+            head = outc_head_q if self.quant_int8 and self.quant_head else outc_head
+            return torch.tanh(head(y, k7) + outc.bias.to(dt))
         y = torch.relu(norm_nhwc(y))
         return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))

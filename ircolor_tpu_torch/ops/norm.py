@@ -34,3 +34,12 @@ def instance_norm_onepass(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean, inv = instance_norm_stats(x, eps)
     y = (x.float() - mean[:, None, None, :]) * inv[:, None, None, :]
     return y.to(x.dtype)
+
+
+def instance_norm_vjp(g: torch.Tensor, yhat: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """VJP of y → (y − mean(y))·inv(y) over the spatial axes per (b, c), at
+    cotangent g with ŷ the normalized value: inv·(g − E[g] − ŷ·E[g·ŷ]), eps
+    folded into inv (``pallas_resblock._in_bwd`` of the JAX package)."""
+    gm = g.mean(dim=(1, 2), keepdim=True)
+    gy = (g * yhat).mean(dim=(1, 2), keepdim=True)
+    return inv.float()[:, None, None, :] * (g - gm - yhat * gy)

@@ -1,24 +1,31 @@
-"""int8 quantization for the fused int8 resnet block (``ircolor_tpu/ops/quant.py``).
+"""int8 quantized convolution for the int8 serving mode (``ircolor_tpu/ops/quant.py``).
 
 Weights are quantized symmetrically per output channel,
 ``w ≈ wq · scale[co]`` with ``scale = amax/127``; activations per sample
-(conv1: dynamic 127/amax) or by the fixed 127/6σ grid (conv2, whose input
-is instance-normalized and ReLU'd). Every quantized site feeds an instance
+(``quantize_dynamic``: ``x / (amax/127)``) or by the fixed 127/6σ grid
+(``conv2d_int8_fixed`` and the fused block's conv2, whose inputs are
+instance-normalized and ReLU'd). Every quantized site feeds an instance
 norm, which absorbs the scales exactly; the only error is rounding noise.
 
-``torch.round`` rounds half to even, as ``jnp.rint``/``jnp.round`` do.
-
-The XLA int8 route of the JAX package (``QuantConv``, ``conv2d_int8``,
-``conv2d_int8_fixed``) is not ported yet: ``ROADMAP.md`` Queue 1.
+``conv2d_int8`` / ``conv2d_int8_fixed`` are the JAX package's XLA int8
+route (``QuantConv``, the int8 ``ConcatConv3x3``), here on the hand-written
+int8 implicit-GEMM conv ``kernels.conv_int8.conv3x3_int8``: 3×3, stride 1,
+one pixel of zero or reflect padding. The arithmetic is the JAX
+package's, step for step, because the rounding flips are the whole error
+budget: ``torch.round`` rounds half to even as ``jnp.rint``/``jnp.round``
+do; the dequantization is ``f32(acc) · (sx · sw)`` with the product of the
+scales formed first, then ``+ bias`` in float32, then the cast.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ircolor_tpu_torch.kernels.conv_int8 import conv3x3_int8
+
 # Smallest amax: keeps an all-zero tensor from producing an inf scale.
 _AMAX_FLOOR = 1e-12
-# Fixed clip of the post-IN+ReLU activations that conv2 quantizes.
+# Fixed clip of the post-IN+ReLU activations quantized on the fixed grid.
 _QCLIP = 6.0
 
 
@@ -31,10 +38,47 @@ def quantize_weight_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     return wq, scale
 
 
-def xla_int8_route(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the XLA int8 conv route (QuantConv / conv2d_int8) is not ported yet "
-        "— ROADMAP.md Queue 1, item 'XLA QuantConv int8 route'. It runs only "
-        "where int8 is on and neither the fused down-tail nor the fused head "
-        "engages (e.g. batch 1 at 512×640); pass --no-quant-int8 there."
-    )
+def quantize_dynamic(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """NHWC float tensor → (int8 tensor, float32 per-sample scale (B, 1, 1, 1)):
+    symmetric, from each sample's own amax, so an image's result does not
+    depend on what it is batched with."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
+    scale = torch.clamp(amax, min=_AMAX_FLOOR) / 127.0
+    xq = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return xq, scale
+
+
+def _float_or_none(t):
+    return None if t is None else t.float().contiguous()
+
+
+def conv2d_int8(x, kernel, *, pad: str = "zero", bias=None, addend=None, out_dtype=None):
+    """3×3 stride-1 NHWC conv on int8 operands with one pixel of ``pad``
+    (``"zero"`` or ``"reflect"``) padding: per-sample dynamic activations,
+    per-channel weights, int32 sums, dequantized in float32, then
+    ``+ addend`` (a float32 term summed before the bias, as the second leg
+    of a concat conv adds the first) and ``+ bias``, cast to ``out_dtype``
+    (default x's dtype)."""
+    xq, sx = quantize_dynamic(x)
+    wq, sw = quantize_weight_per_channel(kernel)
+    sc = (sx.reshape(-1, 1) * sw[None, :]).contiguous()
+    return conv3x3_int8(xq, wq, sc, pad=pad, bias=_float_or_none(bias), addend=addend,
+                        out_dtype=out_dtype or x.dtype)
+
+
+def quantize_fixed(x: torch.Tensor, clip: float = _QCLIP) -> torch.Tensor:
+    """``clip(round(x · 127/clip), ±127)`` as int8: the fixed grid for
+    IN + ReLU-derived inputs (values above ``clip`` saturate)."""
+    return torch.clamp(torch.round(x.float() * (127.0 / clip)), -127, 127).to(torch.int8)
+
+
+def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", bias=None,
+                      addend=None, out_dtype=None):
+    """``conv2d_int8`` with the fixed input scale 127/``clip`` instead of
+    the per-sample amax (no reduction over the input): for ≈6σ-bounded
+    chains of IN + ReLU outputs, the decoder's up2 site."""
+    wq, sw = quantize_weight_per_channel(kernel)
+    sc = (sw * (clip / 127.0))[None, :].expand(x.shape[0], -1).contiguous()
+    return conv3x3_int8(quantize_fixed(x, clip), wq, sc, pad=pad, bias=_float_or_none(bias),
+                        addend=addend, out_dtype=out_dtype or x.dtype)

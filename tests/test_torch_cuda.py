@@ -149,3 +149,106 @@ def test_backward_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         resblock.conv3x3_wgrad_fused(z.transpose(1, 2).contiguous().transpose(1, 2),
                                      p, comp, m, inv, gm, gy)
+
+
+# --- the int8 conv and the int8 head (kernel 4q) -----------------------------
+
+
+def _int8(gen, *shape):
+    return torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", ["zero", "reflect"])
+@pytest.mark.parametrize("b,hw", [(1, (16, 32)), (2, (13, 21))])  # full and partial 8×16 tiles
+def test_conv_int8_matches_plain_bit_for_bit_on_card(cuda, pad, b, hw):
+    """Every Cin and Cout of the serving path; the four epilogue forms
+    (f32 legs, + addend + bias in bf16, + bias in bf16). The same IEEE
+    steps on exact integer sums: the outputs are equal."""
+    from ircolor_tpu_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for cin in (64, 128, 256):
+        for cout in (64, 128, 256):
+            xq, wq = _int8(g, b, *hw, cin), _int8(g, 3, 3, cin, cout)
+            sc = torch.rand(b, cout, device=cuda, generator=g) * 1e-4
+            bias = torch.randn(cout, device=cuda, generator=g)
+            addend = torch.randn(b, *hw, cout, device=cuda, generator=g)
+            for kw in (dict(out_dtype=torch.float32), dict(bias=bias, addend=addend),
+                       dict(bias=bias)):
+                before = LAUNCHES["conv3x3_int8"]
+                got = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, **kw)
+                assert LAUNCHES["conv3x3_int8"] == before + 1
+                want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad=pad, **kw)
+                assert got.dtype == want.dtype and torch.equal(got, want), (cin, cout, kw.keys())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 20, 70, 64), (1, 16, 128, 64)])
+def test_head_q_matches_plain_bit_for_bit_on_card(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = _bf16(g, *shape)
+    k = _bf16(g, 7, 7, shape[-1], 3, scale=0.02)
+    m, i = instance_norm_stats(x)
+    before = LAUNCHES["conv7x7_head_q"]
+    got = head.conv7x7_head_pallas(x, m, i, k, quant=True)
+    assert LAUNCHES["conv7x7_head_q"] == before + 1
+    assert torch.equal(got, head.conv7x7_head_q_plain(x, m, i, k))
+
+
+@pytest.mark.cuda
+def test_tail_and_head_backward_through_kernels_on_card(cuda):
+    """The backward of the fused tail and head (the JAX custom_vjp) behind
+    a kernel forward, against the same backward behind the plain forward:
+    the kernel's output carries no autograd graph, the Function's backward
+    does not need one. bf16; the forwards differ by bf16 rounding only."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xb, xh = _bf16(g, 2, 32, 48, 128), _bf16(g, 2, 20, 70, 64)
+    k = _bf16(g, 7, 7, 64, 3, scale=0.02)
+    gb, gh = _bf16(g, 2, 16, 24, 128), _bf16(g, 2, 20, 70, 3)
+    grads = {}
+    for route in ("kernel", "plain"):
+        saved = blur.norm_relu_blur_down_pallas, head.conv7x7_head_pallas
+        if route == "plain":
+            blur.norm_relu_blur_down_pallas = blur.norm_relu_blur_down_plain
+            head.conv7x7_head_pallas = head.conv7x7_head_plain
+        try:
+            before = dict(LAUNCHES)
+            leaves = [t.clone().requires_grad_() for t in (xb, xh, k)]
+            db = torch.autograd.grad(blur.norm_relu_blur_down(leaves[0]), leaves[0], gb)
+            dh = torch.autograd.grad(head.outc_head(leaves[1], leaves[2]), leaves[1:], gh)
+            ran = {n: LAUNCHES[n] - before[n] for n in ("norm_relu_blur_down", "conv7x7_head")}
+            assert ran == ({"norm_relu_blur_down": 1, "conv7x7_head": 1} if route == "kernel"
+                           else {"norm_relu_blur_down": 0, "conv7x7_head": 0})
+        finally:
+            blur.norm_relu_blur_down_pallas, head.conv7x7_head_pallas = saved
+        grads[route] = (*db, *dh)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
+    from ircolor_tpu_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    xq, wq = _int8(g, 1, 8, 16, 64), _int8(g, 3, 3, 64, 128)
+    sc = torch.ones(1, 128, device=cuda)
+    with pytest.raises(TypeError):  # bf16 activations: the kernel takes int8
+        conv_int8.conv3x3_int8(xq.to(torch.bfloat16), wq, sc)
+    with pytest.raises(ValueError):  # Cin not a multiple of 32
+        conv_int8.conv3x3_int8(xq[..., :48].contiguous(), wq[:, :, :48], sc)
+    with pytest.raises(ValueError):  # Cout not a multiple of 64
+        conv_int8.conv3x3_int8(xq, wq[..., :96], sc[:, :96].contiguous())
+    with pytest.raises(ValueError):  # non-contiguous input
+        conv_int8.conv3x3_int8(xq.transpose(1, 2).contiguous().transpose(1, 2), wq, sc)
+    with pytest.raises(TypeError):
+        conv_int8.conv3x3_int8(xq, wq, sc, out_dtype=torch.float16)
+    x = _bf16(g, 1, 16, 32, 64)
+    m, i = instance_norm_stats(x)
+    with pytest.raises(ValueError):  # C % 16 != 0 for the int8 head
+        xs = x[..., :56].contiguous()
+        head.conv7x7_head_pallas(xs, m[:, :56].contiguous(), i[:, :56].contiguous(),
+                                 _bf16(g, 7, 7, 56, 3), quant=True)
+    with pytest.raises(TypeError):
+        head.conv7x7_head_pallas(x.float(), m, i, _bf16(g, 7, 7, 64, 3), quant=True)

@@ -162,12 +162,3 @@ def test_unported_modes_raise():
         tgen.ResnetUNetGenerator(norm="batch")
     with pytest.raises(NotImplementedError):
         IRColorizationModel(Config(no_antialias=True), "cpu")
-    # int8 where neither the fused tails nor the head engage (batch 1 at
-    # 512×640): the XLA int8 conv route, not ported yet.
-    g = tgen.ResnetUNetGenerator(n_blocks=1, dtype=torch.bfloat16, quant_int8=True,
-                                 pallas_block=True, pallas_norm_blur=True,
-                                 pallas_norm_blur_min_area=18000,
-                                 pallas_norm_blur_min_launch=600000, pallas_head=True,
-                                 pallas_head_min_area=100000, pallas_head_min_launch=600000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        g(torch.zeros(1, 512, 640, 1))

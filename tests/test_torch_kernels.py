@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from ircolor_tpu.ops import pallas_blur, pallas_head, pallas_resblock
 from ircolor_tpu.ops.norm import instance_norm_stats as jax_in_stats
 
-from ircolor_tpu_torch.kernels import LAUNCHES, blur, head, resblock
+from ircolor_tpu_torch.kernels import LAUNCHES, blur, conv_int8, head, resblock
 
 
 def t(a):
@@ -131,7 +131,7 @@ def test_resnet_block_q_tracks_float64_moments():
 
     def conv_q_f64_moments(x, kq, sc, *, qscale=None, mean=None, inv=None):
         q = resblock._quantize_input(x, qscale, mean, inv)
-        y = resblock._int_conv_reflect(q, kq).float() * sc[:, None, None, :]
+        y = conv_int8.int_conv_exact(q, kq, "reflect").float() * sc[:, None, None, :]
         y64 = y.double()
         m = y64.mean(dim=(1, 2))
         v = (y64 - m[:, None, None, :]).square().mean(dim=(1, 2))
