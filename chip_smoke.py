@@ -15,12 +15,18 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    call of the same function where there is one, with CUDA events. Also
    the int8 conv of the int8 route outside the fused blocks at every site
    of a batch-1 forward and at the batch-32 up2 legs of configuration (b)
-   below (bit-exact; beside ``torch._int_mm`` over an im2col), and the
-   int8 head (4q) at 32×512×640×64 (bit-exact).
+   below (bit-exact; beside ``torch._int_mm`` over an im2col), the int8
+   head (4q) at 32×512×640×64 (bit-exact), and the fused instance norm
+   (kernel 11) at the 256² bottleneck of ``use_pallas`` serving,
+   16×64×64×256: IN + ReLU and IN + residual in bf16 (1 bf16 ulp), IN +
+   ReLU in f32 (1e-5), beside ``F.instance_norm``.
 2b. The same for the block backward kernels (dgrad in both launch forms,
    wgrad with and without the normalize on load) at the flagship training
    bottleneck (8×128×160×256, k 3×3×256×256), beside cuDNN's bf16
-   ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded conv.
+   ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded conv; and
+   both in the enc/dec segment modes at the b8 flagship segments (down1
+   512×640 128 → dz 64 with dy stored, down2 256×320 256 → 128, up1
+   256×320 128 → 384 and its two wgrad legs), beside the zero-pad conv's.
 3. Drive ``make_infer_fn`` + ``IRColorizationModel`` from
    ``configs/flagship_512x640.json`` (bf16, 512×640, ngf 64, 9 blocks,
    random weights from a seed) on synthetic uint16 IR / uint8 GT:
@@ -30,12 +36,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    block convs, 2 tails, 2 int8 up2 conv legs, 1 int8 head); then batch 1,
    frame by frame with a synchronize after each (the b1 latency), int8
    (configuration (a): 24 int8 conv launches a forward, no other kernel)
-   and float (no kernel). The launch counts are set to 0 just before each
-   run and read just after.
+   and float (no kernel). Then 256×256 float at its test batch of 16, 12
+   batches, without and with ``use_pallas`` in turns (without, with, with,
+   without): with it a forward launches 9 + 9 kernel-11 launches and the
+   down1 tail, no head and no block conv. The launch counts are set to 0
+   just before each run and read just after.
 4. A step through the kernels against the same step with every kernel
    wrapper swapped for its plain version: batch 2 (the small-batch band
    routes everything through the kernels), int8 and float, configuration
-   (a) at batch 1 and configuration (b) at batch 32.
+   (a) at batch 1, configuration (b) at batch 32, and ``use_pallas`` at
+   256×256 b16.
 5. The training step of the same config (``mode="train"``: bf16, 512×640,
    batch 8, random G/D weights and random VGG tower from seed 0):
    ``create_train_state`` + ``make_train_step`` on synthetic batches, one
@@ -51,6 +61,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    hand-assembled backward); then the G gradient of one batch, every
    parameter finite and present, against the same gradient with the tails'
    and head's forwards on their plain versions (1e-2 relative L2).
+5c. The training step with ``pallas_encdec_bwd`` (512×640 b8: 18 block
+   convs, 18 + 3 dgrads and 18 + 3 wgrads a step), then its G gradient
+   against the same with only the segments' dgrad/wgrad on their plain
+   versions: losses bit-identical, ≤ 1e-2 relative L2 per parameter, the
+   kernel route bit-exact on repeat. Then 256×256 b8 training without and
+   with ``use_pallas`` (18 kernel-11 launches a step), and the latter's G
+   gradient against the plain forwards (every used parameter finite and
+   present, ≤ 1e-2 relative L2, bit-exact repeat).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -481,21 +499,219 @@ def check_bwd_kernels(torch, results: list) -> None:
     torch.cuda.empty_cache()
 
 
-def synthetic_batches(np, n: int, b: int):
+def rotating_time_ms(torch, fn, inputs: list, iters: int, warmup: int = 2) -> float:
+    """``cuda_time_ms`` of ``fn(*inputs[i])`` cycling over the input sets,
+    which together exceed the 50 MB L2 cache: each launch reads its inputs
+    from device memory, as the forward that feeds it leaves them there."""
+    state = {"i": 0}
+
+    def step():
+        fn(*inputs[state["i"] % len(inputs)])
+        state["i"] += 1
+
+    return cuda_time_ms(step, iters, warmup)
+
+
+def bf16_ulps(torch, got, want) -> float:
+    """Largest |got − want| in bf16 ulps of each plain value (an ulp of at
+    least 1e-6: where x ≈ mean the IN value is f32 rounding noise around 0)."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0**-126))) - 7).clamp(min=1e-6)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def check_instance_norm(torch, results: list) -> None:
+    """Phase 2, kernel 11 at the shape ``use_pallas`` serving runs it: the
+    256² bottleneck at the test batch, 16×64×64×256. bf16 IN + ReLU and
+    IN + residual within one bf16 ulp of the plain version; f32 IN + ReLU
+    within 1e-5 relative to max(|value|, 1); every form repeats bit for bit.
+    Times over 4 input sets (134 MB in bf16: device memory, not L2)."""
+    import torch.nn.functional as F
+
+    from ircolor_tpu_torch.kernels import LAUNCHES
+    from ircolor_tpu_torch.kernels import instance_norm as tin
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    before = dict(LAUNCHES)
+    shape = (16, 64, 64, 4 * NGF)
+    n = 16 * 64 * 64 * 4 * NGF
+
+    def randn(scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale + shift
+
+    xs32 = [randn(3.0, 1.0) for _ in range(4)]
+    sets = [(x.to(torch.bfloat16), randn().to(torch.bfloat16)) for x in xs32]
+    nchw = [(x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)) for x, r in sets]
+    forms = (
+        ("fused_instance_norm", "IN + ReLU", ":117", lambda x, r: tin.run_in(x, True),
+         lambda x, r: tin.fused_instance_norm_plain(x, True),
+         lambda x, r: torch.relu(F.instance_norm(x)), 2 * n * 2),
+        ("fused_instance_norm_residual", "IN + r", ":133", tin.run_in_res,
+         tin.fused_instance_norm_residual_plain, lambda x, r: F.instance_norm(x) + r, 3 * n * 2),
+    )
+    for name, label, line, kern, plain, lib, nbytes in forms:
+        x, r = sets[0]
+        got, want = kern(x, r), plain(x, r)
+        ulps = bf16_ulps(torch, got, want)
+        repeat = bool(torch.equal(got, kern(x, r)))
+        err = float((got.float() - want.float()).abs().max())
+        log(f"[{name} bf16 16x64x64x256 {label}] max {ulps:.3g} bf16 ulps (tol 1); "
+            f"max|d|={err:.4g}; repeat bit-exact {repeat}")
+        if not (ulps <= 1 and repeat):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        ms = rotating_time_ms(torch, kern, sets, 40)
+        pms = rotating_time_ms(torch, plain, sets, 8)
+        lms = rotating_time_ms(torch, lib, nchw, 20)
+        b_ms, b_by = bound(8 * n, nbytes, PEAK_F32)
+        log(f"    kernel {ms:.4f} ms  plain {pms:.4f} ms  library (F.instance_norm, then the "
+            f"ReLU or + r) {lms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        results.append(dict(name=name, route="cuda", source="ircolor_tpu_torch/csrc/instance_norm.cu",
+                            replaces=f"ircolor_tpu/ops/pallas_kernels.py{line}",
+                            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lms))
+    del sets, nchw
+    # float32 IN + ReLU (use_pallas in f32 runs only this form at 256²).
+    sets32 = [(x, None) for x in xs32]
+    got, want = tin.run_in(xs32[0], True), tin.fused_instance_norm_plain(xs32[0], True)
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    repeat = bool(torch.equal(got, tin.run_in(xs32[0], True)))
+    ms = rotating_time_ms(torch, lambda x, r: tin.run_in(x, True), sets32, 40)
+    pms = rotating_time_ms(torch, lambda x, r: tin.fused_instance_norm_plain(x, True), sets32, 8)
+    lms = rotating_time_ms(torch, lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))),
+                           sets32, 20)
+    b_ms, b_by = bound(8 * n, 2 * n * 4, PEAK_F32)
+    log(f"[fused_instance_norm f32 16x64x64x256 IN + ReLU] max rel {rel:.3g} (tol 1e-5); repeat "
+        f"bit-exact {repeat}; kernel {ms:.4f} ms  plain {pms:.4f} ms  F.instance_norm + relu "
+        f"{lms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    if not (rel <= 1e-5 and repeat):
+        raise AssertionError("fused_instance_norm f32 disagrees with its plain version")
+    del xs32, sets32
+    torch.cuda.empty_cache()
+    LAUNCHES.update(before)
+
+
+# The flagship b8 training segments: (label, H, W, cotangent channels, input
+# legs). down1's 64-channel leg takes cuDNN's weight gradient from the dy the
+# dgrad stores ("xla" mode); down2 and up1 run the wgrad kernel per leg.
+SEGMENTS = (
+    ("down1", H, W, 2 * NGF, (NGF,)),
+    ("down2", H // 2, W // 2, 4 * NGF, (2 * NGF,)),
+    ("up1", H // 2, W // 2, 2 * NGF, (4 * NGF, 2 * NGF)),
+)
+
+
+def check_segment_kernels(torch, results: list) -> None:
+    """Phase 2b, the dgrad and wgrad kernels in the enc/dec segment modes
+    (zero halos, p masked by comp > m on load, no aux) at the three b8
+    flagship segments, at the block rows' bounds: dz within 2 bf16 ulps at
+    its largest magnitude, the emitted dy within 1 ulp at its largest, dk
+    within 1e-3 of max|dk|. Beside cuDNN's bf16 ``conv2d_input`` /
+    ``conv2d_weight`` of the zero-pad conv. Each row sums one training
+    step's launches: 3 dgrads, 3 wgrads."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, resblock
+    from ircolor_tpu_torch.ops.norm import instance_norm_stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    before = dict(LAUNCHES)
+    bb = TRAIN_B
+    kw = dict(pad="zero", mask_p=True)
+    dg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bounds=[], err=0.0)
+    wg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bounds=[], err=0.0)
+    for label, hh, ww, c, legs in SEGMENTS:
+        cin = sum(legs)
+
+        def bf16(ch, scale=1.0):
+            return (torch.randn(bb, hh, ww, ch, device="cuda", generator=gen) * scale).to(torch.bfloat16)
+
+        p, comp = bf16(c), bf16(c)
+        m, inv = instance_norm_stats(comp)
+        gm, gy = (torch.randn(bb, c, device="cuda", generator=gen) * 0.01 for _ in range(2))
+        k = (torch.randn(3, 3, cin, c, device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
+        emit = any(leg % 128 for leg in legs)  # the "xla" wgrad reads the stored dy
+        args = (p, comp, None, k, m, inv, gm, gy)
+        got = resblock.conv3x3_dgrad_fused(*args, emit_dy=emit, **kw)
+        want = resblock.conv3x3_dgrad_fused_plain(*args, emit_dy=emit, **kw)
+        scale = float(want[0].float().abs().max())
+        ulps = float((got[0].float() - want[0].float()).abs().max()) / (2.0**-8 * scale)
+        dy_ok = not emit or float((got[1].float() - want[1].float()).abs().max()) <= (
+            2.0**-8 * float(want[1].float().abs().max()))
+        log(f"[conv3x3_dgrad_fused_seg {label} {bb}x{hh}x{ww}, {c} -> dz {cin}"
+            f"{', dy stored' if emit else ''}] max|d| = {ulps:.3g} bf16 ulps (tol 2); dy ok {dy_ok}")
+        if not (ulps <= 2 and dy_ok):
+            raise AssertionError(f"conv3x3_dgrad_fused_seg {label} disagrees with its plain version")
+        dg["err"] = max(dg["err"], float((got[0].float() - want[0].float()).abs().max()))
+        del got, want
+        ms = cuda_time_ms(lambda: resblock.conv3x3_dgrad_fused(*args, emit_dy=emit, **kw), 10)
+        pms = cuda_time_ms(lambda: resblock.conv3x3_dgrad_fused_plain(*args, emit_dy=emit, **kw), 2, 1)
+        w_oihw = k.permute(3, 2, 0, 1).contiguous()
+        p_nchw = p.permute(0, 3, 1, 2)
+        lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_input((bb, cin, hh, ww), w_oihw, p_nchw,
+                                                              padding=1), 10)
+        npix = bb * hh * ww
+        b_ms = bound(2 * npix * 9 * c * cin,
+                     npix * (2 * c + cin + c * emit) * 2 + 9 * c * cin * 2 + bb * c * 16)
+        log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN conv2d_input {lib:.3f} ms  "
+            f"bound {b_ms[0]:.3f} ms ({b_ms[1]})")
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lib)):
+            dg[key] += v
+        dg["bounds"].append(b_ms)
+        if emit:
+            continue
+        for leg in legs:
+            z = bf16(leg)
+            wargs = (z, p, comp, m, inv, gm, gy)
+            got = resblock.conv3x3_wgrad_fused(*wargs, **kw)
+            want = resblock.conv3x3_wgrad_fused_plain(*wargs, **kw)
+            rel = float((got - want).abs().max() / want.abs().max())
+            log(f"[conv3x3_wgrad_fused_seg {label} leg {leg} -> {c}] max|d|/max|dk| = {rel:.3g} "
+                "(tol 1e-3)")
+            if rel > 1e-3:
+                raise AssertionError(f"conv3x3_wgrad_fused_seg {label} disagrees with its plain version")
+            wg["err"] = max(wg["err"], float((got - want).abs().max()))
+            ms = cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused(*wargs, **kw), 10)
+            pms = cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused_plain(*wargs, **kw), 2, 1)
+            z_nchw = z.permute(0, 3, 1, 2)
+            lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(z_nchw, (c, leg, 3, 3), p_nchw,
+                                                                   padding=1), 10)
+            b_ms = bound(2 * npix * 9 * leg * c,
+                         npix * (leg + 2 * c) * 2 + 9 * leg * c * 4 + bb * c * 16)
+            log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN conv2d_weight {lib:.3f} ms  "
+                f"bound {b_ms[0]:.3f} ms ({b_ms[1]})")
+            for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lib)):
+                wg[key] += v
+            wg["bounds"].append(b_ms)
+            del z, got, want
+        del p, comp, k, args
+        torch.cuda.empty_cache()
+    for name, row, line in (("conv3x3_dgrad_fused_seg", dg, ":692"),
+                            ("conv3x3_wgrad_fused_seg", wg, ":956")):
+        log(f"    {name}, one step's launches: kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, bound "
+            f"{sum(b for b, _ in row['bounds']):.3f} ms")
+        results.append(dict(name=name, route="cuda", source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+                            replaces=f"ircolor_tpu/ops/pallas_resblock.py{line}",
+                            max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
+                            bound_ms=sum(b for b, _ in row["bounds"]),
+                            bound_by=row["bounds"][0][1], library_ms=row["library_ms"]))
+    LAUNCHES.update(before)
+
+
+def synthetic_batches(np, n: int, b: int, hw: tuple = (H, W)):
     """IR-like frames (smooth gradients + a warm blob, a little sensor
     noise) with the RGB a fixed colormap of the IR, as uint16 / uint8 — the
     pattern of ``ircolor_tpu/data/synthetic.py``, made here with numpy."""
     rng = np.random.RandomState(SEED)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     out = []
     for _ in range(n):
-        ir = np.empty((b, H, W, 1), np.uint16)
-        gt = np.empty((b, H, W, 3), np.uint8)
+        ir = np.empty((b, h, w, 1), np.uint16)
+        gt = np.empty((b, h, w, 3), np.uint8)
         for j in range(b):
             phase = rng.uniform(0, 2 * np.pi)
-            f = 0.5 + 0.4 * np.sin(xx / W * 4 * np.pi + phase) * np.cos(yy / H * 2 * np.pi)
-            cx, cy = rng.randint(0, W), rng.randint(0, H)
-            f = f + 0.5 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * (H / 4) ** 2))
+            f = 0.5 + 0.4 * np.sin(xx / w * 4 * np.pi + phase) * np.cos(yy / h * 2 * np.pi)
+            cx, cy = rng.randint(0, w), rng.randint(0, h)
+            f = f + 0.5 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * (h / 4) ** 2))
             f = np.clip(f + rng.normal(0, 0.01, f.shape), 0, 1).astype(np.float32)
             ir[j, :, :, 0] = np.rint(f * 65535)
             rgb = np.stack([np.clip(1.5 * f - 0.2, 0, 1), np.clip(1 - np.abs(f - 0.5) * 2, 0, 1),
@@ -521,20 +737,21 @@ def expect_launches(label: str, counts: dict, per_forward: dict, forwards: int) 
 
 
 def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict,
-          results_counts: dict) -> float:
-    """Phase 3 at batch 32: returns frames/s over 3 batches."""
+          results_counts: dict, hw: tuple = (H, W), batch: int = B, n_batches: int = 3) -> float:
+    """Phase 3: returns frames/s over ``n_batches`` batches of the resolved
+    test batch (32 at 512×640, 16 at 256²)."""
     from ircolor_tpu_torch.eval.runner import make_infer_fn
     from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 
     cfg = serving_config(**overrides)
-    if (cfg.resolved_hw, cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != ((H, W), B, quant):
-        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to {H}x{W} b{B} int8={quant}")
+    if (cfg.resolved_hw, cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != (hw, batch, quant):
+        raise AssertionError(f"{label}: config no longer resolves to {hw} b{batch} int8={quant}")
     model = IRColorizationModel(cfg, "cuda")
     infer = make_infer_fn(model.module)
     batches = [
         (torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
-        for ir, gt in synthetic_batches(np, 3, B)
+        for ir, gt in synthetic_batches(np, n_batches, batch, hw)
     ]
     pred, m = infer(*batches[0])  # warm-up: cuDNN algorithm picks
     torch.cuda.synchronize()
@@ -545,21 +762,21 @@ def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(LAUNCHES)
-    fps = len(batches) * B / dt
+    fps = len(batches) * batch / dt
     expect_launches(f"serve {label}", counts, per_forward, len(batches))
-    check_outputs(torch, f"serve {label}", outs, B)
+    check_outputs(torch, f"serve {label}", outs, batch, hw)
     mm = {k: float(v.mean()) for k, v in outs[-1][1].items()}
-    log(f"[serve {label}] {fps:.2f} frames/s (3 batches of {B} at {H}x{W}, "
-        f"{1e3 * dt / 3:.1f} ms per batch); last-batch metrics {mm}")
+    log(f"[serve {label}] {fps:.2f} frames/s ({len(batches)} batches of {batch} at "
+        f"{hw[0]}x{hw[1]}, {1e3 * dt / len(batches):.2f} ms per batch); last-batch metrics {mm}")
     results_counts[label] = counts
     del model, batches, outs
     torch.cuda.empty_cache()
     return fps
 
 
-def check_outputs(torch, label: str, outs, b: int) -> None:
+def check_outputs(torch, label: str, outs, b: int, hw: tuple = (H, W)) -> None:
     for pred, m in outs:
-        if pred.shape != (b, H, W, 3) or pred.dtype != torch.uint8:
+        if pred.shape != (b, *hw, 3) or pred.dtype != torch.uint8:
             raise AssertionError(f"{label}: prediction {pred.shape} {pred.dtype}")
         for key, v in m.items():
             if v.shape != (b,) or not bool(torch.isfinite(v).all()):
@@ -613,39 +830,49 @@ def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_co
 
 
 class plain_kernels:
-    """Context: the named kernel wrappers (all by default) swapped for their
-    plain versions, so whatever calls them runs no kernel."""
+    """Context: the named kernel wrappers (all forward wrappers by default)
+    swapped for their plain versions, so whatever calls them runs no
+    kernel. ``segment_dgrad`` / ``segment_wgrad`` swap the backward kernels
+    only where the enc/dec segments call them (``kernels/encdec.py``)."""
 
-    def __init__(self, names=None):
-        from ircolor_tpu_torch.kernels import blur, conv_int8, head, resblock
+    FORWARD = ("conv3x3_reflect_fused", "conv3x3_reflect_fused_q", "norm_relu_blur_down_pallas",
+               "conv7x7_head_pallas", "conv3x3_int8", "run_in", "run_in_res")
+
+    def __init__(self, names=FORWARD):
+        from ircolor_tpu_torch.kernels import blur, conv_int8, encdec, head, resblock
+        from ircolor_tpu_torch.kernels import instance_norm as tin
         from ircolor_tpu_torch.ops import quant
 
         def head_plain(x, mean, inv, kernel, *, quant=False):
             plain = head.conv7x7_head_q_plain if quant else head.conv7x7_head_plain
             return plain(x, mean, inv, kernel)
 
-        swaps = {
-            "conv3x3_reflect_fused": (resblock, resblock.conv3x3_reflect_fused_plain),
-            "conv3x3_reflect_fused_q": (resblock, resblock.conv3x3_reflect_fused_q_plain),
-            "norm_relu_blur_down_pallas": (blur, blur.norm_relu_blur_down_plain),
-            "conv7x7_head_pallas": (head, head_plain),
-            "conv3x3_int8": (quant, conv_int8.conv3x3_int8_plain),
+        swaps = {  # name: (module, attribute, plain version)
+            "conv3x3_reflect_fused": (resblock, None, resblock.conv3x3_reflect_fused_plain),
+            "conv3x3_reflect_fused_q": (resblock, None, resblock.conv3x3_reflect_fused_q_plain),
+            "norm_relu_blur_down_pallas": (blur, None, blur.norm_relu_blur_down_plain),
+            "conv7x7_head_pallas": (head, None, head_plain),
+            "conv3x3_int8": (quant, None, conv_int8.conv3x3_int8_plain),
+            "run_in": (tin, None, tin.fused_instance_norm_plain),
+            "run_in_res": (tin, None, tin.fused_instance_norm_residual_plain),
+            "segment_dgrad": (encdec, "conv3x3_dgrad_fused", resblock.conv3x3_dgrad_fused_plain),
+            "segment_wgrad": (encdec, "conv3x3_wgrad_fused", resblock.conv3x3_wgrad_fused_plain),
         }
-        self.swaps = {n: swaps[n] for n in (names or swaps)}
+        self.swaps = [(mod, attr or n, fn) for n, (mod, attr, fn) in swaps.items() if n in names]
 
     def __enter__(self):
-        self.saved = {n: getattr(mod, n) for n, (mod, _) in self.swaps.items()}
-        for n, (mod, fn) in self.swaps.items():
-            setattr(mod, n, fn)
+        self.saved = [getattr(mod, attr) for mod, attr, _ in self.swaps]
+        for mod, attr, fn in self.swaps:
+            setattr(mod, attr, fn)
 
     def __exit__(self, *exc):
-        for n, (mod, _) in self.swaps.items():
-            setattr(mod, n, self.saved[n])
+        for (mod, attr, _), fn in zip(self.swaps, self.saved):
+            setattr(mod, attr, fn)
 
 
 def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
                           per_forward: dict, exact_with_plain: tuple = (),
-                          uint8_bound: bool = True) -> None:
+                          uint8_bound: bool = True, hw: tuple = (H, W)) -> None:
     """Phase 4: one step through the kernels against the same step with
     every kernel wrapper swapped for its plain version. The kernel route
     also runs twice and must repeat bit for bit (the kernels' statistics
@@ -661,7 +888,7 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
     cfg = serving_config(test_batch_size=batch, **overrides)
     model = IRColorizationModel(cfg, "cuda")
     infer = make_infer_fn(model.module)
-    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, batch)[0])
+    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, batch, hw)[0])
     before = dict(LAUNCHES)
     pred_k, m_k = infer(ir, gt)
     ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
@@ -709,22 +936,22 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
     torch.cuda.empty_cache()
 
 
-def _train_setup(torch, np, n_batches: int = 4, **overrides):
-    """The flagship config in train mode (with ``overrides``), its state on
-    the card, the random VGG tower, the step, and ``n_batches`` synthetic
-    batches of 8."""
+def _train_setup(torch, np, n_batches: int = 4, hw: tuple = (H, W), **overrides):
+    """The flagship config in train mode (with ``overrides``; at ``hw``),
+    its state on the card, the random VGG tower, the step, and
+    ``n_batches`` synthetic batches of 8."""
     from ircolor_tpu_torch.config import Config
     from ircolor_tpu_torch.losses.vgg import load_vgg16
     from ircolor_tpu_torch.train.state import create_train_state
     from ircolor_tpu_torch.train.step import make_train_step
 
     cfg = Config.from_json(FLAGSHIP.read_text()).replace(mode="train", seed=SEED, **overrides)
-    if (cfg.resolved_hw, cfg.batch_size, cfg.compute_dtype) != ((H, W), TRAIN_B, "bf16"):
-        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to {H}x{W} b{TRAIN_B} bf16 training")
+    if (cfg.resolved_hw, cfg.batch_size, cfg.compute_dtype) != (hw, TRAIN_B, "bf16"):
+        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to {hw} b{TRAIN_B} bf16 training")
     state = create_train_state(cfg, steps_per_epoch=1000, device="cuda")
     vgg = load_vgg16(None, SEED, torch.bfloat16).cuda()
     batches = [{"ir": torch.from_numpy(ir).cuda(), "rgb": torch.from_numpy(gt).cuda()}
-               for ir, gt in synthetic_batches(np, n_batches, TRAIN_B)]
+               for ir, gt in synthetic_batches(np, n_batches, TRAIN_B, hw)]
     return cfg, state, vgg, make_train_step(cfg, vgg), batches
 
 
@@ -757,14 +984,16 @@ def profile_window(torch, label: str, run, what: str, top: int = 12, table: bool
               file=sys.stderr, flush=True)
 
 
-def train_step_phase(torch, np) -> tuple[dict, object]:
-    """Phase 5: the flagship training step; returns (launch counts of the 3
-    timed steps, the setup for phase 6)."""
+def train_step_phase(torch, np, label: str = "train", per_step: dict | None = None,
+                     hw: tuple = (H, W), profile: bool = True, **overrides) -> tuple[dict, object]:
+    """Phase 5: one warm-up and 3 timed training steps of the flagship
+    config in train mode (with ``overrides``, at ``hw``); returns (launch
+    counts of the 3 timed steps, the setup for phase 6)."""
     from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
     from ircolor_tpu_torch.train.loop import _check_loss_sanity
     from ircolor_tpu_torch.train.step import METRIC_KEYS
 
-    cfg, state, vgg, step, batches = _train_setup(torch, np)
+    cfg, state, vgg, step, batches = _train_setup(torch, np, 4, hw, **overrides)
     step(state, batches[0])  # warm-up: cuDNN algorithm picks, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -776,15 +1005,18 @@ def train_step_phase(torch, np) -> tuple[dict, object]:
     dt = time.perf_counter() - t0
     counts = dict(LAUNCHES)
     n = len(batches) - 1
-    expect_launches("train (forwards = steps)", counts, TRAIN_PER_STEP, n)
+    expect_launches(f"{label} (forwards = steps)", counts,
+                    TRAIN_PER_STEP if per_step is None else per_step, n)
     for i, m in enumerate(metrics):
         vals = {k: float(m[k]) for k in METRIC_KEYS}
         _check_loss_sanity(vals, cfg, 1, i + 1)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] 512x640 b{TRAIN_B} bf16: {n * TRAIN_B / dt:.2f} frames/s "
+    log(f"[{label}] {hw[0]}x{hw[1]} b{TRAIN_B} bf16: {n * TRAIN_B / dt:.2f} frames/s "
         f"({1e3 * dt / n:.1f} ms per step), peak memory {peak_gb:.2f} GiB; last losses "
         + ", ".join(f"{k}={float(metrics[-1][k]):.4f}" for k in METRIC_KEYS))
-    profile_window(torch, "train profile", lambda: step(state, batches[1]), "one step", table=True)
+    if profile:
+        profile_window(torch, f"{label} profile", lambda: step(state, batches[1]), "one step",
+                       table=label == "train")
     LAUNCHES.update(counts)
     return counts, (cfg, state, vgg, batches[0])
 
@@ -864,6 +1096,52 @@ def bwd_vs_xla(torch, setup) -> None:
     log("    " + " ".join(f"{r:.2e}" for r in rels))
     if not (same_loss and max(rels) <= 1e-2 and repeat):
         raise AssertionError("kernel backward disagrees with the xla backward")
+
+
+def grads_vs_plain(torch, label: str, setup, swaps: tuple, unused: set):
+    """The G gradient of one batch through the kernels, twice, and with the
+    ``swaps`` wrappers on their plain versions (deterministic algorithms on
+    for the rest of the network). Returns (losses bit-identical, kernel
+    route bit-exact on repeat, per-parameter relative L2, faults): every
+    parameter but ``unused`` needs a finite gradient on both routes;
+    ``unused`` ones none. The conv biases that feed an instance norm are
+    left out of the relative L2: their gradient is rounding noise around 0."""
+    from ircolor_tpu_torch.kernels import LAUNCHES
+
+    cfg, state, vgg, batch = setup
+    names, params = zip(*state.g.named_parameters())
+    before = dict(LAUNCHES)
+    with deterministic(torch):
+        loss_k, grad_k = g_grads(torch, cfg, state, vgg, batch, params)
+        loss_k2, grad_k2 = g_grads(torch, cfg, state, vgg, batch, params)
+        with plain_kernels(swaps):
+            loss_p, grad_p = g_grads(torch, cfg, state, vgg, batch, params)
+    LAUNCHES.update(before)
+    same_loss = bool(torch.equal(loss_k, loss_p))
+    repeat = bool(torch.equal(loss_k, loss_k2)) and all(
+        (a is None and b is None) or torch.equal(a, b) for a, b in zip(grad_k, grad_k2))
+    inert = {n for n in names if n.endswith(".bias") and n != "outc.1.bias"}
+    rels, bad = {}, []
+    for n, a, b in zip(names, grad_k, grad_p):
+        if n in unused:
+            if a is not None or b is not None:
+                bad.append(f"{n}: a gradient on a route that does not read it")
+            continue
+        if a is None or b is None or not bool(torch.isfinite(a).all()):
+            bad.append(f"{n}: no finite gradient")
+            continue
+        if n not in inert:
+            rels[n] = float((a.float() - b.float()).norm() / b.float().norm())
+    worst = max(rels, key=rels.get)
+    log(f"[{label}] G gradient, kernels vs {', '.join(swaps)} on plain versions: losses "
+        f"bit-identical {same_loss}; kernel route repeats bit for bit {repeat}; "
+        f"{len(names) - len(unused)} of {len(names)} parameters finite and present "
+        f"({len(unused)} unread); relative L2 max {rels[worst]:.3g} ({worst}), mean "
+        f"{sum(rels.values()) / len(rels):.3g} over {len(rels)} parameters (tol 1e-2)")
+    for n in ("inc.1.weight", "down1.0.weight", "down2.0.weight", "up1_conv.0.weight",
+              "resblocks.0.conv_block.1.weight", "outc.1.weight"):
+        log(f"    {n}: {rels[n]:.3g}")
+    return same_loss, repeat, rels[worst], bad
 
 
 def train_tail_head_phase(torch, np) -> dict:
@@ -964,7 +1242,9 @@ def main() -> int:
 
     results: list = []
     check_kernels(torch, results)
+    check_instance_norm(torch, results)
     check_bwd_kernels(torch, results)
+    check_segment_kernels(torch, results)
     counts: dict = {}
     blocks_tails_head = {"norm_relu_blur_down": 2, "conv7x7_head": 1}
     int8_default = {"conv3x3_reflect_fused_q": 18, **blocks_tails_head}
@@ -993,8 +1273,28 @@ def main() -> int:
     # budget.
     kernel_vs_plain_route(torch, np, "int8 (b)", opt_in, B, config_b,
                           ("conv3x3_int8", "conv7x7_head_pallas"), uint8_bound=False)
+    # use_pallas at 256² (float, the test batch of 16): kernel 11 at the 9
+    # blocks' two instance norms (the 64×64 bottleneck is the one plane its
+    # gate admits), the down1 tail (its plane and launch gates hold; down2's
+    # plane is under them), no head, no block conv (4,096 px < 12,288, b16
+    # outside the band). Without use_pallas: the tail only. Turns: without,
+    # with, with, without.
+    hw256, b256 = (256, 256), 16
+    flat256 = dict(img_height=256, img_width=256, quant_int8=False)
+    k11 = {"fused_instance_norm": 9, "fused_instance_norm_residual": 9, "norm_relu_blur_down": 1}
+    fps256 = {"float": [], "float use_pallas": []}
+    for label in ("float", "float use_pallas", "float use_pallas", "float"):
+        pallas = label.endswith("use_pallas")
+        fps256[label].append(serve(
+            torch, np, f"256x256 {label}", {**flat256, "use_pallas": pallas}, False,
+            k11 if pallas else {"norm_relu_blur_down": 1}, counts, hw256, b256, n_batches=12))
+    kernel_vs_plain_route(torch, np, "256x256 float use_pallas", {**flat256, "use_pallas": True},
+                          b256, k11, hw=hw256)
     log(f"[serve] 512x640 b32: int8 {fps_int8:.2f} frames/s, float {fps_float:.2f} frames/s, "
         f"int8 (b) quant_head + quant_fixed_u2 {fps_b:.2f} frames/s")
+    log("[serve] 256x256 b16 float: without use_pallas "
+        + " / ".join(f"{v:.2f}" for v in fps256["float"]) + " frames/s, with "
+        + " / ".join(f"{v:.2f}" for v in fps256["float use_pallas"]) + " frames/s")
     log(f"[serve] 512x640 b1 latency (mean / median ms per frame): int8 (a) "
         f"{lat_int8[0]:.3f} / {lat_int8[1]:.3f}, float {lat_float[0]:.3f} / {lat_float[1]:.3f}")
     counts["train"], setup = train_step_phase(torch, np)
@@ -1002,6 +1302,38 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
     counts["train tails+head"] = train_tail_head_phase(torch, np)
+
+    # The enc/dec segment backward (pallas_encdec_bwd) at 512×640 b8: down1,
+    # down2 and up1 each one segment dgrad; down2 one and up1 two segment
+    # wgrads (down1's 64-channel leg: cuDNN from the stored dy).
+    seg_step = {**TRAIN_PER_STEP, "conv3x3_dgrad_fused_seg": 3, "conv3x3_wgrad_fused_seg": 3}
+    counts["train encdec"], setup = train_step_phase(
+        torch, np, "train encdec", seg_step, pallas_encdec_bwd=True)
+    blocks_and_segments = {f"resblocks.{i}.conv_block.{j}.bias" for i in range(9) for j in (1, 5)}
+    blocks_and_segments |= {"down1.0.bias", "down2.0.bias", "up1_conv.0.bias"}
+    same_loss, repeat, worst, bad = grads_vs_plain(
+        torch, "train encdec", setup, ("segment_dgrad", "segment_wgrad"), blocks_and_segments)
+    if bad or not (same_loss and repeat and worst <= 1e-2):
+        raise AssertionError(f"encdec backward disagrees with its plain version: {bad or worst}")
+    del setup
+    torch.cuda.empty_cache()
+
+    # use_pallas training at 256² b8: kernel 11 at the 9 unfused blocks
+    # (the blocks' fused gate fails: 4,096 px, b8), forward only; the
+    # backward is plain torch. Beside the same step without use_pallas.
+    counts["train 256x256"], setup = train_step_phase(
+        torch, np, "train 256x256", {}, hw256, profile=False, img_height=256, img_width=256)
+    del setup
+    counts["train 256x256 use_pallas"], setup = train_step_phase(
+        torch, np, "train 256x256 use_pallas",
+        {"fused_instance_norm": 9, "fused_instance_norm_residual": 9}, hw256,
+        img_height=256, img_width=256, use_pallas=True)
+    _, repeat, worst, bad = grads_vs_plain(torch, "train 256x256 use_pallas", setup,
+                                           ("run_in", "run_in_res"), set())
+    if bad or not (repeat and worst <= 1e-2):
+        raise AssertionError(f"use_pallas gradient disagrees with the plain forwards: {bad or worst}")
+    del setup
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count in the main-path run at the shape its
     # row is timed and bounded at — serving (int8 default) for the int8
@@ -1011,7 +1343,11 @@ def main() -> int:
     main_run = {"conv3x3_reflect_fused_q": "int8", "norm_relu_blur_down": "int8",
                 "conv7x7_head": "int8", "conv3x3_reflect_fused": "float",
                 "conv3x3_dgrad_fused": "train", "conv3x3_wgrad_fused": "train",
-                "conv3x3_int8": "b1 int8 (a)", "conv7x7_head_q": "int8 (b)"}
+                "conv3x3_int8": "b1 int8 (a)", "conv7x7_head_q": "int8 (b)",
+                "fused_instance_norm": "256x256 float use_pallas",
+                "fused_instance_norm_residual": "256x256 float use_pallas",
+                "conv3x3_dgrad_fused_seg": "train encdec",
+                "conv3x3_wgrad_fused_seg": "train encdec"}
     for r in results:
         r["launches"] = counts[main_run[r["name"]]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

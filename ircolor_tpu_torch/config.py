@@ -102,12 +102,12 @@ class Config:
     vgg16_weights: str | None = None
     remat: bool = False
     lanepack: bool = True               # a TPU layout device; no effect here
-    use_pallas: bool = False            # fused IN kernel (kernel #11): not ported
     # Kernel routing, read exactly as the JAX generator reads it.
+    use_pallas: bool = False            # fused IN kernel (kernel 11) where it fits
     pallas_block: bool = True
     pallas_block_train: bool = True
     pallas_block_bwd: str = "fused_wg"
-    pallas_encdec_bwd: bool = False
+    pallas_encdec_bwd: bool = False     # fused backward of down1, down2, up1 (training)
     pallas_norm_blur: bool = True
     pallas_norm_blur_min_area: int = 18000
     pallas_norm_blur_min_launch: int = 600000

@@ -20,6 +20,14 @@
 //   with Z = z or bf16(relu((z - zm)*zi)) and dy as above, both recomputed
 //   on load from the tensors the forward saved; f32 accumulation.
 //
+// The enc/dec segment modes (ircolor_tpu/ops/pallas_encdec.py runs these
+// kernels with pad="zero", mask_p=True and no aux): the segment convs
+// zero-pad, so dgrad's dz is F itself (no fold) and wgrad's Zpad has zero
+// halos; mask_p takes p = p * (comp > m) on load, before the IN backward
+// (the cotangent enters after the segment's ReLU); without aux the dgrad
+// stores bf16(F). The segments' dz widths (64 at down1, 384 at up1) need
+// Cout % 64 == 0: a block's second 64-channel warp column idles past Cout.
+//
 // What bounds them on the H100: the tensor cores. At the flagship training
 // bottleneck (8x128x160x256, k 3x3x256x256) each launch is 0.193 TFLOP
 // against 0.25-0.34 GB of bf16 tensors, ~600 flop/byte, above the card's
@@ -111,27 +119,36 @@ struct InBwd8 {
     load8(gm_, gm);
     load8(gy_, gy);
   }
-  // 8 bf16 of p and comp (16 bytes each) -> 8 bf16 dy.
-  __device__ __forceinline__ uint4 apply(uint4 p4, uint4 c4) const {
+  // 8 bf16 of p and comp (16 bytes each) -> 8 bf16 dy. mask_p: p is the
+  // cotangent after a ReLU of n, kept where comp > m (n > 0, as inv > 0).
+  __device__ __forceinline__ uint4 apply(uint4 p4, uint4 c4, bool mask_p) const {
     const uint32_t pw[4] = {p4.x, p4.y, p4.z, p4.w};
     const uint32_t cw[4] = {c4.x, c4.y, c4.z, c4.w};
     uint32_t o[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int k = 2 * e;
-      const float t0 = in_bwd(bf16_lo(pw[e]), bf16_lo(cw[e]), m[k], iv[k], gm[k], gy[k]);
-      const float t1 = in_bwd(bf16_hi(pw[e]), bf16_hi(cw[e]), m[k + 1], iv[k + 1],
-                              gm[k + 1], gy[k + 1]);
+      const float c0 = bf16_lo(cw[e]), c1 = bf16_hi(cw[e]);
+      float p0 = bf16_lo(pw[e]), p1 = bf16_hi(pw[e]);
+      if (mask_p) {
+        p0 = c0 > m[k] ? p0 : 0.f;
+        p1 = c1 > m[k + 1] ? p1 : 0.f;
+      }
+      const float t0 = in_bwd(p0, c0, m[k], iv[k], gm[k], gy[k]);
+      const float t1 = in_bwd(p1, c1, m[k + 1], iv[k + 1], gm[k + 1], gy[k + 1]);
       o[e] = pack_bf16x2(t0, t1);
     }
     return make_uint4(o[0], o[1], o[2], o[3]);
   }
 };
 
+// The dgrad's epilogue forms.
+enum { EPI_RESIDUAL = 0, EPI_MASK_STATS = 1, EPI_NONE = 2 };
+
 struct DgradArgs {
   const __nv_bfloat16* p;     // (B, H, W, C) cotangent entering the IN
   const __nv_bfloat16* comp;  // (B, H, W, C) raw tensor the IN normalized
-  const __nv_bfloat16* aux;   // (B, H, W, Cout) raw1 (mask) or residual
+  const __nv_bfloat16* aux;   // (B, H, W, Cout) raw1 (mask), residual, or null
   const uint8_t* w;           // (C/16, 9, Cout, 32 bytes) rot180^T kernel
   const float* m;             // (B, C) IN mean, inv, E[p], E[p*n]
   const float* inv;
@@ -143,11 +160,14 @@ struct DgradArgs {
   __nv_bfloat16* dy;          // (B, H, W, C) or null
   float* partial;             // (B, ntiles, 2, Cout) mask-stats form
   int B, H, W, C, Cout, ntw, ntiles;
+  int reflect;                // 1: ReflectionPad(1) fold; 0: zero-SAME
+  int mask_p;                 // 1: p masked by comp > m on load
 };
 
-template <bool MASK_STATS>
+template <int EPI>
 __global__ void __launch_bounds__(NTHREADS, 2)
     conv3x3_dgrad_kernel(const DgradArgs a) {
+  constexpr bool MASK_STATS = EPI == EPI_MASK_STATS;
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
@@ -162,6 +182,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   const float* gmb = a.gm + (size_t)b * a.C;
   const float* gyb = a.gy + (size_t)b * a.C;
   const bool emit = a.dy != nullptr && blockIdx.y == 0;
+  // Warp column wn holds output channels co0 + wn*64 .. +63; with Cout % 128
+  // == 64 the last block's second column lies past Cout and does nothing.
+  const bool wlive = co0 + wn * 64 < a.Cout;
 
   // Each thread owns up to UNITS_PER_THREAD 16-byte units of the patch:
   // fixed pixel, fixed channel half, every chunk. uoff -1: outside the
@@ -212,7 +235,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       if (uoff[i] == -2) continue;
       uint4 o = make_uint4(0, 0, 0, 0);
       if (uoff[i] >= 0) {
-        o = prm.apply(rp[i], rc[i]);
+        o = prm.apply(rp[i], rc[i], a.mask_p != 0);
         if (uemit[i]) *reinterpret_cast<uint4*>(a.dy + img + uoff[i] + j * KC) = o;
       }
       *reinterpret_cast<uint4*>(patch + swz(u >> 1, u & 1)) = o;
@@ -225,6 +248,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     for (int v = tid; v < W_UNITS; v += NTHREADS) {
       const int tap = v / (BN * 2), rem = v - tap * (BN * 2);
       const int n = rem >> 1, ch = rem & 1;
+      if (co0 + n >= a.Cout) continue;  // rows only idle warps would read
       cp_async16(dst + swz(tap * BN + n, ch),
                  src + ((size_t)(tap * a.Cout + co0 + n)) * ROWB + ch * 16);
     }
@@ -284,8 +308,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   // at (R-1+ty, C-1+tx) for each other pair (R, C) in {r, ra} x {c, ca},
   // where ra is the padded row reflecting onto r (-1 for r = 1, H for
   // r = H-2) and ca the same for columns; sources outside the image are 0.
-  const bool edge = (r0 <= 1 && 1 < r0 + TH) || (r0 <= a.H - 2 && a.H - 2 < r0 + TH) ||
-                    (c0 <= 1 && 1 < c0 + TW) || (c0 <= a.W - 2 && a.W - 2 < c0 + TW);
+  const bool edge = a.reflect &&
+                    ((r0 <= 1 && 1 < r0 + TH) || (r0 <= a.H - 2 && a.H - 2 < r0 + TH) ||
+                     (c0 <= 1 && 1 < c0 + TW) || (c0 <= a.W - 2 && a.W - 2 < c0 + TW));
   const uint32_t zero_addr = smem_u32(smem + ZERO_OFF) + achunk * 16;
   const int fc = c0 + apix;
   const int altc = fc == 1 ? -1 : (fc == a.W - 2 ? a.W : NO_ALT);
@@ -331,14 +356,17 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       load_weights(j + 1, s ^ 1);
       load_patch(j + 1);
     }
-    compute(s);
-    if (edge) fold(s);
+    if (wlive) {
+      compute(s);
+      if (edge) fold(s);
+    }
     if (more) store_patch(j + 1, s ^ 1);
     cp_async_wait_all();
     __syncthreads();
   }
 
-  // Epilogue: ReLU mask + stats (launch 1) or residual add (launch 2).
+  // Epilogue: ReLU mask + stats (launch 1), residual add (launch 2), or the
+  // bare dz (the segments).
   const int g = lane >> 2, t4 = lane & 3;
   float mmv[8][2], miv[8][2];
 #pragma unroll
@@ -363,14 +391,18 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + g + 8 * h;
-      if (r >= a.H || c >= a.W) continue;
+      if (r >= a.H || c >= a.W || !wlive) continue;
       const size_t obase = (((size_t)b * a.H + r) * a.W + c) * a.Cout;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int co = co0 + wn * 64 + nt * 8 + 2 * t4;
+        float y0 = acc[mi][nt][2 * h], y1 = acc[mi][nt][2 * h + 1];
+        if constexpr (EPI == EPI_NONE) {
+          *reinterpret_cast<uint32_t*>(a.out + obase + co) = pack_bf16x2(y0, y1);
+          continue;
+        }
         const uint32_t av = *reinterpret_cast<const uint32_t*>(a.aux + obase + co);
         const float a0 = bf16_lo(av), a1 = bf16_hi(av);
-        float y0 = acc[mi][nt][2 * h], y1 = acc[mi][nt][2 * h + 1];
         if constexpr (MASK_STATS) {
           y0 = a0 > mmv[nt][0] ? y0 : 0.f;
           y1 = a1 > mmv[nt][1] ? y1 : 0.f;
@@ -408,7 +440,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
         }
     }
     __syncthreads();
-    if (tid < BN) {
+    if (tid < BN && co0 + tid < a.Cout) {
       float a1 = 0.f, a2 = 0.f;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
@@ -422,13 +454,13 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   }
 }
 
-template <bool MASK_STATS>
+template <int EPI>
 int launch_dgrad(const DgradArgs& a, cudaStream_t stream) {
-  auto kernel = conv3x3_dgrad_kernel<MASK_STATS>;
+  auto kernel = conv3x3_dgrad_kernel<EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DG_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.ntiles, a.Cout / BN, a.B);
+  dim3 grid(a.ntiles, (a.Cout + BN - 1) / BN, a.B);
   kernel<<<grid, NTHREADS, DG_SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -484,6 +516,8 @@ struct WgradArgs {
   const float* zi;
   float* ws;                  // (groups, 9, Cz, Co) f32 partials
   int B, H, W, Cz, Co, ntr, ntc, ntiles, tpg;
+  int reflect;                // 1: reflect halos; 0: zero halos
+  int mask_p;                 // 1: p masked by comp > m on load
 };
 
 // One block: one tap row ty (taps ty*3 + tx, tx = 0..2), 64 input x 128
@@ -520,8 +554,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int zpx = (tid + i * NTHREADS) >> 3;
       if (zpx < WG_ZPX) {
         const int zr = zpx / WG_ZC, zc = zpx - zr * WG_ZC;
-        const int h = reflect_index(r0 + zr + ty - 1, a.H);
-        const int w = reflect_index(c0 + zc - 1, a.W);
+        int h = r0 + zr + ty - 1, w = c0 + zc - 1;
+        if (a.reflect) {
+          h = reflect_index(h, a.H);
+          w = reflect_index(w, a.W);
+        } else if (h < 0 || h >= a.H || w < 0 || w >= a.W) {
+          rz[i] = make_uint4(0, 0, 0, 0);  // zero halo
+          continue;
+        }
         rz[i] = ldg16(a.z + (zimg + (size_t)h * a.W + w) * a.Cz + ci0 + zcu * 8);
       }
     }
@@ -597,7 +637,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int i = 0; i < WG_DUPT; ++i) {
       const int px = (tid + i * NTHREADS) >> 4;
-      const uint4 od = (live >> i) & 1u ? prm.apply(rp[i], rc[i]) : make_uint4(0, 0, 0, 0);
+      const uint4 od =
+          (live >> i) & 1u ? prm.apply(rp[i], rc[i], a.mask_p != 0) : make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(dt + dswz(px, dcu)) = od;
     }
   };
@@ -699,12 +740,15 @@ int ircolor_conv3x3_dgrad_num_tiles(int H, int W) {
 }
 
 // mm/mi non-null: the mask-stats form (partial required); else the
-// residual form. dy may be null.
+// residual form, or with aux null the bare dz. dy may be null. reflect: 1
+// for the blocks' ReflectionPad(1) convs, 0 for zero-SAME; mask_p: 1 to
+// mask p by comp > m on load.
 int ircolor_conv3x3_dgrad(const void* p, const void* comp, const void* aux,
                           const void* w, const void* m, const void* inv,
                           const void* gm, const void* gy, const void* mm,
                           const void* mi, void* out, void* dy, void* partial,
-                          int B, int H, int W, int C, int Cout, void* stream) {
+                          int B, int H, int W, int C, int Cout, int reflect, int mask_p,
+                          void* stream) {
   using namespace ircolor;
   DgradArgs a;
   a.p = static_cast<const __nv_bfloat16*>(p);
@@ -727,8 +771,11 @@ int ircolor_conv3x3_dgrad(const void* p, const void* comp, const void* aux,
   a.Cout = Cout;
   a.ntw = (W + TW - 1) / TW;
   a.ntiles = ircolor_conv3x3_dgrad_num_tiles(H, W);
+  a.reflect = reflect;
+  a.mask_p = mask_p;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mm != nullptr ? launch_dgrad<true>(a, s) : launch_dgrad<false>(a, s);
+  if (mm != nullptr) return launch_dgrad<EPI_MASK_STATS>(a, s);
+  return aux != nullptr ? launch_dgrad<EPI_RESIDUAL>(a, s) : launch_dgrad<EPI_NONE>(a, s);
 }
 
 // Number of 4x16-pixel wgrad tiles of a (B, H, W) batch.
@@ -737,13 +784,14 @@ int ircolor_conv3x3_wgrad_num_tiles(int B, int H, int W) {
          ((W + ircolor::WG_TC - 1) / ircolor::WG_TC);
 }
 
-// zm/zi non-null: Z = relu((z - zm)*zi) on load. ws holds ngroups slots of
-// 9 x Cz x Co f32; group g covers tiles [g*tpg, min((g+1)*tpg, num_tiles)).
+// zm/zi non-null: Z = relu((z - zm)*zi) on load (reflect halos only). ws
+// holds ngroups slots of 9 x Cz x Co f32; group g covers tiles [g*tpg,
+// min((g+1)*tpg, num_tiles)). reflect / mask_p as for the dgrad.
 int ircolor_conv3x3_wgrad(const void* z, const void* p, const void* comp,
                           const void* m, const void* inv, const void* gm,
                           const void* gy, const void* zm, const void* zi,
                           void* ws, int B, int H, int W, int Cz, int Co,
-                          int tpg, int ngroups, void* stream) {
+                          int tpg, int ngroups, int reflect, int mask_p, void* stream) {
   using namespace ircolor;
   WgradArgs a;
   a.z = static_cast<const __nv_bfloat16*>(z);
@@ -765,6 +813,8 @@ int ircolor_conv3x3_wgrad(const void* z, const void* p, const void* comp,
   a.ntc = (W + WG_TC - 1) / WG_TC;
   a.ntiles = ircolor_conv3x3_wgrad_num_tiles(B, H, W);
   a.tpg = tpg;
+  a.reflect = reflect;
+  a.mask_p = mask_p;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return zm != nullptr ? launch_wgrad<true>(a, ngroups, s)
                        : launch_wgrad<false>(a, ngroups, s);

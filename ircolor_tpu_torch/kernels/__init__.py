@@ -10,10 +10,14 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
   resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
   resblock.conv3x3_dgrad_fused      ← pallas_resblock.conv3x3_dgrad_fused
   resblock.conv3x3_wgrad_fused      ← pallas_resblock.conv3x3_wgrad_fused
+    (both also in the enc/dec segment modes: ``pad="zero"``, ``mask_p``,
+    no aux; counted apart as ``*_seg``; ``encdec.conv_in_relu_fused`` ←
+    pallas_encdec.conv_in_relu_fused runs them)
   blur.norm_relu_blur_down_pallas   ← pallas_blur.norm_relu_blur_down_pallas
   head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
   head.conv7x7_head_pallas(quant=True) ← the same with quant=True (outc_head_q)
   conv_int8.conv3x3_int8            ← XLA's int8 conv in ops/quant.conv2d_int8(_fixed)
+  instance_norm.run_in / run_in_res ← pallas_kernels._run_in / _run_in_res
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_int8": 0,
     "conv3x3_dgrad_fused": 0,
     "conv3x3_wgrad_fused": 0,
+    "conv3x3_dgrad_fused_seg": 0,
+    "conv3x3_wgrad_fused_seg": 0,
+    "fused_instance_norm": 0,
+    "fused_instance_norm_residual": 0,
 }
 
 

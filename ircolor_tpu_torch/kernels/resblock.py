@@ -3,8 +3,10 @@ its backward (``csrc/resblock_bwd.cu``) and the blocks built from them.
 
 Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_reflect_fused`` (bf16), ``conv3x3_reflect_fused_q`` (int8),
-``conv3x3_dgrad_fused``, ``conv3x3_wgrad_fused``, ``resnet_block_pallas``
-(differentiable, ``bwd`` = ``"xla"`` | ``"fused"`` | ``"fused_wg"``) and
+``conv3x3_dgrad_fused``, ``conv3x3_wgrad_fused`` (also in the enc/dec
+segment modes ``pad="zero"``, ``mask_p``, no aux, which
+``kernels/encdec.py`` runs), ``resnet_block_pallas`` (differentiable,
+``bwd`` = ``"xla"`` | ``"fused"`` | ``"fused_wg"``) and
 ``resnet_block_pallas_q``. One conv launch reads the unpadded NHWC input
 once (reflect halos built on load, the previous IN + ReLU and, for int8,
 the quantization applied on load) and writes the raw output once, with the
@@ -56,11 +58,11 @@ def _load_bwd():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ircolor_conv3x3_dgrad_num_tiles.argtypes = [i, i]
         lib.ircolor_conv3x3_dgrad_num_tiles.restype = i
-        lib.ircolor_conv3x3_dgrad.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.ircolor_conv3x3_dgrad.argtypes = [p] * 13 + [i] * 7 + [p]
         lib.ircolor_conv3x3_dgrad.restype = i
         lib.ircolor_conv3x3_wgrad_num_tiles.argtypes = [i, i, i]
         lib.ircolor_conv3x3_wgrad_num_tiles.restype = i
-        lib.ircolor_conv3x3_wgrad.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.ircolor_conv3x3_wgrad.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.ircolor_conv3x3_wgrad.restype = i
         _lib_bwd = lib
     return _lib_bwd
@@ -205,11 +207,15 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v.float()[:, None, None, :]
 
 
-def _in_bwd_input(p, comp, m, inv, gm, gy):
+def _in_bwd_input(p, comp, m, inv, gm, gy, mask_p=False):
     """The dgrad/wgrad operand: dy = inv·((p − gm) − n̂·gy), n̂ = (comp − m)·inv,
-    each step rounded in float32 in the kernels' order, then to p's dtype."""
-    nhat = (comp.float() - _col(m)) * _col(inv)
-    return (_col(inv) * ((p.float() - _col(gm)) - nhat * _col(gy))).to(p.dtype)
+    each step rounded in float32 in the kernels' order, then to p's dtype.
+    ``mask_p``: p enters after a ReLU of n̂, so it is kept where comp > m."""
+    pf, cf = p.float(), comp.float()
+    if mask_p:
+        pf = torch.where(cf > _col(m), pf, torch.zeros_like(pf))
+    nhat = (cf - _col(m)) * _col(inv)
+    return (_col(inv) * ((pf - _col(gm)) - nhat * _col(gy))).to(p.dtype)
 
 
 def _reflect_conv_dgrad(dy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -225,22 +231,41 @@ def _reflect_conv_dgrad(dy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return f[:, :, 1 : h + 1, 1 : w + 1].permute(0, 2, 3, 1)
 
 
-def _unported_mode(what: str, pad: str, mask_p: bool, aux_missing: bool = False) -> None:
-    if pad != "reflect" or mask_p or aux_missing:
-        raise NotImplementedError(
-            f"{what}: only pad='reflect' with mask_p=False (and an aux operand) is "
-            "ported; the enc/dec segment modes wait in ROADMAP.md"
-        )
+def _zero_conv_dgrad(dy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """VJP of the zero-SAME ``conv2d(z, k, padding=1)`` w.r.t. NHWC z."""
+    f = F.conv_transpose2d(dy.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
+    return f.permute(0, 2, 3, 1)
+
+
+_PADS = ("reflect", "zero")
+
+
+def _check_mode(pad: str, aux=None, mask_stats=None, znorm=None) -> None:
+    if pad not in _PADS:
+        raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    if aux is None and mask_stats is not None:
+        raise ValueError("mask_stats needs the aux operand")
+    if znorm is not None and pad == "zero":
+        raise ValueError("znorm takes reflect halos only")
+
+
+def _is_segment(pad: str, mask_p: bool, aux_missing: bool = False) -> bool:
+    """The enc/dec segment modes, counted apart from the blocks'."""
+    return pad == "zero" or mask_p or aux_missing
 
 
 def conv3x3_dgrad_fused_plain(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=None,
-                              *, emit_dy=True):
+                              *, emit_dy=True, pad="reflect", mask_p=False):
     """Plain version of ``conv3x3_dgrad_fused``: the IN backward rounded to
-    p's dtype, the dgrad conv and fold in float32."""
-    dy = _in_bwd_input(p, comp, m, inv, gm, gy)
-    acc = _reflect_conv_dgrad(dy.float(), kernel_fwd.to(p.dtype).float())
-    a = aux.float()
+    p's dtype, the dgrad conv (and fold) in float32."""
+    _check_mode(pad, aux, mask_stats)
+    dy = _in_bwd_input(p, comp, m, inv, gm, gy, mask_p)
+    conv_dgrad = _reflect_conv_dgrad if pad == "reflect" else _zero_conv_dgrad
+    acc = conv_dgrad(dy.float(), kernel_fwd.to(p.dtype).float())
     dy_out = dy if emit_dy else None
+    if aux is None:
+        return acc.to(p.dtype), dy_out
+    a = aux.float()
     if mask_stats is None:
         return (acc + a).to(p.dtype), dy_out
     mm, mi = (_col(v) for v in mask_stats)
@@ -260,22 +285,27 @@ def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=Non
     With ``mask_stats=(mm, mi)`` (launch 1) returns ``(dz·(aux > mm), dy,
     stats)``, stats (B, 2, Cin) = Σdz_masked, Σdz_masked·(aux − mm)·mi taken
     from the float32 value; without it (launch 2) ``(dz + aux, dy)``. ``dy``
-    (p's dtype) is None when ``emit_dy=False``."""
-    _unported_mode("conv3x3_dgrad_fused", pad, mask_p, aux is None)
+    (p's dtype) is None when ``emit_dy=False``.
+
+    The enc/dec segment modes: ``pad="zero"`` (the dgrad of a zero-SAME
+    conv: no fold), ``mask_p`` (p taken as p·[comp > m] before the IN
+    backward) and ``aux=None`` (returns ``(dz, dy)``)."""
+    _check_mode(pad, aux, mask_stats)
     if p.device.type == "cpu":
         return conv3x3_dgrad_fused_plain(p, comp, aux, kernel_fwd, m, inv, gm, gy,
-                                         mask_stats, emit_dy=emit_dy)
+                                         mask_stats, emit_dy=emit_dy, pad=pad, mask_p=mask_p)
     b, h, w, c = p.shape
     cin = kernel_fwd.shape[2]
     require(p, "p", torch.bfloat16, (None, None, None, None))
     require(comp, "comp", torch.bfloat16, (b, h, w, c))
-    require(aux, "aux", torch.bfloat16, (b, h, w, cin))
+    if aux is not None:
+        require(aux, "aux", torch.bfloat16, (b, h, w, cin))
     if kernel_fwd.shape != (3, 3, cin, c) or kernel_fwd.device != p.device:
         raise ValueError(f"kernel_fwd: expected (3, 3, Cin, {c}) on {p.device}")
-    if c % 16 or cin % _BN or h < 4 or w < 4 or b > 65535:
+    if c % 16 or cin % 64 or h < 4 or w < 4 or b > 65535:
         raise ValueError(
             f"conv3x3_dgrad_fused: unsupported shape p={tuple(p.shape)} Cin={cin} "
-            f"(needs C % 16 == 0, Cin % {_BN} == 0, H, W >= 4)"
+            "(needs C % 16 == 0, Cin % 64 == 0, H, W >= 4)"
         )
     for name, v in (("m", m), ("inv", inv), ("gm", gm), ("gy", gy)):
         require(v, name, torch.float32, (b, c))
@@ -299,24 +329,29 @@ def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=Non
         return None if t is None else t.data_ptr()
 
     err = lib.ircolor_conv3x3_dgrad(
-        p.data_ptr(), comp.data_ptr(), aux.data_ptr(), wpk.data_ptr(), m.data_ptr(),
+        p.data_ptr(), comp.data_ptr(), ptr(aux), wpk.data_ptr(), m.data_ptr(),
         inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), ptr(mm), ptr(mi), out.data_ptr(),
-        ptr(dy), ptr(partial), b, h, w, c, cin, stream_ptr(),
+        ptr(dy), ptr(partial), b, h, w, c, cin, int(pad == "reflect"), int(mask_p),
+        stream_ptr(),
     )
-    build.check(err, "conv3x3_dgrad_fused")
-    LAUNCHES["conv3x3_dgrad_fused"] += 1
+    name = "conv3x3_dgrad_fused" + ("_seg" if _is_segment(pad, mask_p, aux is None) else "")
+    build.check(err, name)
+    LAUNCHES[name] += 1
     if mask_stats is None:
         return out, dy
     return out, dy, partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
 
 
-def conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=None):
+def conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect",
+                              mask_p=False):
     """Plain version of ``conv3x3_wgrad_fused``: both operands rounded as
     the kernel rounds them, the contraction in float32."""
+    _check_mode(pad, znorm=znorm)
     zz = z if znorm is None else _normalize_relu(z, *znorm).to(z.dtype)
-    dy = _in_bwd_input(p, comp, m, inv, gm, gy).float()
+    dy = _in_bwd_input(p, comp, m, inv, gm, gy, mask_p).float()
     _, h, w, cz = z.shape
-    zp = F.pad(zz.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    mode = "reflect" if pad == "reflect" else "constant"
+    zp = F.pad(zz.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
     taps = [
         torch.einsum("bhwi,bhwo->io", zp[:, ty : ty + h, tx : tx + w], dy)
         for ty in range(3)
@@ -329,10 +364,12 @@ def conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect"
     """Fused wgrad of ``conv2d(ReflectionPad(1)(Z), k)`` for the block
     backward: ``dk`` (3, 3, Cz, Co) float32 with Z = z, or relu((z − zm)·zi)
     for ``znorm=(zm, zi)``, and dy the IN backward of ``conv3x3_dgrad_fused``,
-    both recomputed on load from the tensors the forward saved."""
-    _unported_mode("conv3x3_wgrad_fused", pad, mask_p)
+    both recomputed on load from the tensors the forward saved. The segment
+    modes: ``pad="zero"`` (zero halos; not with ``znorm``) and ``mask_p``."""
+    _check_mode(pad, znorm=znorm)
     if z.device.type == "cpu":
-        return conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm)
+        return conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm, pad=pad,
+                                         mask_p=mask_p)
     b, h, w, cz = z.shape
     co = p.shape[-1]
     require(z, "z", torch.bfloat16, (None, None, None, None))
@@ -362,10 +399,11 @@ def conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect"
     err = lib.ircolor_conv3x3_wgrad(
         z.data_ptr(), p.data_ptr(), comp.data_ptr(), m.data_ptr(), inv.data_ptr(),
         gm.data_ptr(), gy.data_ptr(), ptr(zm), ptr(zi), ws.data_ptr(),
-        b, h, w, cz, co, per_group, groups, stream_ptr(),
+        b, h, w, cz, co, per_group, groups, int(pad == "reflect"), int(mask_p), stream_ptr(),
     )
-    build.check(err, "conv3x3_wgrad_fused")
-    LAUNCHES["conv3x3_wgrad_fused"] += 1
+    name = "conv3x3_wgrad_fused" + ("_seg" if _is_segment(pad, mask_p) else "")
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return ws.sum(dim=0).reshape(3, 3, cz, co)  # fixed-order reduce of the slots
 
 

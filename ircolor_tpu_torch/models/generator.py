@@ -14,13 +14,22 @@ containers exist to give the parameters the reference state_dict names
 
 Routing is the JAX generator's, flag for flag and gate for gate (the area,
 launch and small-batch-band gates, the channel alignment checks,
-``_fused_dtype_ok``), minus ``_pallas_available``: routing does not depend
-on the device. The kernel wrappers dispatch on the tensor's device instead
-(CPU → plain version, CUDA → the kernel or an error), so the CPU tests run
-the exact routing the card runs. The module-level names
-``_fused_dtype_ok``, ``resnet_block_pallas``, ``resnet_block_pallas_q``,
-``norm_relu_blur_down`` and ``outc_head`` match the JAX module's, so a test
-can monkeypatch both packages the same way.
+``_fused_dtype_ok``, ``pallas_fits``, ``seg_tile_h``), minus
+``_pallas_available``: routing does not depend on the device. The kernel
+wrappers dispatch on the tensor's device instead (CPU → plain version,
+CUDA → the kernel or an error), so the CPU tests run the exact routing the
+card runs. The module-level names ``_fused_dtype_ok``,
+``resnet_block_pallas``, ``resnet_block_pallas_q``, ``norm_relu_blur_down``,
+``outc_head``, ``instance_norm_auto`` and ``conv_in_relu_fused`` match the
+JAX module's, so a test can monkeypatch both packages the same way.
+
+``use_pallas`` routes every instance norm the fused kernels leave (inc, the
+down stages where the tails do not fuse, the unfused blocks, up1, up2 where
+the head does not fuse) through ``instance_norm_auto`` (kernel 11 where its
+gate admits the shape, in any dtype). ``pallas_encdec_bwd`` runs down1,
+down2 and up1 as ``conv_in_relu_fused`` in training (``self.training``),
+bf16, where the segment gate holds; it takes precedence over the fused
+tails.
 
 int8 serving (``quant_int8``) follows the JAX generator too: int8 inside
 the fused blocks where they engage; the int8 route of ``QuantConv``
@@ -42,7 +51,9 @@ import torch
 import torch.nn as nn
 
 from ircolor_tpu_torch.kernels.blur import norm_blur_supported, norm_relu_blur_down
+from ircolor_tpu_torch.kernels.encdec import conv_in_relu_fused, seg_tile_h
 from ircolor_tpu_torch.kernels.head import head_supported, outc_head, outc_head_q
+from ircolor_tpu_torch.kernels.instance_norm import instance_norm_auto
 from ircolor_tpu_torch.kernels.resblock import resnet_block_pallas, resnet_block_pallas_q
 from ircolor_tpu_torch.models.common import (
     concat_conv3x3,
@@ -83,6 +94,12 @@ def _xla_smallbatch_band(b: int) -> bool:
     return 2 <= b <= 7
 
 
+def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW weight → HWIO in the compute dtype; autograd carries dk back
+    through the cast and the permute."""
+    return conv.weight.permute(2, 3, 1, 0).to(dtype)
+
+
 class _Blur(nn.Module):
     """Holds the reference's fixed binomial ``filt`` buffer (state_dict
     compatibility); the blur itself is ``ops.blurpool``."""
@@ -107,10 +124,12 @@ class ResnetBlock(nn.Module):
         pallas_block_min_launch: int = _FUSED_MIN_LAUNCH,
         pallas_block_bwd: str = "xla",
         quant_int8: bool = False,
+        use_pallas: bool = False,
     ):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.pallas_block = pallas_block
         self.pallas_block_bwd = pallas_block_bwd
         self.pallas_block_min_area = pallas_block_min_area
@@ -151,23 +170,25 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv1, conv2 = self.conv_block[1], self.conv_block[5]
         if self.fused(x):
-            # OIHW → HWIO in the compute dtype; the block's backward returns
-            # dk in that dtype and autograd carries it back through the cast
-            # and the permute. The biases are inert through IN: no gradient.
-            k1 = conv1.weight.permute(2, 3, 1, 0).to(self.dtype)
-            k2 = conv2.weight.permute(2, 3, 1, 0).to(self.dtype)
+            # The block's backward returns dk in the compute dtype. The
+            # biases are inert through IN: no gradient.
+            k1, k2 = _hwio(conv1, self.dtype), _hwio(conv2, self.dtype)
             if self.quant_int8:
                 return resnet_block_pallas_q(x, k1, k2)
             return resnet_block_pallas(x, k1, k2, bwd=self.pallas_block_bwd)
-        if self.quant_int8:
-            h = quant_conv_nhwc(conv1, x, self.dtype, pad="reflect")
-            h = torch.relu(norm_nhwc(h))
-            h = quant_conv_nhwc(conv2, h, self.dtype, pad="reflect")
-            return x + norm_nhwc(h)
-        h = conv_nhwc(conv1, reflect_pad2d(x, 1), self.dtype)
-        h = torch.relu(norm_nhwc(h))
-        h = conv_nhwc(conv2, reflect_pad2d(h, 1), self.dtype)
-        return x + norm_nhwc(h)
+
+        def conv(layer, y):
+            if self.quant_int8:
+                return quant_conv_nhwc(layer, y, self.dtype, pad="reflect")
+            return conv_nhwc(layer, reflect_pad2d(y, 1), self.dtype)
+
+        if self.use_pallas:
+            # conv → IN → ReLU and conv → IN (+ x) each one kernel 11 launch
+            # where its gate admits the plane.
+            h = instance_norm_auto(conv(conv1, x), relu=True, use_pallas=True)
+            return instance_norm_auto(conv(conv2, h), residual=x, use_pallas=True)
+        h = torch.relu(norm_nhwc(conv(conv1, x)))
+        return x + norm_nhwc(conv(conv2, h))
 
 
 class ResnetUNetGenerator(nn.Module):
@@ -182,10 +203,12 @@ class ResnetUNetGenerator(nn.Module):
         *,
         norm: str = "instance",
         dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
         pallas_block: bool = False,
         pallas_block_min_area: int = _FUSED_MIN_AREA,
         pallas_block_min_launch: int = _FUSED_MIN_LAUNCH,
         pallas_block_bwd: str = "xla",
+        pallas_encdec_bwd: bool = False,
         pallas_norm_blur: bool = False,
         pallas_norm_blur_min_area: int = 0,
         pallas_norm_blur_min_launch: int = 0,
@@ -203,6 +226,8 @@ class ResnetUNetGenerator(nn.Module):
         self.ngf = ngf
         self.n_blocks = n_blocks
         self.dtype = dtype
+        self.use_pallas = use_pallas
+        self.pallas_encdec_bwd = pallas_encdec_bwd
         self.pallas_norm_blur = pallas_norm_blur
         self.pallas_norm_blur_min_area = pallas_norm_blur_min_area
         self.pallas_norm_blur_min_launch = pallas_norm_blur_min_launch
@@ -234,6 +259,7 @@ class ResnetUNetGenerator(nn.Module):
                 pallas_block_min_area=pallas_block_min_area,
                 pallas_block_min_launch=pallas_block_min_launch,
                 pallas_block_bwd=pallas_block_bwd, quant_int8=quant_int8,
+                use_pallas=use_pallas,
             )
             for _ in range(n_blocks)
         ])
@@ -310,16 +336,39 @@ class ResnetUNetGenerator(nn.Module):
         )
         return not (nb_on or head_on)
 
+    def _encdec_seg(self, zs: tuple, cout: int, quant_convs: bool) -> str | None:
+        """The JAX ``encdec_seg``: the wgrad mode of the fused-backward
+        segment for conv(concat(zs)) → IN → ReLU, or None where it does not
+        engage (training only; dgrad needs the output 128-aligned, the fused
+        wgrad every input leg — down1's 64-channel leg takes ``"xla"``)."""
+        if not (self.training and self.pallas_encdec_bwd and _fused_dtype_ok(self.dtype)
+                and not quant_convs):
+            return None
+        h, w = zs[0].shape[1], zs[0].shape[2]
+        if cout % 128 or w % 8:
+            return None
+        if seg_tile_h(h, w, max(cout, max(z.shape[-1] for z in zs))) is None:
+            return None
+        return "fused" if all(z.shape[-1] % 128 == 0 for z in zs) else "xla"
+
     # --- forward -------------------------------------------------------------
 
+    def _norm_relu(self, y: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas:
+            return instance_norm_auto(y, relu=True, use_pallas=True)
+        return torch.relu(norm_nhwc(y))
+
     def _down(self, seq: nn.Sequential, x: torch.Tensor, quant: bool) -> torch.Tensor:
+        seg = self._encdec_seg((x,), seq[0].out_channels, quant)
+        if seg is not None:
+            return blur_downsample(conv_in_relu_fused(seg, (x,), _hwio(seq[0], self.dtype)))
         if quant:
             y = quant_conv_nhwc(seq[0], x, self.dtype)
         else:
             y = conv_nhwc(seq[0], x, self.dtype)
         if self._norm_blur_ok(y):
             return norm_relu_blur_down(y)
-        return blur_downsample(torch.relu(norm_nhwc(y)))
+        return blur_downsample(self._norm_relu(y))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """IR (B, H, W, input_nc) in [-1, 1] → RGB (B, H, W, output_nc) in
@@ -329,7 +378,7 @@ class ResnetUNetGenerator(nn.Module):
         dec_quant = "dynamic" if quant_convs else None
 
         x0 = conv_nhwc(self.inc[1], reflect_pad2d(x.to(dt), 3), dt)
-        x0 = torch.relu(norm_nhwc(x0))                          # (B, H, W, 64)
+        x0 = self._norm_relu(x0)                                # (B, H, W, 64)
         x1 = self._down(self.down1, x0, quant_convs)            # (B, H/2, W/2, 128)
         x2 = self._down(self.down2, x1, quant_convs)            # (B, H/4, W/4, 256)
         h = self.resblocks(x2)
@@ -337,7 +386,11 @@ class ResnetUNetGenerator(nn.Module):
         y = blur_upsample_aa(h)
         if y.shape[1:3] != x1.shape[1:3]:
             y = bilinear_align_corners(y, tuple(x1.shape[1:3]))
-        y = torch.relu(norm_nhwc(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant)))
+        seg = self._encdec_seg((y, x1), self.up1_conv[0].out_channels, quant_convs)
+        if seg is not None:
+            y = conv_in_relu_fused(seg, (y, x1), _hwio(self.up1_conv[0], dt))
+        else:
+            y = self._norm_relu(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant))
 
         y = blur_upsample_aa(y)
         if y.shape[1:3] != x0.shape[1:3]:
@@ -350,8 +403,7 @@ class ResnetUNetGenerator(nn.Module):
 
         outc = self.outc[1]
         if self._head_ok(y):
-            k7 = outc.weight.permute(2, 3, 1, 0).to(dt)         # OIHW → HWIO
             head = outc_head_q if self.quant_int8 and self.quant_head else outc_head
-            return torch.tanh(head(y, k7) + outc.bias.to(dt))
-        y = torch.relu(norm_nhwc(y))
+            return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
+        y = self._norm_relu(y)
         return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))

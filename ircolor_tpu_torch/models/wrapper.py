@@ -27,7 +27,6 @@ def reject_unported(cfg: Config) -> None:
     unported = {
         "no_antialias": cfg.no_antialias,
         "no_antialias_up": cfg.no_antialias_up,
-        "use_pallas": cfg.use_pallas,
         "remat": cfg.remat,
         "sp_devices > 1": cfg.sp_devices > 1,
         "dp_devices > 1": cfg.dp_devices > 1,
@@ -54,8 +53,10 @@ def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
         n_blocks=cfg.n_blocks,
         norm=cfg.norm,
         dtype=_DTYPES[cfg.compute_dtype],
+        use_pallas=cfg.use_pallas,
         pallas_block=cfg.pallas_block,
         pallas_block_bwd=cfg.pallas_block_bwd,
+        pallas_encdec_bwd=cfg.pallas_encdec_bwd,
         pallas_norm_blur=cfg.pallas_norm_blur,
         pallas_norm_blur_min_area=cfg.pallas_norm_blur_min_area,
         pallas_norm_blur_min_launch=cfg.pallas_norm_blur_min_launch,

@@ -10,7 +10,8 @@ a machine without JAX:
 import pytest
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, blur, head, resblock
+from ircolor_tpu_torch.kernels import LAUNCHES, blur, encdec, head, resblock
+from ircolor_tpu_torch.kernels import instance_norm as tin
 from ircolor_tpu_torch.ops.norm import instance_norm_stats
 
 
@@ -139,8 +140,8 @@ def test_backward_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # non-contiguous input
         pt = p.transpose(1, 2).contiguous().transpose(1, 2)
         resblock.conv3x3_dgrad_fused(pt, comp, aux, k, m, inv, gm, gy)
-    with pytest.raises(ValueError):  # output channels not a multiple of 128
-        resblock.conv3x3_dgrad_fused(p, comp, aux[..., :64].contiguous(), k[:, :, :64].contiguous(),
+    with pytest.raises(ValueError):  # output channels not a multiple of 64
+        resblock.conv3x3_dgrad_fused(p, comp, aux[..., :32].contiguous(), k[:, :, :32].contiguous(),
                                      m, inv, gm, gy)
     with pytest.raises(TypeError):
         resblock.conv3x3_wgrad_fused(z.float(), p, comp, m, inv, gm, gy)
@@ -252,3 +253,155 @@ def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
                                  _bf16(g, 7, 7, 56, 3), quant=True)
     with pytest.raises(TypeError):
         head.conv7x7_head_pallas(x.float(), m, i, _bf16(g, 7, 7, 64, 3), quant=True)
+
+
+# --- kernel 11 (fused instance norm) and the enc/dec segment modes -----------
+
+
+def _in_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """bf16: within one bf16 ulp of the plain value (at least 1e-6, where
+    x ≈ mean leaves f32 rounding noise around 0); f32: 1e-5 relative to
+    max(|value|, 1). Both take the same steps; the sums run in another
+    order."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0**-126))) - 7).clamp(min=1e-6)
+        return bool((d <= ulp).all())
+    return bool((d <= 1e-5 * w.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (16, 64, 64, 256),  # the 256² bottleneck: the plane staged in shared memory
+    (2, 13, 7, 40),     # a plane that fills no sweep of the block; C ≠ 16k (last slice short)
+    (1, 128, 128, 24),  # a plane over shared memory: read again from device memory
+    (2, 9, 11, 12),     # C not a multiple of 8: one element a unit
+])
+def test_instance_norm_matches_plain_on_card(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3 + 1).to(dtype)
+    r = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    assert tin.pallas_fits(shape, dtype)
+    before = dict(LAUNCHES)
+    for relu in (False, True):
+        got = tin.run_in(x, relu)
+        assert _in_close(got, tin.fused_instance_norm_plain(x, relu)), relu
+        assert torch.equal(got, tin.run_in(x, relu))  # fixed-order sums: bit-exact repeat
+    launched = {"fused_instance_norm": 4}
+    if tin.pallas_fits(shape, dtype, True):  # all but the f32 bottleneck
+        got = tin.run_in_res(x, r)
+        assert _in_close(got, tin.fused_instance_norm_residual_plain(x, r))
+        launched["fused_instance_norm_residual"] = 1
+    for name in ("fused_instance_norm", "fused_instance_norm_residual"):
+        assert LAUNCHES[name] - before[name] == launched.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_instance_norm_backward_through_kernel_on_card(cuda):
+    """The Functions' backward (plain torch from the saved input) behind the
+    kernel forward equals the same backward behind the plain forward."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, r, cot = (_bf16(g, 2, 16, 24, 128) for _ in range(3))
+    outs = {}
+    for route in ("kernel", "plain"):
+        saved = tin.run_in, tin.run_in_res
+        if route == "plain":
+            tin.run_in, tin.run_in_res = tin.fused_instance_norm_plain, tin.fused_instance_norm_residual_plain
+        try:
+            leaves = [t.clone().requires_grad_() for t in (x, r)]
+            y = tin.fused_instance_norm(leaves[0], True) + tin.fused_instance_norm_residual(*leaves)
+            outs[route] = torch.autograd.grad(y, leaves, cot)
+        finally:
+            tin.run_in, tin.run_in_res = saved
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+def _seg_inputs(g, b, h, w, c, cin):
+    p, comp = _bf16(g, b, h, w, c), _bf16(g, b, h, w, c)
+    z = _bf16(g, b, h, w, cin)
+    k = _bf16(g, 3, 3, cin, c, scale=0.05)
+    m, inv = instance_norm_stats(comp)
+    f32 = lambda *s: torch.randn(*s, device="cuda", generator=g) * 0.01  # noqa: E731
+    return p, comp, z, k, m, inv, f32(b, c), f32(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,c", [(64, 128), (128, 256), (384, 128)])  # down1, down2, up1
+@pytest.mark.parametrize("hw", [(16, 32), (13, 21)])  # full and partial 8×16 tiles
+def test_segment_kernels_match_plain_on_card(cuda, cin, c, hw):
+    """The segment dgrad (zero halos, p masked on load, no aux, dy emitted)
+    at the three dz widths, and the zero-pad wgrad with and without the
+    mask, each against its plain version at the block rows' bounds."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p, comp, z, k, m, inv, gm, gy = _seg_inputs(g, 2, *hw, c, cin)
+    before = dict(LAUNCHES)
+    kw = dict(pad="zero", mask_p=True)
+    got = resblock.conv3x3_dgrad_fused(p, comp, None, k, m, inv, gm, gy, **kw)
+    want = resblock.conv3x3_dgrad_fused_plain(p, comp, None, k, m, inv, gm, gy, **kw)
+    scale = float(want[0].float().abs().max())
+    assert float((got[0].float() - want[0].float()).abs().max()) <= 2 * 2.0**-8 * scale
+    assert torch.equal(got[1], want[1])  # dy: the same roundings in the same order
+    for mask_p in (False, True):
+        got = resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, pad="zero", mask_p=mask_p)
+        want = resblock.conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, pad="zero",
+                                                  mask_p=mask_p)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-3, mask_p
+    ran = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+    assert ran["conv3x3_dgrad_fused_seg"] == 1 and ran["conv3x3_wgrad_fused_seg"] == 2
+    assert ran["conv3x3_dgrad_fused"] == ran["conv3x3_wgrad_fused"] == 0
+
+
+@pytest.mark.cuda
+def test_segment_backward_through_kernels_on_card(cuda):
+    """``conv_in_relu_fused`` in both wgrad modes: the kernel backward
+    against the same backward with the dgrad/wgrad on their plain versions,
+    relative L2 ≤ 1e-2 (bf16 operands, f32 sums in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    legs = (_bf16(g, 2, 16, 32, 256), _bf16(g, 2, 16, 32, 128))
+    k = _bf16(g, 3, 3, 384, 128, scale=0.05)
+    cot = _bf16(g, 2, 16, 32, 128)
+    for mode, zs, kk in (("fused", legs, k), ("xla", legs[1:], k[:, :, 256:].contiguous())):
+        grads = {}
+        for route in ("kernel", "plain"):
+            saved = encdec.conv3x3_dgrad_fused, encdec.conv3x3_wgrad_fused
+            if route == "plain":
+                encdec.conv3x3_dgrad_fused = resblock.conv3x3_dgrad_fused_plain
+                encdec.conv3x3_wgrad_fused = resblock.conv3x3_wgrad_fused_plain
+            try:
+                leaves = [t.clone().requires_grad_() for t in (*zs, kk)]
+                out = encdec.conv_in_relu_fused(mode, tuple(leaves[:-1]), leaves[-1])
+                grads[route] = torch.autograd.grad(out, leaves, cot)
+            finally:
+                encdec.conv3x3_dgrad_fused, encdec.conv3x3_wgrad_fused = saved
+        for a, b in zip(grads["kernel"], grads["plain"]):
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2, mode
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_on_unsupported_cuda_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = _bf16(g, 2, 16, 16, 128)
+    with pytest.raises(TypeError):  # float16: the kernel takes bf16 or f32
+        tin.run_in(x.half())
+    with pytest.raises(TypeError):  # residual of another dtype
+        tin.run_in_res(x, x.float())
+    with pytest.raises(ValueError):  # residual of another shape
+        tin.run_in_res(x, x[:1].contiguous())
+    with pytest.raises(ValueError):  # non-contiguous input
+        tin.run_in(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="gate"):  # a plane the gate refuses
+        tin.run_in(_bf16(g, 1, 256, 320, 256))
+    p, comp, z, k, m, inv, gm, gy = _seg_inputs(g, 1, 8, 16, 128, 64)
+    with pytest.raises(ValueError, match="pad"):
+        resblock.conv3x3_dgrad_fused(p, comp, None, k, m, inv, gm, gy, pad="same")
+    with pytest.raises(ValueError):  # dz width not a multiple of 64
+        resblock.conv3x3_dgrad_fused(p, comp, None, k[:, :, :32].contiguous(), m, inv, gm, gy,
+                                     pad="zero", mask_p=True)
+    with pytest.raises(TypeError):
+        resblock.conv3x3_dgrad_fused(p.float(), comp, None, k, m, inv, gm, gy, pad="zero")
+    with pytest.raises(ValueError, match="znorm"):
+        resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=(m[:, :64], inv[:, :64]),
+                                     pad="zero")

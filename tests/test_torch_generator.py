@@ -25,7 +25,8 @@ _BUFFERS = ("down1_down.filt", "down2_down.filt", "up1_up.filt", "up2_up.filt")
 
 
 def _jax_params(module, hw):
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, *hw, 1)))["params"]
+    # One jitted init: eager init compiles every initializer on its own.
+    params = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, *hw, 1)))["params"]
     return jax.tree.map(np.asarray, params)
 
 
@@ -85,7 +86,7 @@ def _kernel_route_pair(monkeypatch, quant):
     jm = jgen.ResnetUNetGenerator(**flags)
     params = _jax_params(jm, hw)
     x = np.random.RandomState(7).uniform(-1, 1, (2, *hw, 1)).astype(np.float32)
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
     with torch.inference_mode():
         got = _port(params, **flags)(torch.from_numpy(x)).numpy()
     return got, want, calls

@@ -109,11 +109,20 @@ def test_block_without_grad_and_unported_modes():
     assert not plain.requires_grad
     with pytest.raises(ValueError, match="bwd"):
         tr.resnet_block_pallas(x, k, k, bwd="nope")
+    # The enc/dec segment modes run (tests/test_torch_encdec.py holds them
+    # against JAX); an unknown pad, and mask_stats without aux, raise.
     (_, targs) = _both(d, *_DGRAD_ARGS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.conv3x3_dgrad_fused(*targs, pad="zero")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.conv3x3_dgrad_fused(targs[0], targs[1], None, *targs[3:])
+    dz, dy = tr.conv3x3_dgrad_fused(targs[0], targs[1], None, *targs[3:], pad="zero",
+                                    mask_p=True)
+    assert dz.shape == dy.shape == targs[0].shape
+    assert not torch.equal(tr.conv3x3_dgrad_fused(*targs, pad="zero")[0],
+                           tr.conv3x3_dgrad_fused(*targs)[0])  # no reflect fold
+    with pytest.raises(ValueError, match="pad"):
+        tr.conv3x3_dgrad_fused(*targs, pad="replicate")
+    with pytest.raises(ValueError, match="aux"):
+        tr.conv3x3_dgrad_fused(targs[0], targs[1], None, *targs[3:], mask_stats=(targs[4],) * 2)
     (_, wargs) = _both(d, "z", "p", "comp", "m", "inv", "gm", "gy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.conv3x3_wgrad_fused(*wargs, mask_p=True)
+    dk = tr.conv3x3_wgrad_fused(*wargs, pad="zero", mask_p=True)
+    assert dk.shape == (3, 3, 8, 8) and bool(torch.isfinite(dk).all())
+    with pytest.raises(ValueError, match="pad"):
+        tr.conv3x3_wgrad_fused(*wargs, pad="circular")

@@ -90,6 +90,20 @@ def _jax_grads(jcfg, g_mod, d_mod, vgg_params, g_params, d_params, d_params_new,
     return _np(both(g_params, d_params))
 
 
+def _jcreate(jcfg):
+    """The JAX package's ``create_train_state`` traced once under ``jit``
+    (eager init compiles every initializer on its own); the modules and
+    optimizers it builds come out of the trace."""
+    built = {}
+
+    def state_only():
+        state, *built["rest"] = jcreate(jcfg, steps_per_epoch=10)
+        return state
+
+    state = jax.jit(state_only)()
+    return (state, *built["rest"])
+
+
 def _run_both(kw, g_min_gates=False):
     """One JAX step and one port step from the same weights and batch.
     Returns, for JAX and then the port: (metrics, (G, D) state_dicts before
@@ -97,10 +111,10 @@ def _run_both(kw, g_min_gates=False):
     batch = _batch()
     jcfg = JConfig(**kw, dp_devices=1, batch_transport="float")
     assert jcfg.d_concat
-    jstate, g_mod, d_mod, (opt_g, opt_d) = jcreate(jcfg, steps_per_epoch=10)
+    jstate, g_mod, d_mod, (opt_g, opt_d) = _jcreate(jcfg)
     if g_min_gates:
         g_mod = g_mod.clone(pallas_block_min_area=0, pallas_block_min_launch=0)
-    vgg_params = init_vgg16_params()
+    vgg_params = jax.jit(init_vgg16_params)()
     jstep = jmake(jcfg, g_mod, d_mod, JVGG(), opt_g, opt_d, donate=False)
     jnew, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, vgg_params)
     jgrads = _jax_grads(jcfg, g_mod, d_mod, vgg_params, jstate.g_params, jstate.d_params,
