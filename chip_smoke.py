@@ -27,6 +27,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    both in the enc/dec segment modes at the b8 flagship segments (down1
    512×640 128 → dz 64 with dy stored, down2 256×320 256 → 128, up1
    256×320 128 → 384 and its two wgrad legs), beside the zero-pad conv's.
+2c. TPU kernels 7-10, which the JAX package leaves on no generator route
+   and its tools call at the flagship stage shapes, with the flagship
+   generator's weights (down2_conv, up1_conv, resblocks.0) at b32: the
+   multi-input SAME conv with free IN stats (down2, 1 leg, zero halos;
+   up1, 2 legs 256 + 128, no concat; a reflect leg at the bottleneck), the
+   VALID conv with stats and with normalize on load, the VALID conv (v1,
+   v2 preshift, v2 dxcat) at 32×130×162×256 → 256, and the blur-pool at
+   32×512×640×128 and 32×256×320×256: each against its plain version, timed
+   beside it and one cuDNN call. Then three compositions against the
+   product route on the same inputs: (a) the d2 stage (kernel 7's free
+   stats into kernel 3), (b) the u1 stage, (c) a ResnetBlock from kernel 9
+   against kernel 2's. Then the slice's path once, with the counts set to 0
+   before and read after (2 + 1 + 1 + 3 + 2 launches and the d2 tail).
+   The product routes of phases 3-5c launch none of these kernels.
 3. Drive ``make_infer_fn`` + ``IRColorizationModel`` from
    ``configs/flagship_512x640.json`` (bf16, 512×640, ngf 64, 9 blocks,
    random weights from a seed) on synthetic uint16 IR / uint8 GT:
@@ -696,6 +710,292 @@ def check_segment_kernels(torch, results: list) -> None:
     LAUNCHES.update(before)
 
 
+def nhwc_pad(torch, x, mode: str = "reflect"):
+    """One pixel of ``mode`` padding of an NHWC tensor, contiguous."""
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode)
+    return xp.permute(0, 2, 3, 1).contiguous()
+
+
+def ulps_at_scale(got, want) -> float:
+    """Largest |got − want| in bf16 ulps at the plain output's largest
+    magnitude."""
+    return float((got.float() - want.float()).abs().max()) / (
+        2.0**-8 * float(want.float().abs().max()))
+
+
+def stats_rel(got, want) -> float:
+    """IN (mean, inv) disagreement: |Δmean| over the largest |mean|, and
+    |Δinv| / inv, the larger of the two."""
+    merr = (got[1] - want[1]).abs().max() / want[1].abs().max().clamp(min=1e-6)
+    return max(float(merr), float(((got[2] - want[2]) / want[2]).abs().max()))
+
+
+def slice5_setup(torch):
+    """The flagship generator of phase 3 (configs/flagship_512x640.json,
+    seed 0) for its weights, HWIO bf16 through ``_hwio``: down2_conv (128 →
+    256), up1_conv (256 + 128 → 128) and resblocks.0's two convs; and b32
+    bf16 inputs at the flagship stage shapes from a seeded generator: the
+    d2 input (32×256×320×128), the up1 legs (the upsampled bottleneck
+    32×256×320×256 and the skip 32×256×320×128), the bottleneck
+    (32×128×160×256, and reflect-padded) and the down1 tail's plane
+    (32×512×640×128)."""
+    from ircolor_tpu_torch.models.generator import _hwio
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    bf16 = torch.bfloat16
+    g = IRColorizationModel(serving_config(), "cuda").module
+    blk = g.resblocks[0].conv_block
+    up1 = _hwio(g.up1_conv[0], bf16)
+    w = dict(down2=_hwio(g.down2[0], bf16), up1=(up1[:, :, :4 * NGF], up1[:, :, 4 * NGF:]),
+             k1=_hwio(blk[1], bf16), k2=_hwio(blk[5], bf16))
+    w = {k: tuple(t.detach() for t in v) if isinstance(v, tuple) else v.detach()
+         for k, v in w.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf16)
+
+    xs = dict(d2=randn(B, H // 2, W // 2, 2 * NGF), up=randn(B, H // 2, W // 2, 4 * NGF),
+              skip=randn(B, H // 2, W // 2, 2 * NGF), neck=randn(B, H // 4, W // 4, 4 * NGF),
+              d1=randn(B, H, W, 2 * NGF))
+    xs["neck_p"] = nhwc_pad(torch, xs["neck"])
+    return g, w, xs
+
+
+def slice5_path(torch, w, xs) -> dict:
+    """The slice's main path, once: the compositions the JAX tools build
+    from TPU kernels 7–10 (``tools/fwdvariants.py`` ``pallas_all``: the d2
+    stage (a) and the concat-free u1 stage (b); ``pallas_block.py``'s
+    ResnetBlock (c)), row 10 in its three JAX forms at the bottleneck
+    (``tools/pallasbench.py``, ``pallassmoke.py``) and row 8 at both
+    down-stage planes (``tools/blurprobe.py``). Returns the outputs."""
+    from ircolor_tpu_torch.kernels import blur, block, conv, resblock
+
+    out = {}
+    raw, m, i = resblock.conv3x3_sum_fused([xs["d2"]], [w["down2"]], pad="zero")
+    out["a"] = blur.norm_relu_blur_down_pallas(raw, m, i)
+    raw, m, i = resblock.conv3x3_sum_fused([xs["up"], xs["skip"]], list(w["up1"]), pad="zero")
+    out["b"] = torch.relu((raw.float() - m[:, None, None, :]) * i[:, None, None, :]).to(raw.dtype)
+    raw1, m1, i1 = block.conv3x3_stats(xs["neck_p"], w["k1"])
+    raw2, m2, i2 = block.conv3x3_norm_in_stats(nhwc_pad(torch, raw1), w["k2"], m1, i1)
+    out["c"] = resblock._block_epilogue(xs["neck"], raw2, m2, i2)
+    out["v1"] = conv.conv3x3_valid_pallas(xs["neck_p"], w["k1"])
+    for mode in ("preshift", "dxcat"):
+        out[f"v2 {mode}"] = conv.conv3x3_valid_pallas_v2(xs["neck_p"], w["k1"], mode=mode)
+    out["blur d1"] = blur.blur_downsample_pallas(xs["d1"])
+    out["blur d2"] = blur.blur_downsample_pallas(xs["up"])
+    return out
+
+
+def check_slice5_kernels(torch, results: list, w, xs) -> None:
+    """Phase 2c: TPU kernels 7–10 against their plain versions at the b32
+    flagship stage shapes, timed beside the plain version and one cuDNN
+    call. Tolerances: conv outputs within 2 bf16 ulps at the output's
+    largest magnitude (the same f32 sums in another order, one rounding),
+    IN (mean, inv) within 1e-3 relative, each conv kernel bit-exact on
+    repeat (fixed-order sums); the blur within 1 bf16 ulp of its plain
+    version and of ``ops.blurpool.blur_downsample``."""
+    import torch.nn.functional as F
+
+    from ircolor_tpu_torch.kernels import LAUNCHES, blur, block, conv, resblock
+    from ircolor_tpu_torch.ops.blurpool import blur_downsample
+
+    before = dict(LAUNCHES)
+
+    def conv_case(name, label, kern, plain, lib, ops, nbytes, stats=True):
+        got, want, again = kern(), plain(), kern()
+        g0, w0 = (got[0], want[0]) if stats else (got, want)
+        ulps = ulps_at_scale(g0, w0)
+        srel = stats_rel(got, want) if stats else 0.0
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again)) if stats else bool(
+            torch.equal(got, again))
+        log(f"[{name} {label}] max|d| = {ulps:.3g} bf16 ulps at scale (tol 2); stats rel "
+            f"{srel:.3g} (tol 1e-3); repeat bit-exact {repeat}")
+        if not (ulps <= 2 and srel <= 1e-3 and repeat):
+            raise AssertionError(f"{name} {label} disagrees with its plain version")
+        err = float((g0.float() - w0.float()).abs().max())
+        del got, want, again
+        ms = cuda_time_ms(kern, 10)
+        pms = cuda_time_ms(plain, 2, 1)
+        lms = cuda_time_ms(lib, 10)
+        b_ms, b_by = bound(ops, nbytes)
+        log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN {lms:.3f} ms  bound "
+            f"{b_ms:.3f} ms ({b_by})")
+        return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=(b_ms, b_by))
+
+    def row(name, source, replaces, cases):
+        by = cases[0]["bound"][1]
+        results.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max(c["err"] for c in cases),
+            ms=sum(c["ms"] for c in cases), plain_ms=sum(c["plain_ms"] for c in cases),
+            bound_ms=sum(c["bound"][0] for c in cases), bound_by=by,
+            library_ms=sum(c["library_ms"] for c in cases)))
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def oihw(k):
+        return k.permute(3, 2, 0, 1).contiguous()
+
+    def conv_bytes(npix_in, cin, npix_out, cout, stats=True):
+        return 2 * (npix_in * cin + npix_out * cout + 9 * cin * cout) + (B * cout * 8 if stats else 0)
+
+    src = "ircolor_tpu_torch/csrc/resblock.cu"
+    # Row 7: down2 (1 leg, zero), up1 (2 legs, zero, no concat), a reflect
+    # leg at the bottleneck. The row sums the three.
+    hs, ws = H // 2, W // 2
+    d2, (ua, ub), k1, k2 = w["down2"], w["up1"], w["k1"], w["k2"]
+    cat = torch.cat([xs["up"], xs["skip"]], dim=-1)  # the library call's input, made here
+    ucat = oihw(torch.cat([ua, ub], dim=2))
+    npx, npb = B * hs * ws, B * (H // 4) * (W // 4)
+    cases = [
+        conv_case("conv3x3_sum_fused", f"down2 {B}x{hs}x{ws}x128->256, 1 leg, zero",
+                  lambda: resblock.conv3x3_sum_fused([xs["d2"]], [d2]),
+                  lambda: resblock.conv3x3_sum_fused_plain([xs["d2"]], [d2]),
+                  lambda: F.conv2d(nchw(xs["d2"]), oihw(d2), padding=1),
+                  2 * npx * 9 * 128 * 256, conv_bytes(npx, 128, npx, 256)),
+        conv_case("conv3x3_sum_fused", f"up1 {B}x{hs}x{ws}x(256+128)->128, 2 legs, zero",
+                  lambda: resblock.conv3x3_sum_fused([xs["up"], xs["skip"]], [ua, ub]),
+                  lambda: resblock.conv3x3_sum_fused_plain([xs["up"], xs["skip"]], [ua, ub]),
+                  lambda: F.conv2d(nchw(cat), ucat, padding=1),
+                  2 * npx * 9 * 384 * 128, conv_bytes(npx, 384, npx, 128)),
+        conv_case("conv3x3_sum_fused", f"{B}x{H // 4}x{W // 4}x256->256, 1 leg, reflect",
+                  lambda: resblock.conv3x3_sum_fused([xs["neck"]], [k1], pad="reflect"),
+                  lambda: resblock.conv3x3_sum_fused_plain([xs["neck"]], [k1], pad="reflect"),
+                  lambda: F.conv2d(F.pad(nchw(xs["neck"]), (1, 1, 1, 1), mode="reflect"), oihw(k1)),
+                  2 * npb * 9 * 256 * 256, conv_bytes(npb, 256, npb, 256)),
+    ]
+    del cat, ucat
+    row("conv3x3_sum_fused", src, "ircolor_tpu/ops/pallas_resblock.py:1190", cases)
+
+    # Row 9 (stats; norm_in_stats on the reflect-padded raw1 with its
+    # stats) and row 10 (v1, v2 preshift, v2 dxcat: one kernel) at the
+    # bottleneck, 32×130×162×256 → 32×128×160×256. Rows 9 and 10 are each
+    # the mean of their forms, as rows 1 and 2 are.
+    xp = xs["neck_p"]
+    npad = B * (H // 4 + 2) * (W // 4 + 2)
+    raw1, m1, i1 = block.conv3x3_stats_plain(xp, k1)
+    rp = nhwc_pad(torch, raw1)
+    del raw1
+    nb = conv_bytes(npad, 256, npb, 256)
+    valid_ops = 2 * npb * 9 * 256 * 256
+    stats_cases = [
+        conv_case("conv3x3_stats", f"{B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
+                  lambda: block.conv3x3_stats(xp, k1), lambda: block.conv3x3_stats_plain(xp, k1),
+                  lambda: F.conv2d(nchw(xp), oihw(k1)), valid_ops, nb),
+        conv_case("conv3x3_norm_in_stats", f"{B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
+                  lambda: block.conv3x3_norm_in_stats(rp, k2, m1, i1),
+                  lambda: block.conv3x3_stats_plain(rp, k2, m1, i1),
+                  lambda: F.conv2d(nchw(rp), oihw(k2)), valid_ops, nb + B * 256 * 8),
+    ]
+    for case, name in zip(stats_cases, ("conv3x3_stats", "conv3x3_norm_in_stats")):
+        results.append(dict(name=name, route="cuda", source=src,
+                            replaces="ircolor_tpu/ops/pallas_block.py:105",
+                            max_abs_err=case["err"], ms=case["ms"], plain_ms=case["plain_ms"],
+                            bound_ms=case["bound"][0], bound_by=case["bound"][1],
+                            library_ms=case["library_ms"]))
+    del rp
+    forms = (("v1", lambda: conv.conv3x3_valid_pallas(xp, k1)),
+             ("v2 preshift", lambda: conv.conv3x3_valid_pallas_v2(xp, k1, mode="preshift")),
+             ("v2 dxcat", lambda: conv.conv3x3_valid_pallas_v2(xp, k1, mode="dxcat")))
+    vcases = [conv_case("conv3x3_valid", f"{label} {B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
+                        kern, lambda: conv.conv3x3_valid_plain(xp, k1),
+                        lambda: F.conv2d(nchw(xp), oihw(k1)), valid_ops,
+                        conv_bytes(npad, 256, npb, 256, stats=False), stats=False)
+              for label, kern in forms]
+    n = len(vcases)
+    results.append(dict(name="conv3x3_valid", route="cuda", source=src,
+                        replaces="ircolor_tpu/ops/pallas_conv.py:256",
+                        max_abs_err=max(c["err"] for c in vcases),
+                        ms=sum(c["ms"] for c in vcases) / n,
+                        plain_ms=sum(c["plain_ms"] for c in vcases) / n,
+                        bound_ms=vcases[0]["bound"][0], bound_by=vcases[0]["bound"][1],
+                        library_ms=sum(c["library_ms"] for c in vcases) / n))
+
+    # Row 8 at both down-stage planes; the row sums the two.
+    bcases = []
+    for label, x in (("d1", xs["d1"]), ("d2", xs["up"])):
+        b_, hh, ww, cc = x.shape
+        got, want = blur.blur_downsample_pallas(x), blur.blur_downsample_plain(x)
+        ulps = ulps_at_scale(got, want)
+        ulps_conv = ulps_at_scale(got, blur_downsample(x))
+        log(f"[blur_downsample {label} {b_}x{hh}x{ww}x{cc}] max|d| = {ulps:.3g} bf16 ulps at "
+            f"scale vs plain, {ulps_conv:.3g} vs ops.blurpool.blur_downsample (tol 1 each)")
+        if not (ulps <= 1 and ulps_conv <= 1):
+            raise AssertionError(f"blur_downsample {label} disagrees with its plain version")
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        xpad = nhwc_pad(torch, x)
+        filt = torch.tensor([1.0, 2.0, 1.0], device="cuda")
+        wdw = (filt[:, None] * filt[None, :] / 16.0).to(torch.bfloat16).expand(cc, 1, 3, 3).contiguous()
+        ms = cuda_time_ms(lambda: blur.blur_downsample_pallas(x), 20)
+        pms = cuda_time_ms(lambda: blur.blur_downsample_plain(x), 3, 1)
+        lms = cuda_time_ms(lambda: F.conv2d(nchw(xpad), wdw, stride=2, groups=cc), 10)
+        del xpad
+        n_in, n_out = b_ * hh * ww * cc, b_ * (hh // 2) * (ww // 2) * cc
+        b_ms, b_by = bound(13 * n_out, 2 * (n_in + n_out), PEAK_F32)
+        log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN depthwise stride-2 conv of the "
+            f"padded input {lms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+        bcases.append(dict(err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=(b_ms, b_by)))
+    row("blur_downsample", "ircolor_tpu_torch/csrc/blur.cu",
+        "ircolor_tpu/ops/pallas_blur.py:143", bcases)
+    LAUNCHES.update(before)
+    torch.cuda.empty_cache()
+
+
+def slice5_compositions(torch, g, w, xs) -> None:
+    """Phase 2c, the compositions against the port's product route on the
+    same inputs, both timed (CUDA events): (a) the d2 stage, kernel 7's free
+    stats into kernel 3, against cuDNN conv + the IN stats by reduction +
+    kernel 3 (the serving route; the flagship biases are zero at init);
+    (b) the u1 stage, kernel 7 over both legs then normalize + ReLU, against
+    ``concat_conv3x3`` + ``_norm_relu``; (c) one ResnetBlock from kernel 9
+    (stats, then norm-in stats on the padded raw, then the epilogue)
+    against kernel 2's ``resnet_block_pallas``. Bound: 4 bf16 ulps at the
+    output's scale (the two routes take their IN stats from differently
+    rounded tensors)."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, blur, block, resblock
+    from ircolor_tpu_torch.models.common import concat_conv3x3, conv_nhwc
+
+    before = dict(LAUNCHES)
+    dt = torch.bfloat16
+
+    def route_a():
+        raw, m, i = resblock.conv3x3_sum_fused([xs["d2"]], [w["down2"]])
+        return blur.norm_relu_blur_down_pallas(raw, m, i)
+
+    def route_b():
+        raw, m, i = resblock.conv3x3_sum_fused([xs["up"], xs["skip"]], list(w["up1"]))
+        return torch.relu((raw.float() - m[:, None, None, :]) * i[:, None, None, :]).to(dt)
+
+    def route_c():
+        raw1, m1, i1 = block.conv3x3_stats(nhwc_pad(torch, xs["neck"]), w["k1"])
+        raw2, m2, i2 = block.conv3x3_norm_in_stats(nhwc_pad(torch, raw1), w["k2"], m1, i1)
+        return resblock._block_epilogue(xs["neck"], raw2, m2, i2)
+
+    pairs = (
+        ("(a) d2 stage", route_a,
+         lambda: blur.norm_relu_blur_down(conv_nhwc(g.down2[0], xs["d2"], dt))),
+        ("(b) u1 stage", route_b,
+         lambda: g._norm_relu(concat_conv3x3(g.up1_conv[0], xs["up"], xs["skip"], dt))),
+        ("(c) ResnetBlock", route_c,
+         lambda: resblock.resnet_block_pallas(xs["neck"], w["k1"], w["k2"])),
+    )
+    for label, kern, product in pairs:
+        got, want = kern(), product()
+        ulps = ulps_at_scale(got, want)
+        del got, want
+        times = [cuda_time_ms(f, 5) for f in (product, kern, kern, product)]
+        log(f"[composition {label}] kernels 7-10 route {times[1]:.3f} / {times[2]:.3f} ms, "
+            f"product route {times[0]:.3f} / {times[3]:.3f} ms (turns: product, kernels, "
+            f"kernels, product); max|d| {ulps:.3g} bf16 ulps at scale (tol 4)")
+        if ulps > 4:
+            raise AssertionError(f"composition {label}: the routes disagree")
+    LAUNCHES.update(before)
+    torch.cuda.empty_cache()
+
+
 def synthetic_batches(np, n: int, b: int, hw: tuple = (H, W)):
     """IR-like frames (smooth gradients + a warm blob, a little sensor
     noise) with the RGB a fixed colormap of the IR, as uint16 / uint8 — the
@@ -1221,7 +1521,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     # Deterministic cuBLAS for phase 6 (read when the first handle is made).
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    from ircolor_tpu_torch.kernels import build
+    from ircolor_tpu_torch.kernels import LAUNCHES, build, reset_launches
 
     # The plain versions are the f32 reference: no TF32 anywhere.
     torch.backends.cudnn.allow_tf32 = False
@@ -1246,6 +1546,27 @@ def main() -> int:
     check_bwd_kernels(torch, results)
     check_segment_kernels(torch, results)
     counts: dict = {}
+
+    # Phase 2c: TPU kernels 7-10 (the JAX tools' functions at the flagship
+    # stage shapes). The slice's path runs once with the counts set to 0.
+    with torch.inference_mode():
+        g5, w5, xs5 = slice5_setup(torch)
+        check_slice5_kernels(torch, results, w5, xs5)
+        slice5_compositions(torch, g5, w5, xs5)
+        reset_launches()
+        outs = slice5_path(torch, w5, xs5)
+        torch.cuda.synchronize()
+        counts["slice 5"] = dict(LAUNCHES)
+        slice5_run = {"conv3x3_sum_fused": 2, "conv3x3_stats": 1, "conv3x3_norm_in_stats": 1,
+                      "conv3x3_valid": 3, "blur_downsample": 2, "norm_relu_blur_down": 1}
+        expect_launches("slice 5 path (forwards = runs)", counts["slice 5"], slice5_run, 1)
+        for key, v in outs.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"slice 5 path: {key} not finite")
+        log("[slice 5 path] outputs finite: "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in outs.items()))
+        del g5, w5, xs5, outs
+    torch.cuda.empty_cache()
     blocks_tails_head = {"norm_relu_blur_down": 2, "conv7x7_head": 1}
     int8_default = {"conv3x3_reflect_fused_q": 18, **blocks_tails_head}
     float_default = {"conv3x3_reflect_fused": 18, **blocks_tails_head}
@@ -1335,6 +1656,18 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
 
+    # The product's serving and training routes launch none of kernels
+    # 7-10 (the JAX generator routes to none of them; expect_launches held
+    # each run to 0 for every kernel it does not name); say so once.
+    slice5 = ("blur_downsample", "conv3x3_valid", "conv3x3_stats", "conv3x3_norm_in_stats",
+              "conv3x3_sum_fused")
+    stray = {run: {k: c[k] for k in slice5 if c[k]} for run, c in counts.items() if run != "slice 5"}
+    stray = {run: c for run, c in stray.items() if c}
+    log(f"[product routes] launches of kernels 7-10 over {len(counts) - 1} serving and training "
+        f"runs: {stray or 'none'}")
+    if stray:
+        raise AssertionError(f"a product route launched a kernel of rows 7-10: {stray}")
+
     # launches: each kernel's count in the main-path run at the shape its
     # row is timed and bounded at — serving (int8 default) for the int8
     # block conv, tails and head; float serving (b32) for the bf16 block
@@ -1347,7 +1680,8 @@ def main() -> int:
                 "fused_instance_norm": "256x256 float use_pallas",
                 "fused_instance_norm_residual": "256x256 float use_pallas",
                 "conv3x3_dgrad_fused_seg": "train encdec",
-                "conv3x3_wgrad_fused_seg": "train encdec"}
+                "conv3x3_wgrad_fused_seg": "train encdec",
+                **{name: "slice 5" for name in slice5}}
     for r in results:
         r["launches"] = counts[main_run[r["name"]]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -91,7 +91,7 @@ class Config:
     img_width: int | None = None
     test_batch_size: int | None = None  # None → resolved_test_batch_size
     compute_dtype: str = "f32"          # "f32" parity path | "bf16" serving
-    conv_precision: str = "highest"     # f32 path: the port turns TF32 off
+    conv_precision: str = "highest"     # f32: highest = TF32 off; high, default allow it
     batch_transport: str = "int"        # uint16/uint8 transport | "float"
     dp_devices: int = 0                 # >1: not ported (ROADMAP Queue 1)
     sp_devices: int = 1                 # >1: not ported (ROADMAP Queue 1)

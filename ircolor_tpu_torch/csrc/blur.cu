@@ -1,11 +1,13 @@
 // Fused down-stage tail of the generator for Hopper (sm_90a):
 // instance-norm normalize + ReLU + ReflectionPad(1) + [1,2,1]x[1,2,1]/16
-// blur-pool at stride 2.
+// blur-pool at stride 2; and the blur-pool alone.
 //
-// Replaces ircolor_tpu/ops/pallas_blur.py:norm_relu_blur_down_pallas
-// (_kernel_norm, pallas_call at :247).
+// Replaces ircolor_tpu/ops/pallas_blur.py:
+//   norm_relu_blur_down_pallas (_kernel_norm, pallas_call at :247) -> NORM
+//   blur_downsample_pallas     (_kernel,      pallas_call at :152) -> !NORM
 //
-//   z[r, c]   = relu((x[r, c] - mean) * inv)           (f32)
+//   z[r, c]   = relu((x[r, c] - mean) * inv)           (f32; NORM)
+//             = x[r, c]                               (f32; !NORM)
 //   v[i, c]   = (z[2i-1, c] + 2 z[2i, c]) + z[2i+1, c]  (row -1 reflects to 1)
 //   out[i, j] = bf16(((v[i, 2j-1] + 2 v[i, 2j]) + v[i, 2j+1]) / 16)
 //
@@ -30,8 +32,9 @@ namespace {
 
 constexpr int NTHREADS = 256;
 
+template <bool NORM>
 __global__ void __launch_bounds__(NTHREADS)
-    norm_relu_blur_down_kernel(const __nv_bfloat16* __restrict__ x,
+    blur_down_kernel(const __nv_bfloat16* __restrict__ x,
                                const float* __restrict__ mean,
                                const float* __restrict__ inv,
                                __nv_bfloat16* __restrict__ out, int B, int H,
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int c = cg * 8;
 
   float m[8], iv[8];
-  {
+  if constexpr (NORM) {
     const float4* mp = reinterpret_cast<const float4*>(mean + (size_t)b * C + c);
     const float4* ip = reinterpret_cast<const float4*>(inv + (size_t)b * C + c);
     const float4 m0 = __ldg(mp), m1 = __ldg(mp + 1);
@@ -73,9 +76,14 @@ __global__ void __launch_bounds__(NTHREADS)
       const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        z[rr][2 * e] = fmaxf((bf16_lo(w4[e]) - m[2 * e]) * iv[2 * e], 0.f);
-        z[rr][2 * e + 1] =
-            fmaxf((bf16_hi(w4[e]) - m[2 * e + 1]) * iv[2 * e + 1], 0.f);
+        if constexpr (NORM) {
+          z[rr][2 * e] = fmaxf((bf16_lo(w4[e]) - m[2 * e]) * iv[2 * e], 0.f);
+          z[rr][2 * e + 1] =
+              fmaxf((bf16_hi(w4[e]) - m[2 * e + 1]) * iv[2 * e + 1], 0.f);
+        } else {
+          z[rr][2 * e] = bf16_lo(w4[e]);
+          z[rr][2 * e + 1] = bf16_hi(w4[e]);
+        }
       }
     }
 #pragma unroll
@@ -92,16 +100,31 @@ __global__ void __launch_bounds__(NTHREADS)
 }  // namespace
 }  // namespace ircolor
 
-extern "C" int ircolor_norm_relu_blur_down(const void* x, const void* mean,
-                                           const void* inv, void* out, int B,
-                                           int H, int W, int C, void* stream) {
-  using namespace ircolor;
+namespace ircolor {
+namespace {
+
+template <bool NORM>
+int launch_blur(const void* x, const void* mean, const void* inv, void* out,
+                int B, int H, int W, int C, void* stream) {
   const long long total = (long long)B * (H / 2) * (W / 2) * (C / 8);
   const unsigned int blocks = (unsigned int)((total + NTHREADS - 1) / NTHREADS);
-  norm_relu_blur_down_kernel<<<blocks, NTHREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  blur_down_kernel<NORM><<<blocks, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mean),
       static_cast<const float*>(inv), static_cast<__nv_bfloat16*>(out), B, H, W,
       C);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace ircolor
+
+extern "C" int ircolor_norm_relu_blur_down(const void* x, const void* mean,
+                                           const void* inv, void* out, int B,
+                                           int H, int W, int C, void* stream) {
+  return ircolor::launch_blur<true>(x, mean, inv, out, B, H, W, C, stream);
+}
+
+extern "C" int ircolor_blur_down(const void* x, void* out, int B, int H, int W,
+                                 int C, void* stream) {
+  return ircolor::launch_blur<false>(x, nullptr, nullptr, out, B, H, W, C, stream);
 }

@@ -1,9 +1,27 @@
-// Fused reflect-padded 3x3 conv of the generator's resnet blocks, bf16 and
-// int8, for Hopper (sm_90a).
+// Fused 3x3 conv of the generator's resnet blocks, bf16 and int8, for
+// Hopper (sm_90a), with the halo modes and input legs of the JAX package's
+// other 3x3 conv kernels.
 //
-// Replaces (ircolor_tpu/ops/pallas_resblock.py):
-//   conv3x3_reflect_fused   (_kernel,   pallas_call at :358)  -> INT8=false
-//   conv3x3_reflect_fused_q (_kernel_q, pallas_call at :1471) -> INT8=true
+// Replaces (ircolor_tpu/ops/):
+//   pallas_resblock.py:conv3x3_reflect_fused   (_kernel, pallas_call :358)
+//       -> INT8=false, HALO=REFLECT
+//   pallas_resblock.py:conv3x3_reflect_fused_q (_kernel_q, :1471)
+//       -> INT8=true, HALO=REFLECT
+//   pallas_resblock.py:conv3x3_sum_fused (_kernel_multi, :1246)
+//       -> HALO=ZERO or REFLECT, one or two input legs
+//   pallas_block.py:conv3x3_stats / conv3x3_norm_in_stats (_run, :138)
+//       -> HALO=VALID, without / with normalize on load
+//   pallas_conv.py:conv3x3_valid_pallas(_v2) (:305, :234)
+//       -> HALO=VALID, no stats
+//
+// Halo modes (the patch index map; no padded tensor is made):
+//   REFLECT  row -1 = row 1, row H = row H-2, the same for columns;
+//   ZERO     pixels outside the image read as 0;
+//   VALID    the input is already padded, (H+2) x (W+2), and the output
+//            H x W.
+// Legs: Σ_i conv(x_i, k_i) over two inputs is one conv over their channel
+// concat, so the K loop runs over leg 0's chunks, then leg 1's, into the
+// one f32 accumulator: no concat and no f32 partial reach device memory.
 //
 // What it computes, per image b and output channel co:
 //   z   = x                                  (no stats given, bf16)
@@ -11,15 +29,18 @@
 //                                              conv's IN + ReLU on load)
 //   bf16: operand = bf16(z); int8 conv1: q = clamp(rint(x*qscale[b]),±127);
 //   int8 conv2: q = min(rint(relu((x-mean)*inv) * 127/6), 127)
-//   y   = ReflectPad(1) 3x3 conv, f32 (bf16) or s32 (int8) accumulation,
-//         int8 dequantized by sc[b, co]
+//   y   = 3x3 conv with the halo mode's padding, over every leg, f32
+//         (bf16) or s32 (int8) accumulation, int8 dequantized by sc[b, co]
 //   out = bf16(y); partial stats sum(y), sum(y^2) from the f32 value before
-//         the bf16 store, one (b, tile) slot each, summed by the caller.
+//         the bf16 store (the sum over legs, before rounding), one (b, tile)
+//         slot each, summed by the caller; none where no slots are given.
 //
 // What bounds it on the H100: the tensor cores. At the flagship bottleneck
 // (32x128x160x256 -> 256) one conv is 0.77 TFLOP against 0.67 GB of
 // activations in and out (~1150 flop/byte, far above the card's ridge
 // point); the weights (1.2 MB) stay in L2 and are re-read by every block.
+// The same holds at the down2 (128 -> 256) and up1 (256 + 128 -> 128)
+// planes, 256x320, at ~770 and ~860 flop/byte.
 //
 // Design:
 // * Implicit GEMM on mma.sync (bf16 m16n8k16 / s8 m16n8k32). A block owns
@@ -27,8 +48,8 @@
 //   warps of 32x64. K = 9 taps x C runs as chunks of 32 bytes of input
 //   channels (16 bf16 / 32 int8).
 // * Per chunk the block loads the (8+2)x(16+2) input patch once, with the
-//   reflect halo built in the index map (row -1 = row 1, row H = row H-2,
-//   same for columns: no padded tensor exists), applies normalize + ReLU or
+//   halo built in the index map (zero halo pixels are stored as zeros, not
+//   read), applies normalize + ReLU or
 //   the quantization while storing it to shared memory, and then runs all
 //   nine taps out of it: a tap is only a shifted ldmatrix row address.
 // * The byte layout of a 32-byte K row is the same for bf16 and int8, so
@@ -71,21 +92,24 @@ __device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
          ((uint32_t)(q2 & 0xff) << 16) | ((uint32_t)(q3 & 0xff) << 24);
 }
 
+enum Halo { REFLECT = 0, ZERO = 1, VALID = 2 };
+
 struct ConvArgs {
-  const __nv_bfloat16* x;  // (B, H, W, C)
-  const uint8_t* w;        // (C/KC, 9, Cout, 32 bytes)
+  const __nv_bfloat16* x;   // leg 0: (B, H, W, C), VALID (B, H+2, W+2, C)
+  const __nv_bfloat16* x1;  // leg 1 (B, H, W, C1) or null
+  const uint8_t* w;        // ((C+C1)/KC, 9, Cout, 32 bytes)
   const float* mean;       // (B, C) or null
   const float* inv;        // (B, C) or null
   const float* qscale;     // (B,)   int8 conv1
   const float* sc;         // (B, Cout) int8 dequant scale
   __nv_bfloat16* out;      // (B, H, W, Cout)
-  float* partial;          // (B, ntiles, 2, Cout)
-  int B, H, W, C, Cout, ntw, ntiles;
+  float* partial;          // (B, ntiles, 2, Cout) or null (no stats)
+  int B, H, W, C, C1, Cout, ntw, ntiles;  // H, W: the output plane
 };
 
-template <bool INT8, bool NORM>
+template <bool INT8, bool NORM, int HALO>
 __global__ void __launch_bounds__(NTHREADS, 2)
-    conv3x3_reflect_kernel(const ConvArgs p) {
+    conv3x3_kernel(const ConvArgs p) {
   extern __shared__ __align__(128) uint8_t smem[];
   using Acc = typename std::conditional<INT8, int, float>::type;
   constexpr int KC = INT8 ? 32 : 16;  // input channels per chunk
@@ -95,32 +119,51 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   const int wm = warp & 3, wn = warp >> 2;
   const int tile = blockIdx.x, co0 = blockIdx.y * BN, b = blockIdx.z;
   const int r0 = (tile / p.ntw) * TH, c0 = (tile % p.ntw) * TW;
-  const int nchunks = p.C / KC;
-  const __nv_bfloat16* xb = p.x + (size_t)b * p.H * p.W * p.C;
+  const int nchunks0 = p.C / KC;
+  const int nchunks = nchunks0 + p.C1 / KC;
+  const int IH = HALO == VALID ? p.H + 2 : p.H;  // the input plane
+  const int IW = HALO == VALID ? p.W + 2 : p.W;
+  const size_t plane = (size_t)b * IH * IW;
+  const __nv_bfloat16* xb0 = p.x + plane * p.C;
+  const __nv_bfloat16* xb1 = p.x1 == nullptr ? nullptr : p.x1 + plane * p.C1;
   float qs = 0.f;
   if constexpr (INT8 && !NORM) qs = p.qscale[b];
 
   // Each thread owns up to UNITS_PER_THREAD 16-byte operand units of the
-  // patch: fixed pixel (reflected), fixed channel half, every chunk.
-  int uoff[UNITS_PER_THREAD];
+  // patch: fixed pixel, fixed channel half, every chunk. upix is the input
+  // pixel the unit reads (the halo resolved), -1 for no unit and -2 for a
+  // zero halo pixel.
+  const int half = (tid & 1) * (KC / 2);
+  int upix[UNITS_PER_THREAD];
 #pragma unroll
   for (int i = 0; i < UNITS_PER_THREAD; ++i) {
     const int u = tid + i * NTHREADS;
-    uoff[i] = -1;
+    upix[i] = -1;
     if (u < PATCH_UNITS) {
       const int prow = u >> 1, pr = prow / PW, pc = prow - pr * PW;
-      const int r = reflect_index(r0 - 1 + pr, p.H);
-      const int c = reflect_index(c0 - 1 + pc, p.W);
-      uoff[i] = (r * p.W + c) * p.C + (u & 1) * (KC / 2);
+      if constexpr (HALO == REFLECT) {
+        upix[i] = reflect_index(r0 - 1 + pr, p.H) * p.W + reflect_index(c0 - 1 + pc, p.W);
+      } else if constexpr (HALO == ZERO) {
+        const int r = r0 - 1 + pr, c = c0 - 1 + pc;
+        upix[i] = (r >= 0 && r < p.H && c >= 0 && c < p.W) ? r * p.W + c : -2;
+      } else {
+        // Clamped only for pixels that feed masked-out outputs of a
+        // partial tile.
+        upix[i] = min(r0 + pr, IH - 1) * IW + min(c0 + pc, IW - 1);
+      }
     }
   }
 
   uint4 raw[UNITS_PER_THREAD][RAW];
   auto load_patch = [&](int j) {
+    const bool leg1 = j >= nchunks0;  // the same for the whole block
+    const __nv_bfloat16* xl = leg1 ? xb1 : xb0;
+    const int cl = leg1 ? p.C1 : p.C;
+    const int jl = leg1 ? j - nchunks0 : j;
 #pragma unroll
     for (int i = 0; i < UNITS_PER_THREAD; ++i) {
-      if (uoff[i] >= 0) {
-        const __nv_bfloat16* src = xb + uoff[i] + j * KC;
+      if (upix[i] >= 0) {
+        const __nv_bfloat16* src = xl + (size_t)upix[i] * cl + half + jl * KC;
         raw[i][0] = ldg16(src);
         if constexpr (INT8) raw[i][1] = ldg16(src + 8);
       }
@@ -132,8 +175,12 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 #pragma unroll
     for (int i = 0; i < UNITS_PER_THREAD; ++i) {
       const int u = tid + i * NTHREADS;
-      if (uoff[i] < 0) continue;
-      const int cbase = j * KC + (u & 1) * (KC / 2);
+      if (upix[i] == -1) continue;
+      if (HALO == ZERO && upix[i] == -2) {
+        *reinterpret_cast<uint4*>(patch + swz(u >> 1, u & 1)) = make_uint4(0, 0, 0, 0);
+        continue;
+      }
+      const int cbase = j * KC + half;  // NORM: one leg only
       constexpr int NV = INT8 ? 16 : 8;
       float v[NV];
 #pragma unroll
@@ -301,6 +348,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       }
     }
   }
+  if (p.partial == nullptr) return;  // no stats asked for
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -335,9 +383,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   }
 }
 
-template <bool INT8, bool NORM>
+template <bool INT8, bool NORM, int HALO>
 int launch(const ConvArgs& a, cudaStream_t stream) {
-  auto kernel = conv3x3_reflect_kernel<INT8, NORM>;
+  auto kernel = conv3x3_kernel<INT8, NORM, HALO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -357,17 +405,17 @@ int ircolor_conv3x3_num_tiles(int H, int W) {
          ((W + ircolor::TW - 1) / ircolor::TW);
 }
 
-// int8 = 0: bf16 operands (qscale, sc unused). int8 = 1: s8 operands,
-// quantized on load by qscale (mean == null) or by the fixed 127/6 grid
-// after normalize + ReLU (mean != null). mean/inv null: no normalize.
-int ircolor_conv3x3_reflect(int int8, const void* x, const void* w,
-                            const void* mean, const void* inv,
-                            const void* qscale, const void* sc, void* out,
-                            void* partial, int B, int H, int W, int C,
-                            int Cout, void* stream) {
+// s8 operands, reflect halos, quantized on load by qscale (mean == null)
+// or by the fixed 127/6 grid after normalize + ReLU (mean != null).
+int ircolor_conv3x3_reflect_q(const void* x, const void* w, const void* mean,
+                              const void* inv, const void* qscale,
+                              const void* sc, void* out, void* partial, int B,
+                              int H, int W, int C, int Cout, void* stream) {
   using namespace ircolor;
   ConvArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
+  a.x1 = nullptr;
+  a.C1 = 0;
   a.w = static_cast<const uint8_t*>(w);
   a.mean = static_cast<const float*>(mean);
   a.inv = static_cast<const float*>(inv);
@@ -383,9 +431,49 @@ int ircolor_conv3x3_reflect(int int8, const void* x, const void* w,
   a.ntw = (W + TW - 1) / TW;
   a.ntiles = ircolor_conv3x3_num_tiles(H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mean != nullptr ? launch<true, true, REFLECT>(a, s)
+                         : launch<true, false, REFLECT>(a, s);
+}
+
+// bf16 operands in any halo mode (0 REFLECT, 1 ZERO, 2 VALID), one leg
+// (x1 null, C1 0) or two; H, W are the output plane. mean/inv: normalize +
+// ReLU on load (leg 0 only; not with ZERO halos). partial null: no stats.
+int ircolor_conv3x3_bf16(int halo, const void* x, int C, const void* x1,
+                         int C1, const void* w, const void* mean,
+                         const void* inv, void* out, void* partial, int B,
+                         int H, int W, int Cout, void* stream) {
+  using namespace ircolor;
   const bool norm = mean != nullptr;
-  if (int8) return norm ? launch<true, true>(a, s) : launch<true, false>(a, s);
-  return norm ? launch<false, true>(a, s) : launch<false, false>(a, s);
+  if (norm && (x1 != nullptr || halo == ZERO)) return (int)cudaErrorInvalidValue;
+  ConvArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.x1 = static_cast<const __nv_bfloat16*>(x1);
+  a.w = static_cast<const uint8_t*>(w);
+  a.mean = static_cast<const float*>(mean);
+  a.inv = static_cast<const float*>(inv);
+  a.qscale = nullptr;
+  a.sc = nullptr;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.C1 = C1;
+  a.Cout = Cout;
+  a.ntw = (W + TW - 1) / TW;
+  a.ntiles = ircolor_conv3x3_num_tiles(H, W);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (halo) {
+    case REFLECT:
+      return norm ? launch<false, true, REFLECT>(a, s) : launch<false, false, REFLECT>(a, s);
+    case ZERO:
+      return launch<false, false, ZERO>(a, s);
+    case VALID:
+      return norm ? launch<false, true, VALID>(a, s) : launch<false, false, VALID>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ from ircolor_tpu_torch.data.kaist import collect_kaist_ir_files_from_sets
 from ircolor_tpu_torch.eval.metrics import batched_metrics, quantize_to_uint8_01
 from ircolor_tpu_torch.export.collage import make_comparison_collage, save_comparison_image
 from ircolor_tpu_torch.export.topk import save_best_k_outputs, write_metrics_csv
-from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+from ircolor_tpu_torch.models.wrapper import IRColorizationModel, reject_unported
 from ircolor_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -94,6 +94,7 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict[str,
     """Batched test mode on ``device`` (the card by default; raises without
     one unless ``device="cpu"``); returns the summary dict (also logged and
     saved)."""
+    reject_unported(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
     if not cfg.test_roots:
         raise ValueError("cfg.test_roots is empty. Please set cfg.test_roots to KAIST set paths.")

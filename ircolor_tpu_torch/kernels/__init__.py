@@ -13,11 +13,22 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
     (both also in the enc/dec segment modes: ``pad="zero"``, ``mask_p``,
     no aux; counted apart as ``*_seg``; ``encdec.conv_in_relu_fused`` ←
     pallas_encdec.conv_in_relu_fused runs them)
+  resblock.conv3x3_sum_fused        ← pallas_resblock.conv3x3_sum_fused
   blur.norm_relu_blur_down_pallas   ← pallas_blur.norm_relu_blur_down_pallas
+  blur.blur_downsample_pallas       ← pallas_blur.blur_downsample_pallas
   head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
   head.conv7x7_head_pallas(quant=True) ← the same with quant=True (outc_head_q)
   conv_int8.conv3x3_int8            ← XLA's int8 conv in ops/quant.conv2d_int8(_fixed)
   instance_norm.run_in / run_in_res ← pallas_kernels._run_in / _run_in_res
+  block.conv3x3_stats / conv3x3_norm_in_stats ← pallas_block.conv3x3_stats /
+    conv3x3_norm_in_stats
+  conv.conv3x3_valid_pallas(_v2)    ← pallas_conv.conv3x3_valid_pallas(_v2)
+    (one kernel, one count: ``conv3x3_valid``)
+
+``conv3x3_sum_fused``, ``block.*`` and ``conv.*`` run the bf16 conv of
+``csrc/resblock.cu`` in its zero, reflect and VALID halo modes. They and
+``blur_downsample_pallas`` are, like the JAX functions, on no generator
+route: the JAX tools call them, and so does ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +48,11 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_wgrad_fused_seg": 0,
     "fused_instance_norm": 0,
     "fused_instance_norm_residual": 0,
+    "blur_downsample": 0,
+    "conv3x3_valid": 0,
+    "conv3x3_stats": 0,
+    "conv3x3_norm_in_stats": 0,
+    "conv3x3_sum_fused": 0,
 }
 
 

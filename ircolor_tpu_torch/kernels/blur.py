@@ -1,10 +1,11 @@
 """Fused down-stage tail: IN-normalize + ReLU + ReflectionPad(1) + binomial-3
-blur-pool at stride 2 (``csrc/blur.cu``).
+blur-pool at stride 2 (``csrc/blur.cu``), and the blur-pool alone.
 
 Counterpart of ``ircolor_tpu/ops/pallas_blur.py``: ``norm_relu_blur_down_pallas``
-(the kernel) and ``norm_relu_blur_down`` (the stats by a plain reduction,
+(the kernel), ``norm_relu_blur_down`` (the stats by a plain reduction,
 then the kernel; differentiable, with the JAX package's hand-assembled
-backward). One read of the conv output, one quarter-size write.
+backward) and ``blur_downsample_pallas`` (no normalize; unwired in the JAX
+generator, as here). One read of the input, one quarter-size write.
 """
 
 from __future__ import annotations
@@ -27,20 +28,57 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ircolor_norm_relu_blur_down.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.ircolor_norm_relu_blur_down.restype = i
+        lib.ircolor_blur_down.argtypes = [p, p, i, i, i, i, p]
+        lib.ircolor_blur_down.restype = i
         _lib = lib
     return _lib
 
 
-def norm_relu_blur_down_plain(x, mean, inv):
-    """Plain version, with the JAX kernel's order of additions: rows first
-    (x[2i−1] + 2·x[2i]) + x[2i+1], then the same over columns, ÷16."""
-    z = torch.relu((x.float() - mean[:, None, None, :]) * inv[:, None, None, :])
+def _blur_down_f32(z):
+    """The JAX kernels' order of additions on float32 ``z``: rows first
+    (z[2i−1] + 2·z[2i]) + z[2i+1], then the same over columns, then ×1/16
+    once. Reflect reaches only row and column −1 (≡ 1): with even H and W
+    the window never reads past the far edge."""
     xe, xo = z[:, 0::2], z[:, 1::2]
     xm = torch.cat([xo[:, :1], xo[:, :-1]], dim=1)  # x[2i−1]; x[−1] ≡ x[1]
     yh = xm + 2.0 * xe + xo
     ye, yo = yh[:, :, 0::2], yh[:, :, 1::2]
     ym = torch.cat([yo[:, :, :1], yo[:, :, :-1]], dim=2)
-    return ((ym + 2.0 * ye + yo) * (1.0 / 16.0)).to(x.dtype)
+    return (ym + 2.0 * ye + yo) * (1.0 / 16.0)
+
+
+def norm_relu_blur_down_plain(x, mean, inv):
+    """Plain version of ``norm_relu_blur_down_pallas``."""
+    z = torch.relu((x.float() - mean[:, None, None, :]) * inv[:, None, None, :])
+    return _blur_down_f32(z).to(x.dtype)
+
+
+def blur_downsample_plain(x):
+    """Plain version of ``blur_downsample_pallas``: float32 inside, in the
+    kernel's order, one rounding to x's dtype. ``ops.blurpool.blur_downsample``
+    (a depthwise conv) is the same function, summed in another order."""
+    return _blur_down_f32(x.float()).to(x.dtype)
+
+
+def blur_downsample_pallas(x):
+    """(B, H, W, C) → (B, H/2, W/2, C) binomial-3 reflect blur-pool. Refuses
+    what the JAX function refuses (``supported``); on the card also C % 8."""
+    if not supported(tuple(x.shape)):
+        raise ValueError(
+            f"blur_downsample_pallas: unsupported shape {tuple(x.shape)} "
+            "(needs even H and W and an H/2 tile: pallas_blur.supported)"
+        )
+    if x.device.type == "cpu":
+        return blur_downsample_plain(x)
+    b, h, w, c = x.shape
+    require(x, "x", torch.bfloat16, (None, None, None, None))
+    if c % 8:
+        raise ValueError(f"blur_downsample kernel: C={c} (needs C % 8 == 0)")
+    out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    err = _load().ircolor_blur_down(x.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr())
+    build.check(err, "blur_downsample")
+    LAUNCHES["blur_downsample"] += 1
+    return out
 
 
 def norm_relu_blur_down_pallas(x, mean, inv):
@@ -103,8 +141,8 @@ def norm_relu_blur_down(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pick_tile(h2: int, w: int = 0, c: int = 0, limit: int = 64 * 1024 * 1024) -> int | None:
-    """The JAX kernel's H-tile pick — kept only because its routing gate
-    (``norm_blur_supported``) is copied as it is."""
+    """The JAX kernel's H-tile pick — kept only because its shape contracts
+    (``supported``, ``norm_blur_supported``) are copied as they are."""
     for th in (16, 8, 4, 2):
         if h2 % th != 0 or h2 // th < 2:
             continue
@@ -115,6 +153,12 @@ def _pick_tile(h2: int, w: int = 0, c: int = 0, limit: int = 64 * 1024 * 1024) -
                 continue
         return th
     return None
+
+
+def supported(shape: tuple[int, ...]) -> bool:
+    """The shapes ``pallas_blur.blur_downsample_pallas`` takes, as is."""
+    _, h, w, c = shape
+    return h % 2 == 0 and w % 2 == 0 and _pick_tile(h // 2, w, c) is not None
 
 
 def norm_blur_supported(shape: tuple[int, ...]) -> bool:

@@ -7,8 +7,10 @@ Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 segment modes ``pad="zero"``, ``mask_p``, no aux, which
 ``kernels/encdec.py`` runs), ``resnet_block_pallas`` (differentiable,
 ``bwd`` = ``"xla"`` | ``"fused"`` | ``"fused_wg"``) and
-``resnet_block_pallas_q``. One conv launch reads the unpadded NHWC input
-once (reflect halos built on load, the previous IN + ReLU and, for int8,
+``resnet_block_pallas_q`` and ``conv3x3_sum_fused`` (one or two input
+legs, zero or reflect halos, the IN stats of the f32 sum; ``_launch_bf16``
+also serves ``kernels/block.py`` and ``kernels/conv.py`` in the VALID
+mode). One conv launch reads the unpadded NHWC input once (reflect halos built on load, the previous IN + ReLU and, for int8,
 the quantization applied on load) and writes the raw output once, with the
 per-(B, C) sums of the output for its instance norm. The block epilogue
 ``x + ((raw2 − m2)·i2).to(dtype)`` stays plain torch.
@@ -45,8 +47,10 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ircolor_conv3x3_num_tiles.argtypes = [i, i]
         lib.ircolor_conv3x3_num_tiles.restype = i
-        lib.ircolor_conv3x3_reflect.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.ircolor_conv3x3_reflect.restype = i
+        lib.ircolor_conv3x3_reflect_q.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ircolor_conv3x3_reflect_q.restype = i
+        lib.ircolor_conv3x3_bf16.argtypes = [i, p, i, p, i, p, p, p, p, p, i, i, i, i, p]
+        lib.ircolor_conv3x3_bf16.restype = i
         _lib = lib
     return _lib
 
@@ -97,62 +101,125 @@ def conv3x3_reflect_fused_plain(x, kernel, mean=None, inv=None):
     return y.to(x.dtype), m, i
 
 
-def _launch_conv(int8: bool, x, wpk, cout, *, mean, inv, qscale, sc):
-    b, h, w, c = x.shape
-    lib = _load()
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    ntiles = lib.ircolor_conv3x3_num_tiles(h, w)
-    partial = torch.empty((b, ntiles, 2, cout), dtype=torch.float32, device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.ircolor_conv3x3_reflect(
-        int(int8), x.data_ptr(), wpk.data_ptr(), ptr(mean), ptr(inv),
-        ptr(qscale), ptr(sc), out.data_ptr(), partial.data_ptr(),
-        b, h, w, c, cout, stream_ptr(),
-    )
-    name = "conv3x3_reflect_fused_q" if int8 else "conv3x3_reflect_fused"
-    build.check(err, name)
-    LAUNCHES[name] += 1
-    s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
-    m, i = _moments(s[:, 0], s[:, 1], h * w)
-    return out, m, i
-
-
-def _check_conv(x, kernel, mean, inv, kchunk: int):
-    b, h, w, c = x.shape
-    cout = kernel.shape[-1]
-    require(x, "x", torch.bfloat16, (None, None, None, None))
-    if kernel.shape[:3] != (3, 3, c) or kernel.device != x.device:
-        raise ValueError(f"kernel: expected (3, 3, {c}, Cout) on {x.device}")
-    if c % kchunk or cout % _BN or h < 2 or w < 2 or b > 65535:
-        raise ValueError(
-            f"conv3x3 kernel: unsupported shape x={tuple(x.shape)} Cout={cout} "
-            f"(needs C % {kchunk} == 0, Cout % {_BN} == 0, H, W >= 2)"
-        )
-    if mean is not None:
-        require(mean, "mean", torch.float32, (b, c))
-        require(inv, "inv", torch.float32, (b, c))
-
-
 def conv3x3_reflect_fused(x, kernel, mean=None, inv=None):
     """ReflectionPad(1) 3×3 conv of unpadded NHWC ``x`` with HWIO ``kernel``
     → (raw output, IN mean, IN inv_std of it). With ``mean``/``inv`` the
     input is normalized and ReLU'd on load (rounded to x's dtype)."""
     if x.device.type == "cpu":
         return conv3x3_reflect_fused_plain(x, kernel, mean, inv)
-    _check_conv(x, kernel, mean, inv, _KBYTES // 2)
-    b, h, w, c = x.shape
-    cout = kernel.shape[-1]
+    return _launch_bf16("conv3x3_reflect_fused", "reflect", (x,), (kernel,), mean=mean, inv=inv)
+
+
+# ------------------------------------------- halo modes and input legs ----
+
+_HALOS = {"reflect": 0, "zero": 1, "valid": 2}
+
+
+def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
+                 stats: bool = True):
+    """One launch of the bf16 conv in ``halo`` mode over one or two input
+    legs (``kernels[i]`` (3, 3, Cᵢ, Cout) for ``legs[i]``; the K loop runs
+    leg 0's channels, then leg 1's, into one f32 accumulator). ``valid``:
+    the legs are pre-padded, the output is 2 smaller in H and W. Returns
+    the bf16 output, and with ``stats`` its IN (mean, inv) from the f32
+    sums. Raises on what the kernel does not take."""
+    x0 = legs[0]
+    b, hi, wi = x0.shape[:3]
+    h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
+    cout = kernels[0].shape[-1]
+    if len(legs) > 2:
+        raise ValueError(f"{name} kernel: at most 2 input legs, got {len(legs)}")
+    for x, k in zip(legs, kernels):
+        require(x, "x", torch.bfloat16, (b, hi, wi, None))
+        c = x.shape[-1]
+        if tuple(k.shape) != (3, 3, c, cout) or k.device != x.device:
+            raise ValueError(f"kernel: expected (3, 3, {c}, {cout}) on {x.device}")
+        if c % 16:
+            raise ValueError(f"{name} kernel: an input leg has C={c} (needs C % 16 == 0)")
+    if cout % _BN or h < (2 if halo == "reflect" else 1) or w < 2 or b > 65535:
+        raise ValueError(
+            f"{name} kernel: unsupported shape x={tuple(x0.shape)} Cout={cout} "
+            f"(needs Cout % {_BN} == 0)"
+        )
+    if mean is not None:
+        require(mean, "mean", torch.float32, (b, x0.shape[-1]))
+        require(inv, "inv", torch.float32, (b, x0.shape[-1]))
     kc = _KBYTES // 2
-    wpk = (
-        kernel.to(torch.bfloat16)
-        .reshape(9, c // kc, kc, cout)
-        .permute(1, 0, 3, 2)
-        .contiguous()
+    k = torch.cat([kk.to(torch.bfloat16) for kk in kernels], dim=2)
+    wpk = k.reshape(9, k.shape[2] // kc, kc, cout).permute(1, 0, 3, 2).contiguous()
+    lib = _load()
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x0.device)
+    partial = None
+    if stats:
+        ntiles = lib.ircolor_conv3x3_num_tiles(h, w)
+        partial = torch.empty((b, ntiles, 2, cout), dtype=torch.float32, device=x0.device)
+    x1 = legs[1] if len(legs) == 2 else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.ircolor_conv3x3_bf16(
+        _HALOS[halo], x0.data_ptr(), x0.shape[-1], ptr(x1), 0 if x1 is None else x1.shape[-1],
+        wpk.data_ptr(), ptr(mean), ptr(inv), out.data_ptr(), ptr(partial), b, h, w, cout,
+        stream_ptr(),
     )
-    return _launch_conv(False, x, wpk, cout, mean=mean, inv=inv, qscale=None, sc=None)
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    if not stats:
+        return out
+    s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
+    return (out, *_moments(s[:, 0], s[:, 1], h * w))
+
+
+def _check_sum_fused(inputs, kernels, pad: str, tile_h: int) -> None:
+    """The JAX function's asserts, as ``ValueError``s (its 128-lane rule is
+    a TPU DMA constraint, not one of the function)."""
+    if pad not in _PADS:
+        raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    if not inputs or len(inputs) != len(kernels):
+        raise ValueError("need one kernel per input, and at least one input")
+    b, h, w, _ = inputs[0].shape
+    cout = kernels[0].shape[-1]
+    for x, k in zip(inputs, kernels):
+        if tuple(x.shape[:3]) != (b, h, w):
+            raise ValueError(f"input {tuple(x.shape)}: expected (B, H, W) = {(b, h, w)}")
+        if tuple(k.shape) != (3, 3, x.shape[-1], cout):
+            raise ValueError(f"kernel {tuple(k.shape)} for input {tuple(x.shape)}")
+    if h % tile_h:
+        raise ValueError(f"H={h} must divide tile_h={tile_h}")
+    if w % 8:
+        raise ValueError(f"W={w} must be 8-aligned")
+
+
+def conv3x3_sum_fused_plain(inputs, kernels, *, pad="zero"):
+    """Plain version of ``conv3x3_sum_fused``: one float32 conv over the
+    channel concat (≡ Σᵢ conv(xᵢ, kᵢ), with no rounding between legs), the
+    one-pass moments of that f32 sum (``_moments``: var = Σy²/n − mean²,
+    eps 1e-5), then one rounding of the output to the inputs' dtype.
+    ``zero`` halos are zero rows and columns; ``reflect`` reads x[−1] as
+    x[1]."""
+    dt = inputs[0].dtype
+    x = torch.cat([t.float() for t in inputs], dim=-1)
+    k = torch.cat([kk.to(dt).float() for kk in kernels], dim=2)
+    mode = "reflect" if pad == "reflect" else "constant"
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode)
+    y = F.conv2d(xp, k.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    n = y.shape[1] * y.shape[2]
+    m, i = _moments(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), n)
+    return y.to(dt), m, i
+
+
+def conv3x3_sum_fused(inputs, kernels, *, pad="zero", tile_h=16):
+    """SAME 3×3 conv Σᵢ conv(inputsᵢ, kernelsᵢ) (≡ one conv over their
+    channel concat, which is never made), ``pad`` ``"zero"`` or
+    ``"reflect"``, → (out in the inputs' dtype, IN mean, IN inv_std of the
+    f32 sum). ``tile_h`` is the JAX function's H tile: checked (H % tile_h
+    == 0), not a CUDA tiling. On the card: bf16, at most 2 legs, each
+    C % 16 == 0 (so a 64-channel leg runs too), Cout % 128 == 0."""
+    _check_sum_fused(inputs, kernels, pad, tile_h)
+    if inputs[0].device.type == "cpu":
+        return conv3x3_sum_fused_plain(inputs, kernels, pad=pad)
+    return _launch_bf16("conv3x3_sum_fused", pad, inputs, kernels)
 
 
 # ---------------------------------------------------------------- int8 ----
@@ -185,9 +252,19 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
         raise ValueError("need exactly one of qscale / (mean, inv)")
     if x.device.type == "cpu":
         return conv3x3_reflect_fused_q_plain(x, kq, sc, qscale=qscale, mean=mean, inv=inv)
-    _check_conv(x, kq, mean, inv, _KBYTES)
     b, h, w, c = x.shape
     cout = kq.shape[-1]
+    require(x, "x", torch.bfloat16, (None, None, None, None))
+    if kq.shape[:3] != (3, 3, c) or kq.device != x.device:
+        raise ValueError(f"kq: expected (3, 3, {c}, Cout) on {x.device}")
+    if c % _KBYTES or cout % _BN or h < 2 or w < 2 or b > 65535:
+        raise ValueError(
+            f"conv3x3 kernel: unsupported shape x={tuple(x.shape)} Cout={cout} "
+            f"(needs C % {_KBYTES} == 0, Cout % {_BN} == 0, H, W >= 2)"
+        )
+    if mean is not None:
+        require(mean, "mean", torch.float32, (b, c))
+        require(inv, "inv", torch.float32, (b, c))
     if kq.dtype != torch.int8:
         raise TypeError(f"kq: expected torch.int8, got {kq.dtype}")
     require(sc, "sc", torch.float32, (b, cout))
@@ -195,7 +272,22 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
         require(qscale, "qscale", torch.float32, (b,))
     kc = _KBYTES
     wpk = kq.reshape(9, c // kc, kc, cout).permute(1, 0, 3, 2).contiguous()
-    return _launch_conv(True, x, wpk, cout, mean=mean, inv=inv, qscale=qscale, sc=sc)
+    lib = _load()
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    ntiles = lib.ircolor_conv3x3_num_tiles(h, w)
+    partial = torch.empty((b, ntiles, 2, cout), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.ircolor_conv3x3_reflect_q(
+        x.data_ptr(), wpk.data_ptr(), ptr(mean), ptr(inv), ptr(qscale), sc.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), b, h, w, c, cout, stream_ptr(),
+    )
+    build.check(err, "conv3x3_reflect_fused_q")
+    LAUNCHES["conv3x3_reflect_fused_q"] += 1
+    s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
+    return (out, *_moments(s[:, 0], s[:, 1], h * w))
 
 
 # ------------------------------------------------------------ backward ----

@@ -145,10 +145,16 @@ class ResnetBlock(nn.Module):
             nn.InstanceNorm2d(dim),
         )
 
+    @property
+    def quant(self) -> bool:
+        """int8 is inference-only, as in the JAX block (``quant_int8 and not
+        train``): rounding has no gradient, so a training call runs float."""
+        return self.quant_int8 and not self.training
+
     def fused(self, x: torch.Tensor) -> bool:
         """The JAX ResnetBlock's fused-route gate (single device)."""
         b, h, w, c = x.shape
-        quant = self.quant_int8
+        quant = self.quant
         min_area = (
             min(self.pallas_block_min_area, _QUANT_FUSED_MIN_AREA)
             if quant
@@ -173,12 +179,12 @@ class ResnetBlock(nn.Module):
             # The block's backward returns dk in the compute dtype. The
             # biases are inert through IN: no gradient.
             k1, k2 = _hwio(conv1, self.dtype), _hwio(conv2, self.dtype)
-            if self.quant_int8:
+            if self.quant:
                 return resnet_block_pallas_q(x, k1, k2)
             return resnet_block_pallas(x, k1, k2, bwd=self.pallas_block_bwd)
 
         def conv(layer, y):
-            if self.quant_int8:
+            if self.quant:
                 return quant_conv_nhwc(layer, y, self.dtype, pad="reflect")
             return conv_nhwc(layer, reflect_pad2d(y, 1), self.dtype)
 
@@ -310,11 +316,17 @@ class ResnetUNetGenerator(nn.Module):
             and head_supported(tuple(y.shape))
         )
 
+    @property
+    def quant(self) -> bool:
+        """The JAX ``quant = self.quant_int8 and not train``: int8 serves
+        only; a module in ``.train()`` runs float."""
+        return self.quant_int8 and not self.training
+
     def _quant_convs(self, x: torch.Tensor) -> bool:
         """The JAX ``quant_convs``: whether down1, down2, up1 and up2 take
-        the int8 route — int8 on and neither the fused tails nor the fused
-        head engage for this input."""
-        if not self.quant_int8:
+        the int8 route — int8 on (and not training) and neither the fused
+        tails nor the fused head engage for this input."""
+        if not self.quant:
             return False
         if not _fused_dtype_ok(self.dtype):
             return True
@@ -397,13 +409,13 @@ class ResnetUNetGenerator(nn.Module):
             y = bilinear_align_corners(y, tuple(x0.shape[1:3]))
         # The fixed-scale int8 up2 conv only where the fused kernels took
         # the dynamic int8 route off the decoder (the JAX ``quant_fixed``).
-        if self.quant_int8 and not quant_convs and self.quant_fixed_u2:
+        if self.quant and not quant_convs and self.quant_fixed_u2:
             dec_quant = "fixed"
         y = concat_conv3x3(self.up2_conv[0], y, x0, dt, dec_quant)
 
         outc = self.outc[1]
         if self._head_ok(y):
-            head = outc_head_q if self.quant_int8 and self.quant_head else outc_head
+            head = outc_head_q if self.quant and self.quant_head else outc_head
             return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
         y = self._norm_relu(y)
         return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))

@@ -23,7 +23,34 @@ log = get_logger(__name__)
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+# The JAX package's ``conv_precision`` names (``ops/conv.py:_PRECISIONS``),
+# read on the f32 path only. Each maps to whether cuDNN convs and matmuls may
+# use TF32: ``highest`` is full f32 (XLA's HIGHEST); ``high`` and ``default``
+# let XLA take reduced-precision passes, and TF32 is the card's nearest
+# counterpart of those.
+_PRECISIONS = {"default": True, "high": True, "highest": False}
+
+
+def resolve_precision(cfg: Config) -> bool | None:
+    """Whether TF32 is allowed for ``cfg``: None on bf16 (the JAX package
+    reads ``conv_precision`` only on f32), else by name; an unknown name
+    raises ``KeyError``, as ``ops.conv.resolve_precision`` does."""
+    if cfg.compute_dtype != "f32":
+        return None
+    return _PRECISIONS[cfg.conv_precision]
+
+
 def reject_unported(cfg: Config) -> None:
+    """Raise on what the port does not run: ``ValueError`` for the config
+    the JAX runner refuses (a W mesh axis without an H one), else
+    ``NotImplementedError`` for a mode not ported yet."""
+    if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
+        raise ValueError(
+            f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "
+            "(the W axis is a factor of the spatial mesh: sp_devices "
+            "total devices tiled (sp_devices/sp_w_devices)×sp_w_devices); "
+            "set --sp-devices as well"
+        )
     unported = {
         "no_antialias": cfg.no_antialias,
         "no_antialias_up": cfg.no_antialias_up,
@@ -37,15 +64,17 @@ def reject_unported(cfg: Config) -> None:
 
 
 def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
-    """Build the generator per cfg. On the f32 parity path TF32 is turned
-    off for convolutions and matmuls: the JAX f32 path runs
-    HIGHEST-precision convs."""
+    """Build the generator per cfg. On the f32 path ``conv_precision`` sets
+    TF32 for convolutions and matmuls (``resolve_precision``): off for
+    ``highest`` (the default: the JAX f32 parity path runs HIGHEST-precision
+    convs), on for ``high`` and ``default``."""
     reject_unported(cfg)
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-    if cfg.compute_dtype == "f32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = resolve_precision(cfg)
+    if tf32 is not None:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return ResnetUNetGenerator(
         input_nc=cfg.input_nc,
         output_nc=cfg.output_nc,

@@ -10,7 +10,7 @@ a machine without JAX:
 import pytest
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, blur, encdec, head, resblock
+from ircolor_tpu_torch.kernels import LAUNCHES, blur, block, conv, encdec, head, resblock
 from ircolor_tpu_torch.kernels import instance_norm as tin
 from ircolor_tpu_torch.ops.norm import instance_norm_stats
 
@@ -405,3 +405,101 @@ def test_new_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError, match="znorm"):
         resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=(m[:, :64], inv[:, :64]),
                                      pad="zero")
+
+
+def _close_bf16(got, want, ulps=2):
+    """Within ``ulps`` bf16 ulps at the output's largest magnitude: both
+    round the same f32 sums, taken in another order."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) <= ulps * 2.0**-8 * scale
+
+
+def _stats_close(got, want):
+    """IN (mean, inv) within 1e-3 relative (of the largest |mean|)."""
+    merr = (got[1] - want[1]).abs().max() / want[1].abs().max().clamp(min=1e-6)
+    ierr = ((got[2] - want[2]) / want[2]).abs().max()
+    return float(merr) <= 1e-3 and float(ierr) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("legs,cout,pad", [
+    ((128,), 256, "zero"),          # down2
+    ((256, 128), 128, "zero"),      # up1, no concat
+    ((256,), 256, "reflect"),
+    ((64, 64), 128, "reflect"),     # 64-channel legs
+])
+@pytest.mark.parametrize("hw,tile_h", [((16, 32), 16), ((12, 24), 4)])  # full, partial 8×16 tiles
+def test_sum_fused_matches_plain_on_card(cuda, legs, cout, pad, hw, tile_h):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    xs = [_bf16(g, 2, *hw, c) for c in legs]
+    ks = [_bf16(g, 3, 3, c, cout, scale=0.05) for c in legs]
+    before = LAUNCHES["conv3x3_sum_fused"]
+    got = resblock.conv3x3_sum_fused(xs, ks, pad=pad, tile_h=tile_h)
+    want = resblock.conv3x3_sum_fused_plain(xs, ks, pad=pad)
+    assert LAUNCHES["conv3x3_sum_fused"] == before + 1
+    assert _close_bf16(got[0], want[0]) and _stats_close(got, want)
+    again = resblock.conv3x3_sum_fused(xs, ks, pad=pad, tile_h=tile_h)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed-order sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(16, 32), (12, 24)])
+def test_valid_conv_and_block_kernels_match_plain_on_card(cuda, hw):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = _bf16(g, 2, *hw, 256)
+    k1, k2 = _bf16(g, 3, 3, 256, 256, scale=0.05), _bf16(g, 3, 3, 256, 128, scale=0.05)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = xp.permute(0, 2, 3, 1).contiguous()
+    before = dict(LAUNCHES)
+    want = conv.conv3x3_valid_plain(xp, k1)
+    for got in (conv.conv3x3_valid_pallas(xp, k1, tile_h=4),
+                conv.conv3x3_valid_pallas_v2(xp, k1, tile_h=4, mode="preshift")):
+        assert _close_bf16(got, want)
+    assert LAUNCHES["conv3x3_valid"] == before["conv3x3_valid"] + 2
+    got = block.conv3x3_stats(xp, k1, tile_h=4)
+    want = block.conv3x3_stats_plain(xp, k1)
+    assert _close_bf16(got[0], want[0]) and _stats_close(got, want)
+    raw = torch.nn.functional.pad(want[0].permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    raw = raw.permute(0, 2, 3, 1).contiguous()
+    got2 = block.conv3x3_norm_in_stats(raw, k2, want[1], want[2], tile_h=4)
+    want2 = block.conv3x3_stats_plain(raw, k2, want[1], want[2])
+    assert _close_bf16(got2[0], want2[0]) and _stats_close(got2, want2)
+    assert LAUNCHES["conv3x3_stats"] == before["conv3x3_stats"] + 1
+    assert LAUNCHES["conv3x3_norm_in_stats"] == before["conv3x3_norm_in_stats"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 48, 128), (1, 12, 20, 16)])
+def test_blur_downsample_matches_plain_on_card(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = _bf16(g, *shape)
+    before = LAUNCHES["blur_downsample"]
+    got = blur.blur_downsample_pallas(x)
+    assert LAUNCHES["blur_downsample"] == before + 1
+    assert torch.equal(got, blur.blur_downsample_plain(x))  # same additions, same order
+    from ircolor_tpu_torch.ops.blurpool import blur_downsample
+
+    assert _close_bf16(got, blur_downsample(x), ulps=1)
+
+
+@pytest.mark.cuda
+def test_slice5_wrappers_raise_on_unsupported_cuda_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x, k = _bf16(g, 1, 16, 16, 128), _bf16(g, 3, 3, 128, 128, scale=0.05)
+    xp = _bf16(g, 1, 18, 18, 128)  # pre-padded: H = W = 16
+    with pytest.raises(TypeError):  # float32 on the card: the kernels are bf16
+        resblock.conv3x3_sum_fused([x.float()], [k])
+    with pytest.raises(TypeError):
+        conv.conv3x3_valid_pallas(xp.float(), k)
+    with pytest.raises(TypeError):
+        block.conv3x3_stats(xp.float(), k)
+    with pytest.raises(TypeError):
+        blur.blur_downsample_pallas(x.float())
+    with pytest.raises(ValueError, match="Cout % 128"):
+        resblock.conv3x3_sum_fused([x], [k[..., :64].contiguous()])
+    with pytest.raises(ValueError, match="at most 2"):
+        resblock.conv3x3_sum_fused([x] * 3, [k] * 3)
+    with pytest.raises(ValueError, match="C % 16"):
+        resblock.conv3x3_sum_fused([x[..., :8].contiguous()], [k[:, :, :8].contiguous()])
+    with pytest.raises(ValueError, match="C % 8"):
+        blur.blur_downsample_pallas(x[..., :4].contiguous())
