@@ -21,12 +21,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    16×64×64×256: IN + ReLU and IN + residual in bf16 (1 bf16 ulp), IN +
    ReLU in f32 (1e-5), beside ``F.instance_norm``.
 2b. The same for the block backward kernels (dgrad in both launch forms,
-   wgrad with and without the normalize on load) at the flagship training
-   bottleneck (8×128×160×256, k 3×3×256×256), beside cuDNN's bf16
-   ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded conv; and
-   both in the enc/dec segment modes at the b8 flagship segments (down1
-   512×640 128 → dz 64 with dy stored, down2 256×320 256 → 128, up1
+   wgrad with and without the normalize, bit-exact on repeat) at the
+   flagship training bottleneck (8×128×160×256, k 3×3×256×256), beside
+   cuDNN's bf16 ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded
+   conv; and both in the enc/dec segment modes at the b8 flagship segments
+   (down1 512×640 128 → dz 64 with dy stored, down2 256×320 256 → 128, up1
    256×320 128 → 384 and its two wgrad legs), beside the zero-pad conv's.
+   For each wgrad form also its two launches timed apart (transform pass,
+   GEMM with its TFLOP/s) and ptxas's register / spill line.
 2c. TPU kernels 7-10, which the JAX package leaves on no generator route
    and its tools call at the flagship stage shapes, with the flagship
    generator's weights (down2_conv, up1_conv, resblocks.0) at b32: the
@@ -416,6 +418,54 @@ def check_conv_int8(torch, results: list, randn) -> None:
                         library_ms=row["library_ms"]))
 
 
+def wgrad_ptxas() -> dict:
+    """ptxas's register / spill lines of ``csrc/wgrad.cu``'s kernels, by
+    kernel ("gemm", "gemm swap", "transform"), from this process's build."""
+    from ircolor_tpu_torch.kernels import build
+
+    out, name = {}, None
+    for line in build.build_logs.get("wgrad", "").splitlines():
+        if "Compiling entry function" in line:
+            name = ("gemm swap" if "ILb1E" in line else "gemm" if "gemm" in line else "transform")
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def wgrad_hgmma() -> int:
+    """``HGMMA`` instructions in the SASS of ``csrc/wgrad.cu``'s library:
+    the GEMM must issue ``wgmma``."""
+    import shutil
+
+    from ircolor_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("wgrad"))], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def wgrad_parts(torch, args, kw, ptxas: dict) -> str:
+    """One wgrad form's two launches timed apart: the transform pass and
+    the GEMM (its TFLOP/s, grid, ptxas line and shared memory)."""
+    from ircolor_tpu_torch.kernels import resblock
+
+    b, h, w, cz = args[0].shape
+    co = args[1].shape[-1]
+    plan = resblock._wgrad_plan(b, h, w, cz, co)
+    pad = kw.get("pad", "reflect")
+    zsrc, dy = resblock._wgrad_transform(*args, **kw)
+    tx = cuda_time_ms(lambda: resblock._wgrad_transform(*args, **kw), 10)
+    tg = cuda_time_ms(lambda: resblock._wgrad_gemm(zsrc, dy, plan, pad=pad), 10)
+    flops = 2 * b * h * w * 9 * cz * co
+    kern = "gemm swap" if plan.swap else "gemm"
+    smem = resblock._load_wgrad().ircolor_wgrad_gemm_smem()
+    return (f"    transform {tx:.4f} ms, GEMM {tg:.4f} ms = {flops / tg / 1e9:.1f} TFLOP/s "
+            f"({plan.mtiles * plan.ncob} x {plan.slots} blocks, {smem} B shared)\n"
+            f"    ptxas {kern}: {ptxas.get(kern, 'not built in this process')}; transform: "
+            f"{ptxas.get('transform', 'not built in this process')}")
+
+
 def check_bwd_kernels(torch, results: list) -> None:
     """Phase 2b: the block backward kernels against their plain versions at
     the flagship training bottleneck, 8×128×160×256, k 3×3×256×256.
@@ -485,7 +535,13 @@ def check_bwd_kernels(torch, results: list) -> None:
                         bound_ms=sum(b for b, _ in bounds) / 2, bound_by=bounds[0][1],
                         library_ms=lib))
 
-    # wgrad: conv2's (Z = relu(IN(raw1)) on load) and conv1's (Z = x).
+    # wgrad (csrc/wgrad.cu): conv2's (Z = relu(IN(raw1))) and conv1's (Z =
+    # x); the transform pass and the GEMM also timed apart.
+    ptxas = wgrad_ptxas()
+    hgmma = wgrad_hgmma()
+    log(f"[wgrad GEMM] {hgmma} HGMMA instructions in the SASS of csrc/wgrad.cu")
+    if hgmma == 0:
+        raise AssertionError("the wgrad GEMM issues no wgmma")
     errs, times, ptimes = [], [], []
     forms = (("znorm", (raw1, g, raw2, m2, i2, gm, gy), dict(znorm=(m1, i1))),
              ("raw", (x, raw1, raw2, m2, i2, gm, gy), {}))
@@ -493,23 +549,32 @@ def check_bwd_kernels(torch, results: list) -> None:
         got = resblock.conv3x3_wgrad_fused(*args, **kw)
         want = resblock.conv3x3_wgrad_fused_plain(*args, **kw)
         err = rel(got, want)
-        log(f"[conv3x3_wgrad_fused {label}] max|d|/max|dk| = {err:.3g} (tol 1e-3)")
-        if err > 1e-3:
+        repeat = bool(torch.equal(got, resblock.conv3x3_wgrad_fused(*args, **kw)))
+        log(f"[conv3x3_wgrad_fused {label}] max|d|/max|dk| = {err:.3g} (tol 1e-3); repeat "
+            f"bit-exact {repeat}")
+        if err > 1e-3 or not repeat:
             raise AssertionError(f"conv3x3_wgrad_fused {label} disagrees with its plain version")
         errs.append(float((got - want).abs().max()))
+        del got, want
         times.append(cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused(*args, **kw), 10))
         ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused_plain(*args, **kw), 3, 1))
         log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
-    lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(xp, w_oihw.shape, g_nchw), 10)
-    log(f"    (for scale: cuDNN bf16 conv2d_weight of the reflect-padded conv {lib:.3f} ms)")
+        log(wgrad_parts(torch, args, kw, ptxas))
+    # cuDNN's weight gradient of the padded conv, on channels-last operands
+    # (the port's NHWC) and on a contiguous NCHW pad.
+    xp_cl = xp.contiguous(memory_format=torch.channels_last)
+    lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(xp_cl, w_oihw.shape, g_nchw), 10)
+    lib_nchw = cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(xp, w_oihw.shape, g_nchw), 10)
+    log(f"    (for scale: cuDNN bf16 conv2d_weight of the reflect-padded conv {lib:.3f} ms "
+        f"channels-last, {lib_nchw:.3f} ms NCHW)")
     b_ms, b_by = bound(flops, 3 * act + 9 * cb * cb * 4 + bb * cb * 4 * 6)
     results.append(dict(name="conv3x3_wgrad_fused", route="cuda",
-                        source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+                        source="ircolor_tpu_torch/csrc/wgrad.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:956",
                         max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     LAUNCHES.update(before)
-    del g, raw2, raw1, x, xp
+    del g, raw2, raw1, x, xp, xp_cl
     torch.cuda.empty_cache()
 
 
@@ -627,6 +692,7 @@ def check_segment_kernels(torch, results: list) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     before = dict(LAUNCHES)
+    ptxas = wgrad_ptxas()
     bb = TRAIN_B
     kw = dict(pad="zero", mask_p=True)
     dg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bounds=[], err=0.0)
@@ -677,9 +743,10 @@ def check_segment_kernels(torch, results: list) -> None:
             got = resblock.conv3x3_wgrad_fused(*wargs, **kw)
             want = resblock.conv3x3_wgrad_fused_plain(*wargs, **kw)
             rel = float((got - want).abs().max() / want.abs().max())
+            repeat = bool(torch.equal(got, resblock.conv3x3_wgrad_fused(*wargs, **kw)))
             log(f"[conv3x3_wgrad_fused_seg {label} leg {leg} -> {c}] max|d|/max|dk| = {rel:.3g} "
-                "(tol 1e-3)")
-            if rel > 1e-3:
+                f"(tol 1e-3); repeat bit-exact {repeat}")
+            if rel > 1e-3 or not repeat:
                 raise AssertionError(f"conv3x3_wgrad_fused_seg {label} disagrees with its plain version")
             wg["err"] = max(wg["err"], float((got - want).abs().max()))
             ms = cuda_time_ms(lambda: resblock.conv3x3_wgrad_fused(*wargs, **kw), 10)
@@ -691,18 +758,19 @@ def check_segment_kernels(torch, results: list) -> None:
                          npix * (leg + 2 * c) * 2 + 9 * leg * c * 4 + bb * c * 16)
             log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN conv2d_weight {lib:.3f} ms  "
                 f"bound {b_ms[0]:.3f} ms ({b_ms[1]})")
+            log(wgrad_parts(torch, wargs, kw, ptxas))
             for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lib)):
                 wg[key] += v
             wg["bounds"].append(b_ms)
             del z, got, want
         del p, comp, k, args
         torch.cuda.empty_cache()
-    for name, row, line in (("conv3x3_dgrad_fused_seg", dg, ":692"),
-                            ("conv3x3_wgrad_fused_seg", wg, ":956")):
+    for name, row, line, src in (("conv3x3_dgrad_fused_seg", dg, ":692", "resblock_bwd.cu"),
+                                 ("conv3x3_wgrad_fused_seg", wg, ":956", "wgrad.cu")):
         log(f"    {name}, one step's launches: kernel {row['ms']:.3f} ms, plain "
             f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, bound "
             f"{sum(b for b, _ in row['bounds']):.3f} ms")
-        results.append(dict(name=name, route="cuda", source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+        results.append(dict(name=name, route="cuda", source=f"ircolor_tpu_torch/csrc/{src}",
                             replaces=f"ircolor_tpu/ops/pallas_resblock.py{line}",
                             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
                             bound_ms=sum(b for b, _ in row["bounds"]),

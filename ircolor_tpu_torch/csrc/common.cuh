@@ -41,6 +41,55 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The IN backward of one element, rounded like the plain version: every
+// step is its own f32 rounding (no FMA contraction).
+__device__ __forceinline__ float in_bwd(float pv, float cv, float m, float iv,
+                                        float gm, float gy) {
+  const float n = __fmul_rn(__fsub_rn(cv, m), iv);
+  return __fmul_rn(iv, __fsub_rn(__fsub_rn(pv, gm), __fmul_rn(n, gy)));
+}
+
+// 8 consecutive per-channel parameters (32-byte aligned) into registers.
+__device__ __forceinline__ void load8(const float* src, float (&dst)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
+  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
+  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
+}
+
+// The IN backward's per-channel parameters for 8 consecutive channels.
+struct InBwd8 {
+  float m[8], iv[8], gm[8], gy[8];
+  __device__ __forceinline__ void load(const float* m_, const float* iv_,
+                                       const float* gm_, const float* gy_) {
+    load8(m_, m);
+    load8(iv_, iv);
+    load8(gm_, gm);
+    load8(gy_, gy);
+  }
+  // 8 bf16 of p and comp (16 bytes each) -> 8 bf16 dy. mask_p: p is the
+  // cotangent after a ReLU of n, kept where comp > m (n > 0, as inv > 0).
+  __device__ __forceinline__ uint4 apply(uint4 p4, uint4 c4, bool mask_p) const {
+    const uint32_t pw[4] = {p4.x, p4.y, p4.z, p4.w};
+    const uint32_t cw[4] = {c4.x, c4.y, c4.z, c4.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 2 * e;
+      const float c0 = bf16_lo(cw[e]), c1 = bf16_hi(cw[e]);
+      float p0 = bf16_lo(pw[e]), p1 = bf16_hi(pw[e]);
+      if (mask_p) {
+        p0 = c0 > m[k] ? p0 : 0.f;
+        p1 = c1 > m[k + 1] ? p1 : 0.f;
+      }
+      const float t0 = in_bwd(p0, c0, m[k], iv[k], gm[k], gy[k]);
+      const float t1 = in_bwd(p1, c1, m[k + 1], iv[k + 1], gm[k + 1], gy[k + 1]);
+      o[e] = pack_bf16x2(t0, t1);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+
 // mma.sync building blocks shared by the implicit-GEMM conv kernels.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(

@@ -1,9 +1,8 @@
 // Backward of the generator's fused resnet block, for Hopper (sm_90a): the
-// block's two dgrad convs and its two weight-gradient contractions.
+// block's two dgrad convs. (The weight gradient is csrc/wgrad.cu.)
 //
 // Replaces (ircolor_tpu/ops/pallas_resblock.py):
 //   conv3x3_dgrad_fused (_kernel_dgrad, pallas_call at :818) -> dgrad kernel
-//   conv3x3_wgrad_fused (_kernel_wgrad, pallas_call at :1025) -> wgrad kernel
 //
 // dgrad, per image b (p, comp: the IN's cotangent and the raw tensor it
 // normalized, C channels; out: Cout channels):
@@ -16,19 +15,14 @@
 //   residual form:   out = bf16(dz + aux)
 //   dy is also stored (bf16) when asked, for a stock weight gradient.
 //
-// wgrad: dk[ty, tx, ci, co] = sum_{b,p,q} Zpad[p+ty, q+tx, ci] * dy[p, q, co]
-//   with Z = z or bf16(relu((z - zm)*zi)) and dy as above, both recomputed
-//   on load from the tensors the forward saved; f32 accumulation.
-//
-// The enc/dec segment modes (ircolor_tpu/ops/pallas_encdec.py runs these
-// kernels with pad="zero", mask_p=True and no aux): the segment convs
-// zero-pad, so dgrad's dz is F itself (no fold) and wgrad's Zpad has zero
-// halos; mask_p takes p = p * (comp > m) on load, before the IN backward
+// The enc/dec segment modes (ircolor_tpu/ops/pallas_encdec.py runs this
+// kernel with pad="zero", mask_p=True and no aux): the segment convs
+// zero-pad, so dz is F itself (no fold); mask_p takes p = p * (comp > m) on load, before the IN backward
 // (the cotangent enters after the segment's ReLU); without aux the dgrad
 // stores bf16(F). The segments' dz widths (64 at down1, 384 at up1) need
 // Cout % 64 == 0: a block's second 64-channel warp column idles past Cout.
 //
-// What bounds them on the H100: the tensor cores. At the flagship training
+// What bounds it on the H100: the tensor cores. At the flagship training
 // bottleneck (8x128x160x256, k 3x3x256x256) each launch is 0.193 TFLOP
 // against 0.25-0.34 GB of bf16 tensors, ~600 flop/byte, above the card's
 // ridge point.
@@ -46,14 +40,6 @@
 //   skips a pass no lane of it needs. Other tiles run no extra work.
 // * dgrad statistics are per-(b, tile) partials reduced by the caller in a
 //   fixed order: no float atomics, so a training step repeats bit for bit.
-// * wgrad is a GEMM per tap with M = input channels, N = output channels
-//   and K = pixels. A block owns one tap row (three taps), 64 x 128 of
-//   (ci, co) and a fixed group of 4x16-pixel tiles. Per tile the dy tile
-//   and a 4x18 Z strip (reflect halos from the index map) are transformed
-//   once on load, stored pixel-major, and serve all three taps (a tap is a
-//   column shift of the strip); ldmatrix.trans turns them into the
-//   operands. Each block writes its f32 partials to workspace slots
-//   (groups x 9 x Cz x Co); the caller sums the slots in a fixed order.
 #include "common.cuh"
 
 namespace ircolor {
@@ -84,63 +70,6 @@ static_assert(NTHREADS % 2 == 0, "a thread's patch units must share a channel ha
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * ROWB + ((chunk ^ ((row >> 2) & 1)) << 4);
 }
-
-// The IN backward of one element, rounded like the plain version: every
-// step is its own f32 rounding (no FMA contraction).
-__device__ __forceinline__ float in_bwd(float pv, float cv, float m, float iv,
-                                        float gm, float gy) {
-  const float n = __fmul_rn(__fsub_rn(cv, m), iv);
-  return __fmul_rn(iv, __fsub_rn(__fsub_rn(pv, gm), __fmul_rn(n, gy)));
-}
-
-// 8 consecutive per-channel parameters (32-byte aligned) into registers.
-__device__ __forceinline__ void load8(const float* src, float (&dst)[8]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
-  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
-  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
-}
-
-// The same from shared memory (16-byte aligned).
-__device__ __forceinline__ void load8_shared(const float* src, float (&dst)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(src);
-  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
-  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
-}
-
-// The IN backward's per-channel parameters for 8 consecutive channels.
-struct InBwd8 {
-  float m[8], iv[8], gm[8], gy[8];
-  __device__ __forceinline__ void load(const float* m_, const float* iv_,
-                                       const float* gm_, const float* gy_) {
-    load8(m_, m);
-    load8(iv_, iv);
-    load8(gm_, gm);
-    load8(gy_, gy);
-  }
-  // 8 bf16 of p and comp (16 bytes each) -> 8 bf16 dy. mask_p: p is the
-  // cotangent after a ReLU of n, kept where comp > m (n > 0, as inv > 0).
-  __device__ __forceinline__ uint4 apply(uint4 p4, uint4 c4, bool mask_p) const {
-    const uint32_t pw[4] = {p4.x, p4.y, p4.z, p4.w};
-    const uint32_t cw[4] = {c4.x, c4.y, c4.z, c4.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 2 * e;
-      const float c0 = bf16_lo(cw[e]), c1 = bf16_hi(cw[e]);
-      float p0 = bf16_lo(pw[e]), p1 = bf16_hi(pw[e]);
-      if (mask_p) {
-        p0 = c0 > m[k] ? p0 : 0.f;
-        p1 = c1 > m[k + 1] ? p1 : 0.f;
-      }
-      const float t0 = in_bwd(p0, c0, m[k], iv[k], gm[k], gy[k]);
-      const float t1 = in_bwd(p1, c1, m[k + 1], iv[k + 1], gm[k + 1], gy[k + 1]);
-      o[e] = pack_bf16x2(t0, t1);
-    }
-    return make_uint4(o[0], o[1], o[2], o[3]);
-  }
-};
 
 // The dgrad's epilogue forms.
 enum { EPI_RESIDUAL = 0, EPI_MASK_STATS = 1, EPI_NONE = 2 };
@@ -465,270 +394,6 @@ int launch_dgrad(const DgradArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------- wgrad ----
-
-constexpr int WG_TR = 4;                          // pixel rows per chunk
-constexpr int WG_TC = 16;                         // pixel cols per chunk (one k16 step)
-constexpr int WG_PX = WG_TR * WG_TC;              // dy pixels per chunk (64)
-constexpr int WG_ZC = WG_TC + 2;                  // Z cols per row: the three tx shifts
-constexpr int WG_ZPX = WG_TR * WG_ZC;             // Z pixels per chunk (72)
-constexpr int WG_BM = 64;                         // input channels per block
-constexpr int WG_BN = 128;                        // output channels per block
-constexpr int WG_ZROWB = WG_BM * 2;               // bytes of one Z pixel row
-constexpr int WG_DROWB = WG_BN * 2;               // bytes of one dy pixel row
-constexpr int WG_ZBYTES = WG_ZPX * WG_ZROWB;
-constexpr int WG_STAGE_BYTES = WG_ZBYTES + WG_PX * WG_DROWB;
-constexpr int WG_PARAM_OFF = 2 * WG_STAGE_BYTES;  // two stages, 50 KB
-// Per-image parameter table: m, inv, gm, gy of the block's 128 output
-// channels, then zm, zi of its 64 input channels.
-constexpr int WG_PARAM_FLOATS = 4 * WG_BN + 2 * WG_BM;
-constexpr int WG_SMEM_BYTES = WG_PARAM_OFF + WG_PARAM_FLOATS * 4;
-constexpr int WG_ZUNITS = WG_ZPX * (WG_BM / 8);   // 16-byte units per chunk
-constexpr int WG_ZUPT = (WG_ZUNITS + NTHREADS - 1) / NTHREADS;
-constexpr int WG_DUPT = WG_PX * (WG_BN / 8) / NTHREADS;
-static_assert(NTHREADS % 16 == 0, "a thread's units must keep their channels");
-
-// Pixel-major rows; the XOR puts the 8 rows one ldmatrix reads (same unit,
-// 8 consecutive pixels) on distinct banks.
-__device__ __forceinline__ int zswz(int px, int unit) {
-  return px * WG_ZROWB + ((unit ^ (px & 7)) << 4);
-}
-__device__ __forceinline__ int dswz(int px, int unit) {
-  return px * WG_DROWB + ((unit ^ (px & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-struct WgradArgs {
-  const __nv_bfloat16* z;     // (B, H, W, Cz) conv input (or its raw)
-  const __nv_bfloat16* p;     // (B, H, W, Co) cotangent entering the IN
-  const __nv_bfloat16* comp;  // (B, H, W, Co) raw tensor the IN normalized
-  const float* m;             // (B, Co) IN mean, inv, E[p], E[p*n]
-  const float* inv;
-  const float* gm;
-  const float* gy;
-  const float* zm;            // (B, Cz) z's IN stats, or null
-  const float* zi;
-  float* ws;                  // (groups, 9, Cz, Co) f32 partials
-  int B, H, W, Cz, Co, ntr, ntc, ntiles, tpg;
-  int reflect;                // 1: reflect halos; 0: zero halos
-  int mask_p;                 // 1: p masked by comp > m on load
-};
-
-// One block: one tap row ty (taps ty*3 + tx, tx = 0..2), 64 input x 128
-// output channels, and a group of 4x16-pixel tiles. Per tile the dy tile
-// (64 pixels) and the Z strip (4 x 18 pixels: rows p+ty-1, columns c0-1 ..
-// c0+16, reflected) are transformed once and serve all three taps: tap tx
-// reads strip columns tx .. tx+15. Warps: 2 (32 input channels) x 4 (32
-// output channels), each with 3 x 32 x 32 f32 accumulators.
-template <bool ZNORM>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    conv3x3_wgrad_kernel(const WgradArgs a) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int grp = blockIdx.x, ty = blockIdx.y;
-  const int nco = a.Co / WG_BN;
-  const int ci0 = (blockIdx.z / nco) * WG_BM, co0 = (blockIdx.z % nco) * WG_BN;
-  const int t0 = grp * a.tpg;
-  const int nchunks = max(0, min(t0 + a.tpg, a.ntiles) - t0);
-  const int per_img = a.ntr * a.ntc;
-  const int zcu = tid & 7, dcu = tid & 15;  // this thread's units (8 channels each)
-
-  uint4 rz[WG_ZUPT], rp[WG_DUPT], rc[WG_DUPT];
-  int img = -1;
-  unsigned live = 0;  // bit i: dy unit i lies inside the image
-  auto load_chunk = [&](int j) {
-    const int t = t0 + j;
-    img = t / per_img;
-    const int rem = t - img * per_img;
-    const int r0 = (rem / a.ntc) * WG_TR, c0 = (rem % a.ntc) * WG_TC;
-    const size_t zimg = (size_t)img * a.H * a.W;
-#pragma unroll
-    for (int i = 0; i < WG_ZUPT; ++i) {
-      const int zpx = (tid + i * NTHREADS) >> 3;
-      if (zpx < WG_ZPX) {
-        const int zr = zpx / WG_ZC, zc = zpx - zr * WG_ZC;
-        int h = r0 + zr + ty - 1, w = c0 + zc - 1;
-        if (a.reflect) {
-          h = reflect_index(h, a.H);
-          w = reflect_index(w, a.W);
-        } else if (h < 0 || h >= a.H || w < 0 || w >= a.W) {
-          rz[i] = make_uint4(0, 0, 0, 0);  // zero halo
-          continue;
-        }
-        rz[i] = ldg16(a.z + (zimg + (size_t)h * a.W + w) * a.Cz + ci0 + zcu * 8);
-      }
-    }
-    live = 0;
-#pragma unroll
-    for (int i = 0; i < WG_DUPT; ++i) {
-      const int px = (tid + i * NTHREADS) >> 4;
-      const int h = r0 + px / WG_TC, w = c0 + px % WG_TC;
-      if (h < a.H && w < a.W) {  // outside the image (partial tile): dy = 0
-        const size_t off = (zimg + (size_t)h * a.W + w) * a.Co + co0 + dcu * 8;
-        rp[i] = ldg16(a.p + off);
-        rc[i] = ldg16(a.comp + off);
-        live |= 1u << i;
-      }
-    }
-  };
-
-  // The per-channel parameters of the current image live in a shared
-  // table, rewritten when a chunk starts a new image (block-uniform), and
-  // are read into registers only while a chunk is transformed.
-  float* ptab = reinterpret_cast<float*>(smem + WG_PARAM_OFF);
-  int pimg = -1;
-  auto store_chunk = [&](int stage) {
-    uint8_t* zt = smem + stage * WG_STAGE_BYTES;
-    uint8_t* dt = zt + WG_ZBYTES;
-    if (img != pimg) {
-      pimg = img;
-      if (tid < WG_BN) {
-        const size_t bd = (size_t)img * a.Co + co0 + tid;
-        ptab[tid] = a.m[bd];
-        ptab[WG_BN + tid] = a.inv[bd];
-        ptab[2 * WG_BN + tid] = a.gm[bd];
-        ptab[3 * WG_BN + tid] = a.gy[bd];
-      } else if (ZNORM && tid < WG_BN + WG_BM) {
-        const size_t bz = (size_t)img * a.Cz + ci0 + tid - WG_BN;
-        ptab[4 * WG_BN + tid - WG_BN] = a.zm[bz];
-        ptab[4 * WG_BN + WG_BM + tid - WG_BN] = a.zi[bz];
-      }
-      __syncthreads();
-    }
-    if constexpr (ZNORM) {
-      float zm[8], zi[8];
-      load8_shared(ptab + 4 * WG_BN + zcu * 8, zm);
-      load8_shared(ptab + 4 * WG_BN + WG_BM + zcu * 8, zi);
-#pragma unroll
-      for (int i = 0; i < WG_ZUPT; ++i) {
-        const int zpx = (tid + i * NTHREADS) >> 3;
-        if (zpx >= WG_ZPX) continue;
-        const uint32_t zw[4] = {rz[i].x, rz[i].y, rz[i].z, rz[i].w};
-        uint32_t o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = 2 * e;
-          const float v0 = fmaxf(__fmul_rn(__fsub_rn(bf16_lo(zw[e]), zm[k]), zi[k]), 0.f);
-          const float v1 =
-              fmaxf(__fmul_rn(__fsub_rn(bf16_hi(zw[e]), zm[k + 1]), zi[k + 1]), 0.f);
-          o[e] = pack_bf16x2(v0, v1);
-        }
-        *reinterpret_cast<uint4*>(zt + zswz(zpx, zcu)) = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < WG_ZUPT; ++i) {
-        const int zpx = (tid + i * NTHREADS) >> 3;
-        if (zpx < WG_ZPX) *reinterpret_cast<uint4*>(zt + zswz(zpx, zcu)) = rz[i];
-      }
-    }
-    InBwd8 prm;
-    load8_shared(ptab + dcu * 8, prm.m);
-    load8_shared(ptab + WG_BN + dcu * 8, prm.iv);
-    load8_shared(ptab + 2 * WG_BN + dcu * 8, prm.gm);
-    load8_shared(ptab + 3 * WG_BN + dcu * 8, prm.gy);
-#pragma unroll
-    for (int i = 0; i < WG_DUPT; ++i) {
-      const int px = (tid + i * NTHREADS) >> 4;
-      const uint4 od =
-          (live >> i) & 1u ? prm.apply(rp[i], rc[i], a.mask_p != 0) : make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(dt + dswz(px, dcu)) = od;
-    }
-  };
-
-  float acc[3][2][4][4];
-#pragma unroll
-  for (int tx = 0; tx < 3; ++tx)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[tx][mi][nt][e] = 0.f;
-
-  const int mat = lane >> 3, mrow = lane & 7;
-  auto compute = [&](int stage) {
-    const uint32_t zb = smem_u32(smem + stage * WG_STAGE_BYTES);
-    const uint32_t db = zb + WG_ZBYTES;
-#pragma unroll
-    for (int ks = 0; ks < WG_TR; ++ks) {  // one tile row = one k16 step
-      // B = dy (K = pixel, N = co): matrix j holds pixel half j&1, co half j>>1.
-      uint32_t bq[2][4];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int row = ks * WG_TC + ((mat & 1) << 3) + mrow;
-        ldmatrix_x4_trans(bq[nj], db + dswz(row, wn * 4 + nj * 2 + (mat >> 1)));
-      }
-#pragma unroll
-      for (int tx = 0; tx < 3; ++tx) {
-        // A = Z^T (M = ci, K = pixel): matrix j holds ci half j&1, pixel half j>>1.
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          uint32_t af[4];
-          const int zrow = ks * WG_ZC + tx + ((mat >> 1) << 3) + mrow;
-          ldmatrix_x4_trans(af, zb + zswz(zrow, wm * 4 + mi * 2 + (mat & 1)));
-#pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            mma(acc[tx][mi][2 * nj], af, bq[nj][0], bq[nj][1]);
-            mma(acc[tx][mi][2 * nj + 1], af, bq[nj][2], bq[nj][3]);
-          }
-        }
-      }
-    }
-  };
-
-  if (nchunks > 0) {
-    load_chunk(0);
-    store_chunk(0);
-    __syncthreads();
-    for (int j = 0; j < nchunks; ++j) {
-      const int s = j & 1;
-      const bool more = j + 1 < nchunks;
-      if (more) load_chunk(j + 1);
-      compute(s);
-      if (more) store_chunk(s ^ 1);
-      __syncthreads();
-    }
-  }
-
-  // Epilogue: this block's f32 partials into its workspace slots.
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int tx = 0; tx < 3; ++tx) {
-    float* dst = a.ws + (size_t)(grp * 9 + ty * 3 + tx) * a.Cz * a.Co;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int ci = ci0 + wm * 32 + mi * 16 + g;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = co0 + wn * 32 + nt * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(dst + (size_t)ci * a.Co + co) =
-            make_float2(acc[tx][mi][nt][0], acc[tx][mi][nt][1]);
-        *reinterpret_cast<float2*>(dst + (size_t)(ci + 8) * a.Co + co) =
-            make_float2(acc[tx][mi][nt][2], acc[tx][mi][nt][3]);
-      }
-    }
-  }
-}
-
-template <bool ZNORM>
-int launch_wgrad(const WgradArgs& a, int ngroups, cudaStream_t stream) {
-  auto kernel = conv3x3_wgrad_kernel<ZNORM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(ngroups, 3, (a.Cz / WG_BM) * (a.Co / WG_BN));
-  kernel<<<grid, NTHREADS, WG_SMEM_BYTES, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace ircolor
 
@@ -776,48 +441,6 @@ int ircolor_conv3x3_dgrad(const void* p, const void* comp, const void* aux,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mm != nullptr) return launch_dgrad<EPI_MASK_STATS>(a, s);
   return aux != nullptr ? launch_dgrad<EPI_RESIDUAL>(a, s) : launch_dgrad<EPI_NONE>(a, s);
-}
-
-// Number of 4x16-pixel wgrad tiles of a (B, H, W) batch.
-int ircolor_conv3x3_wgrad_num_tiles(int B, int H, int W) {
-  return B * ((H + ircolor::WG_TR - 1) / ircolor::WG_TR) *
-         ((W + ircolor::WG_TC - 1) / ircolor::WG_TC);
-}
-
-// zm/zi non-null: Z = relu((z - zm)*zi) on load (reflect halos only). ws
-// holds ngroups slots of 9 x Cz x Co f32; group g covers tiles [g*tpg,
-// min((g+1)*tpg, num_tiles)). reflect / mask_p as for the dgrad.
-int ircolor_conv3x3_wgrad(const void* z, const void* p, const void* comp,
-                          const void* m, const void* inv, const void* gm,
-                          const void* gy, const void* zm, const void* zi,
-                          void* ws, int B, int H, int W, int Cz, int Co,
-                          int tpg, int ngroups, int reflect, int mask_p, void* stream) {
-  using namespace ircolor;
-  WgradArgs a;
-  a.z = static_cast<const __nv_bfloat16*>(z);
-  a.p = static_cast<const __nv_bfloat16*>(p);
-  a.comp = static_cast<const __nv_bfloat16*>(comp);
-  a.m = static_cast<const float*>(m);
-  a.inv = static_cast<const float*>(inv);
-  a.gm = static_cast<const float*>(gm);
-  a.gy = static_cast<const float*>(gy);
-  a.zm = static_cast<const float*>(zm);
-  a.zi = static_cast<const float*>(zi);
-  a.ws = static_cast<float*>(ws);
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.Cz = Cz;
-  a.Co = Co;
-  a.ntr = (H + WG_TR - 1) / WG_TR;
-  a.ntc = (W + WG_TC - 1) / WG_TC;
-  a.ntiles = ircolor_conv3x3_wgrad_num_tiles(B, H, W);
-  a.tpg = tpg;
-  a.reflect = reflect;
-  a.mask_p = mask_p;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return zm != nullptr ? launch_wgrad<true>(a, ngroups, s)
-                       : launch_wgrad<false>(a, ngroups, s);
 }
 
 }  // extern "C"

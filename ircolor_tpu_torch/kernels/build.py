@@ -19,14 +19,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("resblock", "resblock_bwd", "blur", "head", "conv_int8", "instance_norm")
+SOURCES = ("resblock", "resblock_bwd", "wgrad", "blur", "head", "conv_int8",
+           "instance_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of each library built in this process.
+# ptxas register/shared-memory report of each library, from this process's
+# build or, for a library built earlier, the report kept beside it.
 build_logs: dict[str, str] = {}
 
 
@@ -51,6 +53,9 @@ def _lib_path(name: str) -> Path:
 def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
     out = _lib_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if name not in build_logs and log.exists():
+            build_logs[name] = log.read_text()
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -68,6 +73,7 @@ def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     build_logs[name] = log
 

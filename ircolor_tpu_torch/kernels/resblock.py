@@ -1,5 +1,6 @@
 """Fused reflect-padded 3×3 conv of the resnet blocks (``csrc/resblock.cu``),
-its backward (``csrc/resblock_bwd.cu``) and the blocks built from them.
+its backward (dgrad ``csrc/resblock_bwd.cu``, wgrad ``csrc/wgrad.cu``) and
+the blocks built from them.
 
 Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_reflect_fused`` (bf16), ``conv3x3_reflect_fused_q`` (int8),
@@ -23,6 +24,7 @@ with TF32 off, or they are not the reference.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +40,7 @@ _KBYTES = 32  # bytes of input channels per K chunk of the kernel
 
 _lib = None
 _lib_bwd = None
+_lib_wgrad = None
 
 
 def _load():
@@ -64,12 +67,26 @@ def _load_bwd():
         lib.ircolor_conv3x3_dgrad_num_tiles.restype = i
         lib.ircolor_conv3x3_dgrad.argtypes = [p] * 13 + [i] * 7 + [p]
         lib.ircolor_conv3x3_dgrad.restype = i
-        lib.ircolor_conv3x3_wgrad_num_tiles.argtypes = [i, i, i]
-        lib.ircolor_conv3x3_wgrad_num_tiles.restype = i
-        lib.ircolor_conv3x3_wgrad.argtypes = [p] * 10 + [i] * 9 + [p]
-        lib.ircolor_conv3x3_wgrad.restype = i
         _lib_bwd = lib
     return _lib_bwd
+
+
+def _load_wgrad():
+    global _lib_wgrad
+    if _lib_wgrad is None:
+        lib = build.load("wgrad")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.ircolor_wgrad_chunk_rows, lib.ircolor_wgrad_chunk_cols,
+                   lib.ircolor_wgrad_gemm_smem):
+            fn.argtypes, fn.restype = [], i
+        if (lib.ircolor_wgrad_chunk_rows(), lib.ircolor_wgrad_chunk_cols()) != (_WG_TR, _WG_TC):
+            raise RuntimeError("csrc/wgrad.cu and _wgrad_plan disagree on the chunk shape")
+        lib.ircolor_wgrad_transform.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.ircolor_wgrad_transform.restype = i
+        lib.ircolor_wgrad_gemm.argtypes = [p] * 3 + [i] * 8 + [p]
+        lib.ircolor_wgrad_gemm.restype = i
+        _lib_wgrad = lib
+    return _lib_wgrad
 
 
 def _moments(s1: torch.Tensor, s2: torch.Tensor, n: int):
@@ -292,9 +309,6 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
 
 # ------------------------------------------------------------ backward ----
 
-_WG_GROUP_TILES = 128  # 4×16-pixel tiles (8,192 pixels) per wgrad workspace slot
-
-
 def _col(v: torch.Tensor) -> torch.Tensor:
     return v.float()[:, None, None, :]
 
@@ -456,8 +470,12 @@ def conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect"
     """Fused wgrad of ``conv2d(ReflectionPad(1)(Z), k)`` for the block
     backward: ``dk`` (3, 3, Cz, Co) float32 with Z = z, or relu((z − zm)·zi)
     for ``znorm=(zm, zi)``, and dy the IN backward of ``conv3x3_dgrad_fused``,
-    both recomputed on load from the tensors the forward saved. The segment
-    modes: ``pad="zero"`` (zero halos; not with ``znorm``) and ``mask_p``."""
+    both recomputed from the tensors the forward saved. The segment modes:
+    ``pad="zero"`` (zero halos; not with ``znorm``) and ``mask_p``.
+
+    On the card two launches of ``csrc/wgrad.cu``: the transform pass (dy,
+    and for reflect halos the padded Z), then the GEMM into the plan's f32
+    workspace slots, summed here in a fixed order."""
     _check_mode(pad, znorm=znorm)
     if z.device.type == "cpu":
         return conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm, pad=pad,
@@ -472,31 +490,169 @@ def conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect"
             f"conv3x3_wgrad_fused: unsupported shape z={tuple(z.shape)} Co={co} "
             "(needs Cz % 64 == 0, Co % 128 == 0, H, W >= 2)"
         )
+    if any(t.data_ptr() % 16 for t in (z, p, comp)):
+        raise ValueError("conv3x3_wgrad_fused: z, p and comp must start on 16-byte boundaries")
     for name, v in (("m", m), ("inv", inv), ("gm", gm), ("gy", gy)):
         require(v, name, torch.float32, (b, co))
-    zm = zi = None
     if znorm is not None:
-        zm, zi = znorm
-        require(zm, "zm", torch.float32, (b, cz))
-        require(zi, "zi", torch.float32, (b, cz))
-    lib = _load_bwd()
-    ntiles = lib.ircolor_conv3x3_wgrad_num_tiles(b, h, w)
-    groups = -(-ntiles // _WG_GROUP_TILES)
-    per_group = -(-ntiles // groups)
-    ws = torch.empty((groups, 9, cz, co), dtype=torch.float32, device=z.device)
+        require(znorm[0], "zm", torch.float32, (b, cz))
+        require(znorm[1], "zi", torch.float32, (b, cz))
+    zsrc, dy = _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm, pad=pad, mask_p=mask_p)
+    ws = _wgrad_gemm(zsrc, dy, _wgrad_plan(b, h, w, cz, co), pad=pad)
+    name = "conv3x3_wgrad_fused" + ("_seg" if _is_segment(pad, mask_p) else "")
+    LAUNCHES[name] += 1
+    return ws.sum(dim=0).reshape(3, 3, cz, co)  # fixed-order reduce of the slots
+
+
+# The wgrad GEMM's K chunk: TR × TC pixels of one image (csrc/wgrad.cu's
+# TR, TC; checked when the library loads).
+_WG_TR, _WG_TC = 2, 32
+# Blocks the plan aims at: one wave of 132 (an H100's SM count, fixed here,
+# never read from the card, so the slots and the sums' order depend on the
+# shapes alone).
+_WG_WAVE = 132
+
+
+class WgradPlan(NamedTuple):
+    """The wgrad GEMM's work split. An M-block is (tap, 64 input channels):
+    mb = tap · ncib + ci // 64. Block (tile, slot), tile = mt · ncob + cob,
+    owns M-blocks mt · mper + [0, mper) that exist (mb < nmb), output
+    channels cob · cw + [0, cw), and chunks [slot · cps, min((slot + 1) ·
+    cps, nchunks)) of the (B, ntr, ntc) grid of TR × TC pixel chunks.
+    ``swap`` (Co % 256 ≠ 0): 4 M-blocks × 128 output channels a block, dy
+    on the A side; else 2 × 256, Z on the A side."""
+
+    swap: bool
+    mper: int
+    cw: int
+    ncib: int
+    nmb: int
+    mtiles: int
+    ncob: int
+    ntr: int
+    ntc: int
+    nchunks: int
+    slots: int
+    cps: int
+
+
+def _wgrad_plan(b: int, h: int, w: int, cz: int, co: int) -> WgradPlan:
+    """Tiles, chunks and workspace slots of the wgrad GEMM: a function of
+    the shapes alone (about one ``_WG_WAVE`` of blocks)."""
+    swap = co % 256 != 0
+    mper, cw = (4, 128) if swap else (2, 256)
+    ncib = cz // 64
+    nmb = 9 * ncib
+    mtiles = -(-nmb // mper)
+    ncob = co // cw
+    ntr, ntc = -(-h // _WG_TR), -(-w // _WG_TC)
+    nchunks = b * ntr * ntc
+    slots = max(1, min(nchunks, _WG_WAVE // (mtiles * ncob)))
+    cps = -(-nchunks // slots)
+    return WgradPlan(swap, mper, cw, ncib, nmb, mtiles, ncob, ntr, ntc, nchunks,
+                     -(-nchunks // cps), cps)
+
+
+def _wgrad_work(plan: WgradPlan):
+    """Every block's share as (slot, tap, ci0, co0, k0, k1): input channels
+    ci0 + [0, 64), output channels co0 + [0, cw), chunks [k0, k1), in the
+    kernel's index arithmetic."""
+    for slot in range(plan.slots):
+        k0 = slot * plan.cps
+        k1 = min(k0 + plan.cps, plan.nchunks)
+        for tile in range(plan.mtiles * plan.ncob):
+            mt, cob = divmod(tile, plan.ncob)
+            for mb in range(mt * plan.mper, min((mt + 1) * plan.mper, plan.nmb)):
+                tap, cib = divmod(mb, plan.ncib)
+                yield slot, tap, cib * 64, cob * plan.cw, k0, k1
+
+
+def _reflect_rows(n: int) -> torch.Tensor:
+    """Source index of padded rows −1 … n of a ReflectionPad(1): common.cuh's
+    ``reflect_index``."""
+    i = torch.arange(-1, n + 1).abs()
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def _wgrad_transform_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect",
+                           mask_p=False):
+    """Plain version of the transform pass: (zsrc, dy). dy is
+    ``_in_bwd_input``; zsrc is z itself for zero halos (the GEMM's
+    out-of-bounds reads are its halo), else Z (z, or bf16(relu((z −
+    zm)·zi))) reflect-padded to (B, H+2, W+2, Cz) through the index map."""
+    dy = _in_bwd_input(p, comp, m, inv, gm, gy, mask_p)
+    if pad == "zero":
+        return z, dy
+    zz = z if znorm is None else _normalize_relu(z, *znorm).to(z.dtype)
+    h, w = z.shape[1], z.shape[2]
+    return zz[:, _reflect_rows(h)][:, :, _reflect_rows(w)].contiguous(), dy
+
+
+def _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect", mask_p=False):
+    """The transform pass (the plain version for CPU tensors)."""
+    if p.device.type == "cpu":
+        return _wgrad_transform_plain(z, p, comp, m, inv, gm, gy, znorm, pad=pad, mask_p=mask_p)
+    b, h, w, cz = z.shape
+    dy = torch.empty_like(p)
+    zp = None
+    if pad == "reflect":
+        zp = torch.empty((b, h + 2, w + 2, cz), dtype=z.dtype, device=z.device)
+    zm, zi = znorm if znorm is not None else (None, None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.ircolor_conv3x3_wgrad(
-        z.data_ptr(), p.data_ptr(), comp.data_ptr(), m.data_ptr(), inv.data_ptr(),
-        gm.data_ptr(), gy.data_ptr(), ptr(zm), ptr(zi), ws.data_ptr(),
-        b, h, w, cz, co, per_group, groups, int(pad == "reflect"), int(mask_p), stream_ptr(),
+    err = _load_wgrad().ircolor_wgrad_transform(
+        ptr(z) if zp is not None else None, p.data_ptr(), comp.data_ptr(), m.data_ptr(),
+        inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), ptr(zm), ptr(zi), dy.data_ptr(), ptr(zp),
+        b, h, w, cz, p.shape[-1], int(mask_p), stream_ptr(),
     )
-    name = "conv3x3_wgrad_fused" + ("_seg" if _is_segment(pad, mask_p) else "")
-    build.check(err, name)
-    LAUNCHES[name] += 1
-    return ws.sum(dim=0).reshape(3, 3, cz, co)  # fixed-order reduce of the slots
+    build.check(err, "wgrad transform")
+    return (z if zp is None else zp), dy
+
+
+def _wgrad_chunks(t: torch.Tensor, plan: WgradPlan) -> torch.Tensor:
+    """(B, ntr·TR, ntc·TC, C) → (nchunks, TR·TC, C) in chunk order."""
+    b, c = t.shape[0], t.shape[-1]
+    t = t.reshape(b, plan.ntr, _WG_TR, plan.ntc, _WG_TC, c).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(plan.nchunks, _WG_TR * _WG_TC, c)
+
+
+def _wgrad_gemm_plain(zsrc, dy, plan: WgradPlan, *, pad="reflect") -> torch.Tensor:
+    """Plain version of the GEMM: the (slots, 9, Cz, Co) f32 partials, each
+    warpgroup's share of ``_wgrad_work`` as the kernel reads it — chunks of
+    TR × TC pixels, zeros wherever a box lies outside its plane."""
+    b, h, w, co = dy.shape
+    cz = zsrc.shape[-1]
+    hh, ww = plan.ntr * _WG_TR, plan.ntc * _WG_TC
+    dyx = dy.new_zeros((b, hh, ww, co), dtype=torch.float32)
+    dyx[:, :h, :w] = dy.float()
+    off = 0 if pad == "reflect" else 1  # zsrc row of padded row r: r − off
+    zbig = dy.new_zeros((b, hh + 2, ww + 2, cz), dtype=torch.float32)
+    zbig[:, off : off + zsrc.shape[1], off : off + zsrc.shape[2]] = zsrc.float()
+    dyc = _wgrad_chunks(dyx, plan)
+    zc = [_wgrad_chunks(zbig[:, ty : ty + hh, tx : tx + ww], plan) for ty in range(3) for tx in range(3)]
+    ws = dy.new_zeros((plan.slots, 9, cz, co), dtype=torch.float32)
+    for slot, tap, ci0, co0, k0, k1 in _wgrad_work(plan):
+        ws[slot, tap, ci0 : ci0 + 64, co0 : co0 + plan.cw] = torch.einsum(
+            "kpi,kpo->io", zc[tap][k0:k1, :, ci0 : ci0 + 64], dyc[k0:k1, :, co0 : co0 + plan.cw])
+    return ws
+
+
+def _wgrad_gemm(zsrc, dy, plan: WgradPlan, *, pad="reflect") -> torch.Tensor:
+    """The GEMM into the plan's workspace slots (the plain version for CPU
+    tensors)."""
+    if dy.device.type == "cpu":
+        return _wgrad_gemm_plain(zsrc, dy, plan, pad=pad)
+    b, h, w, co = dy.shape
+    cz = zsrc.shape[-1]
+    ws = torch.empty((plan.slots, 9, cz, co), dtype=torch.float32, device=dy.device)
+    err = _load_wgrad().ircolor_wgrad_gemm(
+        zsrc.data_ptr(), dy.data_ptr(), ws.data_ptr(), b, h, w, cz, co, int(pad == "reflect"),
+        plan.slots, plan.cps, stream_ptr(),
+    )
+    build.check(err, "wgrad GEMM")
+    return ws
 
 
 # --------------------------------------------------------------- blocks ----

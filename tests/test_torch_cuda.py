@@ -150,6 +150,50 @@ def test_backward_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         resblock.conv3x3_wgrad_fused(z.transpose(1, 2).contiguous().transpose(1, 2),
                                      p, comp, m, inv, gm, gy)
+    with pytest.raises(ValueError):  # Co not a multiple of 128
+        resblock.conv3x3_wgrad_fused(z, p[..., :64].contiguous(), comp[..., :64].contiguous(),
+                                     m[:, :64].contiguous(), inv[:, :64].contiguous(),
+                                     gm[:, :64].contiguous(), gy[:, :64].contiguous())
+
+
+_WGRAD_FORMS = (  # (pad, mask_p, znorm)
+    ("reflect", False, False), ("reflect", False, True), ("zero", False, False),
+    ("zero", True, False),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cz", [64, 128, 256])
+@pytest.mark.parametrize("co", [128, 256])
+@pytest.mark.parametrize("hw", [(8, 64), (13, 21)])  # whole and partial 2×32 chunks
+def test_wgrad_kernel_matches_plain_on_card(cuda, cz, co, hw):
+    """``csrc/wgrad.cu`` in all four forms: the transform pass equals its
+    plain version bit for bit; the GEMM's slot partials and their sum
+    are within 1e-3 of max|dk| of the plain contraction (f32 sums in
+    another order); a repeat is bit-exact."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    b = 2
+    z, p, comp = _bf16(g, b, *hw, cz), _bf16(g, b, *hw, co), _bf16(g, b, *hw, co)
+    m, inv = instance_norm_stats(comp)
+    zm, zi = instance_norm_stats(z)
+    gm, gy = (torch.randn(b, co, device=cuda, generator=g) * 0.01 for _ in range(2))
+    plan = resblock._wgrad_plan(b, *hw, cz, co)
+    for pad, mask_p, znorm in _WGRAD_FORMS:
+        zn = (zm, zi) if znorm else None
+        args, kw = (z, p, comp, m, inv, gm, gy, zn), dict(pad=pad, mask_p=mask_p)
+        zsrc, dy = resblock._wgrad_transform(*args, **kw)
+        zsrc_p, dy_p = resblock._wgrad_transform_plain(*args, **kw)
+        assert torch.equal(zsrc, zsrc_p) and torch.equal(dy, dy_p), (pad, mask_p, znorm)
+        ws = resblock._wgrad_gemm(zsrc, dy, plan, pad=pad)
+        ws_p = resblock._wgrad_gemm_plain(zsrc_p, dy_p, plan, pad=pad)
+        assert float((ws - ws_p).abs().max() / ws_p.abs().max()) <= 1e-3, (pad, mask_p, znorm)
+        name = "conv3x3_wgrad_fused" + ("_seg" if pad == "zero" else "")
+        before = LAUNCHES[name]
+        got = resblock.conv3x3_wgrad_fused(*args, **kw)
+        assert LAUNCHES[name] == before + 1
+        want = resblock.conv3x3_wgrad_fused_plain(*args, **kw)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-3, (pad, mask_p, znorm)
+        assert torch.equal(got, resblock.conv3x3_wgrad_fused(*args, **kw))  # fixed-order sums
 
 
 # --- the int8 conv and the int8 head (kernel 4q) -----------------------------
