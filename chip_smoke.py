@@ -19,7 +19,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    head (4q) at 32×512×640×64 (bit-exact), and the fused instance norm
    (kernel 11) at the 256² bottleneck of ``use_pallas`` serving,
    16×64×64×256: IN + ReLU and IN + residual in bf16 (1 bf16 ulp), IN +
-   ReLU in f32 (1e-5), beside ``F.instance_norm``.
+   ReLU in f32 (1e-5), beside ``F.instance_norm``. The bf16 block conv
+   (``csrc/conv_fwd.cu``, both forms bit-exact on repeat) also with its
+   operand pass and GEMM timed apart, the GEMM's TFLOP/s, the ptxas lines
+   and the ``HGMMA`` count of its SASS.
 2b. The same for the block backward kernels (dgrad in both launch forms,
    wgrad with and without the normalize, bit-exact on repeat) at the
    flagship training bottleneck (8×128×160×256, k 3×3×256×256), beside
@@ -37,7 +40,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    VALID conv with stats and with normalize on load, the VALID conv (v1,
    v2 preshift, v2 dxcat) at 32×130×162×256 → 256, and the blur-pool at
    32×512×640×128 and 32×256×320×256: each against its plain version, timed
-   beside it and one cuDNN call. Then three compositions against the
+   beside it and one cuDNN call, each conv form (``csrc/conv_fwd.cu``) also
+   with its operand pass and GEMM timed apart. Then three compositions against the
    product route on the same inputs: (a) the d2 stage (kernel 7's free
    stats into kernel 3), (b) the u1 stage, (c) a ResnetBlock from kernel 9
    against kernel 2's. Then the slice's path once, with the counts set to 0
@@ -92,6 +96,7 @@ and as the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -154,11 +159,15 @@ def check_kernels(torch, results: list) -> None:
     def bf16_mean_err(got, want):
         return float((got.float() - want.float()).abs().mean())
 
-    # bf16 block conv (#2): conv1 form (raw input) and conv2 form
-    # (normalize + ReLU on load) at the bottleneck, 32×128×160×256 → 256.
-    # Tolerance: 2 bf16 ulps at the output's largest magnitude (both round
-    # the same f32 sum, accumulated in another order), and 1e-3 relative on
-    # the IN moments.
+    # bf16 block conv (#2, csrc/conv_fwd.cu): conv1 form (raw input) and
+    # conv2 form (normalize + ReLU on load) at the bottleneck,
+    # 32×128×160×256 → 256. Tolerance: 2 bf16 ulps at the output's largest
+    # magnitude (both round the same f32 sum, accumulated in another order),
+    # 1e-3 relative on the IN moments, and a bit-exact repeat.
+    hgmma = hgmma_count("conv_fwd")
+    log(f"[conv GEMM] {hgmma} HGMMA instructions in the SASS of csrc/conv_fwd.cu")
+    if hgmma == 0:
+        raise AssertionError("the forward conv's GEMM issues no wgmma")
     hb, wb, cb = H // 4, W // 4, NGF * 4
     x = randn(B, hb, wb, cb).to(torch.bfloat16)
     k = randn(3, 3, cb, cb, scale=0.05).to(torch.bfloat16)
@@ -167,6 +176,8 @@ def check_kernels(torch, results: list) -> None:
     for label, args in (("raw", ()), ("norm-on-load", (m0, i0))):
         got = resblock.conv3x3_reflect_fused(x, k, *args)
         want = resblock.conv3x3_reflect_fused_plain(x, k, *args)
+        again = resblock.conv3x3_reflect_fused(x, k, *args)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         scale = float(want[0].float().abs().max())
         err = bf16_err(got[0], want[0])
         tol = 2 * 2.0**-8 * scale
@@ -174,13 +185,15 @@ def check_kernels(torch, results: list) -> None:
         ierr = float(((got[2] - want[2]) / want[2]).abs().max())
         log(f"[conv3x3_reflect_fused {label}] max|d|={err:.4g} mean|d|="
             f"{bf16_mean_err(got[0], want[0]):.3g} tol={tol:.4g} "
-            f"mean rel={merr:.3g} inv rel={ierr:.3g} (tol 1e-3)")
-        if not (err <= tol and merr <= 1e-3 and ierr <= 1e-3):
+            f"mean rel={merr:.3g} inv rel={ierr:.3g} (tol 1e-3); repeat bit-exact {repeat}")
+        if not (err <= tol and merr <= 1e-3 and ierr <= 1e-3 and repeat):
             raise AssertionError(f"conv3x3_reflect_fused {label} disagrees with its plain version")
         errs.append(err)
+        del got, want, again
         times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused(x, k, *args), 10))
+        parts = conv_parts(torch, "reflect", [x], [k], *args)
         ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_plain(x, k, *args), 3, 1))
-        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms\n{parts}")
     cudnn_ms = cuda_time_ms(
         lambda: torch.nn.functional.conv2d(
             torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
@@ -189,7 +202,7 @@ def check_kernels(torch, results: list) -> None:
     act = B * hb * wb * cb * 2
     b_ms, b_by = bound(2 * B * hb * wb * 9 * cb * cb, 2 * act + 9 * cb * cb * 2 + B * cb * 16)
     results.append(dict(name="conv3x3_reflect_fused", route="cuda",
-                        source="ircolor_tpu_torch/csrc/resblock.cu",
+                        source="ircolor_tpu_torch/csrc/conv_fwd.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:280",
                         max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
                         bound_ms=b_ms, bound_by=b_by, library_ms=cudnn_ms))
@@ -418,29 +431,31 @@ def check_conv_int8(torch, results: list, randn) -> None:
                         library_ms=row["library_ms"]))
 
 
-def wgrad_ptxas() -> dict:
-    """ptxas's register / spill lines of ``csrc/wgrad.cu``'s kernels, by
-    kernel ("gemm", "gemm swap", "transform"), from this process's build."""
+def ptxas_lines(source: str) -> dict:
+    """ptxas's register / spill lines of ``csrc/<source>.cu``'s kernels,
+    from this process's build, by kernel: "gemm" ("gemm swap" for the
+    wgrad's swapped template) or "pass" (the operand pass)."""
     from ircolor_tpu_torch.kernels import build
 
     out, name = {}, None
-    for line in build.build_logs.get("wgrad", "").splitlines():
+    for line in build.build_logs.get(source, "").splitlines():
         if "Compiling entry function" in line:
-            name = ("gemm swap" if "ILb1E" in line else "gemm" if "gemm" in line else "transform")
+            name = ("gemm swap" if "ILb1E" in line else "gemm" if "gemm" in line else "pass")
         elif name and ("registers" in line or "spill" in line):
             out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
 
 
-def wgrad_hgmma() -> int:
-    """``HGMMA`` instructions in the SASS of ``csrc/wgrad.cu``'s library:
-    the GEMM must issue ``wgmma``."""
+@functools.lru_cache
+def hgmma_count(source: str) -> int:
+    """``HGMMA`` instructions in the SASS of ``csrc/<source>.cu``'s library:
+    its GEMM must issue ``wgmma``."""
     import shutil
 
     from ircolor_tpu_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(build._lib_path("wgrad"))], capture_output=True,
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(source))], capture_output=True,
                           text=True, check=True).stdout
     return sum("HGMMA" in line for line in sass.splitlines())
 
@@ -463,7 +478,38 @@ def wgrad_parts(torch, args, kw, ptxas: dict) -> str:
     return (f"    transform {tx:.4f} ms, GEMM {tg:.4f} ms = {flops / tg / 1e9:.1f} TFLOP/s "
             f"({plan.mtiles * plan.ncob} x {plan.slots} blocks, {smem} B shared)\n"
             f"    ptxas {kern}: {ptxas.get(kern, 'not built in this process')}; transform: "
-            f"{ptxas.get('transform', 'not built in this process')}")
+            f"{ptxas.get('pass', 'not built in this process')}")
+
+
+def conv_parts(torch, halo: str, legs, kernels, mean=None, inv=None, stats: bool = True) -> str:
+    """One bf16 conv form's launches (``csrc/conv_fwd.cu``) timed apart:
+    the operand pass over its legs, where the plan has one, and the GEMM
+    (its TFLOP/s, grid, shared memory, ptxas lines, HGMMA count)."""
+    from ircolor_tpu_torch.kernels import resblock
+
+    b, hi, wi = legs[0].shape[:3]
+    h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
+    cout = kernels[0].shape[-1]
+    plan = resblock._conv_plan(b, h, w, [x.shape[-1] for x in legs], cout, halo,
+                               norm=mean is not None)
+
+    def run_pass():
+        return [resblock._conv_pass(x, mean, inv, pad=plan.pass_pad) for x in legs]
+
+    srcs, tp = legs, 0.0
+    if plan.pass_pad is not None:
+        srcs = run_pass()
+        tp = cuda_time_ms(run_pass, 10)
+    tg = cuda_time_ms(lambda: resblock._conv_gemm(srcs, kernels, plan, stats), 10)
+    flops = 2 * b * h * w * 9 * sum(x.shape[-1] for x in legs) * cout
+    ptx = ptxas_lines("conv_fwd")
+    smem = resblock._load_fwd().ircolor_conv_fwd_smem()
+    missing = "not built in this process"
+    pad = "none" if plan.pass_pad is None else f"pad {plan.pass_pad}"
+    return (f"    pass {tp:.4f} ms ({pad}), GEMM {tg:.4f} ms = {flops / tg / 1e9:.1f} TFLOP/s "
+            f"({plan.blocks} output blocks on {plan.grid} persistent blocks, {smem} B shared)\n"
+            f"    ptxas gemm: {ptx.get('gemm', missing)}; pass: {ptx.get('pass', missing)}; "
+            f"{hgmma_count('conv_fwd')} HGMMA in the SASS")
 
 
 def check_bwd_kernels(torch, results: list) -> None:
@@ -537,8 +583,8 @@ def check_bwd_kernels(torch, results: list) -> None:
 
     # wgrad (csrc/wgrad.cu): conv2's (Z = relu(IN(raw1))) and conv1's (Z =
     # x); the transform pass and the GEMM also timed apart.
-    ptxas = wgrad_ptxas()
-    hgmma = wgrad_hgmma()
+    ptxas = ptxas_lines("wgrad")
+    hgmma = hgmma_count("wgrad")
     log(f"[wgrad GEMM] {hgmma} HGMMA instructions in the SASS of csrc/wgrad.cu")
     if hgmma == 0:
         raise AssertionError("the wgrad GEMM issues no wgmma")
@@ -692,7 +738,7 @@ def check_segment_kernels(torch, results: list) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     before = dict(LAUNCHES)
-    ptxas = wgrad_ptxas()
+    ptxas = ptxas_lines("wgrad")
     bb = TRAIN_B
     kw = dict(pad="zero", mask_p=True)
     dg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bounds=[], err=0.0)
@@ -870,7 +916,7 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
 
     before = dict(LAUNCHES)
 
-    def conv_case(name, label, kern, plain, lib, ops, nbytes, stats=True):
+    def conv_case(name, label, kern, plain, lib, ops, nbytes, parts, stats=True):
         got, want, again = kern(), plain(), kern()
         g0, w0 = (got[0], want[0]) if stats else (got, want)
         ulps = ulps_at_scale(g0, w0)
@@ -884,11 +930,12 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
         err = float((g0.float() - w0.float()).abs().max())
         del got, want, again
         ms = cuda_time_ms(kern, 10)
+        parts_line = conv_parts(torch, *parts, stats=stats)
         pms = cuda_time_ms(plain, 2, 1)
         lms = cuda_time_ms(lib, 10)
         b_ms, b_by = bound(ops, nbytes)
         log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN {lms:.3f} ms  bound "
-            f"{b_ms:.3f} ms ({b_by})")
+            f"{b_ms:.3f} ms ({b_by})\n{parts_line}")
         return dict(err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=(b_ms, b_by))
 
     def row(name, source, replaces, cases):
@@ -909,7 +956,7 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
     def conv_bytes(npix_in, cin, npix_out, cout, stats=True):
         return 2 * (npix_in * cin + npix_out * cout + 9 * cin * cout) + (B * cout * 8 if stats else 0)
 
-    src = "ircolor_tpu_torch/csrc/resblock.cu"
+    src = "ircolor_tpu_torch/csrc/conv_fwd.cu"
     # Row 7: down2 (1 leg, zero), up1 (2 legs, zero, no concat), a reflect
     # leg at the bottleneck. The row sums the three.
     hs, ws = H // 2, W // 2
@@ -922,17 +969,20 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
                   lambda: resblock.conv3x3_sum_fused([xs["d2"]], [d2]),
                   lambda: resblock.conv3x3_sum_fused_plain([xs["d2"]], [d2]),
                   lambda: F.conv2d(nchw(xs["d2"]), oihw(d2), padding=1),
-                  2 * npx * 9 * 128 * 256, conv_bytes(npx, 128, npx, 256)),
+                  2 * npx * 9 * 128 * 256, conv_bytes(npx, 128, npx, 256),
+                  parts=("zero", [xs["d2"]], [d2])),
         conv_case("conv3x3_sum_fused", f"up1 {B}x{hs}x{ws}x(256+128)->128, 2 legs, zero",
                   lambda: resblock.conv3x3_sum_fused([xs["up"], xs["skip"]], [ua, ub]),
                   lambda: resblock.conv3x3_sum_fused_plain([xs["up"], xs["skip"]], [ua, ub]),
                   lambda: F.conv2d(nchw(cat), ucat, padding=1),
-                  2 * npx * 9 * 384 * 128, conv_bytes(npx, 384, npx, 128)),
+                  2 * npx * 9 * 384 * 128, conv_bytes(npx, 384, npx, 128),
+                  parts=("zero", [xs["up"], xs["skip"]], [ua, ub])),
         conv_case("conv3x3_sum_fused", f"{B}x{H // 4}x{W // 4}x256->256, 1 leg, reflect",
                   lambda: resblock.conv3x3_sum_fused([xs["neck"]], [k1], pad="reflect"),
                   lambda: resblock.conv3x3_sum_fused_plain([xs["neck"]], [k1], pad="reflect"),
                   lambda: F.conv2d(F.pad(nchw(xs["neck"]), (1, 1, 1, 1), mode="reflect"), oihw(k1)),
-                  2 * npb * 9 * 256 * 256, conv_bytes(npb, 256, npb, 256)),
+                  2 * npb * 9 * 256 * 256, conv_bytes(npb, 256, npb, 256),
+                  parts=("reflect", [xs["neck"]], [k1])),
     ]
     del cat, ucat
     row("conv3x3_sum_fused", src, "ircolor_tpu/ops/pallas_resblock.py:1190", cases)
@@ -951,11 +1001,13 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
     stats_cases = [
         conv_case("conv3x3_stats", f"{B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
                   lambda: block.conv3x3_stats(xp, k1), lambda: block.conv3x3_stats_plain(xp, k1),
-                  lambda: F.conv2d(nchw(xp), oihw(k1)), valid_ops, nb),
+                  lambda: F.conv2d(nchw(xp), oihw(k1)), valid_ops, nb,
+                  parts=("valid", [xp], [k1])),
         conv_case("conv3x3_norm_in_stats", f"{B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
                   lambda: block.conv3x3_norm_in_stats(rp, k2, m1, i1),
                   lambda: block.conv3x3_stats_plain(rp, k2, m1, i1),
-                  lambda: F.conv2d(nchw(rp), oihw(k2)), valid_ops, nb + B * 256 * 8),
+                  lambda: F.conv2d(nchw(rp), oihw(k2)), valid_ops, nb + B * 256 * 8,
+                  parts=("valid", [rp], [k2], m1, i1)),
     ]
     for case, name in zip(stats_cases, ("conv3x3_stats", "conv3x3_norm_in_stats")):
         results.append(dict(name=name, route="cuda", source=src,
@@ -970,7 +1022,8 @@ def check_slice5_kernels(torch, results: list, w, xs) -> None:
     vcases = [conv_case("conv3x3_valid", f"{label} {B}x{H // 4 + 2}x{W // 4 + 2}x256->256",
                         kern, lambda: conv.conv3x3_valid_plain(xp, k1),
                         lambda: F.conv2d(nchw(xp), oihw(k1)), valid_ops,
-                        conv_bytes(npad, 256, npb, 256, stats=False), stats=False)
+                        conv_bytes(npad, 256, npb, 256, stats=False), stats=False,
+                        parts=("valid", [xp], [k1]))
               for label, kern in forms]
     n = len(vcases)
     results.append(dict(name="conv3x3_valid", route="cuda", source=src,

@@ -1,64 +1,37 @@
-// Fused 3x3 conv of the generator's resnet blocks, bf16 and int8, for
-// Hopper (sm_90a), with the halo modes and input legs of the JAX package's
-// other 3x3 conv kernels.
+// Fused reflect-padded 3x3 conv of the generator's resnet blocks on int8
+// operands, for Hopper (sm_90a). (The bf16 forward conv is
+// csrc/conv_fwd.cu.)
 //
-// Replaces (ircolor_tpu/ops/):
-//   pallas_resblock.py:conv3x3_reflect_fused   (_kernel, pallas_call :358)
-//       -> INT8=false, HALO=REFLECT
-//   pallas_resblock.py:conv3x3_reflect_fused_q (_kernel_q, :1471)
-//       -> INT8=true, HALO=REFLECT
-//   pallas_resblock.py:conv3x3_sum_fused (_kernel_multi, :1246)
-//       -> HALO=ZERO or REFLECT, one or two input legs
-//   pallas_block.py:conv3x3_stats / conv3x3_norm_in_stats (_run, :138)
-//       -> HALO=VALID, without / with normalize on load
-//   pallas_conv.py:conv3x3_valid_pallas(_v2) (:305, :234)
-//       -> HALO=VALID, no stats
-//
-// Halo modes (the patch index map; no padded tensor is made):
-//   REFLECT  row -1 = row 1, row H = row H-2, the same for columns;
-//   ZERO     pixels outside the image read as 0;
-//   VALID    the input is already padded, (H+2) x (W+2), and the output
-//            H x W.
-// Legs: Σ_i conv(x_i, k_i) over two inputs is one conv over their channel
-// concat, so the K loop runs over leg 0's chunks, then leg 1's, into the
-// one f32 accumulator: no concat and no f32 partial reach device memory.
+// Replaces ircolor_tpu/ops/pallas_resblock.py:conv3x3_reflect_fused_q
+// (_kernel_q, pallas_call :1471).
 //
 // What it computes, per image b and output channel co:
-//   z   = x                                  (no stats given, bf16)
-//       = relu((x - mean[c]) * inv[c])        (stats given: the previous
-//                                              conv's IN + ReLU on load)
-//   bf16: operand = bf16(z); int8 conv1: q = clamp(rint(x*qscale[b]),±127);
-//   int8 conv2: q = min(rint(relu((x-mean)*inv) * 127/6), 127)
-//   y   = 3x3 conv with the halo mode's padding, over every leg, f32
-//         (bf16) or s32 (int8) accumulation, int8 dequantized by sc[b, co]
+//   conv1: q = clamp(rint(x*qscale[b]), -127, 127)
+//   conv2: q = min(rint(relu((x - mean[c])*inv[c]) * 127/6), 127)
+//          (the previous conv's IN + ReLU on load, then the fixed grid)
+//   y   = 3x3 conv of q with reflect halos (row -1 = row 1, row H = row
+//         H-2, the same for columns), s32 accumulation, dequantized by
+//         sc[b, co]
 //   out = bf16(y); partial stats sum(y), sum(y^2) from the f32 value before
-//         the bf16 store (the sum over legs, before rounding), one (b, tile)
-//         slot each, summed by the caller; none where no slots are given.
+//         the bf16 store, one (b, tile) slot each, summed by the caller.
 //
 // What bounds it on the H100: the tensor cores. At the flagship bottleneck
-// (32x128x160x256 -> 256) one conv is 0.77 TFLOP against 0.67 GB of
-// activations in and out (~1150 flop/byte, far above the card's ridge
-// point); the weights (1.2 MB) stay in L2 and are re-read by every block.
-// The same holds at the down2 (128 -> 256) and up1 (256 + 128 -> 128)
-// planes, 256x320, at ~770 and ~860 flop/byte.
+// (32x128x160x256 -> 256) one conv is 0.77 TOP against 0.67 GB of bf16
+// activations in and out, far above the card's int8 ridge point; the
+// weights (0.6 MB) stay in L2 and are re-read by every block.
 //
 // Design:
-// * Implicit GEMM on mma.sync (bf16 m16n8k16 / s8 m16n8k32). A block owns
-//   an 8x16 output-pixel tile (M = 128) and 128 output channels (N); eight
-//   warps of 32x64. K = 9 taps x C runs as chunks of 32 bytes of input
-//   channels (16 bf16 / 32 int8).
+// * Implicit GEMM on mma.sync (s8 m16n8k32). A block owns an 8x16
+//   output-pixel tile (M = 128) and 128 output channels (N); eight warps of
+//   32x64. K = 9 taps x C runs as chunks of 32 input channels (32 bytes).
 // * Per chunk the block loads the (8+2)x(16+2) input patch once, with the
-//   halo built in the index map (zero halo pixels are stored as zeros, not
-//   read), applies normalize + ReLU or
-//   the quantization while storing it to shared memory, and then runs all
-//   nine taps out of it: a tap is only a shifted ldmatrix row address.
-// * The byte layout of a 32-byte K row is the same for bf16 and int8, so
-//   one ldmatrix.x4 address pattern feeds both mma shapes.
+//   reflect halo built in the index map, quantizes it while storing it to
+//   shared memory, and then runs all nine taps out of it: a tap is only a
+//   shifted ldmatrix row address.
 // * Two stages: the next chunk's weights arrive by cp.async and its patch
 //   by register prefetch while the current chunk's MMAs run.
 // * Stats are deterministic: per-(b, tile) partials in a fixed reduction
 //   order, no float atomics.
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -92,47 +65,37 @@ __device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
          ((uint32_t)(q2 & 0xff) << 16) | ((uint32_t)(q3 & 0xff) << 24);
 }
 
-enum Halo { REFLECT = 0, ZERO = 1, VALID = 2 };
-
 struct ConvArgs {
-  const __nv_bfloat16* x;   // leg 0: (B, H, W, C), VALID (B, H+2, W+2, C)
-  const __nv_bfloat16* x1;  // leg 1 (B, H, W, C1) or null
-  const uint8_t* w;        // ((C+C1)/KC, 9, Cout, 32 bytes)
-  const float* mean;       // (B, C) or null
+  const __nv_bfloat16* x;  // (B, H, W, C)
+  const uint8_t* w;        // (C/KC, 9, Cout, 32 bytes)
+  const float* mean;       // (B, C) or null (conv1)
   const float* inv;        // (B, C) or null
-  const float* qscale;     // (B,)   int8 conv1
-  const float* sc;         // (B, Cout) int8 dequant scale
+  const float* qscale;     // (B,)   conv1
+  const float* sc;         // (B, Cout) dequant scale
   __nv_bfloat16* out;      // (B, H, W, Cout)
-  float* partial;          // (B, ntiles, 2, Cout) or null (no stats)
-  int B, H, W, C, C1, Cout, ntw, ntiles;  // H, W: the output plane
+  float* partial;          // (B, ntiles, 2, Cout)
+  int B, H, W, C, Cout, ntw, ntiles;
 };
 
-template <bool INT8, bool NORM, int HALO>
+template <bool NORM>
 __global__ void __launch_bounds__(NTHREADS, 2)
     conv3x3_kernel(const ConvArgs p) {
   extern __shared__ __align__(128) uint8_t smem[];
-  using Acc = typename std::conditional<INT8, int, float>::type;
-  constexpr int KC = INT8 ? 32 : 16;  // input channels per chunk
-  constexpr int RAW = INT8 ? 2 : 1;   // 16-byte global loads per unit
+  constexpr int KC = 32;   // input channels per chunk
+  constexpr int RAW = 2;   // 16-byte global loads per unit
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int tile = blockIdx.x, co0 = blockIdx.y * BN, b = blockIdx.z;
   const int r0 = (tile / p.ntw) * TH, c0 = (tile % p.ntw) * TW;
-  const int nchunks0 = p.C / KC;
-  const int nchunks = nchunks0 + p.C1 / KC;
-  const int IH = HALO == VALID ? p.H + 2 : p.H;  // the input plane
-  const int IW = HALO == VALID ? p.W + 2 : p.W;
-  const size_t plane = (size_t)b * IH * IW;
-  const __nv_bfloat16* xb0 = p.x + plane * p.C;
-  const __nv_bfloat16* xb1 = p.x1 == nullptr ? nullptr : p.x1 + plane * p.C1;
+  const int nchunks = p.C / KC;
+  const __nv_bfloat16* xb = p.x + (size_t)b * p.H * p.W * p.C;
   float qs = 0.f;
-  if constexpr (INT8 && !NORM) qs = p.qscale[b];
+  if constexpr (!NORM) qs = p.qscale[b];
 
   // Each thread owns up to UNITS_PER_THREAD 16-byte operand units of the
   // patch: fixed pixel, fixed channel half, every chunk. upix is the input
-  // pixel the unit reads (the halo resolved), -1 for no unit and -2 for a
-  // zero halo pixel.
+  // pixel the unit reads (the reflect halo resolved), -1 for no unit.
   const int half = (tid & 1) * (KC / 2);
   int upix[UNITS_PER_THREAD];
 #pragma unroll
@@ -141,31 +104,18 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     upix[i] = -1;
     if (u < PATCH_UNITS) {
       const int prow = u >> 1, pr = prow / PW, pc = prow - pr * PW;
-      if constexpr (HALO == REFLECT) {
-        upix[i] = reflect_index(r0 - 1 + pr, p.H) * p.W + reflect_index(c0 - 1 + pc, p.W);
-      } else if constexpr (HALO == ZERO) {
-        const int r = r0 - 1 + pr, c = c0 - 1 + pc;
-        upix[i] = (r >= 0 && r < p.H && c >= 0 && c < p.W) ? r * p.W + c : -2;
-      } else {
-        // Clamped only for pixels that feed masked-out outputs of a
-        // partial tile.
-        upix[i] = min(r0 + pr, IH - 1) * IW + min(c0 + pc, IW - 1);
-      }
+      upix[i] = reflect_index(r0 - 1 + pr, p.H) * p.W + reflect_index(c0 - 1 + pc, p.W);
     }
   }
 
   uint4 raw[UNITS_PER_THREAD][RAW];
   auto load_patch = [&](int j) {
-    const bool leg1 = j >= nchunks0;  // the same for the whole block
-    const __nv_bfloat16* xl = leg1 ? xb1 : xb0;
-    const int cl = leg1 ? p.C1 : p.C;
-    const int jl = leg1 ? j - nchunks0 : j;
 #pragma unroll
     for (int i = 0; i < UNITS_PER_THREAD; ++i) {
       if (upix[i] >= 0) {
-        const __nv_bfloat16* src = xl + (size_t)upix[i] * cl + half + jl * KC;
+        const __nv_bfloat16* src = xb + (size_t)upix[i] * p.C + half + j * KC;
         raw[i][0] = ldg16(src);
-        if constexpr (INT8) raw[i][1] = ldg16(src + 8);
+        raw[i][1] = ldg16(src + 8);
       }
     }
   };
@@ -176,12 +126,8 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     for (int i = 0; i < UNITS_PER_THREAD; ++i) {
       const int u = tid + i * NTHREADS;
       if (upix[i] == -1) continue;
-      if (HALO == ZERO && upix[i] == -2) {
-        *reinterpret_cast<uint4*>(patch + swz(u >> 1, u & 1)) = make_uint4(0, 0, 0, 0);
-        continue;
-      }
-      const int cbase = j * KC + half;  // NORM: one leg only
-      constexpr int NV = INT8 ? 16 : 8;
+      const int cbase = j * KC + half;
+      constexpr int NV = 16;
       float v[NV];
 #pragma unroll
       for (int k = 0; k < RAW; ++k) {
@@ -206,27 +152,19 @@ __global__ void __launch_bounds__(NTHREADS, 2)
           v[e + 3] = fmaxf((v[e + 3] - m4.w) * i4.w, 0.f);
         }
       }
-      uint4 o;
-      if constexpr (INT8) {
-        int q[16];
+      int q[16];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          if constexpr (NORM) {
-            q[e] = min(__float2int_rn(v[e] * QFIXED), 127);
-          } else {
-            q[e] = max(-127, min(127, __float2int_rn(v[e] * qs)));
-          }
+      for (int e = 0; e < 16; ++e) {
+        if constexpr (NORM) {
+          q[e] = min(__float2int_rn(v[e] * QFIXED), 127);
+        } else {
+          q[e] = max(-127, min(127, __float2int_rn(v[e] * qs)));
         }
-        o = make_uint4(pack_s8x4(q[0], q[1], q[2], q[3]),
-                       pack_s8x4(q[4], q[5], q[6], q[7]),
-                       pack_s8x4(q[8], q[9], q[10], q[11]),
-                       pack_s8x4(q[12], q[13], q[14], q[15]));
-      } else if constexpr (NORM) {
-        o = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
-      } else {
-        o = raw[i][0];  // bf16 without normalize: the raw values as they are
       }
+      const uint4 o = make_uint4(pack_s8x4(q[0], q[1], q[2], q[3]),
+                                 pack_s8x4(q[4], q[5], q[6], q[7]),
+                                 pack_s8x4(q[8], q[9], q[10], q[11]),
+                                 pack_s8x4(q[12], q[13], q[14], q[15]));
       *reinterpret_cast<uint4*>(patch + swz(u >> 1, u & 1)) = o;
     }
   };
@@ -243,7 +181,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     cp_async_commit();
   };
 
-  Acc acc[2][8][4];
+  int acc[2][8][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -302,18 +240,14 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     __syncthreads();
   }
 
-  // Epilogue: dequantize (int8), store bf16, per-tile sum / sum of squares.
+  // Epilogue: dequantize, store bf16, per-tile sum / sum of squares.
   const int g = lane >> 2, t4 = lane & 3;
   float sc[8][2];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     const int co = co0 + wn * 64 + nt * 8 + 2 * t4;
-    if constexpr (INT8) {
-      sc[nt][0] = p.sc[(size_t)b * p.Cout + co];
-      sc[nt][1] = p.sc[(size_t)b * p.Cout + co + 1];
-    } else {
-      sc[nt][0] = sc[nt][1] = 1.f;
-    }
+    sc[nt][0] = p.sc[(size_t)b * p.Cout + co];
+    sc[nt][1] = p.sc[(size_t)b * p.Cout + co + 1];
   }
   float s1[8][2], s2[8][2];
 #pragma unroll
@@ -330,14 +264,8 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int co = co0 + wn * 64 + nt * 8 + 2 * t4;
-        float y0, y1;
-        if constexpr (INT8) {
-          y0 = (float)acc[mi][nt][2 * h] * sc[nt][0];
-          y1 = (float)acc[mi][nt][2 * h + 1] * sc[nt][1];
-        } else {
-          y0 = acc[mi][nt][2 * h];
-          y1 = acc[mi][nt][2 * h + 1];
-        }
+        const float y0 = (float)acc[mi][nt][2 * h] * sc[nt][0];
+        const float y1 = (float)acc[mi][nt][2 * h + 1] * sc[nt][1];
         if (valid) {
           *reinterpret_cast<uint32_t*>(p.out + obase + co) = pack_bf16x2(y0, y1);
           s1[nt][0] += y0;
@@ -348,7 +276,6 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       }
     }
   }
-  if (p.partial == nullptr) return;  // no stats asked for
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -383,9 +310,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   }
 }
 
-template <bool INT8, bool NORM, int HALO>
+template <bool NORM>
 int launch(const ConvArgs& a, cudaStream_t stream) {
-  auto kernel = conv3x3_kernel<INT8, NORM, HALO>;
+  auto kernel = conv3x3_kernel<NORM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -414,8 +341,6 @@ int ircolor_conv3x3_reflect_q(const void* x, const void* w, const void* mean,
   using namespace ircolor;
   ConvArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
-  a.x1 = nullptr;
-  a.C1 = 0;
   a.w = static_cast<const uint8_t*>(w);
   a.mean = static_cast<const float*>(mean);
   a.inv = static_cast<const float*>(inv);
@@ -431,49 +356,7 @@ int ircolor_conv3x3_reflect_q(const void* x, const void* w, const void* mean,
   a.ntw = (W + TW - 1) / TW;
   a.ntiles = ircolor_conv3x3_num_tiles(H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mean != nullptr ? launch<true, true, REFLECT>(a, s)
-                         : launch<true, false, REFLECT>(a, s);
-}
-
-// bf16 operands in any halo mode (0 REFLECT, 1 ZERO, 2 VALID), one leg
-// (x1 null, C1 0) or two; H, W are the output plane. mean/inv: normalize +
-// ReLU on load (leg 0 only; not with ZERO halos). partial null: no stats.
-int ircolor_conv3x3_bf16(int halo, const void* x, int C, const void* x1,
-                         int C1, const void* w, const void* mean,
-                         const void* inv, void* out, void* partial, int B,
-                         int H, int W, int Cout, void* stream) {
-  using namespace ircolor;
-  const bool norm = mean != nullptr;
-  if (norm && (x1 != nullptr || halo == ZERO)) return (int)cudaErrorInvalidValue;
-  ConvArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.x1 = static_cast<const __nv_bfloat16*>(x1);
-  a.w = static_cast<const uint8_t*>(w);
-  a.mean = static_cast<const float*>(mean);
-  a.inv = static_cast<const float*>(inv);
-  a.qscale = nullptr;
-  a.sc = nullptr;
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.partial = static_cast<float*>(partial);
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.C1 = C1;
-  a.Cout = Cout;
-  a.ntw = (W + TW - 1) / TW;
-  a.ntiles = ircolor_conv3x3_num_tiles(H, W);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (halo) {
-    case REFLECT:
-      return norm ? launch<false, true, REFLECT>(a, s) : launch<false, false, REFLECT>(a, s);
-    case ZERO:
-      return launch<false, false, ZERO>(a, s);
-    case VALID:
-      return norm ? launch<false, true, VALID>(a, s) : launch<false, false, VALID>(a, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return mean != nullptr ? launch<true>(a, s) : launch<false>(a, s);
 }
 
 }  // extern "C"

@@ -28,9 +28,9 @@
 // ridge point.
 //
 // Design:
-// * dgrad is the forward kernel's implicit GEMM (csrc/resblock.cu: 8x16
-//   pixel tile x 128 output channels, K = 9 taps x 16-channel chunks,
-//   ldmatrix + mma.sync m16n8k16 bf16 -> f32) with another prologue: the
+// * dgrad is an implicit GEMM on mma.sync (the layout of csrc/resblock.cu's
+//   int8 conv: 8x16 pixel tile x 128 output channels, K = 9 taps x
+//   16-channel chunks, ldmatrix + m16n8k16 bf16 -> f32) with a prologue: the
 //   IN backward is applied while the (8+2)x(16+2) patch goes to shared
 //   memory, and pixels outside the image are stored as zeros (zero halos).
 // * The reflect fold: each fold term is one more source pixel for some

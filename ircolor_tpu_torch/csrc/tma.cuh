@@ -1,0 +1,236 @@
+// Pieces shared by the port's TMA + wgmma kernels (csrc/conv_fwd.cu, the
+// forward 3x3 conv, and csrc/wgrad.cu, its weight gradient): the operand
+// pass that feeds both GEMMs, the mbarrier ring with its watchdog, 4-D TMA
+// loads, the shared-memory matrix descriptors of swizzled tiles, the wgmma
+// fences, and the tensor-map encoder taken from the driver at run time (no
+// libcuda link).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the encoder's types
+
+#include "common.cuh"
+
+namespace ircolor {
+namespace {
+
+constexpr int PASS_THREADS = 256;
+constexpr long long PASS_MAX_BLOCKS = 2048;       // grid-stride beyond this
+constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
+
+// ---------------------------------------------------- operand pass ----
+
+// Memory-bound, one 16-byte unit (8 channels) a step, two parts:
+// * dy (ndy units, the wgrad only): the IN backward of (p, comp) through
+//   InBwd8::apply, bit-identical to the dgrad's dy;
+// * Z (nzp units): Z = z, or bf16(relu((z - zm)*zi)) in the plain
+//   version's single IEEE steps, written as (B, H+2*zpad, W+2*zpad, Cz):
+//   reflect-padded by one pixel (zpad = 1) or as it is (zpad = 0: z is
+//   already padded and only normalized).
+struct PassArgs {
+  const __nv_bfloat16* z;     // (B, H, W, Cz), or null (no Z part)
+  const __nv_bfloat16* p;     // (B, H, W, Co), or null (no dy part)
+  const __nv_bfloat16* comp;  // (B, H, W, Co)
+  const float* m;             // (B, Co) IN mean, inv, E[p], E[p*n]
+  const float* inv;
+  const float* gm;
+  const float* gy;
+  const float* zm;            // (B, Cz) or null: Z = relu((z - zm)*zi)
+  const float* zi;
+  __nv_bfloat16* dy;          // (B, H, W, Co)
+  __nv_bfloat16* zp;          // (B, H+2*zpad, W+2*zpad, Cz)
+  long long ndy, nzp;         // 16-byte units of each output
+  int H, W, Cz, Co, mask_p, zpad;
+};
+
+__global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassArgs a) {
+  const long long stride = (long long)gridDim.x * PASS_THREADS;
+  for (long long u = (long long)blockIdx.x * PASS_THREADS + threadIdx.x; u < a.ndy + a.nzp;
+       u += stride) {
+    if (u < a.ndy) {
+      const int cu = a.Co / 8;
+      const long long pix = u / cu;
+      const int c8 = (int)(u - pix * cu) * 8;
+      const size_t prm = (size_t)(pix / ((long long)a.H * a.W)) * a.Co + c8;
+      InBwd8 in;
+      in.load(a.m + prm, a.inv + prm, a.gm + prm, a.gy + prm);
+      *reinterpret_cast<uint4*>(a.dy + u * 8) =
+          in.apply(ldg16(a.p + u * 8), ldg16(a.comp + u * 8), a.mask_p != 0);
+    } else {
+      const long long v = u - a.ndy;
+      const int cu = a.Cz / 8, wo = a.W + 2 * a.zpad;
+      const long long pix = v / cu;
+      const int c8 = (int)(v - pix * cu) * 8;
+      const long long plane = (long long)(a.H + 2 * a.zpad) * wo;
+      const long long b = pix / plane;
+      const int rem = (int)(pix - b * plane);
+      // zpad = 0: the identity map (every index lies in range).
+      const int h = reflect_index(rem / wo - a.zpad, a.H);
+      const int w = reflect_index(rem % wo - a.zpad, a.W);
+      uint4 zv = ldg16(a.z + (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8);
+      if (a.zm != nullptr) {
+        float zm[8], zi[8];
+        load8(a.zm + b * a.Cz + c8, zm);
+        load8(a.zi + b * a.Cz + c8, zi);
+        uint32_t zw[4] = {zv.x, zv.y, zv.z, zv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 2 * e;  // the plain version's single IEEE steps
+          const float v0 = fmaxf(__fmul_rn(__fsub_rn(bf16_lo(zw[e]), zm[k]), zi[k]), 0.f);
+          const float v1 =
+              fmaxf(__fmul_rn(__fsub_rn(bf16_hi(zw[e]), zm[k + 1]), zi[k + 1]), 0.f);
+          zw[e] = pack_bf16x2(v0, v1);
+        }
+        zv = make_uint4(zw[0], zw[1], zw[2], zw[3]);
+      }
+      *reinterpret_cast<uint4*>(a.zp + v * 8) = zv;
+    }
+  }
+}
+
+int launch_operand_pass(const PassArgs& a, cudaStream_t stream) {
+  const long long units = a.ndy + a.nzp;
+  const long long need = (units + PASS_THREADS - 1) / PASS_THREADS;
+  const int blocks = (int)(need < PASS_MAX_BLOCKS ? need : PASS_MAX_BLOCKS);
+  if (blocks == 0) return 0;
+  operand_pass_kernel<<<blocks, PASS_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- TMA, mbarrier, wgmma ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A wait
+// that never completes is a fault of the pipeline: trap (the launch fails)
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = -1;
+  for (uint32_t spins = 1; !done; ++spins) {
+    if ((spins & 0xfff) == 0) {
+      const long long now = clock64();
+      if (t0 < 0) {
+        t0 = now;
+      } else if (now - t0 > WATCHDOG_CYCLES) {
+        __trap();
+      }
+    }
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Barrier set-up by one thread, before any thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One box of a 4-D tensor map into shared memory; completion counts on the
+// barrier. Out-of-bounds elements (negative coordinates included) are
+// filled with zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile (one
+// 128-byte row per K or M/N index, 8-row atoms of 1 KB): sbo = 1024, the
+// step between 8-row groups. MN-major operands: lbo = the step between
+// 64-element atoms along M or N. K-major operands (a k16 step never
+// leaves the 128-byte row): lbo is not read.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for a K-major operand in 64-byte-swizzled rows (32 bf16 of K a
+// row, 8-row atoms of 512 bytes): sbo = 512; a k16 step is 32 bytes along
+// the row.
+__device__ __forceinline__ uint64_t smem_desc_k64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------ tensor maps ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 tensor map: dims innermost first, strides of dims 1..3 in
+// bytes, the box in elements. Its first dim is one swizzled row: 64
+// elements (128-byte swizzle) or 32 (64-byte swizzle). Returns 0 or a
+// nonzero code.
+int make_map_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (box[0] != 64 && box[0] != 32) return (int)cudaErrorInvalidValue;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// An NHWC bf16 plane (B, H, W, C) with boxes of (bc channels, bw columns,
+// bh rows, 1 image).
+int make_nhwc_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bh, int bw,
+                  int bc = 64) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return make_map_4d(map, ptr, dims, strides, box);
+}
+
+}  // namespace
+}  // namespace ircolor

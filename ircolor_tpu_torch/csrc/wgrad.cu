@@ -16,7 +16,7 @@
 // point); at the b8 segments (8x256x320) 0.19-0.39 TFLOP a launch.
 //
 // Design:
-// * Transform pass (memory-bound, elementwise): dy from (p, comp) through
+// * Transform pass (tma.cuh's operand pass; memory-bound): dy from (p, comp) through
 //   InBwd8::apply (bit-identical to the dgrad's dy), and for the reflect
 //   forms a reflect-padded Zp (B, H+2, W+2, Cz) of z or its normalize +
 //   ReLU. Each input element is read once, each output written once. The
@@ -43,10 +43,7 @@
 //   fixed order, so a repeat is bit-exact. The grid runs the blocks of one
 //   slot next to each other: blocks in flight together read the same
 //   chunks, from L2 after the first.
-#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder itself
-                   // is looked up at run time (no libcuda link)
-
-#include "common.cuh"
+#include "tma.cuh"  // the operand pass, TMA, mbarrier and wgmma helpers
 
 namespace ircolor {
 namespace {
@@ -58,143 +55,6 @@ constexpr int BOX = PX * 128;          // one 64-channel box: 8 KB
 constexpr int STAGES = 4;
 constexpr int CONSUMERS = 2;           // warpgroups
 constexpr int NTHREADS = CONSUMERS * 128 + 32;  // + the producer warp
-constexpr int XF_THREADS = 256;
-constexpr long long XF_MAX_BLOCKS = 2048;  // grid-stride beyond this
-constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
-
-// ------------------------------------------------------- transform ----
-
-struct XformArgs {
-  const __nv_bfloat16* z;     // (B, H, W, Cz), or null (zero forms)
-  const __nv_bfloat16* p;     // (B, H, W, Co)
-  const __nv_bfloat16* comp;  // (B, H, W, Co)
-  const float* m;             // (B, Co) IN mean, inv, E[p], E[p*n]
-  const float* inv;
-  const float* gm;
-  const float* gy;
-  const float* zm;            // (B, Cz) or null: Z = relu((z - zm)*zi)
-  const float* zi;
-  __nv_bfloat16* dy;          // (B, H, W, Co)
-  __nv_bfloat16* zp;          // (B, H+2, W+2, Cz), reflect-padded Z
-  long long ndy, nzp;         // 16-byte units of each output
-  int H, W, Cz, Co, mask_p;
-};
-
-__global__ void __launch_bounds__(XF_THREADS)
-    wgrad_transform_kernel(const XformArgs a) {
-  const long long stride = (long long)gridDim.x * XF_THREADS;
-  for (long long u = (long long)blockIdx.x * XF_THREADS + threadIdx.x; u < a.ndy + a.nzp;
-       u += stride) {
-    if (u < a.ndy) {
-      const int cu = a.Co / 8;
-      const long long pix = u / cu;
-      const int c8 = (int)(u - pix * cu) * 8;
-      const size_t prm = (size_t)(pix / ((long long)a.H * a.W)) * a.Co + c8;
-      InBwd8 in;
-      in.load(a.m + prm, a.inv + prm, a.gm + prm, a.gy + prm);
-      *reinterpret_cast<uint4*>(a.dy + u * 8) =
-          in.apply(ldg16(a.p + u * 8), ldg16(a.comp + u * 8), a.mask_p != 0);
-    } else {
-      const long long v = u - a.ndy;
-      const int cu = a.Cz / 8, wp2 = a.W + 2;
-      const long long pix = v / cu;
-      const int c8 = (int)(v - pix * cu) * 8;
-      const long long plane = (long long)(a.H + 2) * wp2;
-      const long long b = pix / plane;
-      const int rem = (int)(pix - b * plane);
-      const int h = reflect_index(rem / wp2 - 1, a.H), w = reflect_index(rem % wp2 - 1, a.W);
-      uint4 zv = ldg16(a.z + (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8);
-      if (a.zm != nullptr) {
-        float zm[8], zi[8];
-        load8(a.zm + b * a.Cz + c8, zm);
-        load8(a.zi + b * a.Cz + c8, zi);
-        uint32_t zw[4] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = 2 * e;  // the plain version's single IEEE steps
-          const float v0 = fmaxf(__fmul_rn(__fsub_rn(bf16_lo(zw[e]), zm[k]), zi[k]), 0.f);
-          const float v1 =
-              fmaxf(__fmul_rn(__fsub_rn(bf16_hi(zw[e]), zm[k + 1]), zi[k + 1]), 0.f);
-          zw[e] = pack_bf16x2(v0, v1);
-        }
-        zv = make_uint4(zw[0], zw[1], zw[2], zw[3]);
-      }
-      *reinterpret_cast<uint4*>(a.zp + v * 8) = zv;
-    }
-  }
-}
-
-// ------------------------------------------------- TMA, mbarrier, wgmma ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed. A wait
-// that never completes is a fault of the pipeline: trap (the launch fails)
-// rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = -1;
-  for (uint32_t spins = 1; !done; ++spins) {
-    if ((spins & 0xfff) == 0) {
-      const long long now = clock64();
-      if (t0 < 0) {
-        t0 = now;
-      } else if (now - t0 > WATCHDOG_CYCLES) {
-        __trap();
-      }
-    }
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-D tensor map (channels, columns, rows, images) into
-// shared memory; completion counts on the barrier. Out-of-bounds elements
-// (negative coordinates included) are filled with zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. MN-major operand
-// (channels contiguous, one 128-byte row per K = pixel): sbo = 1024, the
-// step between 8-row groups along K; lbo = the step between 64-channel
-// swizzle atoms along M or N (one box apart).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // m64nNk16, bf16 x bf16 -> f32, D += A*B, A and B both MN-major (the two
 // transpose immediates set).
@@ -277,8 +137,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -376,45 +235,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// ------------------------------------------------------ tensor maps ----
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Boxes of (64 channels, TC columns, TR rows, 1 image) over an NHWC bf16
-// plane (B, H, W, C). Returns 0 or a nonzero code.
-int make_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {64, TC, TR, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
-}
-
 template <bool SWAP>
 int launch_gemm(const CUtensorMap& tz, const CUtensorMap& tdy, const GemmArgs& a, int mtiles,
                 int slots, cudaStream_t stream) {
@@ -443,7 +263,7 @@ int ircolor_wgrad_transform(const void* z, const void* p, const void* comp, cons
                             const void* zi, void* dy, void* zp, int B, int H, int W, int Cz,
                             int Co, int mask_p, void* stream) {
   using namespace ircolor;
-  XformArgs a;
+  PassArgs a;
   a.z = static_cast<const __nv_bfloat16*>(z);
   a.p = static_cast<const __nv_bfloat16*>(p);
   a.comp = static_cast<const __nv_bfloat16*>(comp);
@@ -462,11 +282,8 @@ int ircolor_wgrad_transform(const void* z, const void* p, const void* comp, cons
   a.Cz = Cz;
   a.Co = Co;
   a.mask_p = mask_p;
-  const long long units = a.ndy + a.nzp;
-  const long long need = (units + XF_THREADS - 1) / XF_THREADS;
-  const int blocks = (int)(need < XF_MAX_BLOCKS ? need : XF_MAX_BLOCKS);
-  wgrad_transform_kernel<<<blocks, XF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.zpad = 1;
+  return launch_operand_pass(a, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of a GEMM block (the ring, barriers, alignment).
@@ -482,8 +299,9 @@ int ircolor_wgrad_gemm(const void* zsrc, const void* dy, void* ws, int B, int H,
   using namespace ircolor;
   if (Cz % 64 || Co % 128) return (int)cudaErrorInvalidValue;
   CUtensorMap tz, tdy;
-  int err = reflect ? make_map(&tz, zsrc, B, H + 2, W + 2, Cz) : make_map(&tz, zsrc, B, H, W, Cz);
-  if (err == 0) err = make_map(&tdy, dy, B, H, W, Co);
+  const int pad = reflect ? 2 : 0;
+  int err = make_nhwc_map(&tz, zsrc, B, H + pad, W + pad, Cz, TR, TC);
+  if (err == 0) err = make_nhwc_map(&tdy, dy, B, H, W, Co, TR, TC);
   if (err != 0) return err;
   const bool swap = Co % 256 != 0;
   GemmArgs a;

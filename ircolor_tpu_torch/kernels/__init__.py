@@ -25,8 +25,9 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
   conv.conv3x3_valid_pallas(_v2)    ← pallas_conv.conv3x3_valid_pallas(_v2)
     (one kernel, one count: ``conv3x3_valid``)
 
-``conv3x3_sum_fused``, ``block.*`` and ``conv.*`` run the bf16 conv of
-``csrc/resblock.cu`` in its zero, reflect and VALID halo modes. They and
+``conv3x3_reflect_fused``, ``conv3x3_sum_fused``, ``block.*`` and ``conv.*``
+run the bf16 conv of ``csrc/conv_fwd.cu`` in its reflect, zero and VALID
+halo modes. They and
 ``blur_downsample_pallas`` are, like the JAX functions, on no generator
 route: the JAX tools call them, and so does ``chip_smoke.py``.
 """

@@ -1,6 +1,6 @@
 """VALID 3×3 conv of a pre-padded input with the IN statistics of its
-output, optionally normalizing + ReLU-ing the input on load (the bf16 conv
-of ``csrc/resblock.cu`` in its VALID halo mode).
+output, optionally normalizing + ReLU-ing the input first (the bf16 conv
+of ``csrc/conv_fwd.cu`` in its VALID halo mode).
 
 Counterpart of ``ircolor_tpu/ops/pallas_block.py``: ``conv3x3_stats`` and
 ``conv3x3_norm_in_stats``. A ResnetBlock composes as

@@ -3,9 +3,9 @@ source in ``csrc/``, plain C interface, loaded with ``ctypes``.
 
 Built at first use from the package's own sources into ``build/kernels/``
 at the root of the checkout (``.gitignore`` lists ``build/``). A library's
-file name carries a hash of its sources, so an edited source rebuilds and a
-built one loads at once. ``build_all`` starts one ``nvcc`` per source, all
-together. Nothing here touches CUDA when the module is imported.
+file name carries a hash of its source and the shared headers, so an edited
+source rebuilds and a built one loads at once. ``build_all`` starts one
+``nvcc`` per source, all together. Nothing here touches CUDA when the module is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("resblock", "resblock_bwd", "wgrad", "blur", "head", "conv_int8",
+SOURCES = ("resblock", "conv_fwd", "resblock_bwd", "wgrad", "blur", "head", "conv_int8",
            "instance_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,7 +44,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha1()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"

@@ -1,5 +1,5 @@
 """Implicit-GEMM VALID 3×3 conv of a pre-padded NHWC input (the bf16 conv
-of ``csrc/resblock.cu`` in its VALID halo mode, with no stats).
+of ``csrc/conv_fwd.cu`` in its VALID halo mode, with no stats).
 
 Counterpart of ``ircolor_tpu/ops/pallas_conv.py``: ``conv3x3_valid_pallas``
 and ``conv3x3_valid_pallas_v2``. Their ``tile_h``, ``double_buffer`` and

@@ -1,6 +1,6 @@
-"""Fused reflect-padded 3×3 conv of the resnet blocks (``csrc/resblock.cu``),
-its backward (dgrad ``csrc/resblock_bwd.cu``, wgrad ``csrc/wgrad.cu``) and
-the blocks built from them.
+"""The resnet blocks' 3×3 convs and the blocks built from them: the bf16
+forward conv (``csrc/conv_fwd.cu``), the int8 one (``csrc/resblock.cu``), the
+backward (dgrad ``csrc/resblock_bwd.cu``, wgrad ``csrc/wgrad.cu``).
 
 Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_reflect_fused`` (bf16), ``conv3x3_reflect_fused_q`` (int8),
@@ -11,9 +11,11 @@ segment modes ``pad="zero"``, ``mask_p``, no aux, which
 ``resnet_block_pallas_q`` and ``conv3x3_sum_fused`` (one or two input
 legs, zero or reflect halos, the IN stats of the f32 sum; ``_launch_bf16``
 also serves ``kernels/block.py`` and ``kernels/conv.py`` in the VALID
-mode). One conv launch reads the unpadded NHWC input once (reflect halos built on load, the previous IN + ReLU and, for int8,
-the quantization applied on load) and writes the raw output once, with the
-per-(B, C) sums of the output for its instance norm. The block epilogue
+mode). A bf16 conv is an operand pass where its halo or a normalize needs
+one (the reflect-padded input, or the previous IN + ReLU applied) and a
+TMA + ``wgmma`` GEMM that writes the raw output once with the per-(B, C)
+sums of the output for its instance norm. The int8 conv builds its
+reflect halo and quantization on load. The block epilogue
 ``x + ((raw2 − m2)·i2).to(dtype)`` stays plain torch.
 
 The plain versions compute in float32 (bf16 products are exact there; the
@@ -35,10 +37,11 @@ from ircolor_tpu_torch.ops.norm import instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per_channel
 
 _EPS = 1e-5
-_BN = 128  # output channels per block of the kernel
-_KBYTES = 32  # bytes of input channels per K chunk of the kernel
+_BN = 128  # output channels per block of the conv kernels
+_KBYTES = 32  # bytes of input channels per K chunk of the int8 conv
 
 _lib = None
+_lib_fwd = None
 _lib_bwd = None
 _lib_wgrad = None
 
@@ -52,10 +55,26 @@ def _load():
         lib.ircolor_conv3x3_num_tiles.restype = i
         lib.ircolor_conv3x3_reflect_q.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ircolor_conv3x3_reflect_q.restype = i
-        lib.ircolor_conv3x3_bf16.argtypes = [i, p, i, p, i, p, p, p, p, p, i, i, i, i, p]
-        lib.ircolor_conv3x3_bf16.restype = i
         _lib = lib
     return _lib
+
+
+def _load_fwd():
+    global _lib_fwd
+    if _lib_fwd is None:
+        lib = build.load("conv_fwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.ircolor_conv_fwd_tile_rows, lib.ircolor_conv_fwd_tile_cols,
+                   lib.ircolor_conv_fwd_smem):
+            fn.argtypes, fn.restype = [], i
+        if (lib.ircolor_conv_fwd_tile_rows(), lib.ircolor_conv_fwd_tile_cols()) != (_CF_TH, _CF_TW):
+            raise RuntimeError("csrc/conv_fwd.cu and _conv_plan disagree on the tile shape")
+        lib.ircolor_conv_fwd_pass.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.ircolor_conv_fwd_pass.restype = i
+        lib.ircolor_conv_fwd_gemm.argtypes = [p, p, i, p, p, i, p, p] + [i] * 6 + [p]
+        lib.ircolor_conv_fwd_gemm.restype = i
+        _lib_fwd = lib
+    return _lib_fwd
 
 
 def _load_bwd():
@@ -129,17 +148,168 @@ def conv3x3_reflect_fused(x, kernel, mean=None, inv=None):
 
 # ------------------------------------------- halo modes and input legs ----
 
-_HALOS = {"reflect": 0, "zero": 1, "valid": 2}
+# The forward GEMM's output tile (csrc/conv_fwd.cu's TH, TW; checked when
+# the library loads), its two consumer warpgroups of TH / 2 rows, each two
+# m64 sub-tiles of 64 / TW rows, and the input channels of a K stage (KC:
+# one 64-byte swizzled row of A a pixel).
+_CF_TH, _CF_TW = 8, 32
+_CF_WG = 2
+_CF_KC = 32
+# Persistent GEMM blocks: one wave of an H100's 132 SMs (fixed here, never
+# read from the card; the results do not depend on it).
+_CF_WAVE = 132
+
+
+class ConvPlan(NamedTuple):
+    """The forward conv's launches for one call. The GEMM's ``grid``
+    persistent blocks run output blocks ``blk``, ``blk + grid``, …; output
+    block ``blk = (b · ntiles + tile) · ncob + cob`` owns output rows
+    ``(tile // ntc) · TH + [0, TH)``, columns ``(tile % ntc) · TW + [0,
+    TW)`` of image b (those that exist) and output channels ``cob · 128 +
+    [0, 128)``. Its K loop runs stages (leg, KC-channel chunk, dx), each an
+    A box ``a_box`` (channels, columns, rows, images) read at column ``c0 +
+    dx − shift``, row ``r0 − shift`` of the leg's source, and two weight
+    boxes ``b_box`` (output channels, input channels, dx, dy).
+    ``pass_pad``: the operand pass on every leg first — 1 reflect-pads
+    (and normalizes with mean/inv), 0 only normalizes the pre-padded input,
+    None runs no pass."""
+
+    h: int
+    w: int
+    cout: int
+    chunks: tuple
+    shift: int
+    pass_pad: int | None
+    ntr: int
+    ntc: int
+    ntiles: int
+    ncob: int
+    blocks: int
+    grid: int
+    a_box: tuple
+    b_box: tuple
+
+
+def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False) -> ConvPlan:
+    """The plan of the forward conv of ``legs`` (input channels of each)
+    into an h × w × cout output: a function of the shapes alone."""
+    ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
+    pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
+    ncob = cout // _BN
+    blocks = b * ntr * ntc * ncob
+    return ConvPlan(h, w, cout, tuple(c // _CF_KC for c in legs), int(halo == "zero"), pass_pad,
+                    ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
+                    (_CF_KC, _CF_TW, _CF_TH + 2, 1), (64, _CF_KC, 1, 3))
+
+
+def _conv_blocks(plan: ConvPlan):
+    """Every output block as (persistent block, blk, b, tile, r0, c0, co0),
+    in the kernel's index arithmetic."""
+    for x in range(plan.grid):
+        for blk in range(x, plan.blocks, plan.grid):
+            mt, cob = divmod(blk, plan.ncob)
+            b, tile = divmod(mt, plan.ntiles)
+            tr, tc = divmod(tile, plan.ntc)
+            yield x, blk, b, tile, tr * _CF_TH, tc * _CF_TW, cob * _BN
+
+
+def _conv_a_offsets():
+    """Byte offset in the A buffer of each (warpgroup, sub-tile, dy)'s m64
+    operand: the tap's first pixel row, one 2·KC-byte row a pixel."""
+    return {(wg, t, dy): ((_CF_TH // _CF_WG) * wg + 2 * t + dy) * _CF_TW * 2 * _CF_KC
+            for wg in range(_CF_WG) for t in range(2) for dy in range(3)}
+
+
+def _conv_pass_plain(x, mean=None, inv=None, *, pad: int = 1):
+    """Plain version of the operand pass: x, or bf16(relu((x − mean)·inv)),
+    reflect-padded by one pixel (``pad`` 1, through common.cuh's index map)
+    or as it is (``pad`` 0)."""
+    z = x if mean is None else _normalize_relu(x, mean, inv).to(x.dtype)
+    if not pad:
+        return z
+    return z[:, _reflect_rows(z.shape[1])][:, :, _reflect_rows(z.shape[2])].contiguous()
+
+
+def _conv_pass(x, mean=None, inv=None, *, pad: int = 1):
+    """The operand pass (the plain version for CPU tensors)."""
+    if x.device.type == "cpu":
+        return _conv_pass_plain(x, mean, inv, pad=pad)
+    b, h, w, c = x.shape
+    out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
+    err = _load_fwd().ircolor_conv_fwd_pass(
+        x.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if inv is None else inv.data_ptr(), out.data_ptr(), b, h, w, c, pad, stream_ptr())
+    build.check(err, "conv operand pass")
+    return out
+
+
+def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True):
+    """Plain version of the GEMM, in the kernel's K order: leg → KC-channel
+    chunk → dx buffer → dy, f32 sums over whole tiles (zeros where a box
+    lies outside its source), then the bf16 output and the (B, ntiles, 2,
+    Cout) per-tile moments of the pixels that exist (None without
+    ``stats``)."""
+    b = srcs[0].shape[0]
+    hh, ww = plan.ntr * _CF_TH, plan.ntc * _CF_TW
+    acc = srcs[0].new_zeros((b, hh, ww, plan.cout), dtype=torch.float32)
+    for x, k in zip(srcs, kernels):
+        xp = x.new_zeros((b, hh + 2, ww + 2, x.shape[-1]), dtype=torch.float32)
+        s = plan.shift
+        xp[:, s : s + x.shape[1], s : s + x.shape[2]] = x.float()[:, : hh + 2 - s, : ww + 2 - s]
+        kf = k.to(torch.bfloat16).float()
+        for ci in range(0, x.shape[-1], _CF_KC):
+            for dx in range(3):
+                buf = xp[:, :, dx : dx + ww, ci : ci + _CF_KC]
+                for dy in range(3):
+                    acc += torch.einsum("bhwc,co->bhwo", buf[:, dy : dy + hh],
+                                        kf[dy, dx, ci : ci + _CF_KC])
+    out = acc[:, : plan.h, : plan.w].to(torch.bfloat16)
+    if not stats:
+        return out, None
+    acc[:, plan.h :] = 0
+    acc[:, :, plan.w :] = 0
+    t = acc.reshape(b, plan.ntr, _CF_TH, plan.ntc, _CF_TW, plan.cout)
+    s1 = t.sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
+    s2 = t.square().sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
+    return out, torch.stack([s1, s2], dim=2)
+
+
+def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
+    """The GEMM: (bf16 out, per-tile moments or None); the plain version
+    for CPU tensors."""
+    x0 = srcs[0]
+    if x0.device.type == "cpu":
+        return _conv_gemm_plain(srcs, kernels, plan, stats)
+    ks = [k.to(torch.bfloat16).contiguous() for k in kernels]
+    if any(t.data_ptr() % 16 for t in (*srcs, *ks)):
+        raise ValueError("conv GEMM: inputs and kernels must start on 16-byte boundaries")
+    b = x0.shape[0]
+    out = torch.empty((b, plan.h, plan.w, plan.cout), dtype=torch.bfloat16, device=x0.device)
+    partial = None
+    if stats:
+        partial = torch.empty((b, plan.ntiles, 2, plan.cout), dtype=torch.float32,
+                              device=x0.device)
+    x1, k1 = (srcs[1], ks[1]) if len(srcs) == 2 else (None, None)
+    err = _load_fwd().ircolor_conv_fwd_gemm(
+        x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], None if x1 is None else x1.data_ptr(),
+        None if k1 is None else k1.data_ptr(), 0 if x1 is None else x1.shape[-1],
+        out.data_ptr(), None if partial is None else partial.data_ptr(), b, plan.h, plan.w,
+        plan.cout, plan.shift, plan.grid, stream_ptr(),
+    )
+    build.check(err, "conv GEMM")
+    return out, partial
 
 
 def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
                  stats: bool = True):
-    """One launch of the bf16 conv in ``halo`` mode over one or two input
-    legs (``kernels[i]`` (3, 3, Cᵢ, Cout) for ``legs[i]``; the K loop runs
-    leg 0's channels, then leg 1's, into one f32 accumulator). ``valid``:
-    the legs are pre-padded, the output is 2 smaller in H and W. Returns
-    the bf16 output, and with ``stats`` its IN (mean, inv) from the f32
-    sums. Raises on what the kernel does not take."""
+    """The bf16 conv (``csrc/conv_fwd.cu``) in ``halo`` mode over one or
+    two input legs (``kernels[i]`` (3, 3, Cᵢ, Cout) for ``legs[i]``; the K
+    loop runs leg 0's channels, then leg 1's, into one f32 accumulator):
+    the operand pass where the plan has one, then the GEMM. ``valid``: the
+    legs are pre-padded, the output is 2 smaller in H and W. ``mean``/``inv``
+    (one leg, not with zero halos): the input is normalized + ReLU'd first.
+    Returns the bf16 output, and with ``stats`` its IN (mean, inv) from the
+    f32 sums. Raises on what the kernel does not take."""
     x0 = legs[0]
     b, hi, wi = x0.shape[:3]
     h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
@@ -151,36 +321,23 @@ def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
         c = x.shape[-1]
         if tuple(k.shape) != (3, 3, c, cout) or k.device != x.device:
             raise ValueError(f"kernel: expected (3, 3, {c}, {cout}) on {x.device}")
-        if c % 16:
-            raise ValueError(f"{name} kernel: an input leg has C={c} (needs C % 16 == 0)")
-    if cout % _BN or h < (2 if halo == "reflect" else 1) or w < 2 or b > 65535:
+        if c % 64:
+            raise ValueError(f"{name} kernel: an input leg has C={c} (needs C % 64 == 0)")
+    if cout % _BN or h < (2 if halo == "reflect" else 1) or w < 2:
         raise ValueError(
             f"{name} kernel: unsupported shape x={tuple(x0.shape)} Cout={cout} "
             f"(needs Cout % {_BN} == 0)"
         )
     if mean is not None:
+        if len(legs) > 1 or halo == "zero":
+            raise ValueError(f"{name} kernel: mean/inv take one leg and reflect or VALID halos")
         require(mean, "mean", torch.float32, (b, x0.shape[-1]))
         require(inv, "inv", torch.float32, (b, x0.shape[-1]))
-    kc = _KBYTES // 2
-    k = torch.cat([kk.to(torch.bfloat16) for kk in kernels], dim=2)
-    wpk = k.reshape(9, k.shape[2] // kc, kc, cout).permute(1, 0, 3, 2).contiguous()
-    lib = _load()
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x0.device)
-    partial = None
-    if stats:
-        ntiles = lib.ircolor_conv3x3_num_tiles(h, w)
-        partial = torch.empty((b, ntiles, 2, cout), dtype=torch.float32, device=x0.device)
-    x1 = legs[1] if len(legs) == 2 else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.ircolor_conv3x3_bf16(
-        _HALOS[halo], x0.data_ptr(), x0.shape[-1], ptr(x1), 0 if x1 is None else x1.shape[-1],
-        wpk.data_ptr(), ptr(mean), ptr(inv), out.data_ptr(), ptr(partial), b, h, w, cout,
-        stream_ptr(),
-    )
-    build.check(err, name)
+    plan = _conv_plan(b, h, w, [x.shape[-1] for x in legs], cout, halo, norm=mean is not None)
+    srcs = legs
+    if plan.pass_pad is not None:
+        srcs = [_conv_pass(x, mean, inv, pad=plan.pass_pad) for x in legs]
+    out, partial = _conv_gemm(srcs, kernels, plan, stats)
     LAUNCHES[name] += 1
     if not stats:
         return out
@@ -583,9 +740,7 @@ def _wgrad_transform_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="refle
     dy = _in_bwd_input(p, comp, m, inv, gm, gy, mask_p)
     if pad == "zero":
         return z, dy
-    zz = z if znorm is None else _normalize_relu(z, *znorm).to(z.dtype)
-    h, w = z.shape[1], z.shape[2]
-    return zz[:, _reflect_rows(h)][:, :, _reflect_rows(w)].contiguous(), dy
+    return _conv_pass_plain(z, *(znorm or (None, None)), pad=1), dy
 
 
 def _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect", mask_p=False):

@@ -29,7 +29,8 @@ def _bf16(gen, *shape, scale=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(16, 40), (13, 21)])  # full and partial 8×16 tiles
+# Whole 8×32 bf16 tiles, and partial bf16 and int8 (8×16) tiles.
+@pytest.mark.parametrize("hw", [(16, 64), (16, 40), (13, 21)])
 def test_block_kernels_match_plain_on_card(cuda, hw):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = _bf16(g, 2, *hw, 256)
@@ -471,8 +472,12 @@ def _stats_close(got, want):
     ((256, 128), 128, "zero"),      # up1, no concat
     ((256,), 256, "reflect"),
     ((64, 64), 128, "reflect"),     # 64-channel legs
+    ((64,), 256, "zero"),
+    ((256, 128), 256, "reflect"),
+    ((128,), 128, "reflect"),
 ])
-@pytest.mark.parametrize("hw,tile_h", [((16, 32), 16), ((12, 24), 4)])  # full, partial 8×16 tiles
+# Whole 8×32 tiles; partial rows and columns.
+@pytest.mark.parametrize("hw,tile_h", [((16, 32), 16), ((12, 24), 4), ((13, 40), 1)])
 def test_sum_fused_matches_plain_on_card(cuda, legs, cout, pad, hw, tile_h):
     g = torch.Generator(device=cuda).manual_seed(14)
     xs = [_bf16(g, 2, *hw, c) for c in legs]
@@ -487,29 +492,59 @@ def test_sum_fused_matches_plain_on_card(cuda, legs, cout, pad, hw, tile_h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(16, 32), (12, 24)])
-def test_valid_conv_and_block_kernels_match_plain_on_card(cuda, hw):
+@pytest.mark.parametrize("c", [64, 256])
+@pytest.mark.parametrize("hw,tile_h", [((16, 32), 4), ((12, 24), 4), ((13, 21), 1)])
+def test_valid_conv_and_block_kernels_match_plain_on_card(cuda, c, hw, tile_h):
+    """VALID raw (no pass) and normalized (the no-pad pass), whole and
+    partial 8×32 tiles; each bit-exact on repeat."""
     g = torch.Generator(device=cuda).manual_seed(15)
-    x = _bf16(g, 2, *hw, 256)
-    k1, k2 = _bf16(g, 3, 3, 256, 256, scale=0.05), _bf16(g, 3, 3, 256, 128, scale=0.05)
+    x = _bf16(g, 2, *hw, c)
+    k1, k2 = _bf16(g, 3, 3, c, 256, scale=0.05), _bf16(g, 3, 3, 256, 128, scale=0.05)
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     xp = xp.permute(0, 2, 3, 1).contiguous()
     before = dict(LAUNCHES)
     want = conv.conv3x3_valid_plain(xp, k1)
-    for got in (conv.conv3x3_valid_pallas(xp, k1, tile_h=4),
-                conv.conv3x3_valid_pallas_v2(xp, k1, tile_h=4, mode="preshift")):
+    forms = [lambda: conv.conv3x3_valid_pallas(xp, k1, tile_h=tile_h)]
+    if hw[1] % 8 == 0:  # the v2 contract
+        forms.append(lambda: conv.conv3x3_valid_pallas_v2(xp, k1, tile_h=tile_h, mode="preshift"))
+    for form in forms:
+        got = form()
         assert _close_bf16(got, want)
-    assert LAUNCHES["conv3x3_valid"] == before["conv3x3_valid"] + 2
-    got = block.conv3x3_stats(xp, k1, tile_h=4)
+        assert torch.equal(got, form())  # bit-exact on repeat
+    assert LAUNCHES["conv3x3_valid"] == before["conv3x3_valid"] + 2 * len(forms)
+    got = block.conv3x3_stats(xp, k1, tile_h=tile_h)
     want = block.conv3x3_stats_plain(xp, k1)
     assert _close_bf16(got[0], want[0]) and _stats_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, block.conv3x3_stats(xp, k1, tile_h=tile_h)))
     raw = torch.nn.functional.pad(want[0].permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     raw = raw.permute(0, 2, 3, 1).contiguous()
-    got2 = block.conv3x3_norm_in_stats(raw, k2, want[1], want[2], tile_h=4)
+    got2 = block.conv3x3_norm_in_stats(raw, k2, want[1], want[2], tile_h=tile_h)
     want2 = block.conv3x3_stats_plain(raw, k2, want[1], want[2])
     assert _close_bf16(got2[0], want2[0]) and _stats_close(got2, want2)
-    assert LAUNCHES["conv3x3_stats"] == before["conv3x3_stats"] + 1
-    assert LAUNCHES["conv3x3_norm_in_stats"] == before["conv3x3_norm_in_stats"] + 1
+    again = block.conv3x3_norm_in_stats(raw, k2, want[1], want[2], tile_h=tile_h)
+    assert all(torch.equal(a, b) for a, b in zip(got2, again))
+    assert LAUNCHES["conv3x3_stats"] == before["conv3x3_stats"] + 2
+    assert LAUNCHES["conv3x3_norm_in_stats"] == before["conv3x3_norm_in_stats"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(64, 128), (128, 256), (256, 256), (384, 128)])
+@pytest.mark.parametrize("hw", [(8, 32), (13, 21)])  # a whole 8×32 tile, partial tiles
+def test_reflect_conv_forms_match_plain_on_card(cuda, c, cout, hw):
+    """Row 2 raw (the reflect pass) and normalized on load (the pass with
+    the normalize), each bit-exact on repeat."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x = _bf16(g, 2, *hw, c, scale=2.0)
+    k = _bf16(g, 3, 3, c, cout, scale=0.05)
+    m, i = instance_norm_stats(x)
+    for args in ((), (m, i)):
+        before = LAUNCHES["conv3x3_reflect_fused"]
+        got = resblock.conv3x3_reflect_fused(x, k, *args)
+        assert LAUNCHES["conv3x3_reflect_fused"] == before + 1
+        want = resblock.conv3x3_reflect_fused_plain(x, k, *args)
+        assert _close_bf16(got[0], want[0]) and _stats_close(got, want), len(args)
+        again = resblock.conv3x3_reflect_fused(x, k, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -543,7 +578,13 @@ def test_slice5_wrappers_raise_on_unsupported_cuda_input(cuda):
         resblock.conv3x3_sum_fused([x], [k[..., :64].contiguous()])
     with pytest.raises(ValueError, match="at most 2"):
         resblock.conv3x3_sum_fused([x] * 3, [k] * 3)
-    with pytest.raises(ValueError, match="C % 16"):
-        resblock.conv3x3_sum_fused([x[..., :8].contiguous()], [k[:, :, :8].contiguous()])
+    with pytest.raises(ValueError, match="C % 64"):
+        resblock.conv3x3_sum_fused([x[..., :32].contiguous()], [k[:, :, :32].contiguous()])
+    with pytest.raises(ValueError, match="C % 64"):  # one leg of two
+        resblock.conv3x3_sum_fused([x, x[..., :96].contiguous()], [k, k[:, :, :96].contiguous()])
+    with pytest.raises(ValueError, match="C % 64"):
+        block.conv3x3_stats(xp[..., :32].contiguous(), k[:, :, :32].contiguous())
+    with pytest.raises(ValueError, match="Cout % 128"):
+        conv.conv3x3_valid_pallas(xp, k[..., :64].contiguous())
     with pytest.raises(ValueError, match="C % 8"):
         blur.blur_downsample_pallas(x[..., :4].contiguous())
