@@ -27,11 +27,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    wgrad with and without the normalize, bit-exact on repeat) at the
    flagship training bottleneck (8×128×160×256, k 3×3×256×256), beside
    cuDNN's bf16 ``conv2d_input`` / ``conv2d_weight`` of the reflect-padded
-   conv; and both in the enc/dec segment modes at the b8 flagship segments
-   (down1 512×640 128 → dz 64 with dy stored, down2 256×320 256 → 128, up1
-   256×320 128 → 384 and its two wgrad legs), beside the zero-pad conv's.
-   For each wgrad form also its two launches timed apart (transform pass,
-   GEMM with its TFLOP/s) and ptxas's register / spill line.
+   conv (on channels-last operands, and as PRs 3-9 called them: the faster
+   is the dgrad's library time); and both in the enc/dec segment modes at
+   the b8 flagship segments (down1 512×640 128 → dz 64 with dy stored,
+   down2 256×320 256 → 128, up1 256×320 128 → 384 and its two wgrad legs),
+   beside the zero-pad conv's. For each wgrad
+   form also its two launches timed apart (transform pass, GEMM with its
+   TFLOP/s) and ptxas's register / spill line; for each dgrad form its
+   launches (operand pass, fold lines, ``csrc/conv_fwd.cu``'s GEMM with
+   its TFLOP/s), the GEMM instantiation's ptxas line and HGMMA count (every
+   dgrad instantiation must issue ``wgmma`` and spill nothing).
 2c. TPU kernels 7-10, which the JAX package leaves on no generator route
    and its tools call at the flagship stage shapes, with the flagship
    generator's weights (down2_conv, up1_conv, resblocks.0) at b32: the
@@ -431,25 +436,43 @@ def check_conv_int8(torch, results: list, randn) -> None:
                         library_ms=row["library_ms"]))
 
 
+# csrc/conv_fwd.cu's epilogue policies, by their template number.
+EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz")
+
+
+def kernel_key(name: str) -> str:
+    """A kernel of a library by its mangled name: "gemm nBN <policy>" for
+    csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
+    wgrad's, "fold" (the dgrad's fold lines) or "pass" (the operand pass)."""
+    import re
+
+    if "ILb1E" in name:
+        return "gemm swap"
+    found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", name)
+    if found:
+        return f"gemm n{found[1]} {EPI_NAMES[int(found[2])]}"
+    return "gemm" if "gemm" in name else "fold" if "fold" in name else "pass"
+
+
 def ptxas_lines(source: str) -> dict:
     """ptxas's register / spill lines of ``csrc/<source>.cu``'s kernels,
-    from this process's build, by kernel: "gemm" ("gemm swap" for the
-    wgrad's swapped template) or "pass" (the operand pass)."""
+    from this process's build, by ``kernel_key``."""
     from ircolor_tpu_torch.kernels import build
 
     out, name = {}, None
     for line in build.build_logs.get(source, "").splitlines():
         if "Compiling entry function" in line:
-            name = ("gemm swap" if "ILb1E" in line else "gemm" if "gemm" in line else "pass")
+            name = kernel_key(line)
         elif name and ("registers" in line or "spill" in line):
             out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
 
 
 @functools.lru_cache
-def hgmma_count(source: str) -> int:
-    """``HGMMA`` instructions in the SASS of ``csrc/<source>.cu``'s library:
-    its GEMM must issue ``wgmma``."""
+def hgmma_by_kernel(source: str) -> dict:
+    """``HGMMA`` instructions in the SASS of each kernel of
+    ``csrc/<source>.cu``'s library, by ``kernel_key``: a GEMM must issue
+    ``wgmma``."""
     import shutil
 
     from ircolor_tpu_torch.kernels import build
@@ -457,7 +480,18 @@ def hgmma_count(source: str) -> int:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(build._lib_path(source))], capture_output=True,
                           text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    out, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = kernel_key(line.split("Function :", 1)[1].strip())
+            out.setdefault(key, 0)
+        elif key and "HGMMA" in line:
+            out[key] += 1
+    return out
+
+
+def hgmma_count(source: str) -> int:
+    return sum(hgmma_by_kernel(source).values())
 
 
 def wgrad_parts(torch, args, kw, ptxas: dict) -> str:
@@ -503,13 +537,61 @@ def conv_parts(torch, halo: str, legs, kernels, mean=None, inv=None, stats: bool
     tg = cuda_time_ms(lambda: resblock._conv_gemm(srcs, kernels, plan, stats), 10)
     flops = 2 * b * h * w * 9 * sum(x.shape[-1] for x in legs) * cout
     ptx = ptxas_lines("conv_fwd")
-    smem = resblock._load_fwd().ircolor_conv_fwd_smem()
+    smem = resblock._load_fwd().ircolor_conv_fwd_smem(plan.bn)
     missing = "not built in this process"
     pad = "none" if plan.pass_pad is None else f"pad {plan.pass_pad}"
+    key = f"gemm n{plan.bn} {'stats' if stats else 'store'}"
     return (f"    pass {tp:.4f} ms ({pad}), GEMM {tg:.4f} ms = {flops / tg / 1e9:.1f} TFLOP/s "
             f"({plan.blocks} output blocks on {plan.grid} persistent blocks, {smem} B shared)\n"
-            f"    ptxas gemm: {ptx.get('gemm', missing)}; pass: {ptx.get('pass', missing)}; "
-            f"{hgmma_count('conv_fwd')} HGMMA in the SASS")
+            f"    ptxas {key}: {ptx.get(key, missing)}; pass: {ptx.get('pass', missing)}; "
+            f"{hgmma_by_kernel('conv_fwd').get(key, 0)} HGMMA in its SASS")
+
+
+def dgrad_parts(torch, args, kw) -> str:
+    """One dgrad form's launches (``csrc/conv_fwd.cu``) timed apart: the
+    operand pass (dy), the fold lines (reflect halos) and the GEMM with the
+    form's epilogue (its TFLOP/s, grid, shared memory, ptxas line and
+    HGMMA count)."""
+    from ircolor_tpu_torch.kernels import resblock
+
+    p, comp, aux, k, m, inv, gm, gy = args
+    mask_stats, mask_p = kw.get("mask_stats"), kw.get("mask_p", False)
+    b, h, w, c = p.shape
+    plan = resblock._dgrad_plan(b, h, w, c, k.shape[2], kw.get("pad", "reflect"))
+    dy = resblock._dgrad_pass(p, comp, m, inv, gm, gy, mask_p)
+    kdg = resblock._dgrad_kernel(k)
+    fold = resblock._dgrad_fold(dy, k) if plan.fold else None
+    tp = cuda_time_ms(lambda: resblock._dgrad_pass(p, comp, m, inv, gm, gy, mask_p), 10)
+    tf = cuda_time_ms(lambda: resblock._dgrad_fold(dy, k), 10) if plan.fold else 0.0
+    tg = cuda_time_ms(lambda: resblock._dgrad_gemm(dy, kdg, plan, aux, mask_stats, fold), 10)
+    flops = 2 * b * h * w * 9 * c * k.shape[2]
+    cp = plan.conv
+    policy = "mask-stats" if mask_stats is not None else "residual" if aux is not None else "dz"
+    key = f"gemm n{cp.bn} {policy}"
+    ptx = ptxas_lines("conv_fwd")
+    smem = resblock._load_fwd().ircolor_conv_fwd_smem(cp.bn)
+    missing = "not built in this process"
+    return (f"    pass {tp:.4f} ms, fold lines {tf:.4f} ms, GEMM {tg:.4f} ms = "
+            f"{flops / tg / 1e9:.1f} TFLOP/s ({cp.blocks} output blocks of N {cp.bn} on "
+            f"{cp.grid} persistent blocks, {smem} B shared)\n"
+            f"    ptxas {key}: {ptx.get(key, missing)}; fold: {ptx.get('fold', missing)}; "
+            f"pass: {ptx.get('pass', missing)}; {hgmma_by_kernel('conv_fwd').get(key, 0)} HGMMA "
+            f"in its SASS")
+
+
+def check_dgrad_build() -> None:
+    """Every dgrad instantiation of the GEMM (N 128 and 64, the mask-stats,
+    residual and dz policies) issues ``wgmma`` and spills nothing."""
+    ptx, hg = ptxas_lines("conv_fwd"), hgmma_by_kernel("conv_fwd")
+    for bn in (128, 64):
+        for policy in ("mask-stats", "residual", "dz"):
+            key = f"gemm n{bn} {policy}"
+            line = ptx.get(key, "not built in this process")
+            log(f"[dgrad GEMM {key}] {hg.get(key, 0)} HGMMA; ptxas {line}")
+            if not hg.get(key):
+                raise AssertionError(f"the dgrad GEMM ({key}) issues no wgmma")
+            if key in ptx and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"the dgrad GEMM ({key}) spills: {line}")
 
 
 def check_bwd_kernels(torch, results: list) -> None:
@@ -545,37 +627,51 @@ def check_bwd_kernels(torch, results: list) -> None:
     act = bb * hb * wb * cb * 2
     flops = 2 * bb * hb * wb * 9 * cb * cb
 
-    # dgrad: launch 1 (ReLU mask + stats, dy emitted once to check it) and
-    # launch 2 (residual add).
+    # dgrad (the operand pass, the fold lines and csrc/conv_fwd.cu's GEMM):
+    # launch 1 (ReLU mask + stats, dy emitted once to check it) and launch 2
+    # (residual add), each with a bit-exact repeat and its launches timed
+    # apart.
+    check_dgrad_build()
     errs, times, ptimes, bounds = [], [], [], []
     forms = (("mask_stats", (g, raw2, raw1, k, m2, i2, gm, gy), dict(mask_stats=(m1, i1))),
              ("residual", (raw1, raw2, g, k, m1, i1, gm, gy), {}))
     for label, args, kw in forms:
         got = resblock.conv3x3_dgrad_fused(*args, **kw)
         want = resblock.conv3x3_dgrad_fused_plain(*args, **kw)
+        again = resblock.conv3x3_dgrad_fused(*args, **kw)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         ulps = float((got[0].float() - want[0].float()).abs().max()
                      / (2.0**-8 * want[0].float().abs().max()))
         dy_err = float((got[1].float() - want[1].float()).abs().max())
         srel = rel(got[2], want[2]) if kw else 0.0
         log(f"[conv3x3_dgrad_fused {label}] max|d| = {ulps:.3g} bf16 ulps (tol 2), "
-            f"dy max|d| {dy_err:.3g}, stats rel {srel:.3g} (tol 1e-3)")
-        if not (ulps <= 2 and srel <= 1e-3 and dy_err <= 2.0**-8 * float(want[1].float().abs().max())):
+            f"dy max|d| {dy_err:.3g}, stats rel {srel:.3g} (tol 1e-3); repeat bit-exact {repeat}")
+        if not (ulps <= 2 and srel <= 1e-3 and repeat
+                and dy_err <= 2.0**-8 * float(want[1].float().abs().max())):
             raise AssertionError(f"conv3x3_dgrad_fused {label} disagrees with its plain version")
         errs.append(float((got[0].float() - want[0].float()).abs().max()))
-        del got, want
+        del got, want, again
         times.append(cuda_time_ms(
             lambda: resblock.conv3x3_dgrad_fused(*args, emit_dy=False, **kw), 10))
         ptimes.append(cuda_time_ms(
             lambda: resblock.conv3x3_dgrad_fused_plain(*args, emit_dy=False, **kw), 3, 1))
         log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
+        log(dgrad_parts(torch, args, kw))
         bounds.append(bound(flops, 4 * act + 9 * cb * cb * 2 + bb * cb * 4 * 8))
+    # cuDNN's input gradient of the reflect-padded conv: the call of PRs 3-9
+    # (g's NHWC memory, a channels-last view, with OIHW weights) and with
+    # channels-last weights too; library_ms is the faster of the two.
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    w_cl = w_oihw.contiguous(memory_format=torch.channels_last)
     g_nchw = g.permute(0, 3, 1, 2)
-    lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(xp.shape, w_oihw, g_nchw), 10)
-    log(f"    (for scale: cuDNN bf16 conv2d_input of the reflect-padded conv {lib:.3f} ms)")
+    lib_oihw = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(xp.shape, w_oihw, g_nchw), 10)
+    lib_cl = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(xp.shape, w_cl, g_nchw), 10)
+    lib = min(lib_oihw, lib_cl)
+    log(f"    (for scale: cuDNN bf16 conv2d_input of the reflect-padded conv {lib_cl:.3f} ms "
+        f"channels-last operands, {lib_oihw:.3f} ms with OIHW weights)")
     results.append(dict(name="conv3x3_dgrad_fused", route="cuda",
-                        source="ircolor_tpu_torch/csrc/resblock_bwd.cu",
+                        source="ircolor_tpu_torch/csrc/conv_fwd.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:692",
                         max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
                         bound_ms=sum(b for b, _ in bounds) / 2, bound_by=bounds[0][1],
@@ -761,23 +857,30 @@ def check_segment_kernels(torch, results: list) -> None:
         ulps = float((got[0].float() - want[0].float()).abs().max()) / (2.0**-8 * scale)
         dy_ok = not emit or float((got[1].float() - want[1].float()).abs().max()) <= (
             2.0**-8 * float(want[1].float().abs().max()))
+        repeat = torch.equal(got[0], resblock.conv3x3_dgrad_fused(*args, emit_dy=emit, **kw)[0])
         log(f"[conv3x3_dgrad_fused_seg {label} {bb}x{hh}x{ww}, {c} -> dz {cin}"
-            f"{', dy stored' if emit else ''}] max|d| = {ulps:.3g} bf16 ulps (tol 2); dy ok {dy_ok}")
-        if not (ulps <= 2 and dy_ok):
+            f"{', dy stored' if emit else ''}] max|d| = {ulps:.3g} bf16 ulps (tol 2); dy ok {dy_ok}; "
+            f"repeat bit-exact {repeat}")
+        if not (ulps <= 2 and dy_ok and repeat):
             raise AssertionError(f"conv3x3_dgrad_fused_seg {label} disagrees with its plain version")
         dg["err"] = max(dg["err"], float((got[0].float() - want[0].float()).abs().max()))
         del got, want
         ms = cuda_time_ms(lambda: resblock.conv3x3_dgrad_fused(*args, emit_dy=emit, **kw), 10)
         pms = cuda_time_ms(lambda: resblock.conv3x3_dgrad_fused_plain(*args, emit_dy=emit, **kw), 2, 1)
         w_oihw = k.permute(3, 2, 0, 1).contiguous()
+        w_cl = w_oihw.contiguous(memory_format=torch.channels_last)
         p_nchw = p.permute(0, 3, 1, 2)
-        lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_input((bb, cin, hh, ww), w_oihw, p_nchw,
-                                                              padding=1), 10)
+        lib_oihw = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(
+            (bb, cin, hh, ww), w_oihw, p_nchw, padding=1), 10)
+        lib_cl = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(
+            (bb, cin, hh, ww), w_cl, p_nchw, padding=1), 10)
+        lib = min(lib_oihw, lib_cl)  # the faster call, as the block row
         npix = bb * hh * ww
         b_ms = bound(2 * npix * 9 * c * cin,
                      npix * (2 * c + cin + c * emit) * 2 + 9 * c * cin * 2 + bb * c * 16)
-        log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN conv2d_input {lib:.3f} ms  "
-            f"bound {b_ms[0]:.3f} ms ({b_ms[1]})")
+        log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  cuDNN conv2d_input {lib_cl:.3f} ms "
+            f"channels-last ({lib_oihw:.3f} with OIHW weights)  bound {b_ms[0]:.3f} ms ({b_ms[1]})")
+        log(dgrad_parts(torch, args, dict(kw)))
         for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lib)):
             dg[key] += v
         dg["bounds"].append(b_ms)
@@ -811,7 +914,7 @@ def check_segment_kernels(torch, results: list) -> None:
             del z, got, want
         del p, comp, k, args
         torch.cuda.empty_cache()
-    for name, row, line, src in (("conv3x3_dgrad_fused_seg", dg, ":692", "resblock_bwd.cu"),
+    for name, row, line, src in (("conv3x3_dgrad_fused_seg", dg, ":692", "conv_fwd.cu"),
                                  ("conv3x3_wgrad_fused_seg", wg, ":956", "wgrad.cu")):
         log(f"    {name}, one step's launches: kernel {row['ms']:.3f} ms, plain "
             f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, bound "

@@ -1,7 +1,8 @@
-// Forward 3x3 conv (bf16 operands, f32 accumulation) of the generator's
-// resnet blocks and of the JAX package's other 3x3 conv kernels, for Hopper
-// (sm_90a): an operand pass where a halo or a normalize needs one, then an
-// implicit GEMM on TMA + wgmma.
+// 3x3 conv (bf16 operands, f32 accumulation) of the generator's resnet
+// blocks, of the JAX package's other 3x3 conv kernels and of the blocks'
+// and enc/dec segments' backward dgrad, for Hopper (sm_90a): an operand pass
+// where a halo, a normalize or an IN backward needs one, then an implicit
+// GEMM on TMA + wgmma with an epilogue policy.
 //
 // Replaces (ircolor_tpu/ops/):
 //   pallas_resblock.py:conv3x3_reflect_fused (:280, pallas_call :358)
@@ -12,34 +13,64 @@
 //       conv3x3_norm_in_stats: VALID over a pre-padded input, raw or
 //       normalized on load;
 //   pallas_conv.py:conv3x3_valid_pallas_v2 (:177, :234) and
-//       conv3x3_valid_pallas (:256, :305): VALID, no stats.
+//       conv3x3_valid_pallas (:256, :305): VALID, no stats;
+//   pallas_resblock.py:conv3x3_dgrad_fused (:692, pallas_call :818), also
+//       run by pallas_encdec.py:113 (the segments: zero halos, p masked on
+//       load, no aux): the IN backward, the dgrad conv, the ReflectionPad
+//       fold, and the mask-stats / residual / plain epilogue.
 //
 //   out[b, r, c, co] = sum_{leg, ci, dy, dx} Xp[b, r+dy, c+dx, ci] * k[dy, dx, ci, co]
 //
-// in f32, stored once as bf16, with the per-(b, tile) sum and sum of
-// squares of the f32 values (over every leg, before rounding) for the
-// caller's instance norm. Xp is the reflect-padded Zp the pass wrote, the
-// pre-padded input (VALID), or the unpadded input read from coordinate -1
-// (zero halos: TMA fills what lies outside with zeros).
+// in f32, stored once as bf16 through the epilogue policy:
+// * stats (the forward): out and the per-(b, tile) sum and sum of squares
+//   of the f32 values (over every leg, before rounding) for the caller's
+//   instance norm;
+// * store: out alone;
+// and the dgrad's, which add the fold first (see below):
+// * mask-stats (the block dgrad's launch 1): out = bf16(y * [aux > mm]) and
+//   per-(b, tile) sums of y_masked and y_masked * (aux - mm) * mi;
+// * residual (launch 2): out = bf16(y + aux);
+// * dz (the segments): out = bf16(y).
+// Xp is the reflect-padded Zp the pass wrote, the pre-padded input (VALID),
+// or the unpadded input read from coordinate -1 (zero halos: TMA fills what
+// lies outside with zeros).
+//
+// The dgrad: dy = bf16(inv*((p - gm) - n*gy)), n = (comp - m)*inv (the IN
+// backward; with mask_p, p is kept where comp > m) is written by the operand
+// pass, bit-identical to the plain version's; then F = the zero-SAME conv of
+// dy with kdg = rot180(k) transposed in channels (HWIO (3, 3, C, Cin), made
+// by the wrapper) is this GEMM on one leg with zero halos. For reflect
+// halos dz is F plus the ReflectionPad(1) VJP's fold: the transposed conv's
+// halo entries F[-1, .] (from dy row 0 and the forward kernel's top row)
+// fold onto row 1, F[H, .] (dy row H-1, bottom row) onto row H-2, F[., -1]
+// and F[., W] (dy columns 0 and W-1, left and right kernel columns) onto
+// columns 1 and W-2, the four corners F[-1, -1] ... each onto one pixel.
 //
 // What bounds it on the H100: the tensor cores. At the flagship bottleneck
-// (32x128x160x256 -> 256) one conv is 0.77 TFLOP against 0.67 GB of
+// (32x128x160x256 -> 256) one forward conv is 0.77 TFLOP against 0.67 GB of
 // activations in and out (~1150 flop/byte, far above the card's ridge
 // point of ~295); at down2 (128 -> 256) and up1 (256 + 128 -> 128), 256x320,
-// ~770 and ~860 flop/byte. The weights (at most 1.2 MB) and the planes'
-// recent rows stay in L2, so the tile's shape decides the L2 -> shared
-// traffic: a stage moves 44 KB for 6.3 MFLOP of wgmma (~0.007 byte a flop,
-// ~5 TB/s at 700 TFLOP/s).
+// ~770 and ~860 flop/byte; the dgrad at the b8 bottleneck 0.193 TFLOP
+// against ~0.34 GB (~600 flop/byte). The operand passes are memory-bound.
+// The weights (at most 1.2 MB) and the planes' recent rows stay in L2, so
+// the tile's shape decides the L2 -> shared traffic: a stage moves 44 KB for
+// 6.3 MFLOP of wgmma (~0.007 byte a flop, ~5 TB/s at 700 TFLOP/s).
 //
 // Design:
 // * Operand pass (tma.cuh, memory-bound): REFLECT writes the reflect-padded
 //   Zp (B, H+2, W+2, C) of x or of bf16(relu((x - mean)*inv)); VALID with
-//   mean/inv normalizes the padded input as it is. ZERO and VALID raw need
-//   none: the GEMM reads the input itself.
+//   mean/inv normalizes the padded input as it is; the dgrad writes dy.
+//   ZERO and VALID raw need none: the GEMM reads the input itself.
 // * GEMM: a block owns TH x TW = 8 x 32 output pixels (M = 256) of one
-//   image and 128 output channels (N): two consumer warpgroups of 4 rows
-//   (two m64 sub-tiles, 2 rows each) and one producer warp. M = 256 halves
-//   the weight traffic a flop of the old 128-pixel tile.
+//   image and BN = 128 output channels (N; 64 where Cout % 128 != 0, the
+//   segments' dz of 64): two consumer warpgroups of 4 rows (two m64
+//   sub-tiles, 2 rows each) and one producer warp, one thread of which
+//   issues the copies. The dgrad's policies take a producer warpgroup in
+//   its place, which hands its registers to the consumers (setmaxnreg: 40
+//   for it, 232 for them, where a 384-thread block gets 168 a thread; at
+//   168 their epilogues spilled up to 4.5 KB; the forward's policies ran
+//   slower as a 384-thread block). M = 256 halves the weight traffic a
+//   flop of the old 128-pixel tile.
 // * A (activations) is K-major: TMA copies a box of (KC = 32 channels, TW
 //   columns, TH + 2 rows, 1 image), 64-byte swizzled, one pixel a 64-byte
 //   row. A stage holds one such box at column c0 + dx: tap (dy, dx) is then
@@ -49,22 +80,39 @@
 // * B (weights) is MN-major, read from HWIO as it is: a 4-D map (Cout, C,
 //   3, 3) with boxes of (64 output channels, KC input channels, 1 dx, 3
 //   dy), 128-byte swizzled, one row of output channels per input channel;
-//   two boxes make a stage's N = 128 for its three taps. No repack.
-// * A stage is (leg, KC-channel chunk, dx): 20 KB of A and 24 KB of B, 4
-//   stages (a ring of 2 stages of 64 channels, 88 KB each, gave the loads
-//   one stage of lead and ran slower on the H100). The producer keeps the
-//   ring full
-//   with mbarrier completion; each consumer runs 12 m64n128k16 wgmmas a
-//   stage, keeps one stage's group in flight and frees the stage before
-//   it. Legs run one after the other into the one f32 accumulator.
-// * Epilogue: bf16 stored from the fragments, pixels past H or W masked;
-//   the moments summed in a fixed order (thread, shuffle tree, warps in
+//   BN / 64 boxes make a stage's N for its three taps. No repack.
+// * A stage is (leg, KC-channel chunk, dx): 20 KB of A and 12 KB of B per
+//   64 output channels, 4 stages (a ring of 2 stages of 64 channels, 88 KB
+//   each, gave the loads one stage of lead and ran slower on the H100). The
+//   producer keeps the ring full with mbarrier completion; each consumer
+//   runs 12 m64nBNk16 wgmmas a stage, keeps one stage's group in flight and
+//   frees the stage before it. Legs run one after the other into the one
+//   f32 accumulator.
+// * Epilogue: the fold terms added to the f32 value of the pixels on rows
+//   1, H-2 and columns 1, W-2 (only where the caller passes fold lines),
+//   then the policy; bf16 stored from the fragments, pixels past H or W
+//   masked; the sums taken in a fixed order (thread, shuffle tree, warps in
 //   order), one (b, tile) slot each, no atomics: a repeat is bit-exact.
+//   Its global reads (aux, the fold terms) are read-only loads issued one
+//   column group (i) ahead, and mm/mi sit in shared memory: read where
+//   used, each was a round trip the idle tensor cores waited on.
 // * Persistent grid (one wave, fixed by the shapes in the Python plan):
 //   a block runs every grid-th output block, the ring running on, so the
 //   next block's first loads overlap this one's epilogue. Output blocks
 //   are (image, tile) major, the output-channel blocks of one tile next to
 //   each other, so A comes from L2 after its first read.
+// * The fold lines (the dgrad with reflect halos): a small kernel computes
+//   F[-1, -1..W], F[H, -1..W] (B, 2, W+2, Cin) and F[0..H-1, -1], F[0..H-1,
+//   W] (B, H, 2, Cin) in f32 from dy and the forward kernel as it is (its
+//   last dim, C, is K: an mma.sync B fragment is one 32-bit load): per line
+//   pixel 3 taps x C on m16n8k16, both fragments read straight from L2; a
+//   block is 64 line pixels x 64 channels, a warp a tap, each B fragment
+//   feeding four m16 tiles. At the b8 blocks that is 4,640 line pixels, 1.8
+//   GFLOP (0.9% of the GEMM's) and a 4.75 MB side buffer. A fold inside the
+//   GEMM's K loop was not taken: an m64 sub-tile is 2 rows x 32 columns, so
+//   a column fold needs a stage of its own per chunk (one column of 32 is
+//   not zero) on the 32 of 80 tiles that hold column 1 or W-2 at the blocks
+//   (+13% of the GEMM's loads and wgmmas).
 #include "tma.cuh"  // the operand pass, TMA, mbarrier and wgmma helpers
 
 namespace ircolor {
@@ -72,21 +120,53 @@ namespace {
 
 constexpr int TH = 8;                            // output rows a block
 constexpr int TW = 32;                           // output columns a block
-constexpr int BN = 128;                          // output channels a block
 constexpr int KC = 32;                           // input channels a stage
 constexpr int CONSUMERS = 2;                     // warpgroups, TH / 2 rows each
-constexpr int NTHREADS = CONSUMERS * 128 + 32;   // + the producer warp
+// Threads of a block: the consumers and a producer warp, or (the dgrad's
+// policies) a producer warpgroup whose registers setmaxnreg hands over.
+constexpr int threads_of(bool dgrad) { return CONSUMERS * 128 + (dgrad ? 128 : 32); }
 constexpr int STAGES = 4;
 constexpr int A_ROW = KC * 2;                    // one pixel: 64 bytes
 constexpr int A_BYTES = (TH + 2) * TW * A_ROW;   // one dx buffer: 20 KB
 constexpr int B_ATOM = KC * 128;                 // KC ci x 64 co: 4 KB
-constexpr int B_HALF = 3 * B_ATOM;               // its three taps (dy)
-constexpr int STAGE = A_BYTES + 2 * B_HALF;      // 44 KB
-constexpr int RED_BYTES = CONSUMERS * 4 * BN * 2 * 4;  // the moments' warp partials
-constexpr int SMEM = STAGES * STAGE + RED_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
-static_assert(TW % 8 == 0 && 64 % TW == 0, "an m64 sub-tile is whole rows on swizzle atoms");
+constexpr int B_HALF = 3 * B_ATOM;               // one 64-channel box: its three taps (dy)
+static_assert(TW == 32, "an m64 sub-tile is two whole rows on swizzle atoms");
 static_assert(TH == 4 * CONSUMERS, "two m64 sub-tiles of 2 rows a warpgroup");
-static_assert(A_BYTES % 1024 == 0 && STAGE % 1024 == 0, "B boxes on 1 KB atoms");
+static_assert(A_BYTES % 1024 == 0 && B_HALF % 1024 == 0, "B boxes on 1 KB atoms");
+
+// The ring and shared memory of a block with BN output channels.
+template <int BN>
+struct Ring {
+  static constexpr int STAGE = A_BYTES + (BN / 64) * B_HALF;     // 44 KB at BN 128
+  static constexpr int RED_BYTES = CONSUMERS * 4 * BN * 2 * 4;   // the sums' warp partials
+  static constexpr int MASK_BYTES = 2 * BN * 4;                  // a task's mm, mi
+  static constexpr int SMEM =
+      STAGES * STAGE + RED_BYTES + MASK_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+};
+
+// The epilogue policies (see the note at the top): the forward's stats and
+// store; the dgrad's mask-stats, residual and dz (store), which add the fold.
+enum Epi { EPI_STATS = 0, EPI_STORE = 1, EPI_MASK_STATS = 2, EPI_RESIDUAL = 3, EPI_DZ = 4 };
+
+// Registers a thread of this warpgroup may hold from here on: the producer
+// gives its share to the consumers, whose accumulators alone take 128.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Read-only loads (ld.global.nc): nothing a kernel here stores aliases
+// them, so they may move ahead of the epilogue's stores.
+__device__ __forceinline__ uint32_t ldg32(const void* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+__device__ __forceinline__ float2 ldg_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
 
 // m64n128k16, bf16 x bf16 -> f32, D += A*B: A K-major (channels contiguous
 // in each pixel's row), B MN-major (output channels contiguous).
@@ -114,12 +194,34 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// m64n64k16, the same operands with one 64-channel B box.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 struct FwdArgs {
   __nv_bfloat16* out;  // (B, H, W, Cout)
-  float* partial;      // (B, ntiles, 2, Cout) or null (no stats)
+  float* partial;      // (B, ntiles, 2, Cout): the stats and mask-stats policies
+  const __nv_bfloat16* aux;  // (B, H, W, Cout): mask-stats (raw1) and residual
+  const float* mm;     // (B, Cout) mask-stats: aux's IN mean and inv
+  const float* mi;
+  const float* fold;   // (B, 2, W+2, Cout) f32 fold rows, or null (no fold)
+  const float* fold_cols;  // (B, H, 2, Cout) f32 fold columns
   int H, W, Cout;      // the output plane
   int nchunk0, nchunk1;  // KC-channel chunks of leg 0 and leg 1
-  int ntc, ntiles, ncob;  // tile columns, tiles an image, 128-channel blocks
+  int ntc, ntiles, ncob;  // tile columns, tiles an image, BN-channel blocks
   int ntasks;          // B * ntiles * ncob output blocks
   int shift;           // 1: A reads the unpadded input from -1 (zero halos)
 };
@@ -128,15 +230,20 @@ struct FwdArgs {
 // task = (b * ntiles + tile) * ncob + cob. The ring runs on across tasks,
 // so the producer loads a task's first stages during the last one's
 // epilogue.
-__global__ void __launch_bounds__(NTHREADS, 1)
+template <int BN, int EPI>
+__global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
     conv_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                          const __grid_constant__ CUtensorMap ta1,
                          const __grid_constant__ CUtensorMap tb0,
                          const __grid_constant__ CUtensorMap tb1, const FwdArgs a) {
+  constexpr int STAGE = Ring<BN>::STAGE;
+  constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS;
+  constexpr bool DGRAD = EPI >= EPI_MASK_STATS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB
   const uint32_t red = base + STAGES * STAGE;
-  const uint32_t full0 = red + RED_BYTES, empty0 = full0 + STAGES * 8;
+  const uint32_t maskp = red + Ring<BN>::RED_BYTES;
+  const uint32_t full0 = maskp + Ring<BN>::MASK_BYTES, empty0 = full0 + STAGES * 8;
   const int nst = 3 * (a.nchunk0 + a.nchunk1);
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
@@ -150,9 +257,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   __syncthreads();
 
   if (wg == CONSUMERS) {
-    // Producer warp: one thread issues every copy. Stage j of a task: leg,
+    // Producer warp(group): one thread issues every copy. Stage j of a task: leg,
     // chunk (j / 3) and dx (j % 3); g counts stages over all tasks.
-    if (lane != 0) return;
+    if constexpr (DGRAD) setmaxnreg_dec<40>();
+    if (threadIdx.x != CONSUMERS * 128) return;
     int g = 0;
     for (int task = blockIdx.x; task < a.ntasks; task += gridDim.x) {
       const int mt = task / a.ncob, co0 = (task % a.ncob) * BN;
@@ -169,28 +277,38 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const CUtensorMap* tb = leg1 ? &tb1 : &tb0;
         mbar_expect_tx(full, STAGE);
         tma_load(dst, ta, full, ci0, c0 + dx - a.shift, r0 - a.shift, b);
-        tma_load(dst + A_BYTES, tb, full, co0, ci0, dx, 0);
-        tma_load(dst + A_BYTES + B_HALF, tb, full, co0 + 64, ci0, dx, 0);
+#pragma unroll
+        for (int h = 0; h < BN / 64; ++h)
+          tma_load(dst + A_BYTES + h * B_HALF, tb, full, co0 + 64 * h, ci0, dx, 0);
       }
     }
     return;
   }
 
   // Consumer warpgroup wg: output rows r0 + 4 wg + [0, 4) of each task, as
-  // two m64 sub-tiles of 2 rows; 128 output channels.
+  // two m64 sub-tiles of 2 rows; BN output channels.
+  if constexpr (DGRAD) setmaxnreg_inc<232>();
   const int warp = (threadIdx.x / 32) % 4;
   float* redp = reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw)));
-  const bool stats = a.partial != nullptr;
+  float* maskv = reinterpret_cast<float*>(smem_raw + (maskp - smem_u32(smem_raw)));
   int g = 0;
   for (int task = blockIdx.x; task < a.ntasks; task += gridDim.x) {
     const int mt = task / a.ncob, co0 = (task % a.ncob) * BN;
     const int b = mt / a.ntiles, tile = mt % a.ntiles;
     const int r0 = (tile / a.ntc) * TH, c0 = (tile % a.ntc) * TW;
-    float acc[2][64];
+    if constexpr (EPI == EPI_MASK_STATS) {
+      // The task's mm and mi into shared memory (the last task's epilogue
+      // is done with them: it ended on the consumers' barrier).
+      const int x = threadIdx.x;
+      if (x < 2 * BN) maskv[x] = x < BN ? a.mm[(size_t)b * a.Cout + co0 + x]
+                                        : a.mi[(size_t)b * a.Cout + co0 + x - BN];
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+    }
+    float acc[2][BN / 2];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[t][i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0.f;
     for (int j = 0; j < nst; ++j, ++g) {
       const int s = g % STAGES;
       const uint32_t st = base + s * STAGE;
@@ -204,7 +322,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
             const uint32_t arow = (4 * wg + 2 * t + dy) * TW;  // first buffer row of the tap
-            wgmma_n128(acc[t], smem_desc_k64(st + arow * A_ROW + ks * 32), db);
+            const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
+            if constexpr (BN == 128) {
+              wgmma_n128(acc[t], da, db);
+            } else {
+              wgmma_n64(acc[t], da, db);
+            }
           }
         }
       }
@@ -212,70 +335,147 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       wgmma_wait<1>();  // the stage before this one is done with its buffers
       if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));
     }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));  // the task's last stage
-
     // Epilogue. Accumulator i of a thread: sub-tile row p = 16*warp +
     // lane/4 (+8 for the odd pair), column 8*(i/4) + 2*(lane%4) (+1); row p
-    // of sub-tile t is output pixel (r0 + 4 wg + 2 t + p / TW, c0 + p % TW).
-    bool valid[2][2];
-    size_t obase[2][2];
+    // of sub-tile t is output pixel (r0 + 4 wg + 2 t + p / TW, c0 + p % TW),
+    // with TW = 32: row rw + 2 t, column cw + 8 h. Indices are computed where
+    // used (the accumulators leave few registers); the global reads of the
+    // next i (aux, the fold's main terms) are issued one i ahead.
+    const int rw = r0 + 4 * wg + warp / 2, cw = c0 + 16 * (warp % 2) + lane / 4;
+    const int cl = 2 * (lane % 4);  // the thread's first channel of each i
+    const size_t obase = (((size_t)b * a.H + rw) * a.W + cw) * a.Cout + co0 + cl;
+    constexpr bool AUX = EPI == EPI_MASK_STATS || EPI == EPI_RESIDUAL;
+    // The fold (reflect dgrad): a pixel on row 1 or H-2 reads its row line,
+    // one on column 1 or W-2 its column line; one on both (four pixels an
+    // image) also reads the corner and its column line (`extra`).
+    const float* fmain[2][2];
+    bool extra[2][2];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = 16 * warp + lane / 4 + 8 * h;
-        const int r = r0 + 4 * wg + 2 * t + p / TW, c = c0 + p % TW;
-        valid[t][h] = r < a.H && c < a.W;
-        obase[t][h] = (((size_t)b * a.H + r) * a.W + c) * a.Cout + co0 + 2 * (lane % 4);
+        const int r = rw + 2 * t, c = cw + 8 * h;
+        const bool er = r == 1 || r == a.H - 2, ec = c == 1 || c == a.W - 2;
+        fmain[t][h] = nullptr;
+        extra[t][h] = er && ec;
+        if (!DGRAD || a.fold == nullptr || r >= a.H || c >= a.W) continue;
+        if (er)
+          fmain[t][h] = a.fold + ((size_t)(2 * b + (r != 1)) * (a.W + 2) + c + 1) * a.Cout + co0 + cl;
+        else if (ec)
+          fmain[t][h] = a.fold_cols + (((size_t)b * a.H + r) * 2 + (c != 1)) * a.Cout + co0 + cl;
       }
+    uint32_t nav[2][2];
+    float2 nf[2][2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = rw + 2 * t < a.H && cw + 8 * h < a.W;
+        nav[t][h] = AUX && ok ? ldg32(a.aux + obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout) : 0u;
+        nf[t][h] = fmain[t][h] ? ldg_f2(fmain[t][h]) : make_float2(0.f, 0.f);
+      }
+    wgmma_wait<0>();  // the loads above overlap the task's last wgmmas
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));  // the task's last stage
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      uint32_t av[2][2];
+      float2 fv[2][2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          av[t][h] = nav[t][h];
+          fv[t][h] = nf[t][h];
+          if (i + 1 < BN / 8) {
+            const bool ok = rw + 2 * t < a.H && cw + 8 * h < a.W;
+            const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout + 8 * (i + 1);
+            if (AUX && ok) nav[t][h] = ldg32(a.aux + o);
+            if (fmain[t][h]) nf[t][h] = ldg_f2(fmain[t][h] + 8 * (i + 1));
+          }
+        }
+      float2 mm = make_float2(0.f, 0.f), mi = mm;
+      if constexpr (EPI == EPI_MASK_STATS) {
+        mm = *reinterpret_cast<const float2*>(maskv + 8 * i + cl);
+        mi = *reinterpret_cast<const float2*>(maskv + BN + 8 * i + cl);
+      }
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float y0 = acc[t][4 * i + 2 * h], y1 = acc[t][4 * i + 2 * h + 1];
-          if (valid[t][h]) {
-            *reinterpret_cast<uint32_t*>(a.out + obase[t][h] + 8 * i) = pack_bf16x2(y0, y1);
+          const int r = rw + 2 * t, c = cw + 8 * h;
+          if (r >= a.H || c >= a.W) continue;
+          const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout + 8 * i;
+          float y0 = acc[t][4 * i + 2 * h], y1 = acc[t][4 * i + 2 * h + 1];
+          if (fmain[t][h]) {  // the fold enters the f32 value before the policy
+            float2 f = fv[t][h];
+            if (extra[t][h]) {
+              const size_t ch = co0 + cl + 8 * i;
+              const float2 corner = ldg_f2(
+                  a.fold + ((size_t)(2 * b + (r != 1)) * (a.W + 2) + (c == 1 ? 0 : a.W + 1)) *
+                               a.Cout + ch);
+              const float2 side =
+                  ldg_f2(a.fold_cols + (((size_t)b * a.H + r) * 2 + (c != 1)) * a.Cout + ch);
+              f.x = f.x + corner.x + side.x;
+              f.y = f.y + corner.y + side.y;
+            }
+            y0 += f.x;
+            y1 += f.y;
+          }
+          if constexpr (AUX) {
+            const float a0 = bf16_lo(av[t][h]), a1 = bf16_hi(av[t][h]);
+            if constexpr (EPI == EPI_MASK_STATS) {
+              y0 = a0 > mm.x ? y0 : 0.f;
+              y1 = a1 > mm.y ? y1 : 0.f;
+              s1[0] += y0;
+              s1[1] += y1;
+              s2[0] += y0 * __fmul_rn(__fsub_rn(a0, mm.x), mi.x);
+              s2[1] += y1 * __fmul_rn(__fsub_rn(a1, mm.y), mi.y);
+            } else {
+              y0 += a0;
+              y1 += a1;
+            }
+          } else if constexpr (EPI == EPI_STATS) {
             s1[0] += y0;
             s1[1] += y1;
             s2[0] += y0 * y0;
             s2[1] += y1 * y1;
           }
+          *reinterpret_cast<uint32_t*>(a.out + o) = pack_bf16x2(y0, y1);
         }
-      if (!stats) continue;
+      if constexpr (STATS) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes of one column pair
-          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
-          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
-        }
-      if (lane < 4) {
+          for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes of one column pair
+            s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
+            s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
+          }
+        if (lane < 4) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * i + 2 * lane + e;
-          redp[((wg * 4 + warp) * BN + col) * 2] = s1[e];
-          redp[((wg * 4 + warp) * BN + col) * 2 + 1] = s2[e];
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * i + 2 * lane + e;
+            redp[((wg * 4 + warp) * BN + col) * 2] = s1[e];
+            redp[((wg * 4 + warp) * BN + col) * 2 + 1] = s2[e];
+          }
         }
       }
     }
-    if (!stats) continue;
-    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // consumers only
-    if (threadIdx.x < BN) {
-      float t1 = 0.f, t2 = 0.f;
+    if constexpr (STATS) {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // consumers only
+      if (threadIdx.x < BN) {
+        float t1 = 0.f, t2 = 0.f;
 #pragma unroll
-      for (int w = 0; w < CONSUMERS * 4; ++w) {  // warps in a fixed order
-        t1 += redp[(w * BN + threadIdx.x) * 2];
-        t2 += redp[(w * BN + threadIdx.x) * 2 + 1];
+        for (int w = 0; w < CONSUMERS * 4; ++w) {  // warps in a fixed order
+          t1 += redp[(w * BN + threadIdx.x) * 2];
+          t2 += redp[(w * BN + threadIdx.x) * 2 + 1];
+        }
+        float* dst = a.partial + ((size_t)mt * 2) * a.Cout + co0 + threadIdx.x;
+        dst[0] = t1;
+        dst[a.Cout] = t2;
       }
-      float* dst = a.partial + ((size_t)mt * 2) * a.Cout + co0 + threadIdx.x;
-      dst[0] = t1;
-      dst[a.Cout] = t2;
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // red is free again
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // red is free again
   }
 }
 
@@ -289,6 +489,172 @@ int make_weight_map(CUtensorMap* map, const void* k, int C, int Cout) {
   return make_map_4d(map, k, dims, strides, box);
 }
 
+template <int BN, int EPI>
+int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMap& tb0,
+                const CUtensorMap& tb1, const FwdArgs& a, int grid, cudaStream_t stream) {
+  auto kernel = conv_fwd_gemm_kernel<BN, EPI>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads_of(EPI >= EPI_MASK_STATS), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1,
+                                                                                a);
+  return (int)cudaGetLastError();
+}
+
+// The GEMM of leg 0 (x0, k0 (3, 3, C0, Cout)) and, with x1 non-null, leg 1
+// (x1, k1, C1) with a's pointers and policy: maps, tiling, launch.
+int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
+             FwdArgs a, int B, int H, int W, int Cout, int zero, int bn, int epi, int grid,
+             cudaStream_t stream) {
+  if (C0 <= 0 || C0 % 64 || C1 % 64 || (x1 == nullptr) != (C1 == 0) || Cout % bn || B < 1 ||
+      H < 1 || W < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int pad = zero ? 0 : 2;
+  CUtensorMap ta0, ta1, tb0, tb1;
+  int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, KC);
+  if (err == 0) err = make_weight_map(&tb0, k0, C0, Cout);
+  if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
+  if (err == 0 && x1 != nullptr) err = make_weight_map(&tb1, k1, C1, Cout);
+  if (err != 0) return err;
+  if (x1 == nullptr) {
+    ta1 = ta0;
+    tb1 = tb0;
+  }
+  a.H = H;
+  a.W = W;
+  a.Cout = Cout;
+  a.nchunk0 = C0 / KC;
+  a.nchunk1 = C1 / KC;
+  a.ntc = (W + TW - 1) / TW;
+  a.ntiles = ((H + TH - 1) / TH) * a.ntc;
+  a.ncob = Cout / bn;
+  a.shift = zero ? 1 : 0;
+  const long long tasks = (long long)B * a.ntiles * a.ncob;
+  if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  a.ntasks = (int)tasks;
+  if (bn == 128) {
+    switch (epi) {
+      case EPI_STATS: return launch_gemm<128, EPI_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_STORE: return launch_gemm<128, EPI_STORE>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_DZ: return launch_gemm<128, EPI_DZ>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_MASK_STATS:
+        return launch_gemm<128, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_RESIDUAL: return launch_gemm<128, EPI_RESIDUAL>(ta0, ta1, tb0, tb1, a, grid, stream);
+    }
+  } else if (bn == 64) {
+    switch (epi) {
+      case EPI_DZ: return launch_gemm<64, EPI_DZ>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_MASK_STATS:
+        return launch_gemm<64, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_RESIDUAL: return launch_gemm<64, EPI_RESIDUAL>(ta0, ta1, tb0, tb1, a, grid, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------- fold lines ----
+
+// A block: FOLD_MT x 16 line pixels x 64 output channels; warp u runs tap
+// u's K (C), and the three partials are summed in a fixed order.
+constexpr int FOLD_MT = 4;
+constexpr int FOLD_PX = 16 * FOLD_MT;
+
+struct FoldArgs {
+  const __nv_bfloat16* dy;  // (B, H, W, C)
+  const __nv_bfloat16* k;   // the forward kernel (3, 3, Cout, C): K (C) contiguous
+  float* rows;              // (B, 2, W+2, Cout)
+  float* cols;              // (B, H, 2, Cout)
+  int H, W, C, Cout;
+};
+
+// Line l of image b (blockIdx.x = 4 b + l): 0 F[-1, s-1] and 1 F[H, s-1]
+// for s in [0, W+2); 2 F[s, -1] and 3 F[s, W] for s in [0, H). Line pixel
+// s at tap u reads dy at (row 0 or H-1, column s-2+u) with the forward
+// kernel's tap (0 or 2, 2-u), or dy at (s-1+u, column 0 or W-1) with tap
+// (2-u, 0 or 2); sources outside the plane are zero. m16n8k16 fragments
+// straight from L2: A rows g, g+8 (line pixels) and k pairs 2 t4, 2 t4 + 8;
+// B column g of each n8 tile, the same k pairs (C is the kernel's last
+// dim), each B fragment used by the block's FOLD_MT m16 tiles.
+__global__ void __launch_bounds__(96) dgrad_fold_kernel(const FoldArgs a) {
+  __shared__ float red[2][FOLD_MT * 8 * 4 * 32];  // taps 1 and 2, fragment order
+  const int u = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.x / 4, line = blockIdx.x % 4;
+  const int len = line < 2 ? a.W + 2 : a.H;
+  const int s0 = blockIdx.z * FOLD_PX;
+  if (s0 >= len) return;  // the whole block
+  const int co0 = blockIdx.y * 64;
+  const int ty = line < 2 ? 2 * line : 2 - u;
+  const int tx = line < 2 ? 2 - u : 2 * (line - 2);
+  const __nv_bfloat16* kt = a.k + ((size_t)(3 * ty + tx) * a.Cout + co0 + g) * a.C + 2 * t4;
+  const __nv_bfloat16* src[FOLD_MT][2];
+#pragma unroll
+  for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = s0 + 16 * m + g + 8 * h;
+      const int r = line < 2 ? (line == 0 ? 0 : a.H - 1) : s - 1 + u;
+      const int c = line < 2 ? s - 2 + u : (line == 2 ? 0 : a.W - 1);
+      const bool ok = s < len && r >= 0 && r < a.H && c >= 0 && c < a.W;
+      src[m][h] = ok ? a.dy + (((size_t)b * a.H + r) * a.W + c) * a.C + 2 * t4 : nullptr;
+    }
+  float acc[FOLD_MT][8][4];
+#pragma unroll
+  for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll 2
+  for (int ci = 0; ci < a.C; ci += 16) {
+    uint32_t af[FOLD_MT][4];
+#pragma unroll
+    for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        af[m][h] = src[m][h] ? ldg32(src[m][h] + ci) : 0u;
+        af[m][h + 2] = src[m][h] ? ldg32(src[m][h] + ci + 8) : 0u;
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const __nv_bfloat16* kb = kt + (size_t)8 * j * a.C + ci;
+      const uint32_t b0 = ldg32(kb), b1 = ldg32(kb + 8);
+#pragma unroll
+      for (int m = 0; m < FOLD_MT; ++m) mma(acc[m][j], af[m], b0, b1);
+    }
+  }
+  if (u > 0) {
+#pragma unroll
+    for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[u - 1][((m * 8 + j) * 4 + e) * 32 + lane] = acc[m][j][e];
+  }
+  __syncthreads();
+  if (u > 0) return;
+#pragma unroll
+  for (int w = 0; w < 2; ++w)  // in a fixed order: a repeat is bit-exact
+#pragma unroll
+    for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] += red[w][((m * 8 + j) * 4 + e) * 32 + lane];
+#pragma unroll
+  for (int m = 0; m < FOLD_MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = s0 + 16 * m + g + 8 * h;
+      if (s >= len) continue;
+      float* dst = line < 2 ? a.rows + ((size_t)(2 * b + line) * (a.W + 2) + s) * a.Cout
+                            : a.cols + (((size_t)b * a.H + s) * 2 + line - 2) * a.Cout;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(dst + co0 + 8 * j + 2 * t4) =
+            make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+    }
+}
+
 }  // namespace
 }  // namespace ircolor
 
@@ -297,9 +663,11 @@ extern "C" {
 // The GEMM's output tile: the Python plan must use the same.
 int ircolor_conv_fwd_tile_rows() { return ircolor::TH; }
 int ircolor_conv_fwd_tile_cols() { return ircolor::TW; }
-// Dynamic shared memory of a GEMM block (the ring, the moments' partials,
-// barriers, alignment).
-int ircolor_conv_fwd_smem() { return ircolor::SMEM; }
+// Dynamic shared memory of a GEMM block with bn (128 or 64) output
+// channels (the ring, the sums' partials, barriers, alignment).
+int ircolor_conv_fwd_smem(int bn) {
+  return bn == 64 ? ircolor::Ring<64>::SMEM : ircolor::Ring<128>::SMEM;
+}
 
 // The operand pass: out (B, H+2*pad, W+2*pad, C) = x (B, H, W, C),
 // reflect-padded by one pixel (pad = 1) or as it is (pad = 0), of
@@ -332,41 +700,86 @@ int ircolor_conv_fwd_gemm(const void* x0, const void* k0, int C0, const void* x1
                           int C1, void* out, void* partial, int B, int H, int W, int Cout,
                           int zero, int grid, void* stream) {
   using namespace ircolor;
-  if (C0 <= 0 || C0 % 64 || C1 % 64 || (x1 == nullptr) != (C1 == 0) || Cout % BN || B < 1 ||
-      H < 1 || W < 1 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  const int pad = zero ? 0 : 2;
-  CUtensorMap ta0, ta1, tb0, tb1;
-  int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, KC);
-  if (err == 0) err = make_weight_map(&tb0, k0, C0, Cout);
-  if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
-  if (err == 0 && x1 != nullptr) err = make_weight_map(&tb1, k1, C1, Cout);
-  if (err != 0) return err;
-  if (x1 == nullptr) {
-    ta1 = ta0;
-    tb1 = tb0;
-  }
-  FwdArgs a;
+  FwdArgs a = {};
   a.out = static_cast<__nv_bfloat16*>(out);
   a.partial = static_cast<float*>(partial);
+  return run_gemm(x0, k0, C0, x1, k1, C1, a, B, H, W, Cout, zero, 128,
+                  partial != nullptr ? EPI_STATS : EPI_STORE, grid,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The dgrad's operand pass: dy (B, H, W, C) = the IN backward of (p, comp)
+// with per-(B, C) m, inv, gm, gy; mask_p: p kept where comp > m.
+int ircolor_conv_dgrad_pass(const void* p, const void* comp, const void* m, const void* inv,
+                            const void* gm, const void* gy, void* dy, int B, int H, int W, int C,
+                            int mask_p, void* stream) {
+  using namespace ircolor;
+  if (C % 8) return (int)cudaErrorInvalidValue;
+  PassArgs a = {};
+  a.p = static_cast<const __nv_bfloat16*>(p);
+  a.comp = static_cast<const __nv_bfloat16*>(comp);
+  a.m = static_cast<const float*>(m);
+  a.inv = static_cast<const float*>(inv);
+  a.gm = static_cast<const float*>(gm);
+  a.gy = static_cast<const float*>(gy);
+  a.dy = static_cast<__nv_bfloat16*>(dy);
+  a.ndy = (long long)B * H * W * (C / 8);
+  a.nzp = 0;
   a.H = H;
   a.W = W;
+  a.Co = C;
+  a.mask_p = mask_p;
+  return launch_operand_pass(a, static_cast<cudaStream_t>(stream));
+}
+
+// The reflect dgrad's fold lines, f32: rows (B, 2, W+2, Cout) = F[-1, -1..W]
+// and F[H, -1..W], cols (B, H, 2, Cout) = F[0..H-1, -1] and F[0..H-1, W], of
+// dy (B, H, W, C) and the forward kernel k (3, 3, Cout, C). C % 16 == 0,
+// Cout % 64 == 0.
+int ircolor_conv_dgrad_fold(const void* dy, const void* k, void* rows, void* cols, int B, int H,
+                            int W, int C, int Cout, void* stream) {
+  using namespace ircolor;
+  if (C % 16 || Cout % 64 || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  FoldArgs a;
+  a.dy = static_cast<const __nv_bfloat16*>(dy);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.rows = static_cast<float*>(rows);
+  a.cols = static_cast<float*>(cols);
+  a.H = H;
+  a.W = W;
+  a.C = C;
   a.Cout = Cout;
-  a.nchunk0 = C0 / KC;
-  a.nchunk1 = C1 / KC;
-  a.ntc = (W + TW - 1) / TW;
-  a.ntiles = ((H + TH - 1) / TH) * a.ntc;
-  a.ncob = Cout / BN;
-  a.shift = zero ? 1 : 0;
-  const long long tasks = (long long)B * a.ntiles * a.ncob;
-  if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  a.ntasks = (int)tasks;
-  cudaError_t e =
-      cudaFuncSetAttribute(conv_fwd_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return (int)e;
-  conv_fwd_gemm_kernel<<<grid, NTHREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      ta0, ta1, tb0, tb1, a);
+  const int len = W + 2 > H ? W + 2 : H;
+  const dim3 grid(4 * B, Cout / 64, (len + FOLD_PX - 1) / FOLD_PX);
+  dgrad_fold_kernel<<<grid, 96, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The dgrad's GEMM: dz = the zero-SAME conv of dy (B, H, W, C) with kdg (3,
+// 3, C, Cout), plus, with rows non-null, the fold lines (rows, cols) of
+// ircolor_conv_dgrad_fold; then mm non-null: mask-stats (aux, mi and
+// partial (B, ntiles, 2, Cout) required); else aux non-null: residual; else
+// store. C % 64 == 0; Cout % 64 == 0 (N = 128 where Cout % 128 == 0, else
+// 64).
+int ircolor_conv_dgrad_gemm(const void* dy, const void* kdg, int C, const void* aux,
+                            const void* mm, const void* mi, const void* rows, const void* cols,
+                            void* out, void* partial, int B, int H, int W, int Cout, int grid,
+                            void* stream) {
+  using namespace ircolor;
+  if (Cout % 64 || (mm != nullptr && (aux == nullptr || mi == nullptr || partial == nullptr)) ||
+      (rows == nullptr) != (cols == nullptr))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a = {};
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.aux = static_cast<const __nv_bfloat16*>(aux);
+  a.mm = static_cast<const float*>(mm);
+  a.mi = static_cast<const float*>(mi);
+  a.fold = static_cast<const float*>(rows);
+  a.fold_cols = static_cast<const float*>(cols);
+  const int epi = mm != nullptr ? EPI_MASK_STATS : (aux != nullptr ? EPI_RESIDUAL : EPI_DZ);
+  return run_gemm(dy, kdg, C, nullptr, nullptr, 0, a, B, H, W, Cout, 1, Cout % 128 ? 64 : 128,
+                  epi, grid, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

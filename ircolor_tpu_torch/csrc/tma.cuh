@@ -1,6 +1,6 @@
 // Pieces shared by the port's TMA + wgmma kernels (csrc/conv_fwd.cu, the
-// forward 3x3 conv, and csrc/wgrad.cu, its weight gradient): the operand
-// pass that feeds both GEMMs, the mbarrier ring with its watchdog, 4-D TMA
+// 3x3 conv and its dgrad, and csrc/wgrad.cu, its weight gradient): the
+// operand pass that feeds both GEMMs, the mbarrier ring with its watchdog, 4-D TMA
 // loads, the shared-memory matrix descriptors of swizzled tiles, the wgmma
 // fences, and the tensor-map encoder taken from the driver at run time (no
 // libcuda link).
@@ -20,8 +20,8 @@ constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
 // ---------------------------------------------------- operand pass ----
 
 // Memory-bound, one 16-byte unit (8 channels) a step, two parts:
-// * dy (ndy units, the wgrad only): the IN backward of (p, comp) through
-//   InBwd8::apply, bit-identical to the dgrad's dy;
+// * dy (ndy units: the wgrad and the dgrad): the IN backward of (p, comp)
+//   through InBwd8::apply, bit-identical to the plain version's;
 // * Z (nzp units): Z = z, or bf16(relu((z - zm)*zi)) in the plain
 //   version's single IEEE steps, written as (B, H+2*zpad, W+2*zpad, Cz):
 //   reflect-padded by one pixel (zpad = 1) or as it is (zpad = 0: z is

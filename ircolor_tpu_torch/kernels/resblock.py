@@ -1,6 +1,7 @@
 """The resnet blocks' 3×3 convs and the blocks built from them: the bf16
 forward conv (``csrc/conv_fwd.cu``), the int8 one (``csrc/resblock.cu``), the
-backward (dgrad ``csrc/resblock_bwd.cu``, wgrad ``csrc/wgrad.cu``).
+backward (dgrad: the IN-backward pass and the forward conv's GEMM with a
+dgrad epilogue, ``csrc/conv_fwd.cu``; wgrad ``csrc/wgrad.cu``).
 
 Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_reflect_fused`` (bf16), ``conv3x3_reflect_fused_q`` (int8),
@@ -42,7 +43,6 @@ _KBYTES = 32  # bytes of input channels per K chunk of the int8 conv
 
 _lib = None
 _lib_fwd = None
-_lib_bwd = None
 _lib_wgrad = None
 
 
@@ -64,30 +64,21 @@ def _load_fwd():
     if _lib_fwd is None:
         lib = build.load("conv_fwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.ircolor_conv_fwd_tile_rows, lib.ircolor_conv_fwd_tile_cols,
-                   lib.ircolor_conv_fwd_smem):
+        for fn in (lib.ircolor_conv_fwd_tile_rows, lib.ircolor_conv_fwd_tile_cols):
             fn.argtypes, fn.restype = [], i
+        lib.ircolor_conv_fwd_smem.argtypes, lib.ircolor_conv_fwd_smem.restype = [i], i
         if (lib.ircolor_conv_fwd_tile_rows(), lib.ircolor_conv_fwd_tile_cols()) != (_CF_TH, _CF_TW):
             raise RuntimeError("csrc/conv_fwd.cu and _conv_plan disagree on the tile shape")
-        lib.ircolor_conv_fwd_pass.argtypes = [p] * 4 + [i] * 5 + [p]
-        lib.ircolor_conv_fwd_pass.restype = i
-        lib.ircolor_conv_fwd_gemm.argtypes = [p, p, i, p, p, i, p, p] + [i] * 6 + [p]
-        lib.ircolor_conv_fwd_gemm.restype = i
+        for fn, args in (
+            (lib.ircolor_conv_fwd_pass, [p] * 4 + [i] * 5 + [p]),
+            (lib.ircolor_conv_fwd_gemm, [p, p, i, p, p, i, p, p] + [i] * 6 + [p]),
+            (lib.ircolor_conv_dgrad_pass, [p] * 7 + [i] * 5 + [p]),
+            (lib.ircolor_conv_dgrad_fold, [p] * 4 + [i] * 5 + [p]),
+            (lib.ircolor_conv_dgrad_gemm, [p, p, i] + [p] * 7 + [i] * 5 + [p]),
+        ):
+            fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
     return _lib_fwd
-
-
-def _load_bwd():
-    global _lib_bwd
-    if _lib_bwd is None:
-        lib = build.load("resblock_bwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ircolor_conv3x3_dgrad_num_tiles.argtypes = [i, i]
-        lib.ircolor_conv3x3_dgrad_num_tiles.restype = i
-        lib.ircolor_conv3x3_dgrad.argtypes = [p] * 13 + [i] * 7 + [p]
-        lib.ircolor_conv3x3_dgrad.restype = i
-        _lib_bwd = lib
-    return _lib_bwd
 
 
 def _load_wgrad():
@@ -165,8 +156,9 @@ class ConvPlan(NamedTuple):
     persistent blocks run output blocks ``blk``, ``blk + grid``, …; output
     block ``blk = (b · ntiles + tile) · ncob + cob`` owns output rows
     ``(tile // ntc) · TH + [0, TH)``, columns ``(tile % ntc) · TW + [0,
-    TW)`` of image b (those that exist) and output channels ``cob · 128 +
-    [0, 128)``. Its K loop runs stages (leg, KC-channel chunk, dx), each an
+    TW)`` of image b (those that exist) and output channels ``cob · bn +
+    [0, bn)`` (``bn`` 128, or 64 where Cout % 128 ≠ 0: the dgrad's N = 64
+    form). Its K loop runs stages (leg, KC-channel chunk, dx), each an
     A box ``a_box`` (channels, columns, rows, images) read at column ``c0 +
     dx − shift``, row ``r0 − shift`` of the leg's source, and two weight
     boxes ``b_box`` (output channels, input channels, dx, dy).
@@ -188,6 +180,7 @@ class ConvPlan(NamedTuple):
     grid: int
     a_box: tuple
     b_box: tuple
+    bn: int = _BN
 
 
 def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False) -> ConvPlan:
@@ -195,11 +188,12 @@ def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = 
     into an h × w × cout output: a function of the shapes alone."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
-    ncob = cout // _BN
+    bn = _BN if cout % _BN == 0 else 64
+    ncob = cout // bn
     blocks = b * ntr * ntc * ncob
     return ConvPlan(h, w, cout, tuple(c // _CF_KC for c in legs), int(halo == "zero"), pass_pad,
                     ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
-                    (_CF_KC, _CF_TW, _CF_TH + 2, 1), (64, _CF_KC, 1, 3))
+                    (_CF_KC, _CF_TW, _CF_TH + 2, 1), (64, _CF_KC, 1, 3), bn)
 
 
 def _conv_blocks(plan: ConvPlan):
@@ -210,7 +204,7 @@ def _conv_blocks(plan: ConvPlan):
             mt, cob = divmod(blk, plan.ncob)
             b, tile = divmod(mt, plan.ntiles)
             tr, tc = divmod(tile, plan.ntc)
-            yield x, blk, b, tile, tr * _CF_TH, tc * _CF_TW, cob * _BN
+            yield x, blk, b, tile, tr * _CF_TH, tc * _CF_TW, cob * plan.bn
 
 
 def _conv_a_offsets():
@@ -243,12 +237,10 @@ def _conv_pass(x, mean=None, inv=None, *, pad: int = 1):
     return out
 
 
-def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True):
-    """Plain version of the GEMM, in the kernel's K order: leg → KC-channel
-    chunk → dx buffer → dy, f32 sums over whole tiles (zeros where a box
-    lies outside its source), then the bf16 output and the (B, ntiles, 2,
-    Cout) per-tile moments of the pixels that exist (None without
-    ``stats``)."""
+def _conv_acc_plain(srcs, kernels, plan: ConvPlan) -> torch.Tensor:
+    """The GEMM's f32 accumulator over whole tiles, (B, ntr·TH, ntc·TW,
+    Cout), in the kernel's K order: leg → KC-channel chunk → dx buffer → dy
+    (zeros where a box lies outside its source)."""
     b = srcs[0].shape[0]
     hh, ww = plan.ntr * _CF_TH, plan.ntc * _CF_TW
     acc = srcs[0].new_zeros((b, hh, ww, plan.cout), dtype=torch.float32)
@@ -263,15 +255,28 @@ def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True):
                 for dy in range(3):
                     acc += torch.einsum("bhwc,co->bhwo", buf[:, dy : dy + hh],
                                         kf[dy, dx, ci : ci + _CF_KC])
-    out = acc[:, : plan.h, : plan.w].to(torch.bfloat16)
+    return acc
+
+
+def _tile_sums(t: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """(B, ntiles, Cout) sums of an f32 (B, H, W, Cout) tensor over each
+    TH × TW tile's pixels that exist."""
+    b = t.shape[0]
+    z = t.new_zeros((b, plan.ntr * _CF_TH, plan.ntc * _CF_TW, plan.cout))
+    z[:, : plan.h, : plan.w] = t
+    z = z.reshape(b, plan.ntr, _CF_TH, plan.ntc, _CF_TW, plan.cout)
+    return z.sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
+
+
+def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True):
+    """Plain version of the GEMM (``_conv_acc_plain``), then the bf16 output
+    and the (B, ntiles, 2, Cout) per-tile moments of the pixels that exist
+    (None without ``stats``)."""
+    y = _conv_acc_plain(srcs, kernels, plan)[:, : plan.h, : plan.w]
+    out = y.to(torch.bfloat16)
     if not stats:
         return out, None
-    acc[:, plan.h :] = 0
-    acc[:, :, plan.w :] = 0
-    t = acc.reshape(b, plan.ntr, _CF_TH, plan.ntc, _CF_TW, plan.cout)
-    s1 = t.sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
-    s2 = t.square().sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
-    return out, torch.stack([s1, s2], dim=2)
+    return out, torch.stack([_tile_sums(y, plan), _tile_sums(y.square(), plan)], dim=2)
 
 
 def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
@@ -537,6 +542,157 @@ def conv3x3_dgrad_fused_plain(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_sta
     return accm.to(p.dtype), dy_out, stats
 
 
+# The dgrad on the card: the operand pass writes dy (the IN backward), for
+# reflect halos a small kernel writes the fold lines, then the forward
+# conv's GEMM (csrc/conv_fwd.cu) runs dy against kdg with zero halos and the
+# dgrad's epilogue: the fold terms, then the mask-stats, residual or store
+# policy.
+
+
+class DgradPlan(NamedTuple):
+    """The dgrad's launches for one call: the operand pass (dy), the fold
+    lines where ``fold`` (reflect halos: rows (B, 2, W+2, Cout) = F[−1,
+    −1..W], F[H, −1..W] and cols (B, H, 2, Cout) = F[0..H−1, −1], F[0..H−1,
+    W], f32), then the GEMM ``conv``: one leg of C channels, zero halos,
+    N blocks of ``conv.bn``; its stat partials are (B, conv.ntiles, 2,
+    Cout)."""
+
+    conv: ConvPlan
+    fold: bool
+
+
+def _dgrad_plan(b: int, h: int, w: int, c: int, cout: int, pad: str) -> DgradPlan:
+    """The dgrad's plan: a function of the shapes alone."""
+    return DgradPlan(_conv_plan(b, h, w, (c,), cout, "zero"), pad == "reflect")
+
+
+def _dgrad_kernel(kernel_fwd: torch.Tensor) -> torch.Tensor:
+    """kdg = rot180(k) transposed in channels, HWIO (3, 3, C, Cin): the
+    zero-SAME correlation of dy with kdg is ``conv_transpose2d(dy, k,
+    padding=1)``."""
+    return kernel_fwd.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _dgrad_pass(p, comp, m, inv, gm, gy, mask_p=False):
+    """The operand pass in its dy mode: ``_in_bwd_input`` (itself for CPU
+    tensors)."""
+    if p.device.type == "cpu":
+        return _in_bwd_input(p, comp, m, inv, gm, gy, mask_p)
+    b, h, w, c = p.shape
+    dy = torch.empty_like(p)
+    err = _load_fwd().ircolor_conv_dgrad_pass(
+        p.data_ptr(), comp.data_ptr(), m.data_ptr(), inv.data_ptr(), gm.data_ptr(), gy.data_ptr(),
+        dy.data_ptr(), b, h, w, c, int(mask_p), stream_ptr())
+    build.check(err, "dgrad operand pass")
+    return dy
+
+
+def _dgrad_fold_plain(dy, kernel_fwd):
+    """Plain version of the fold-line kernel: (rows, cols) f32, each line
+    pixel 3 taps × C of dy and the forward kernel (3, 3, Cout, C): rows[:,
+    0 | 1, s] = F[−1 | H, s − 1] = Σᵤ dy[0 | H−1, s−2+u]·k[0 | 2, 2−u]ᵀ,
+    cols[:, r, 0 | 1] = F[r, −1 | W] = Σᵤ dy[r−1+u, 0 | W−1]·k[2−u, 0 | 2]ᵀ
+    (dy outside the plane is zero)."""
+    h, w = dy.shape[1], dy.shape[2]
+    d = dy.float()
+    kf = kernel_fwd.to(torch.bfloat16).float()
+
+    def line(src, taps):  # src (B, n + 2·halo, C) zero-extended, taps [(ty, tx)] by u
+        n = src.shape[1] - 2
+        return sum(src[:, u : u + n] @ kf[ty, tx].T for u, (ty, tx) in enumerate(taps))
+
+    rows = torch.stack([line(F.pad(d[:, r], (0, 0, 2, 2)), [(ty, 2 - u) for u in range(3)])
+                        for r, ty in ((0, 0), (h - 1, 2))], dim=1)
+    cols = torch.stack([line(F.pad(d[:, :, c], (0, 0, 1, 1)), [(2 - u, tx) for u in range(3)])
+                        for c, tx in ((0, 0), (w - 1, 2))], dim=2)
+    return rows, cols
+
+
+def _dgrad_fold(dy, kernel_fwd):
+    """The fold-line kernel: (rows, cols) f32 (the plain version for CPU
+    tensors)."""
+    if dy.device.type == "cpu":
+        return _dgrad_fold_plain(dy, kernel_fwd)
+    b, h, w, c = dy.shape
+    cout = kernel_fwd.shape[2]
+    k = kernel_fwd.to(torch.bfloat16).contiguous()
+    rows = torch.empty((b, 2, w + 2, cout), dtype=torch.float32, device=dy.device)
+    cols = torch.empty((b, h, 2, cout), dtype=torch.float32, device=dy.device)
+    err = _load_fwd().ircolor_conv_dgrad_fold(
+        dy.data_ptr(), k.data_ptr(), rows.data_ptr(), cols.data_ptr(), b, h, w, c, cout,
+        stream_ptr())
+    build.check(err, "dgrad fold lines")
+    return rows, cols
+
+
+def _dgrad_fold_terms(h: int, w: int, r: int, c: int) -> list:
+    """The fold-line entries the GEMM's epilogue adds to output pixel (r, c)
+    (``fold_terms`` in csrc/conv_fwd.cu), in its order: ("rows", side, j) is
+    rows[:, side, j] = F[−1 | H, j − 1], ("cols", r, side) is cols[:, r,
+    side] = F[r, −1 | W]."""
+    terms = []
+    for side in (0, 1):
+        if r == (h - 2 if side else 1):
+            terms.append(("rows", side, c + 1))
+            if c == 1:
+                terms.append(("rows", side, 0))
+            if c == w - 2:
+                terms.append(("rows", side, w + 1))
+    for side in (0, 1):
+        if c == (w - 2 if side else 1):
+            terms.append(("cols", r, side))
+    return terms
+
+
+def _dgrad_gemm_plain(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=None):
+    """Plain version of the GEMM with the dgrad's epilogue: the K loop's f32
+    accumulator (``_conv_acc_plain``), plus each fold pixel's fold terms,
+    then the policy → (bf16 dz, (B, ntiles, 2, Cout) partials of the
+    mask-stats policy or None)."""
+    cp = plan.conv
+    y = _conv_acc_plain([dy], [kdg], cp)[:, : cp.h, : cp.w]
+    if fold is not None:
+        lines = dict(zip(("rows", "cols"), fold))
+        edge = {(r, c) for r in (1, cp.h - 2) for c in range(cp.w)}
+        edge |= {(r, c) for c in (1, cp.w - 2) for r in range(cp.h)}
+        for r, c in sorted(edge):
+            terms = [lines[name][:, i, j] for name, i, j in _dgrad_fold_terms(cp.h, cp.w, r, c)]
+            y[:, r, c] += sum(terms[1:], terms[0])
+    if aux is None:
+        return y.to(torch.bfloat16), None
+    a = aux.float()
+    if mask_stats is None:
+        return (y + a).to(torch.bfloat16), None
+    mm, mi = (_col(v) for v in mask_stats)
+    y = torch.where(a > mm, y, torch.zeros_like(y))
+    partial = torch.stack([_tile_sums(y, cp), _tile_sums(y * ((a - mm) * mi), cp)], dim=2)
+    return y.to(torch.bfloat16), partial
+
+
+def _dgrad_gemm(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=None):
+    """The GEMM with the dgrad's epilogue (the plain version for CPU
+    tensors)."""
+    if dy.device.type == "cpu":
+        return _dgrad_gemm_plain(dy, kdg, plan, aux, mask_stats, fold)
+    cp = plan.conv
+    b, c = dy.shape[0], dy.shape[-1]
+    out = torch.empty((b, cp.h, cp.w, cp.cout), dtype=torch.bfloat16, device=dy.device)
+    mm, mi = mask_stats if mask_stats is not None else (None, None)
+    partial = None
+    if mask_stats is not None:
+        partial = torch.empty((b, cp.ntiles, 2, cp.cout), dtype=torch.float32, device=dy.device)
+    rows, cols = fold if fold is not None else (None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _load_fwd().ircolor_conv_dgrad_gemm(
+        dy.data_ptr(), kdg.data_ptr(), c, ptr(aux), ptr(mm), ptr(mi), ptr(rows), ptr(cols),
+        out.data_ptr(), ptr(partial), b, cp.h, cp.w, cp.cout, cp.grid, stream_ptr())
+    build.check(err, "dgrad GEMM")
+    return out, partial
+
+
 def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=None, *,
                         emit_dy=True, pad="reflect", mask_p=False):
     """Fused dgrad of ``conv2d(ReflectionPad(1)(·), kernel_fwd)`` preceded by
@@ -552,7 +708,11 @@ def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=Non
 
     The enc/dec segment modes: ``pad="zero"`` (the dgrad of a zero-SAME
     conv: no fold), ``mask_p`` (p taken as p·[comp > m] before the IN
-    backward) and ``aux=None`` (returns ``(dz, dy)``)."""
+    backward) and ``aux=None`` (returns ``(dz, dy)``).
+
+    On the card: the operand pass (dy), for reflect halos the fold lines,
+    then the forward conv's GEMM with the dgrad's epilogue (``DgradPlan``);
+    the stats are the per-tile partials summed here in a fixed order."""
     _check_mode(pad, aux, mask_stats)
     if p.device.type == "cpu":
         return conv3x3_dgrad_fused_plain(p, comp, aux, kernel_fwd, m, inv, gm, gy,
@@ -565,44 +725,28 @@ def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=Non
         require(aux, "aux", torch.bfloat16, (b, h, w, cin))
     if kernel_fwd.shape != (3, 3, cin, c) or kernel_fwd.device != p.device:
         raise ValueError(f"kernel_fwd: expected (3, 3, Cin, {c}) on {p.device}")
-    if c % 16 or cin % 64 or h < 4 or w < 4 or b > 65535:
+    if c % 64 or cin % 64 or h < 4 or w < 4:
         raise ValueError(
             f"conv3x3_dgrad_fused: unsupported shape p={tuple(p.shape)} Cin={cin} "
-            "(needs C % 16 == 0, Cin % 64 == 0, H, W >= 4)"
+            "(needs C % 64 == 0, Cin % 64 == 0, H, W >= 4)"
         )
+    if any(t.data_ptr() % 16 for t in (p, comp) + ((aux,) if aux is not None else ())):
+        raise ValueError("conv3x3_dgrad_fused: p, comp and aux must start on 16-byte boundaries")
     for name, v in (("m", m), ("inv", inv), ("gm", gm), ("gy", gy)):
         require(v, name, torch.float32, (b, c))
-    mm = mi = None
     if mask_stats is not None:
-        mm, mi = mask_stats
-        require(mm, "mm", torch.float32, (b, cin))
-        require(mi, "mi", torch.float32, (b, cin))
-    lib = _load_bwd()
-    # rot180 in space, transposed in channels, packed like the forward's.
-    kdg = kernel_fwd.to(torch.bfloat16).flip(0, 1).transpose(2, 3)
-    wpk = kdg.reshape(9, c // 16, 16, cin).permute(1, 0, 3, 2).contiguous()
-    out = torch.empty((b, h, w, cin), dtype=p.dtype, device=p.device)
-    dy = torch.empty_like(p) if emit_dy else None
-    partial = None
-    if mask_stats is not None:
-        ntiles = lib.ircolor_conv3x3_dgrad_num_tiles(h, w)
-        partial = torch.empty((b, ntiles, 2, cin), dtype=torch.float32, device=p.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.ircolor_conv3x3_dgrad(
-        p.data_ptr(), comp.data_ptr(), ptr(aux), wpk.data_ptr(), m.data_ptr(),
-        inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), ptr(mm), ptr(mi), out.data_ptr(),
-        ptr(dy), ptr(partial), b, h, w, c, cin, int(pad == "reflect"), int(mask_p),
-        stream_ptr(),
-    )
+        require(mask_stats[0], "mm", torch.float32, (b, cin))
+        require(mask_stats[1], "mi", torch.float32, (b, cin))
+    plan = _dgrad_plan(b, h, w, c, cin, pad)
+    dy = _dgrad_pass(p, comp, m, inv, gm, gy, mask_p)
+    fold = _dgrad_fold(dy, kernel_fwd) if plan.fold else None
+    out, partial = _dgrad_gemm(dy, _dgrad_kernel(kernel_fwd), plan, aux, mask_stats, fold)
     name = "conv3x3_dgrad_fused" + ("_seg" if _is_segment(pad, mask_p, aux is None) else "")
-    build.check(err, name)
     LAUNCHES[name] += 1
+    dy_out = dy if emit_dy else None
     if mask_stats is None:
-        return out, dy
-    return out, dy, partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
+        return out, dy_out
+    return out, dy_out, partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
 
 
 def conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect",

@@ -93,10 +93,18 @@ def _bwd_inputs(g, b, h, w, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 16, 256), (2, 13, 21, 128), (1, 4, 4, 128)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 256),   # a half 8×32 tile
+    (2, 13, 21, 128),  # partial tiles both ways
+    (1, 4, 4, 128),    # one tile: rows 1 and H−2 adjacent, every fold corner
+    (2, 8, 32, 256),   # a whole 8×32 tile
+    (2, 11, 40, 64),   # odd H: H−2 in an m64 pair with H−3; N = 64
+])
 def test_backward_kernels_match_plain_on_card(cuda, shape):
-    """Full tiles, partial tiles (H, W not multiples of 8×16) and a 4×4
-    plane whose one tile holds rows 1 and H−2 and every fold corner."""
+    """The dgrad (operand pass, fold lines, ``csrc/conv_fwd.cu``'s GEMM) in
+    both block forms, and the wgrad where it takes the width (Co % 128):
+    full, partial and single tiles, p channels 64, 128 and 256; the dgrad's
+    output and stats repeat bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(2)
     p, comp, aux, z, k, m, inv, gm, gy, mm, mi = _bwd_inputs(g, *shape)
     before = dict(LAUNCHES)
@@ -109,12 +117,16 @@ def test_backward_kernels_match_plain_on_card(cuda, shape):
         if kw:
             d = (got[2] - want[2]).abs().max() / want[2].abs().max()
             assert float(d) <= 1e-3
-    for znorm in ((mm, mi), None):
-        got = resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=znorm)
-        want = resblock.conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=znorm)
-        assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
-    assert LAUNCHES["conv3x3_dgrad_fused"] == before["conv3x3_dgrad_fused"] + 2
-    assert LAUNCHES["conv3x3_wgrad_fused"] == before["conv3x3_wgrad_fused"] + 2
+        again = resblock.conv3x3_dgrad_fused(p, comp, aux, k, m, inv, gm, gy, **kw)
+        assert torch.equal(got[0], again[0]) and (not kw or torch.equal(got[2], again[2]))
+    wgrad = shape[-1] % 128 == 0
+    if wgrad:
+        for znorm in ((mm, mi), None):
+            got = resblock.conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=znorm)
+            want = resblock.conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=znorm)
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
+    assert LAUNCHES["conv3x3_dgrad_fused"] == before["conv3x3_dgrad_fused"] + 4
+    assert LAUNCHES["conv3x3_wgrad_fused"] == before["conv3x3_wgrad_fused"] + 2 * wgrad
 
 
 @pytest.mark.cuda
@@ -144,6 +156,9 @@ def test_backward_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # output channels not a multiple of 64
         resblock.conv3x3_dgrad_fused(p, comp, aux[..., :32].contiguous(), k[:, :, :32].contiguous(),
                                      m, inv, gm, gy)
+    with pytest.raises(ValueError, match="C % 64"):  # p channels not a multiple of 64
+        c32 = [t[..., :32].contiguous() for t in (p, comp, k, m, inv, gm, gy)]
+        resblock.conv3x3_dgrad_fused(c32[0], c32[1], aux, c32[2], *c32[3:])
     with pytest.raises(TypeError):
         resblock.conv3x3_wgrad_fused(z.float(), p, comp, m, inv, gm, gy)
     with pytest.raises(ValueError):  # Cz not a multiple of 64
@@ -375,7 +390,7 @@ def _seg_inputs(g, b, h, w, c, cin):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,c", [(64, 128), (128, 256), (384, 128)])  # down1, down2, up1
-@pytest.mark.parametrize("hw", [(16, 32), (13, 21)])  # full and partial 8×16 tiles
+@pytest.mark.parametrize("hw", [(16, 32), (13, 21)])  # full and partial 8×32 tiles
 def test_segment_kernels_match_plain_on_card(cuda, cin, c, hw):
     """The segment dgrad (zero halos, p masked on load, no aux, dy emitted)
     at the three dz widths, and the zero-pad wgrad with and without the
@@ -403,12 +418,15 @@ def test_segment_kernels_match_plain_on_card(cuda, cin, c, hw):
 def test_segment_backward_through_kernels_on_card(cuda):
     """``conv_in_relu_fused`` in both wgrad modes: the kernel backward
     against the same backward with the dgrad/wgrad on their plain versions,
-    relative L2 ≤ 1e-2 (bf16 operands, f32 sums in another order)."""
+    relative L2 ≤ 1e-2 (bf16 operands, f32 sums in another order). dz of
+    384 (two legs), 128 and 64 (down1's leg: the GEMM's N = 64 form)."""
     g = torch.Generator(device=cuda).manual_seed(12)
     legs = (_bf16(g, 2, 16, 32, 256), _bf16(g, 2, 16, 32, 128))
     k = _bf16(g, 3, 3, 384, 128, scale=0.05)
     cot = _bf16(g, 2, 16, 32, 128)
-    for mode, zs, kk in (("fused", legs, k), ("xla", legs[1:], k[:, :, 256:].contiguous())):
+    leg64, k64 = _bf16(g, 2, 16, 32, 64), _bf16(g, 3, 3, 64, 128, scale=0.05)
+    for mode, zs, kk in (("fused", legs, k), ("xla", legs[1:], k[:, :, 256:].contiguous()),
+                         ("xla", (leg64,), k64)):
         grads = {}
         for route in ("kernel", "plain"):
             saved = encdec.conv3x3_dgrad_fused, encdec.conv3x3_wgrad_fused
