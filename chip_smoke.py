@@ -22,7 +22,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ReLU in f32 (1e-5), beside ``F.instance_norm``. The bf16 block conv
    (``csrc/conv_fwd.cu``, both forms bit-exact on repeat) also with its
    operand pass and GEMM timed apart, the GEMM's TFLOP/s, the ptxas lines
-   and the ``HGMMA`` count of its SASS.
+   and the ``HGMMA`` count of its SASS; the int8 block conv (the same
+   GEMM on s8 operands after the int8 form of the pass; both forms within
+   2.5 quant steps, the share not bit-identical logged, bit-exact on
+   repeat) likewise, with its TOP/s and ``IGMMA`` count, beside
+   ``torch._int_mm`` over an int8 im2col (the GEMM alone).
 2b. The same for the block backward kernels (dgrad in both launch forms,
    wgrad with and without the normalize, bit-exact on repeat) at the
    flagship training bottleneck (8×128×160×256, k 3×3×256×256), beside
@@ -212,11 +216,18 @@ def check_kernels(torch, results: list) -> None:
                         max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
                         bound_ms=b_ms, bound_by=b_by, library_ms=cudnn_ms))
 
-    # int8 block conv (#1): conv1 (per-sample 127/amax) and conv2 (fixed
+    # int8 block conv (#1, csrc/conv_fwd.cu: the int8 operand pass, then the
+    # GEMM on s8 operands): conv1 (per-sample 127/amax) and conv2 (fixed
     # 127/6 grid after normalize + ReLU). Bound: ≤ 2.5 quant steps, where a
     # step is one int8 input step through the channel's largest weight
     # (sc[b, co]·127), and ≤ 1e-3 of elements differing by more than one
-    # bf16 ulp.
+    # bf16 ulp; the IN moments within 1e-3 relative, as row 2's; and a
+    # bit-exact repeat. The share of elements that are not
+    # bit-identical to the plain version is logged (expected: 0).
+    igmma = hgmma_by_kernel("conv_fwd").get("gemm n128 q-stats", 0)
+    log(f"[int8 conv GEMM] {igmma} IGMMA instructions in the SASS of its instantiation")
+    if igmma == 0:
+        raise AssertionError("the int8 conv's GEMM issues no wgmma")
     kq, sw = quantize_weight_per_channel(k)
     amax = x.abs().amax(dim=(1, 2, 3)).float().clamp(min=1e-12)
     sc1 = ((amax / 127.0)[:, None] * sw[None, :]).contiguous()
@@ -227,28 +238,45 @@ def check_kernels(torch, results: list) -> None:
     for label, sc, kw in cases:
         got = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
         want = resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw)
+        again = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         d = (got[0].float() - want[0].float()).abs()
         step = (sc * 127.0)[:, None, None, :]
         steps = float((d / step).max())
         ulp = want[0].float().abs() * 2.0**-8
         frac = float((d > ulp).float().mean())
+        nonid = float((got[0].view(torch.int16) != want[0].view(torch.int16)).float().mean())
+        merr = float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp(min=1e-6))
+        ierr = float(((got[2] - want[2]) / want[2]).abs().max())
         log(f"[conv3x3_reflect_fused_q {label}] max|d|={float(d.max()):.4g} "
             f"= {steps:.3g} quant steps (tol 2.5), mean|d|={float(d.mean()):.3g}, "
-            f"differing {frac:.3g} (tol 1e-3)")
-        if not (steps <= 2.5 and frac <= 1e-3):
+            f"differing {frac:.3g} (tol 1e-3), not bit-identical {nonid:.3g}; "
+            f"mean rel={merr:.3g} inv rel={ierr:.3g} (tol 1e-3); repeat bit-exact {repeat}")
+        if not (steps <= 2.5 and frac <= 1e-3 and merr <= 1e-3 and ierr <= 1e-3 and repeat):
             raise AssertionError(f"conv3x3_reflect_fused_q {label} disagrees with its plain version")
         errs.append(float(d.max()))
+        del got, want, again
         times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw), 10))
+        parts = q_parts(torch, x, kq, sc, kw)
         ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw), 2, 1))
-        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms")
-    # No stock int8 convolution in PyTorch: library_ms is null.
+        log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms\n{parts}")
+    # The library yardstick: torch._int_mm over an int8 im2col of conv1's
+    # reflect-padded quantized input (1.5 GB, built outside the timing) —
+    # the int32 GEMM alone: no halo, quantize, dequant or stats.
+    zq = resblock._q_pass(x, **cases[0][2])
+    cols = im2col_int8(torch, zq[:, 1:-1, 1:-1].contiguous(), "reflect")
+    wmat = kq.reshape(9 * cb, cb).t().contiguous().t()
+    int_mm_ms = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
+    log(f"    (the GEMM alone: torch._int_mm over an int8 im2col, {cols.numel() / 1e9:.2f} GB, "
+        f"{int_mm_ms:.3f} ms)")
+    del zq, cols
     b_ms, b_by = bound(2 * B * hb * wb * 9 * cb * cb,
                        2 * act + 9 * cb * cb + B * cb * 4 * 3, PEAK_INT8)
     results.append(dict(name="conv3x3_reflect_fused_q", route="cuda",
-                        source="ircolor_tpu_torch/csrc/resblock.cu",
+                        source="ircolor_tpu_torch/csrc/conv_fwd.cu",
                         replaces="ircolor_tpu/ops/pallas_resblock.py:1385",
                         max_abs_err=max(errs), ms=sum(times) / 2, plain_ms=sum(ptimes) / 2,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=int_mm_ms))
     del x
 
     # norm_relu_blur_down (#3) at both down-stage tails. Same additions in
@@ -437,15 +465,18 @@ def check_conv_int8(torch, results: list, randn) -> None:
 
 
 # csrc/conv_fwd.cu's epilogue policies, by their template number.
-EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz")
+EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats")
 
 
 def kernel_key(name: str) -> str:
     """A kernel of a library by its mangled name: "gemm nBN <policy>" for
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
-    wgrad's, "fold" (the dgrad's fold lines) or "pass" (the operand pass)."""
+    wgrad's, "fold" (the dgrad's fold lines), "pass" (the operand pass) or
+    "pass q8" (its int8 form)."""
     import re
 
+    if "operand_pass" in name:
+        return "pass q8" if "ILb1E" in name else "pass"
     if "ILb1E" in name:
         return "gemm swap"
     found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", name)
@@ -470,9 +501,9 @@ def ptxas_lines(source: str) -> dict:
 
 @functools.lru_cache
 def hgmma_by_kernel(source: str) -> dict:
-    """``HGMMA`` instructions in the SASS of each kernel of
-    ``csrc/<source>.cu``'s library, by ``kernel_key``: a GEMM must issue
-    ``wgmma``."""
+    """``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions in the SASS of
+    each kernel of ``csrc/<source>.cu``'s library, by ``kernel_key``: a
+    GEMM must issue ``wgmma``."""
     import shutil
 
     from ircolor_tpu_torch.kernels import build
@@ -485,7 +516,7 @@ def hgmma_by_kernel(source: str) -> dict:
         if "Function :" in line:
             key = kernel_key(line.split("Function :", 1)[1].strip())
             out.setdefault(key, 0)
-        elif key and "HGMMA" in line:
+        elif key and ("HGMMA" in line or "IGMMA" in line):
             out[key] += 1
     return out
 
@@ -545,6 +576,30 @@ def conv_parts(torch, halo: str, legs, kernels, mean=None, inv=None, stats: bool
             f"({plan.blocks} output blocks on {plan.grid} persistent blocks, {smem} B shared)\n"
             f"    ptxas {key}: {ptx.get(key, missing)}; pass: {ptx.get('pass', missing)}; "
             f"{hgmma_by_kernel('conv_fwd').get(key, 0)} HGMMA in its SASS")
+
+
+def q_parts(torch, x, kq, sc, kw) -> str:
+    """One int8 block conv form's two launches (``csrc/conv_fwd.cu``) timed
+    apart: the int8 operand pass and the s8 GEMM (its TOP/s, grid, shared
+    memory, ptxas lines, IGMMA count)."""
+    from ircolor_tpu_torch.kernels import resblock
+
+    b, h, w, c = x.shape
+    cout = kq.shape[-1]
+    plan = resblock._conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
+    zq, kt = resblock._q_pass(x, **kw), resblock._q_weights(kq)
+    tp = cuda_time_ms(lambda: resblock._q_pass(x, **kw), 10)
+    tg = cuda_time_ms(lambda: resblock._q_gemm(zq, kt, sc, plan), 10)
+    ops = 2 * b * h * w * 9 * c * cout
+    ptx = ptxas_lines("conv_fwd")
+    smem = resblock._load_fwd().ircolor_conv_fwd_smem(plan.bn)
+    missing = "not built in this process"
+    key = "gemm n128 q-stats"
+    return (f"    pass {tp:.4f} ms ({(x.numel() * 2 + zq.numel()) / tp / 1e6:.0f} GB/s), GEMM "
+            f"{tg:.4f} ms = {ops / tg / 1e9:.1f} TOP/s ({plan.blocks} output blocks on "
+            f"{plan.grid} persistent blocks, {smem} B shared)\n"
+            f"    ptxas {key}: {ptx.get(key, missing)}; pass q8: {ptx.get('pass q8', missing)}; "
+            f"{hgmma_by_kernel('conv_fwd').get(key, 0)} IGMMA in its SASS")
 
 
 def dgrad_parts(torch, args, kw) -> str:

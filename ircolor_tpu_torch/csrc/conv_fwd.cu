@@ -1,12 +1,17 @@
-// 3x3 conv (bf16 operands, f32 accumulation) of the generator's resnet
-// blocks, of the JAX package's other 3x3 conv kernels and of the blocks'
-// and enc/dec segments' backward dgrad, for Hopper (sm_90a): an operand pass
-// where a halo, a normalize or an IN backward needs one, then an implicit
-// GEMM on TMA + wgmma with an epilogue policy.
+// 3x3 conv (bf16 operands, f32 accumulation; or s8 operands, s32
+// accumulation) of the generator's resnet blocks, of the JAX package's
+// other 3x3 conv kernels and of the blocks' and enc/dec segments' backward
+// dgrad, for Hopper (sm_90a): an operand pass where a halo, a quantize, a
+// normalize or an IN backward needs one, then an implicit GEMM on TMA +
+// wgmma with an epilogue policy.
 //
 // Replaces (ircolor_tpu/ops/):
 //   pallas_resblock.py:conv3x3_reflect_fused (:280, pallas_call :358)
 //       reflect halos, raw or with the previous IN + ReLU on load;
+//   pallas_resblock.py:conv3x3_reflect_fused_q (_kernel_q :1289, :1385,
+//       pallas_call :1471): the int8 block conv, reflect halos, the input
+//       quantized on load (conv1: by the per-sample 127/amax; conv2: IN +
+//       ReLU, then the fixed 127/6 grid);
 //   pallas_resblock.py:conv3x3_sum_fused (:1190, pallas_call :1246)
 //       zero or reflect halos, one or two input legs;
 //   pallas_block.py:_run (:105, pallas_call :138), conv3x3_stats /
@@ -26,6 +31,9 @@
 //   of the f32 values (over every leg, before rounding) for the caller's
 //   instance norm;
 // * store: out alone;
+// * q-stats (the int8 conv): y = f32(s32 acc) * sc[b, co] (cvt.rn, one
+//   multiply: the plain version's steps, so out is bit-identical to it),
+//   then the stats policy on y;
 // and the dgrad's, which add the fold first (see below):
 // * mask-stats (the block dgrad's launch 1): out = bf16(y * [aux > mm]) and
 //   per-(b, tile) sums of y_masked and y_masked * (aux - mm) * mi;
@@ -49,7 +57,8 @@
 // What bounds it on the H100: the tensor cores. At the flagship bottleneck
 // (32x128x160x256 -> 256) one forward conv is 0.77 TFLOP against 0.67 GB of
 // activations in and out (~1150 flop/byte, far above the card's ridge
-// point of ~295); at down2 (128 -> 256) and up1 (256 + 128 -> 128), 256x320,
+// point of ~295; the int8 conv: 0.77 TOP at twice the rate, ~590 a
+// byte); at down2 (128 -> 256) and up1 (256 + 128 -> 128), 256x320,
 // ~770 and ~860 flop/byte; the dgrad at the b8 bottleneck 0.193 TFLOP
 // against ~0.34 GB (~600 flop/byte). The operand passes are memory-bound.
 // The weights (at most 1.2 MB) and the planes' recent rows stay in L2, so
@@ -59,8 +68,10 @@
 // Design:
 // * Operand pass (tma.cuh, memory-bound): REFLECT writes the reflect-padded
 //   Zp (B, H+2, W+2, C) of x or of bf16(relu((x - mean)*inv)); VALID with
-//   mean/inv normalizes the padded input as it is; the dgrad writes dy.
-//   ZERO and VALID raw need none: the GEMM reads the input itself.
+//   mean/inv normalizes the padded input as it is; the dgrad writes dy; the
+//   int8 conv writes the reflect-padded quantized Zp as int8 (its reflect
+//   index map is where a spatial shard's halo row would come in). ZERO and
+//   VALID raw need none: the GEMM reads the input itself.
 // * GEMM: a block owns TH x TW = 8 x 32 output pixels (M = 256) of one
 //   image and BN = 128 output channels (N; 64 where Cout % 128 != 0, the
 //   segments' dz of 64): two consumer warpgroups of 4 rows (two m64
@@ -81,6 +92,17 @@
 //   3, 3) with boxes of (64 output channels, KC input channels, 1 dx, 3
 //   dy), 128-byte swizzled, one row of output channels per input channel;
 //   BN / 64 boxes make a stage's N for its three taps. No repack.
+// * The int8 form: wgmma takes s8 operands K-major only (the transposed
+//   layout is for f16/bf16), so the weights come repacked as (3, 3, Cout,
+//   C), C innermost (0.6 MB at the blocks), read through a 4-D map (C,
+//   Cout, 3, 3) in boxes of (64 input channels, 128 output channels, 1 dx,
+//   3 dy), 64-byte swizzled like A: 24 KB a stage. A stage of A holds KC_S8
+//   = 64 channels, one 64-byte row a pixel: the bf16 box's bytes, so A's
+//   descriptors and tap offsets are the bf16 ones, a k32 s8 step is 32
+//   bytes along the row as a k16 bf16 one, and a stage does twice the MACs
+//   for the same 44 KB. m64n128k32 s8 wgmmas into s32 accumulators (the
+//   same registers as f32 ones; |acc| <= 127 * 127 * 9 * C < 2^31 for C
+//   < 14,800: no saturation).
 // * A stage is (leg, KC-channel chunk, dx): 20 KB of A and 12 KB of B per
 //   64 output channels, 4 stages (a ring of 2 stages of 64 channels, 88 KB
 //   each, gave the loads one stage of lead and ran slower on the H100). The
@@ -113,6 +135,8 @@
 //   a column fold needs a stage of its own per chunk (one column of 32 is
 //   not zero) on the 32 of 80 tiles that hold column 1 or W-2 at the blocks
 //   (+13% of the GEMM's loads and wgmmas).
+#include <type_traits>
+
 #include "tma.cuh"  // the operand pass, TMA, mbarrier and wgmma helpers
 
 namespace ircolor {
@@ -121,6 +145,7 @@ namespace {
 constexpr int TH = 8;                            // output rows a block
 constexpr int TW = 32;                           // output columns a block
 constexpr int KC = 32;                           // input channels a stage
+constexpr int KC_S8 = 64;                        // input channels an int8 stage
 constexpr int CONSUMERS = 2;                     // warpgroups, TH / 2 rows each
 // Threads of a block: the consumers and a producer warp, or (the dgrad's
 // policies) a producer warpgroup whose registers setmaxnreg hands over.
@@ -133,20 +158,31 @@ constexpr int B_HALF = 3 * B_ATOM;               // one 64-channel box: its thre
 static_assert(TW == 32, "an m64 sub-tile is two whole rows on swizzle atoms");
 static_assert(TH == 4 * CONSUMERS, "two m64 sub-tiles of 2 rows a warpgroup");
 static_assert(A_BYTES % 1024 == 0 && B_HALF % 1024 == 0, "B boxes on 1 KB atoms");
+static_assert(KC_S8 == A_ROW && 3 * 128 * KC_S8 == 2 * B_HALF,
+              "an int8 stage has the bf16 stage's bytes at BN 128");
 
 // The ring and shared memory of a block with BN output channels.
 template <int BN>
 struct Ring {
   static constexpr int STAGE = A_BYTES + (BN / 64) * B_HALF;     // 44 KB at BN 128
   static constexpr int RED_BYTES = CONSUMERS * 4 * BN * 2 * 4;   // the sums' warp partials
-  static constexpr int MASK_BYTES = 2 * BN * 4;                  // a task's mm, mi
+  static constexpr int MASK_BYTES = 2 * BN * 4;                  // a task's mm, mi (or sc)
   static constexpr int SMEM =
       STAGES * STAGE + RED_BYTES + MASK_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
 };
 
 // The epilogue policies (see the note at the top): the forward's stats and
-// store; the dgrad's mask-stats, residual and dz (store), which add the fold.
-enum Epi { EPI_STATS = 0, EPI_STORE = 1, EPI_MASK_STATS = 2, EPI_RESIDUAL = 3, EPI_DZ = 4 };
+// store; the dgrad's mask-stats, residual and dz (store), which add the
+// fold; the int8 conv's q-stats, the one policy on s8 operands.
+enum Epi {
+  EPI_STATS = 0,
+  EPI_STORE = 1,
+  EPI_MASK_STATS = 2,
+  EPI_RESIDUAL = 3,
+  EPI_DZ = 4,
+  EPI_QSTATS = 5
+};
+__host__ __device__ constexpr bool is_dgrad(int epi) { return epi >= EPI_MASK_STATS && epi <= EPI_DZ; }
 
 // Registers a thread of this warpgroup may hold from here on: the producer
 // gives its share to the consumers, whose accumulators alone take 128.
@@ -211,12 +247,39 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(1));
 }
 
+// m64n128k32, s8 x s8 -> s32, D += A*B: both operands K-major (input
+// channels contiguous in each pixel's and each output channel's row).
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 struct FwdArgs {
   __nv_bfloat16* out;  // (B, H, W, Cout)
   float* partial;      // (B, ntiles, 2, Cout): the stats and mask-stats policies
   const __nv_bfloat16* aux;  // (B, H, W, Cout): mask-stats (raw1) and residual
   const float* mm;     // (B, Cout) mask-stats: aux's IN mean and inv
   const float* mi;
+  const float* sc;     // (B, Cout) q-stats: the dequant scale
   const float* fold;   // (B, 2, W+2, Cout) f32 fold rows, or null (no fold)
   const float* fold_cols;  // (B, H, 2, Cout) f32 fold columns
   int H, W, Cout;      // the output plane
@@ -231,14 +294,17 @@ struct FwdArgs {
 // so the producer loads a task's first stages during the last one's
 // epilogue.
 template <int BN, int EPI>
-__global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
+__global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
     conv_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                          const __grid_constant__ CUtensorMap ta1,
                          const __grid_constant__ CUtensorMap tb0,
                          const __grid_constant__ CUtensorMap tb1, const FwdArgs a) {
   constexpr int STAGE = Ring<BN>::STAGE;
-  constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS;
-  constexpr bool DGRAD = EPI >= EPI_MASK_STATS;
+  constexpr bool S8 = EPI == EPI_QSTATS;  // s8 operands, s32 accumulators
+  constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS || S8;
+  constexpr bool DGRAD = is_dgrad(EPI);
+  constexpr int KCH = S8 ? KC_S8 : KC;  // input channels a stage
+  static_assert(!S8 || BN == 128, "the int8 conv runs N = 128");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB
   const uint32_t red = base + STAGES * STAGE;
@@ -272,14 +338,18 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
         mbar_wait(empty0 + 8 * s, ((g / STAGES) & 1) ^ 1);
         const int chunk = j / 3, dx = j % 3;
         const bool leg1 = chunk >= a.nchunk0;
-        const int ci0 = (leg1 ? chunk - a.nchunk0 : chunk) * KC;
+        const int ci0 = (leg1 ? chunk - a.nchunk0 : chunk) * KCH;
         const CUtensorMap* ta = leg1 ? &ta1 : &ta0;
         const CUtensorMap* tb = leg1 ? &tb1 : &tb0;
         mbar_expect_tx(full, STAGE);
         tma_load(dst, ta, full, ci0, c0 + dx - a.shift, r0 - a.shift, b);
+        if constexpr (S8) {  // one K-major box: [dy][BN co][64 ci]
+          tma_load(dst + A_BYTES, tb, full, ci0, co0, dx, 0);
+        } else {
 #pragma unroll
-        for (int h = 0; h < BN / 64; ++h)
-          tma_load(dst + A_BYTES + h * B_HALF, tb, full, co0 + 64 * h, ci0, dx, 0);
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load(dst + A_BYTES + h * B_HALF, tb, full, co0 + 64 * h, ci0, dx, 0);
+        }
       }
     }
     return;
@@ -296,19 +366,24 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
     const int mt = task / a.ncob, co0 = (task % a.ncob) * BN;
     const int b = mt / a.ntiles, tile = mt % a.ntiles;
     const int r0 = (tile / a.ntc) * TH, c0 = (tile % a.ntc) * TW;
-    if constexpr (EPI == EPI_MASK_STATS) {
-      // The task's mm and mi into shared memory (the last task's epilogue
-      // is done with them: it ended on the consumers' barrier).
+    if constexpr (EPI == EPI_MASK_STATS || S8) {
+      // The task's mm and mi (or sc) into shared memory (the last task's
+      // epilogue is done with them: it ended on the consumers' barrier).
       const int x = threadIdx.x;
-      if (x < 2 * BN) maskv[x] = x < BN ? a.mm[(size_t)b * a.Cout + co0 + x]
-                                        : a.mi[(size_t)b * a.Cout + co0 + x - BN];
+      if constexpr (S8) {
+        if (x < BN) maskv[x] = a.sc[(size_t)b * a.Cout + co0 + x];
+      } else {
+        if (x < 2 * BN) maskv[x] = x < BN ? a.mm[(size_t)b * a.Cout + co0 + x]
+                                          : a.mi[(size_t)b * a.Cout + co0 + x - BN];
+      }
       asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
     }
-    float acc[2][BN / 2];
+    using Acc = std::conditional_t<S8, int, float>;
+    Acc acc[2][BN / 2];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0;
     for (int j = 0; j < nst; ++j, ++g) {
       const int s = g % STAGES;
       const uint32_t st = base + s * STAGE;
@@ -317,13 +392,18 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
-        for (int ks = 0; ks < KC / 16; ++ks) {  // k16 steps: 32 bytes of A's row, 16 rows of B
-          const uint64_t db = smem_desc(st + A_BYTES + dy * B_ATOM + ks * 2048, B_HALF);
+        for (int ks = 0; ks < A_ROW / 32; ++ks) {  // 32 bytes of A's row: k16 bf16, k32 s8
+          // bf16: 16 rows of the MN-major B; s8: 32 bytes of each K-major
+          // output channel's row of tap dy.
+          const uint64_t db = S8 ? smem_desc_k64(st + A_BYTES + dy * BN * KC_S8 + ks * 32)
+                                 : smem_desc(st + A_BYTES + dy * B_ATOM + ks * 2048, B_HALF);
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
             const uint32_t arow = (4 * wg + 2 * t + dy) * TW;  // first buffer row of the tap
             const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
-            if constexpr (BN == 128) {
+            if constexpr (S8) {
+              wgmma_s8_n128(acc[t], da, db);
+            } else if constexpr (BN == 128) {
               wgmma_n128(acc[t], da, db);
             } else {
               wgmma_n64(acc[t], da, db);
@@ -393,11 +473,11 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
             if (fmain[t][h]) nf[t][h] = ldg_f2(fmain[t][h] + 8 * (i + 1));
           }
         }
-      float2 mm = make_float2(0.f, 0.f), mi = mm;
-      if constexpr (EPI == EPI_MASK_STATS) {
+      float2 mm = make_float2(0.f, 0.f), mi = mm;  // S8: mm holds sc
+      if constexpr (EPI == EPI_MASK_STATS || S8)
         mm = *reinterpret_cast<const float2*>(maskv + 8 * i + cl);
+      if constexpr (EPI == EPI_MASK_STATS)
         mi = *reinterpret_cast<const float2*>(maskv + BN + 8 * i + cl);
-      }
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
       for (int t = 0; t < 2; ++t)
@@ -406,7 +486,14 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
           const int r = rw + 2 * t, c = cw + 8 * h;
           if (r >= a.H || c >= a.W) continue;
           const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout + 8 * i;
-          float y0 = acc[t][4 * i + 2 * h], y1 = acc[t][4 * i + 2 * h + 1];
+          float y0, y1;
+          if constexpr (S8) {  // dequantize: cvt.rn, then one multiply
+            y0 = __fmul_rn(__int2float_rn(acc[t][4 * i + 2 * h]), mm.x);
+            y1 = __fmul_rn(__int2float_rn(acc[t][4 * i + 2 * h + 1]), mm.y);
+          } else {
+            y0 = acc[t][4 * i + 2 * h];
+            y1 = acc[t][4 * i + 2 * h + 1];
+          }
           if (fmain[t][h]) {  // the fold enters the f32 value before the policy
             float2 f = fv[t][h];
             if (extra[t][h]) {
@@ -435,7 +522,7 @@ __global__ void __launch_bounds__(threads_of(EPI >= EPI_MASK_STATS), 1)
               y0 += a0;
               y1 += a1;
             }
-          } else if constexpr (EPI == EPI_STATS) {
+          } else if constexpr (EPI == EPI_STATS || S8) {
             s1[0] += y0;
             s1[1] += y1;
             s2[0] += y0 * y0;
@@ -489,6 +576,16 @@ int make_weight_map(CUtensorMap* map, const void* k, int C, int Cout) {
   return make_map_4d(map, k, dims, strides, box);
 }
 
+// The int8 weights repacked K-major, (3, 3, Cout, C), as a 4-D map (C,
+// Cout, 3 dx, 3 dy), boxes of (KC_S8 input channels, 128 output channels,
+// 1 dx, 3 dy): 64-byte rows, one output channel a row.
+int make_q_weight_map(CUtensorMap* map, const void* k, int C, int Cout) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)Cout, 3, 3};
+  const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)Cout * C, (cuuint64_t)3 * Cout * C};
+  const cuuint32_t box[4] = {KC_S8, 128, 1, 3};
+  return make_map_4d(map, k, dims, strides, box, 1);
+}
+
 template <int BN, int EPI>
 int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMap& tb0,
                 const CUtensorMap& tb1, const FwdArgs& a, int grid, cudaStream_t stream) {
@@ -496,23 +593,25 @@ int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMa
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads_of(EPI >= EPI_MASK_STATS), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1,
-                                                                                a);
+  kernel<<<grid, threads_of(is_dgrad(EPI)), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1, a);
   return (int)cudaGetLastError();
 }
 
 // The GEMM of leg 0 (x0, k0 (3, 3, C0, Cout)) and, with x1 non-null, leg 1
-// (x1, k1, C1) with a's pointers and policy: maps, tiling, launch.
+// (x1, k1, C1) with a's pointers and policy: maps, tiling, launch. The
+// q-stats policy takes one int8 leg and k0 repacked (3, 3, Cout, C0).
 int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
              FwdArgs a, int B, int H, int W, int Cout, int zero, int bn, int epi, int grid,
              cudaStream_t stream) {
+  const bool s8 = epi == EPI_QSTATS;
+  const int kc = s8 ? KC_S8 : KC, esize = s8 ? 1 : 2;
   if (C0 <= 0 || C0 % 64 || C1 % 64 || (x1 == nullptr) != (C1 == 0) || Cout % bn || B < 1 ||
-      H < 1 || W < 1 || grid < 1)
+      H < 1 || W < 1 || grid < 1 || (s8 && (x1 != nullptr || bn != 128)))
     return (int)cudaErrorInvalidValue;
   const int pad = zero ? 0 : 2;
   CUtensorMap ta0, ta1, tb0, tb1;
-  int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, KC);
-  if (err == 0) err = make_weight_map(&tb0, k0, C0, Cout);
+  int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, kc, esize);
+  if (err == 0) err = s8 ? make_q_weight_map(&tb0, k0, C0, Cout) : make_weight_map(&tb0, k0, C0, Cout);
   if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
   if (err == 0 && x1 != nullptr) err = make_weight_map(&tb1, k1, C1, Cout);
   if (err != 0) return err;
@@ -523,8 +622,8 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
   a.H = H;
   a.W = W;
   a.Cout = Cout;
-  a.nchunk0 = C0 / KC;
-  a.nchunk1 = C1 / KC;
+  a.nchunk0 = C0 / kc;
+  a.nchunk1 = C1 / kc;
   a.ntc = (W + TW - 1) / TW;
   a.ntiles = ((H + TH - 1) / TH) * a.ntc;
   a.ncob = Cout / bn;
@@ -540,6 +639,7 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
       case EPI_MASK_STATS:
         return launch_gemm<128, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_RESIDUAL: return launch_gemm<128, EPI_RESIDUAL>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_QSTATS: return launch_gemm<128, EPI_QSTATS>(ta0, ta1, tb0, tb1, a, grid, stream);
     }
   } else if (bn == 64) {
     switch (epi) {
@@ -705,6 +805,47 @@ int ircolor_conv_fwd_gemm(const void* x0, const void* k0, int C0, const void* x1
   a.partial = static_cast<float*>(partial);
   return run_gemm(x0, k0, C0, x1, k1, C1, a, B, H, W, Cout, zero, 128,
                   partial != nullptr ? EPI_STATS : EPI_STORE, grid,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The int8 conv's operand pass: out (B, H+2, W+2, C) int8 = x (B, H, W,
+// C) bf16 reflect-padded by one pixel and quantized: clamp(rint(x *
+// qscale[b]), -127, 127) where mean is null, else min(rint(relu((x -
+// mean)*inv) * qfixed), 127). C % 16 == 0.
+int ircolor_conv_q_pass(const void* x, const void* qscale, const void* mean, const void* inv,
+                        float qfixed, void* out, int B, int H, int W, int C, void* stream) {
+  using namespace ircolor;
+  if (C % 16 || (mean == nullptr) == (qscale == nullptr) || (mean == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  PassArgs a = {};
+  a.z = static_cast<const __nv_bfloat16*>(x);
+  a.qscale = static_cast<const float*>(qscale);
+  a.zm = static_cast<const float*>(mean);
+  a.zi = static_cast<const float*>(inv);
+  a.qfixed = qfixed;
+  a.zp = out;
+  a.ndy = 0;
+  a.nzp = (long long)B * (H + 2) * (W + 2) * (C / 16);
+  a.H = H;
+  a.W = W;
+  a.Cz = C;
+  a.zpad = 1;
+  return launch_operand_pass(a, static_cast<cudaStream_t>(stream), true);
+}
+
+// The int8 conv's GEMM: out (B, H, W, Cout) bf16 and partial (B, ntiles,
+// 2, Cout) f32 of y = f32(sum of zq (B, H+2, W+2, C) int8, padded, against
+// kq (3, 3, Cout, C) int8) * sc[b, co], sc (B, Cout) f32. C % 64 == 0,
+// Cout % 128 == 0.
+int ircolor_conv_q_gemm(const void* zq, const void* kq, const void* sc, int C, void* out,
+                        void* partial, int B, int H, int W, int Cout, int grid, void* stream) {
+  using namespace ircolor;
+  if (sc == nullptr || partial == nullptr) return (int)cudaErrorInvalidValue;
+  FwdArgs a = {};
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.sc = static_cast<const float*>(sc);
+  return run_gemm(zq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, 0, 128, EPI_QSTATS, grid,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -28,8 +28,8 @@
 // twice the input). At batch 1 every site is a few hundred blocks: launch
 // and tail effects dominate, not either bound.
 //
-// Design: the fused block conv's int8 schedule (csrc/resblock.cu) without
-// the transform on load. A block owns an 8x16 output-pixel tile (M = 128)
+// Design: an implicit GEMM on mma.sync (s8 m16n8k32) over an int8 input
+// that arrives quantized. A block owns an 8x16 output-pixel tile (M = 128)
 // and BN = 128 (or 64, for Cout = 64) output channels; eight warps of
 // 32 x BN/2. K = 9 taps x Cin runs as chunks of 32 input channels. Per chunk
 // the (8+2)x(16+2) int8 patch arrives by cp.async (16 bytes a copy; halo

@@ -1,6 +1,6 @@
 // Pieces shared by the port's TMA + wgmma kernels (csrc/conv_fwd.cu, the
-// 3x3 conv and its dgrad, and csrc/wgrad.cu, its weight gradient): the
-// operand pass that feeds both GEMMs, the mbarrier ring with its watchdog, 4-D TMA
+// 3x3 conv in bf16 and int8 and its dgrad, and csrc/wgrad.cu, its weight
+// gradient): the operand pass that feeds the GEMMs, the mbarrier ring with its watchdog, 4-D TMA
 // loads, the shared-memory matrix descriptors of swizzled tiles, the wgmma
 // fences, and the tensor-map encoder taken from the driver at run time (no
 // libcuda link).
@@ -19,13 +19,21 @@ constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
 
 // ---------------------------------------------------- operand pass ----
 
-// Memory-bound, one 16-byte unit (8 channels) a step, two parts:
-// * dy (ndy units: the wgrad and the dgrad): the IN backward of (p, comp)
-//   through InBwd8::apply, bit-identical to the plain version's;
+// Memory-bound, one 16-byte output unit a step, two parts:
+// * dy (ndy units of 8 channels: the wgrad and the dgrad): the IN backward
+//   of (p, comp) through InBwd8::apply, bit-identical to the plain
+//   version's;
 // * Z (nzp units): Z = z, or bf16(relu((z - zm)*zi)) in the plain
 //   version's single IEEE steps, written as (B, H+2*zpad, W+2*zpad, Cz):
 //   reflect-padded by one pixel (zpad = 1) or as it is (zpad = 0: z is
-//   already padded and only normalized).
+//   already padded and only normalized). 8 channels a unit.
+// The int8 form (Q8, the int8 block conv; no dy part) writes Z as int8,
+// 16 channels a unit from two 16-byte bf16 loads, quantized in the plain
+// version's single IEEE steps with rint (ties to even, as torch.round):
+//   q = clamp(rint(z * qscale[b]), -127, 127)                (zm null)
+//   q = min(rint(relu((z - zm)*zi) * qfixed), 127)
+// The normalized value stays f32 up to the quantize: it is not rounded to
+// bf16 first.
 struct PassArgs {
   const __nv_bfloat16* z;     // (B, H, W, Cz), or null (no Z part)
   const __nv_bfloat16* p;     // (B, H, W, Co), or null (no dy part)
@@ -36,17 +44,26 @@ struct PassArgs {
   const float* gy;
   const float* zm;            // (B, Cz) or null: Z = relu((z - zm)*zi)
   const float* zi;
+  const float* qscale;        // Q8: (B,) conv1's per-sample scale, with zm null
+  float qfixed;               // Q8: conv2's fixed grid, with zm
   __nv_bfloat16* dy;          // (B, H, W, Co)
-  __nv_bfloat16* zp;          // (B, H+2*zpad, W+2*zpad, Cz)
+  void* zp;                   // (B, H+2*zpad, W+2*zpad, Cz), bf16 or (Q8) int8
   long long ndy, nzp;         // 16-byte units of each output
   int H, W, Cz, Co, mask_p, zpad;
 };
 
+__device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
+  return (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
+         ((uint32_t)(q3 & 0xff) << 24);
+}
+
+template <bool Q8>
 __global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassArgs a) {
+  constexpr int CU = Q8 ? 16 : 8;  // channels of one output unit
   const long long stride = (long long)gridDim.x * PASS_THREADS;
   for (long long u = (long long)blockIdx.x * PASS_THREADS + threadIdx.x; u < a.ndy + a.nzp;
        u += stride) {
-    if (u < a.ndy) {
+    if (!Q8 && u < a.ndy) {
       const int cu = a.Co / 8;
       const long long pix = u / cu;
       const int c8 = (int)(u - pix * cu) * 8;
@@ -57,16 +74,45 @@ __global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassAr
           in.apply(ldg16(a.p + u * 8), ldg16(a.comp + u * 8), a.mask_p != 0);
     } else {
       const long long v = u - a.ndy;
-      const int cu = a.Cz / 8, wo = a.W + 2 * a.zpad;
+      const int cu = a.Cz / CU, wo = a.W + 2 * a.zpad;
       const long long pix = v / cu;
-      const int c8 = (int)(v - pix * cu) * 8;
+      const int c8 = (int)(v - pix * cu) * CU;
       const long long plane = (long long)(a.H + 2 * a.zpad) * wo;
       const long long b = pix / plane;
       const int rem = (int)(pix - b * plane);
       // zpad = 0: the identity map (every index lies in range).
       const int h = reflect_index(rem / wo - a.zpad, a.H);
       const int w = reflect_index(rem % wo - a.zpad, a.W);
-      uint4 zv = ldg16(a.z + (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8);
+      const __nv_bfloat16* src = a.z + (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8;
+      uint4 zv = ldg16(src);
+      if constexpr (Q8) {
+        const uint4 zv1 = ldg16(src + 8);
+        const uint32_t zw[8] = {zv.x, zv.y, zv.z, zv.w, zv1.x, zv1.y, zv1.z, zv1.w};
+        float zm[2][8], zi[2][8];
+        const float qs = a.zm == nullptr ? a.qscale[b] : 0.f;
+        if (a.zm != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            load8(a.zm + b * a.Cz + c8 + 8 * j, zm[j]);
+            load8(a.zi + b * a.Cz + c8 + 8 * j, zi[j]);
+          }
+        }
+        int q[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const float x = k % 2 ? bf16_hi(zw[k / 2]) : bf16_lo(zw[k / 2]);
+          if (a.zm != nullptr) {
+            const float z = fmaxf(__fmul_rn(__fsub_rn(x, zm[k / 8][k % 8]), zi[k / 8][k % 8]), 0.f);
+            q[k] = min(__float2int_rn(__fmul_rn(z, a.qfixed)), 127);
+          } else {
+            q[k] = max(-127, min(127, __float2int_rn(__fmul_rn(x, qs))));
+          }
+        }
+        *reinterpret_cast<uint4*>(static_cast<int8_t*>(a.zp) + v * 16) =
+            make_uint4(pack_s8x4(q[0], q[1], q[2], q[3]), pack_s8x4(q[4], q[5], q[6], q[7]),
+                       pack_s8x4(q[8], q[9], q[10], q[11]), pack_s8x4(q[12], q[13], q[14], q[15]));
+        continue;
+      }
       if (a.zm != nullptr) {
         float zm[8], zi[8];
         load8(a.zm + b * a.Cz + c8, zm);
@@ -82,17 +128,22 @@ __global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassAr
         }
         zv = make_uint4(zw[0], zw[1], zw[2], zw[3]);
       }
-      *reinterpret_cast<uint4*>(a.zp + v * 8) = zv;
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.zp) + v * 8) = zv;
     }
   }
 }
 
-int launch_operand_pass(const PassArgs& a, cudaStream_t stream) {
+// q8: the int8 form (nzp units of 16 channels, no dy part).
+int launch_operand_pass(const PassArgs& a, cudaStream_t stream, bool q8 = false) {
   const long long units = a.ndy + a.nzp;
   const long long need = (units + PASS_THREADS - 1) / PASS_THREADS;
   const int blocks = (int)(need < PASS_MAX_BLOCKS ? need : PASS_MAX_BLOCKS);
   if (blocks == 0) return 0;
-  operand_pass_kernel<<<blocks, PASS_THREADS, 0, stream>>>(a);
+  if (q8) {
+    operand_pass_kernel<true><<<blocks, PASS_THREADS, 0, stream>>>(a);
+  } else {
+    operand_pass_kernel<false><<<blocks, PASS_THREADS, 0, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -164,9 +215,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The same for a K-major operand in 64-byte-swizzled rows (32 bf16 of K a
-// row, 8-row atoms of 512 bytes): sbo = 512; a k16 step is 32 bytes along
-// the row.
+// The same for a K-major operand in 64-byte-swizzled rows (32 bf16 or 64
+// int8 of K a row, 8-row atoms of 512 bytes): sbo = 512; a k16 bf16 or
+// k32 s8 step is 32 bytes along the row.
 __device__ __forceinline__ uint64_t smem_desc_k64(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
@@ -204,32 +255,34 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D bf16 tensor map: dims innermost first, strides of dims 1..3 in
-// bytes, the box in elements. Its first dim is one swizzled row: 64
-// elements (128-byte swizzle) or 32 (64-byte swizzle). Returns 0 or a
-// nonzero code.
+// A 4-D tensor map of bf16 (esize 2) or int8 (esize 1) elements: dims
+// innermost first, strides of dims 1..3 in bytes, the box in elements. Its
+// first dim is one swizzled row: 128 bytes (128-byte swizzle) or 64 (64-byte
+// swizzle). Returns 0 or a nonzero code.
 int make_map_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], int esize = 2) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
-  if (box[0] != 64 && box[0] != 32) return (int)cudaErrorInvalidValue;
+  const cuuint32_t row = box[0] * esize;
+  if ((esize != 1 && esize != 2) || (row != 128 && row != 64)) return (int)cudaErrorInvalidValue;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      enc(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+          const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-// An NHWC bf16 plane (B, H, W, C) with boxes of (bc channels, bw columns,
-// bh rows, 1 image).
+// An NHWC plane (B, H, W, C) of esize-byte elements with boxes of (bc
+// channels, bw columns, bh rows, 1 image).
 int make_nhwc_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bh, int bw,
-                  int bc = 64) {
+                  int bc = 64, int esize = 2) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * esize, (cuuint64_t)W * C * esize,
+                                 (cuuint64_t)H * W * C * esize};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
-  return make_map_4d(map, ptr, dims, strides, box);
+  return make_map_4d(map, ptr, dims, strides, box, esize);
 }
 
 }  // namespace

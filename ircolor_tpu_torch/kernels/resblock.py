@@ -1,7 +1,7 @@
 """The resnet blocks' 3×3 convs and the blocks built from them: the bf16
-forward conv (``csrc/conv_fwd.cu``), the int8 one (``csrc/resblock.cu``), the
-backward (dgrad: the IN-backward pass and the forward conv's GEMM with a
-dgrad epilogue, ``csrc/conv_fwd.cu``; wgrad ``csrc/wgrad.cu``).
+and int8 forward convs and the dgrad (an operand pass and one TMA +
+``wgmma`` GEMM with an epilogue policy, ``csrc/conv_fwd.cu``) and the wgrad
+(``csrc/wgrad.cu``).
 
 Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_reflect_fused`` (bf16), ``conv3x3_reflect_fused_q`` (int8),
@@ -15,8 +15,9 @@ also serves ``kernels/block.py`` and ``kernels/conv.py`` in the VALID
 mode). A bf16 conv is an operand pass where its halo or a normalize needs
 one (the reflect-padded input, or the previous IN + ReLU applied) and a
 TMA + ``wgmma`` GEMM that writes the raw output once with the per-(B, C)
-sums of the output for its instance norm. The int8 conv builds its
-reflect halo and quantization on load. The block epilogue
+sums of the output for its instance norm. The int8 conv is the same GEMM
+on s8 operands: its pass writes the quantized, reflect-padded input as
+int8 and its epilogue dequantizes. The block epilogue
 ``x + ((raw2 − m2)·i2).to(dtype)`` stays plain torch.
 
 The plain versions compute in float32 (bf16 products are exact there; the
@@ -39,24 +40,9 @@ from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per
 
 _EPS = 1e-5
 _BN = 128  # output channels per block of the conv kernels
-_KBYTES = 32  # bytes of input channels per K chunk of the int8 conv
 
-_lib = None
 _lib_fwd = None
 _lib_wgrad = None
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = build.load("resblock")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ircolor_conv3x3_num_tiles.argtypes = [i, i]
-        lib.ircolor_conv3x3_num_tiles.restype = i
-        lib.ircolor_conv3x3_reflect_q.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.ircolor_conv3x3_reflect_q.restype = i
-        _lib = lib
-    return _lib
 
 
 def _load_fwd():
@@ -75,6 +61,8 @@ def _load_fwd():
             (lib.ircolor_conv_dgrad_pass, [p] * 7 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_fold, [p] * 4 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_gemm, [p, p, i] + [p] * 7 + [i] * 5 + [p]),
+            (lib.ircolor_conv_q_pass, [p] * 4 + [ctypes.c_float, p] + [i] * 4 + [p]),
+            (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
         ):
             fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
@@ -97,6 +85,11 @@ def _load_wgrad():
         lib.ircolor_wgrad_gemm.restype = i
         _lib_wgrad = lib
     return _lib_wgrad
+
+
+def _ptr(t):
+    """A tensor's device pointer for a launch, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def _moments(s1: torch.Tensor, s2: torch.Tensor, n: int):
@@ -142,10 +135,12 @@ def conv3x3_reflect_fused(x, kernel, mean=None, inv=None):
 # The forward GEMM's output tile (csrc/conv_fwd.cu's TH, TW; checked when
 # the library loads), its two consumer warpgroups of TH / 2 rows, each two
 # m64 sub-tiles of 64 / TW rows, and the input channels of a K stage (KC:
-# one 64-byte swizzled row of A a pixel).
+# one 64-byte swizzled row of A a pixel: 32 bf16, or 64 int8 in the int8
+# conv's stages).
 _CF_TH, _CF_TW = 8, 32
 _CF_WG = 2
 _CF_KC = 32
+_CF_KC_S8 = 64
 # Persistent GEMM blocks: one wave of an H100's 132 SMs (fixed here, never
 # read from the card; the results do not depend on it).
 _CF_WAVE = 132
@@ -161,7 +156,9 @@ class ConvPlan(NamedTuple):
     form). Its K loop runs stages (leg, KC-channel chunk, dx), each an
     A box ``a_box`` (channels, columns, rows, images) read at column ``c0 +
     dx − shift``, row ``r0 − shift`` of the leg's source, and two weight
-    boxes ``b_box`` (output channels, input channels, dx, dy).
+    boxes ``b_box`` (output channels, input channels, dx, dy) — or, in the
+    int8 conv's plan (``s8``: KC = 64 int8 channels, the same bytes), one
+    box (input channels, output channels, dx, dy) of the K-major weights.
     ``pass_pad``: the operand pass on every leg first — 1 reflect-pads
     (and normalizes with mean/inv), 0 only normalizes the pre-padded input,
     None runs no pass."""
@@ -183,17 +180,21 @@ class ConvPlan(NamedTuple):
     bn: int = _BN
 
 
-def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False) -> ConvPlan:
+def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False,
+               s8: bool = False) -> ConvPlan:
     """The plan of the forward conv of ``legs`` (input channels of each)
-    into an h × w × cout output: a function of the shapes alone."""
+    into an h × w × cout output: a function of the shapes alone. ``s8``:
+    the int8 conv's (int8 stages of 64 channels, N = 128)."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
+    kc = _CF_KC_S8 if s8 else _CF_KC
     bn = _BN if cout % _BN == 0 else 64
     ncob = cout // bn
     blocks = b * ntr * ntc * ncob
-    return ConvPlan(h, w, cout, tuple(c // _CF_KC for c in legs), int(halo == "zero"), pass_pad,
+    b_box = (kc, bn, 1, 3) if s8 else (64, kc, 1, 3)
+    return ConvPlan(h, w, cout, tuple(c // kc for c in legs), int(halo == "zero"), pass_pad,
                     ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
-                    (_CF_KC, _CF_TW, _CF_TH + 2, 1), (64, _CF_KC, 1, 3), bn)
+                    (kc, _CF_TW, _CF_TH + 2, 1), b_box, bn)
 
 
 def _conv_blocks(plan: ConvPlan):
@@ -231,30 +232,34 @@ def _conv_pass(x, mean=None, inv=None, *, pad: int = 1):
     b, h, w, c = x.shape
     out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
     err = _load_fwd().ircolor_conv_fwd_pass(
-        x.data_ptr(), None if mean is None else mean.data_ptr(),
-        None if inv is None else inv.data_ptr(), out.data_ptr(), b, h, w, c, pad, stream_ptr())
+        x.data_ptr(), _ptr(mean), _ptr(inv), out.data_ptr(), b, h, w, c, pad, stream_ptr())
     build.check(err, "conv operand pass")
     return out
 
 
 def _conv_acc_plain(srcs, kernels, plan: ConvPlan) -> torch.Tensor:
-    """The GEMM's f32 accumulator over whole tiles, (B, ntr·TH, ntc·TW,
-    Cout), in the kernel's K order: leg → KC-channel chunk → dx buffer → dy
-    (zeros where a box lies outside its source)."""
+    """The GEMM's accumulator over whole tiles, (B, ntr·TH, ntc·TW, Cout),
+    in the kernel's K order: leg → chunk of the plan's KC channels → dx
+    buffer → dy (zeros where a box lies outside its source). f32 for bf16
+    operands; int8 operands are summed exactly, in float64 (exact while
+    |acc| < 2^53, which the s32 accumulator's range is far inside)."""
     b = srcs[0].shape[0]
     hh, ww = plan.ntr * _CF_TH, plan.ntc * _CF_TW
-    acc = srcs[0].new_zeros((b, hh, ww, plan.cout), dtype=torch.float32)
+    kc = plan.a_box[0]
+    s8 = srcs[0].dtype == torch.int8
+    dt = torch.float64 if s8 else torch.float32
+    acc = srcs[0].new_zeros((b, hh, ww, plan.cout), dtype=dt)
     for x, k in zip(srcs, kernels):
-        xp = x.new_zeros((b, hh + 2, ww + 2, x.shape[-1]), dtype=torch.float32)
+        xp = x.new_zeros((b, hh + 2, ww + 2, x.shape[-1]), dtype=dt)
         s = plan.shift
-        xp[:, s : s + x.shape[1], s : s + x.shape[2]] = x.float()[:, : hh + 2 - s, : ww + 2 - s]
-        kf = k.to(torch.bfloat16).float()
-        for ci in range(0, x.shape[-1], _CF_KC):
+        xp[:, s : s + x.shape[1], s : s + x.shape[2]] = x.to(dt)[:, : hh + 2 - s, : ww + 2 - s]
+        kf = k.to(dt) if s8 else k.to(torch.bfloat16).float()
+        for ci in range(0, x.shape[-1], kc):
             for dx in range(3):
-                buf = xp[:, :, dx : dx + ww, ci : ci + _CF_KC]
+                buf = xp[:, :, dx : dx + ww, ci : ci + kc]
                 for dy in range(3):
                     acc += torch.einsum("bhwc,co->bhwo", buf[:, dy : dy + hh],
-                                        kf[dy, dx, ci : ci + _CF_KC])
+                                        kf[dy, dx, ci : ci + kc])
     return acc
 
 
@@ -268,11 +273,14 @@ def _tile_sums(t: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return z.sum(dim=(2, 4)).reshape(b, plan.ntiles, plan.cout)
 
 
-def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True):
-    """Plain version of the GEMM (``_conv_acc_plain``), then the bf16 output
-    and the (B, ntiles, 2, Cout) per-tile moments of the pixels that exist
-    (None without ``stats``)."""
+def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True, sc=None):
+    """Plain version of the GEMM (``_conv_acc_plain``), cvt to f32 and × the
+    (B, Cout) dequant scale ``sc`` where given (the int8 conv), then the
+    bf16 output and the (B, ntiles, 2, Cout) per-tile moments of the pixels
+    that exist (None without ``stats``)."""
     y = _conv_acc_plain(srcs, kernels, plan)[:, : plan.h, : plan.w]
+    if sc is not None:
+        y = y.float() * sc[:, None, None, :]
     out = y.to(torch.bfloat16)
     if not stats:
         return out, None
@@ -296,9 +304,8 @@ def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
                               device=x0.device)
     x1, k1 = (srcs[1], ks[1]) if len(srcs) == 2 else (None, None)
     err = _load_fwd().ircolor_conv_fwd_gemm(
-        x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], None if x1 is None else x1.data_ptr(),
-        None if k1 is None else k1.data_ptr(), 0 if x1 is None else x1.shape[-1],
-        out.data_ptr(), None if partial is None else partial.data_ptr(), b, plan.h, plan.w,
+        x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], _ptr(x1), _ptr(k1),
+        0 if x1 is None else x1.shape[-1], out.data_ptr(), _ptr(partial), b, plan.h, plan.w,
         plan.cout, plan.shift, plan.grid, stream_ptr(),
     )
     build.check(err, "conv GEMM")
@@ -422,48 +429,111 @@ def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None
     return y.to(x.dtype), m, i
 
 
+# The int8 conv on the card: the operand pass writes the quantized,
+# reflect-padded input as int8, then the forward conv's GEMM (csrc/conv_fwd.cu)
+# runs it on s8 operands against the K-major weights with the q-stats
+# epilogue: y = f32(s32 sum)·sc, the bf16 output and the per-(b, tile) sums.
+
+# conv2's fixed grid, 127/6, as torch multiplies by it: the Python float
+# rounded once to float32 (ctypes rounds it the same way).
+_QFIXED = 127.0 / _QCLIP
+
+
+def _q_pass_plain(x, qscale=None, mean=None, inv=None):
+    """Plain version of the int8 operand pass: ``_quantize_input`` as int8,
+    reflect-padded by one pixel through common.cuh's index map."""
+    q = _quantize_input(x, qscale, mean, inv).to(torch.int8)
+    return q[:, _reflect_rows(q.shape[1])][:, :, _reflect_rows(q.shape[2])].contiguous()
+
+
+def _q_pass(x, qscale=None, mean=None, inv=None):
+    """The int8 operand pass (the plain version for CPU tensors)."""
+    if x.device.type == "cpu":
+        return _q_pass_plain(x, qscale, mean, inv)
+    b, h, w, c = x.shape
+    out = torch.empty((b, h + 2, w + 2, c), dtype=torch.int8, device=x.device)
+
+    err = _load_fwd().ircolor_conv_q_pass(x.data_ptr(), _ptr(qscale), _ptr(mean), _ptr(inv),
+                                          _QFIXED, out.data_ptr(), b, h, w, c, stream_ptr())
+    build.check(err, "int8 operand pass")
+    return out
+
+
+def _q_weights(kq: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 weights repacked K-major, (3, 3, Cout, C): ``wgmma`` takes
+    s8 operands K-major only."""
+    return kq.transpose(2, 3).contiguous()
+
+
+def _q_b_box(kflat: torch.Tensor, c: int, cout: int, ci0: int, co0: int, dx: int,
+             bn: int = _BN) -> torch.Tensor:
+    """What the GEMM's weight box at (ci0, co0, dx, 0) reads from the
+    repacked weights ``kflat`` (flattened): (3 dy, bn output channels, 64
+    input channels), through csrc/conv_fwd.cu's ``make_q_weight_map``
+    (dims (C, Cout, 3, 3), strides 1, C, Cout·C, 3·Cout·C)."""
+    dy = torch.arange(3)[:, None, None]
+    n = torch.arange(bn)[None, :, None]
+    k = torch.arange(_CF_KC_S8)[None, None, :]
+    return kflat[(ci0 + k) + (co0 + n) * c + dx * cout * c + dy * 3 * cout * c]
+
+
+def _q_gemm(zq, kt, sc, plan: ConvPlan):
+    """The int8 GEMM: (bf16 out, per-tile sums); the plain version for CPU
+    tensors."""
+    if zq.device.type == "cpu":  # the K-major weights read back as HWIO
+        return _conv_gemm_plain([zq], [kt.transpose(2, 3)], plan, sc=sc)
+    b, c = zq.shape[0], zq.shape[-1]
+    out = torch.empty((b, plan.h, plan.w, plan.cout), dtype=torch.bfloat16, device=zq.device)
+    partial = torch.empty((b, plan.ntiles, 2, plan.cout), dtype=torch.float32, device=zq.device)
+    err = _load_fwd().ircolor_conv_q_gemm(
+        zq.data_ptr(), kt.data_ptr(), sc.data_ptr(), c, out.data_ptr(), partial.data_ptr(), b,
+        plan.h, plan.w, plan.cout, plan.grid, stream_ptr())
+    build.check(err, "int8 conv GEMM")
+    return out, partial
+
+
+def _check_q_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
+    """Raise unless the int8 conv's kernels take the shape."""
+    if c % _CF_KC_S8 or cout % _BN or h < 2 or w < 2 or b > 65535:
+        raise ValueError(
+            f"conv3x3_reflect_fused_q kernel: unsupported shape x={(b, h, w, c)} Cout={cout} "
+            f"(needs C % {_CF_KC_S8} == 0, Cout % {_BN} == 0, H, W >= 2, B <= 65535)"
+        )
+
+
 def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
     """int8 form: ``kq`` (3, 3, C, Cout) int8, ``sc`` (B, Cout) dequant
     scale, and exactly one of ``qscale`` (B,) = 127/amax (conv1: quantize
     the raw input) or ``mean``/``inv`` (conv2: normalize + ReLU, then the
-    fixed 127/6 grid)."""
+    fixed 127/6 grid).
+
+    On the card two launches of ``csrc/conv_fwd.cu``: the int8 operand pass,
+    then the GEMM on s8 operands with the q-stats epilogue; the output is
+    the plain version's bit for bit, the stats are the per-tile partials
+    summed here in a fixed order."""
     if (mean is None) == (qscale is None):
         raise ValueError("need exactly one of qscale / (mean, inv)")
     if x.device.type == "cpu":
         return conv3x3_reflect_fused_q_plain(x, kq, sc, qscale=qscale, mean=mean, inv=inv)
+    require(x, "x", torch.bfloat16, (None, None, None, None))
     b, h, w, c = x.shape
     cout = kq.shape[-1]
-    require(x, "x", torch.bfloat16, (None, None, None, None))
     if kq.shape[:3] != (3, 3, c) or kq.device != x.device:
         raise ValueError(f"kq: expected (3, 3, {c}, Cout) on {x.device}")
-    if c % _KBYTES or cout % _BN or h < 2 or w < 2 or b > 65535:
-        raise ValueError(
-            f"conv3x3 kernel: unsupported shape x={tuple(x.shape)} Cout={cout} "
-            f"(needs C % {_KBYTES} == 0, Cout % {_BN} == 0, H, W >= 2)"
-        )
+    _check_q_shape(b, h, w, c, cout)
     if mean is not None:
         require(mean, "mean", torch.float32, (b, c))
         require(inv, "inv", torch.float32, (b, c))
+    if any(t.data_ptr() % 16 for t in (x, mean, inv) if t is not None):
+        raise ValueError("conv3x3_reflect_fused_q: x, mean and inv must start on 16-byte "
+                         "boundaries (the operand pass reads them 16 bytes at a time)")
     if kq.dtype != torch.int8:
         raise TypeError(f"kq: expected torch.int8, got {kq.dtype}")
     require(sc, "sc", torch.float32, (b, cout))
     if qscale is not None:
         require(qscale, "qscale", torch.float32, (b,))
-    kc = _KBYTES
-    wpk = kq.reshape(9, c // kc, kc, cout).permute(1, 0, 3, 2).contiguous()
-    lib = _load()
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    ntiles = lib.ircolor_conv3x3_num_tiles(h, w)
-    partial = torch.empty((b, ntiles, 2, cout), dtype=torch.float32, device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.ircolor_conv3x3_reflect_q(
-        x.data_ptr(), wpk.data_ptr(), ptr(mean), ptr(inv), ptr(qscale), sc.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), b, h, w, c, cout, stream_ptr(),
-    )
-    build.check(err, "conv3x3_reflect_fused_q")
+    plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
+    out, partial = _q_gemm(_q_pass(x, qscale, mean, inv), _q_weights(kq), sc, plan)
     LAUNCHES["conv3x3_reflect_fused_q"] += 1
     s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
     return (out, *_moments(s[:, 0], s[:, 1], h * w))
@@ -683,12 +753,9 @@ def _dgrad_gemm(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=None):
         partial = torch.empty((b, cp.ntiles, 2, cp.cout), dtype=torch.float32, device=dy.device)
     rows, cols = fold if fold is not None else (None, None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _load_fwd().ircolor_conv_dgrad_gemm(
-        dy.data_ptr(), kdg.data_ptr(), c, ptr(aux), ptr(mm), ptr(mi), ptr(rows), ptr(cols),
-        out.data_ptr(), ptr(partial), b, cp.h, cp.w, cp.cout, cp.grid, stream_ptr())
+        dy.data_ptr(), kdg.data_ptr(), c, _ptr(aux), _ptr(mm), _ptr(mi), _ptr(rows), _ptr(cols),
+        out.data_ptr(), _ptr(partial), b, cp.h, cp.w, cp.cout, cp.grid, stream_ptr())
     build.check(err, "dgrad GEMM")
     return out, partial
 
@@ -898,12 +965,9 @@ def _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect", m
         zp = torch.empty((b, h + 2, w + 2, cz), dtype=z.dtype, device=z.device)
     zm, zi = znorm if znorm is not None else (None, None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _load_wgrad().ircolor_wgrad_transform(
-        ptr(z) if zp is not None else None, p.data_ptr(), comp.data_ptr(), m.data_ptr(),
-        inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), ptr(zm), ptr(zi), dy.data_ptr(), ptr(zp),
+        _ptr(z) if zp is not None else None, p.data_ptr(), comp.data_ptr(), m.data_ptr(),
+        inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), _ptr(zm), _ptr(zi), dy.data_ptr(), _ptr(zp),
         b, h, w, cz, p.shape[-1], int(mask_p), stream_ptr(),
     )
     build.check(err, "wgrad transform")

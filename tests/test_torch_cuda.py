@@ -289,6 +289,63 @@ def test_tail_and_head_backward_through_kernels_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((32, 128, 160, 256), 256),  # the flagship bottleneck
+    ((3, 36, 40, 128), 128),     # partial 8×32 tiles both ways
+])
+def test_int8_block_conv_forms_match_plain_on_card(cuda, shape, cout):
+    """Row 1 (the int8 operand pass, then the s8 GEMM of csrc/conv_fwd.cu),
+    conv1 and conv2: the pass and the output bit-identical to the plain
+    versions (the same integer sums, one cvt, one multiply, one rounding),
+    the IN moments within 1e-5 relative (sums in another order), a repeat
+    bit-exact, one launch counted a call."""
+    from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    b, h, w, c = shape
+    x = _bf16(g, *shape, scale=2.0)
+    kq, sw = quantize_weight_per_channel(_bf16(g, 3, 3, c, cout, scale=0.05))
+    amax = x.float().abs().amax(dim=(1, 2, 3))
+    m, i = instance_norm_stats(x)
+    forms = (
+        (((amax / 127.0)[:, None] * sw[None, :]).contiguous(), dict(qscale=(127.0 / amax).contiguous())),
+        (((_QCLIP / 127.0) * sw[None, :]).expand(b, -1).contiguous(), dict(mean=m, inv=i)),
+    )
+    for sc, kw in forms:
+        assert torch.equal(resblock._q_pass(x, **kw), resblock._q_pass_plain(x, **kw))
+        before = LAUNCHES["conv3x3_reflect_fused_q"]
+        got = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
+        assert LAUNCHES["conv3x3_reflect_fused_q"] == before + 1
+        want = resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw)
+        assert torch.equal(got[0], want[0]), list(kw)
+        assert float((got[1] - want[1]).abs().max() / want[1].abs().max()) <= 1e-5
+        assert float(((got[2] - want[2]) / want[2]).abs().max()) <= 1e-5
+        again = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_int8_block_conv_raises_on_unsupported_cuda_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = _bf16(g, 1, 8, 32, 128)
+    kq, sc, qs = _int8(g, 3, 3, 128, 128), torch.ones(1, 128, device=cuda), torch.ones(1, device=cuda)
+    with pytest.raises(TypeError):  # float32 activations
+        resblock.conv3x3_reflect_fused_q(x.float(), kq, sc, qscale=qs)
+    with pytest.raises(TypeError):  # weights not int8
+        resblock.conv3x3_reflect_fused_q(x, kq.float(), sc, qscale=qs)
+    with pytest.raises(ValueError, match="C % 64"):
+        resblock.conv3x3_reflect_fused_q(x[..., :96].contiguous(), kq[:, :, :96], sc, qscale=qs)
+    with pytest.raises(ValueError):  # Cout not a multiple of 128
+        resblock.conv3x3_reflect_fused_q(x, kq[..., :64], sc[:, :64].contiguous(), qscale=qs)
+    with pytest.raises(ValueError):  # non-contiguous input
+        xt = _bf16(g, 1, 32, 8, 128).transpose(1, 2)
+        resblock.conv3x3_reflect_fused_q(xt, kq, sc, qscale=qs)
+    mean = torch.zeros(1, 129, device=cuda)[:, 1:]  # contiguous, 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        resblock.conv3x3_reflect_fused_q(x, kq, sc, mean=mean, inv=torch.ones(1, 128, device=cuda))
+
+
+@pytest.mark.cuda
 def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
     from ircolor_tpu_torch.kernels import conv_int8
 
