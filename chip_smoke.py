@@ -13,10 +13,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 2. Hold each serving kernel against its plain PyTorch version at the
    flagship shapes (32×512×640, ngf=64); time both, and a PyTorch library
    call of the same function where there is one, with CUDA events. Also
-   the int8 conv of the int8 route outside the fused blocks at every site
-   of a batch-1 forward and at the batch-32 up2 legs of configuration (b)
-   below (bit-exact; beside ``torch._int_mm`` over an im2col), the int8
-   head (4q) at 32×512×640×64 (bit-exact), and the fused instance norm
+   the int8 conv of the int8 route outside the fused blocks
+   (``csrc/conv_fwd.cu``'s q-conv policy) at every site of a batch-1
+   forward and at the batch-32 up2 legs of configuration (b) below
+   (bit-exact and bit-exact on repeat at both N = 128 and 64, its reflect
+   pass and GEMM timed apart, the IGMMA count and ptxas line of both
+   instantiations: a spill fails the run; beside ``torch._int_mm`` over an
+   im2col), the int8 head (4q) at 32×512×640×64 (bit-exact; beside
+   ``torch._int_mm`` over an im2col), and the fused instance norm
    (kernel 11) at the 256² bottleneck of ``use_pallas`` serving,
    16×64×64×256: IN + ReLU and IN + residual in bf16 (1 bf16 ulp), IN +
    ReLU in f32 (1e-5), beside ``F.instance_norm``. The bf16 block conv
@@ -65,7 +69,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    block convs, 2 tails, 2 int8 up2 conv legs, 1 int8 head); then batch 1,
    frame by frame with a synchronize after each (the b1 latency), int8
    (configuration (a): 24 int8 conv launches a forward, no other kernel)
-   and float (no kernel). Then 256×256 float at its test batch of 16, 12
+   and float (no kernel), each with a profile of 4 frames that lists the
+   port's kernels' device time. Then 256×256 float at its test batch of 16, 12
    batches, without and with ``use_pallas`` in turns (without, with, with,
    without): with it a forward launches 9 + 9 kernel-11 launches and the
    down1 tail, no head and no block conv. The launch counts are set to 0
@@ -346,14 +351,36 @@ def check_kernels(torch, results: list) -> None:
     del got, want
     ms = cuda_time_ms(lambda: head.conv7x7_head_pallas(xt, mt, it, kh, quant=True), 10)
     pms = cuda_time_ms(lambda: head.conv7x7_head_q_plain(xt, mt, it, kh), 1, 1)
-    log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  (no stock int8 conv in PyTorch)")
+    # The library yardstick, as rows 1 and the int8 conv have it:
+    # torch._int_mm over an int8 im2col of the quantized, reflect-padded
+    # input (49 taps x 64 channels a pixel, 32.9 GB, built outside the
+    # timing) against the int8 weights with Cout padded from 3 to 8 (its
+    # N must be a multiple of 8): the GEMM alone, no normalize, quantize
+    # or dequant.
+    q = torch.clamp(torch.round(head._normalize_relu(xt, mt, it) * (127.0 / _QCLIP)), max=127.0)
+    qp = torch.nn.functional.pad(q.permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect")
+    qp = qp.permute(0, 2, 3, 1).to(torch.int8)
+    del q
+    cols = torch.empty((B * H * W, 49 * NGF), dtype=torch.int8, device=dev)
+    for tap in range(49):
+        dy, dx = divmod(tap, 7)
+        cols[:, tap * NGF : (tap + 1) * NGF] = qp[:, dy : dy + H, dx : dx + W].reshape(-1, NGF)
+    del qp
+    kq8 = torch.zeros((49 * NGF, 8), dtype=torch.int8, device=dev)
+    kq8[:, :3] = head._quantize_head_weight(kh)[0].reshape(49 * NGF, 3)
+    wmat = kq8.t().contiguous().t()
+    lib_ms = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 5)
+    del cols
+    torch.cuda.empty_cache()
+    log(f"    kernel {ms:.3f} ms  plain {pms:.3f} ms  torch._int_mm over the im2col (the GEMM "
+        f"alone, N 8) {lib_ms:.3f} ms")
     b_ms, b_by = bound(2 * B * H * W * 49 * NGF * 3,
                        B * H * W * (NGF + 3) * 2 + 49 * NGF * 3 + B * NGF * 8, PEAK_INT8)
     results.append(dict(name="conv7x7_head_q", route="cuda",
                         source="ircolor_tpu_torch/csrc/head.cu",
                         replaces="ircolor_tpu/ops/pallas_head.py:445",
                         max_abs_err=err, ms=ms, plain_ms=pms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     del xt
     torch.cuda.empty_cache()
     check_conv_int8(torch, results, randn)
@@ -399,13 +426,19 @@ def im2col_int8(torch, xq, pad: str):
 
 
 def check_conv_int8(torch, results: list, randn) -> None:
-    """Phase 2, the int8 conv: each site against its plain version (the
-    exact integer sums, then the same epilogue steps: tolerance 0), timed
-    beside ``torch._int_mm`` over an im2col (the int32 GEMM alone). The
-    row's numbers are one configuration-(a) forward: each site times its
+    """Phase 2, the int8 conv (``csrc/conv_fwd.cu``: the reflect pass where
+    the site pads by reflection, then the GEMM's q-conv policy on s8
+    operands): each site against its plain version (the exact integer
+    sums, then the same epilogue steps: tolerance 0) and bit-exact on
+    repeat, timed with its pass and GEMM apart, the GEMM also at the other
+    N (64 / 128) where the site's channels allow it (bit-exact too), beside
+    ``torch._int_mm`` over an im2col (the int32 GEMM alone). The row's
+    numbers are one configuration-(a) forward: each site times its
     launches per forward, summed."""
-    from ircolor_tpu_torch.kernels import conv_int8
+    from ircolor_tpu_torch.kernels import conv_int8, resblock
 
+    log(f"[int8 conv pass q8] ptxas {ptxas_lines('conv_fwd').get('pass q8', 'not built')}")
+    check_gemm_build("int8 conv", ("q-conv",))
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
@@ -427,9 +460,27 @@ def check_conv_int8(torch, results: list, randn) -> None:
             got = conv_int8.conv3x3_int8(xq, wq, sc, **kw)
             want = conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw)
             exact = bool(torch.equal(got, want))
-            del got, want
+            repeat = bool(torch.equal(got, conv_int8.conv3x3_int8(xq, wq, sc, **kw)))
             ms = cuda_time_ms(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **kw), 20)
             pms = cuda_time_ms(lambda: conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw), 1, 1)
+            # The launches apart: the reflect pass, the GEMM at the plan's N
+            # and at the other N (held bit-exact too).
+            plan = conv_int8._plan(bb, hh, ww, cin, cout, pad)
+            src = conv_int8._pad(xq) if pad == "reflect" else xq
+            tp = cuda_time_ms(lambda: conv_int8._pad(xq), 20) if pad == "reflect" else 0.0
+            ekw = dict(bias=kw.get("bias"), addend=kw.get("addend"),
+                       out_dtype=kw.get("out_dtype", torch.bfloat16))
+            gemm_ms = {}
+            for bn in (128, 64):
+                if -(-cout // 64) * 64 % bn:
+                    continue
+                p = resblock._conv_plan(bb, hh, ww, (cin,), cout, pad, s8=True, bn=bn)
+                kt = resblock._q_weights(wq, p)
+                alt = conv_int8._gemm(src, kt, sc, p, **ekw)
+                exact = exact and bool(torch.equal(alt, want))
+                del alt
+                gemm_ms[bn] = cuda_time_ms(lambda: conv_int8._gemm(src, kt, sc, p, **ekw), 20)
+            del got, want, src
             cols = im2col_int8(torch, xq, pad)
             wmat = wq.reshape(9 * cin, cout).t().contiguous().t()
             lib = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
@@ -439,10 +490,15 @@ def check_conv_int8(torch, results: list, randn) -> None:
                       + (cout * 4 if "bias" in kw else 0) + (npix * cout * 4 if form == "addend" else 0))
             ops = 2 * npix * 9 * cin * cout
             b_ms, b_by = bound(ops, nbytes, PEAK_INT8)
+            other = " ".join(f"N={bn} {t:.4f} ms" for bn, t in gemm_ms.items() if bn != plan.bn)
             log(f"[conv3x3_int8 ({config}) {label} {bb}x{hh}x{ww}x{cin}->{cout} {pad}, {form}] "
-                f"bit-exact: {exact} (tol 0); kernel {ms:.4f} ms  plain {pms:.3f} ms  "
-                f"_int_mm over im2col {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}), x{per_fwd} a forward")
-            if not exact:
+                f"bit-exact: {exact} (tol 0), repeat bit-exact: {repeat}; kernel {ms:.4f} ms "
+                f"= pass {tp:.4f} + GEMM N={plan.bn} {gemm_ms[plan.bn]:.4f} ms "
+                f"({ops / gemm_ms[plan.bn] / 1e9:.1f} TOP/s, {plan.blocks} output blocks)"
+                f"{'; other ' + other if other else ''}; plain {pms:.3f} ms; "
+                f"_int_mm over im2col {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+                f"x{per_fwd} a forward")
+            if not (exact and repeat):
                 raise AssertionError(f"conv3x3_int8 {label} disagrees with its plain version")
             if config == "a":
                 row["ms"] += per_fwd * ms
@@ -451,12 +507,12 @@ def check_conv_int8(torch, results: list, randn) -> None:
                 row["bound_ms"] += per_fwd * b_ms
                 row["ops_ms"] += per_fwd * ops / PEAK_INT8 * 1e3
                 row["bytes_ms"] += per_fwd * nbytes / PEAK_BYTES * 1e3
-            del xq, kw
+            del xq, kw, ekw
             torch.cuda.empty_cache()
     log(f"    one (a) forward's 24 launches: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
         f"_int_mm {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms")
     results.append(dict(name="conv3x3_int8", route="cuda",
-                        source="ircolor_tpu_torch/csrc/conv_int8.cu",
+                        source="ircolor_tpu_torch/csrc/conv_fwd.cu",
                         replaces="ircolor_tpu/ops/quant.py:93",
                         max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
                         bound_ms=row["bound_ms"],
@@ -465,7 +521,7 @@ def check_conv_int8(torch, results: list, randn) -> None:
 
 
 # csrc/conv_fwd.cu's epilogue policies, by their template number.
-EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats")
+EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats", "q-conv")
 
 
 def kernel_key(name: str) -> str:
@@ -587,7 +643,7 @@ def q_parts(torch, x, kq, sc, kw) -> str:
     b, h, w, c = x.shape
     cout = kq.shape[-1]
     plan = resblock._conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
-    zq, kt = resblock._q_pass(x, **kw), resblock._q_weights(kq)
+    zq, kt = resblock._q_pass(x, **kw), resblock._q_weights(kq, plan)
     tp = cuda_time_ms(lambda: resblock._q_pass(x, **kw), 10)
     tg = cuda_time_ms(lambda: resblock._q_gemm(zq, kt, sc, plan), 10)
     ops = 2 * b * h * w * 9 * c * cout
@@ -634,19 +690,20 @@ def dgrad_parts(torch, args, kw) -> str:
             f"in its SASS")
 
 
-def check_dgrad_build() -> None:
-    """Every dgrad instantiation of the GEMM (N 128 and 64, the mask-stats,
-    residual and dz policies) issues ``wgmma`` and spills nothing."""
+def check_gemm_build(what: str, policies: tuple) -> None:
+    """Every instantiation of csrc/conv_fwd.cu's GEMM with one of
+    ``policies`` (N 128 and 64) issues ``wgmma`` (HGMMA or IGMMA) and spills
+    nothing; their ptxas lines are printed."""
     ptx, hg = ptxas_lines("conv_fwd"), hgmma_by_kernel("conv_fwd")
     for bn in (128, 64):
-        for policy in ("mask-stats", "residual", "dz"):
+        for policy in policies:
             key = f"gemm n{bn} {policy}"
             line = ptx.get(key, "not built in this process")
-            log(f"[dgrad GEMM {key}] {hg.get(key, 0)} HGMMA; ptxas {line}")
+            log(f"[{what} GEMM {key}] {hg.get(key, 0)} wgmma instructions; ptxas {line}")
             if not hg.get(key):
-                raise AssertionError(f"the dgrad GEMM ({key}) issues no wgmma")
+                raise AssertionError(f"the {what} GEMM ({key}) issues no wgmma")
             if key in ptx and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                raise AssertionError(f"the dgrad GEMM ({key}) spills: {line}")
+                raise AssertionError(f"the {what} GEMM ({key}) spills: {line}")
 
 
 def check_bwd_kernels(torch, results: list) -> None:
@@ -686,7 +743,7 @@ def check_bwd_kernels(torch, results: list) -> None:
     # launch 1 (ReLU mask + stats, dy emitted once to check it) and launch 2
     # (residual add), each with a bit-exact repeat and its launches timed
     # apart.
-    check_dgrad_build()
+    check_gemm_build("dgrad", ("mask-stats", "residual", "dz"))
     errs, times, ptimes, bounds = [], [], [], []
     forms = (("mask_stats", (g, raw2, raw1, k, m2, i2, gm, gy), dict(mask_stats=(m1, i1))),
              ("residual", (raw1, raw2, g, k, m1, i1, gm, gy), {}))
@@ -1401,7 +1458,7 @@ def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_co
         for f in frames[:4]:
             infer(*f)
 
-    profile_window(torch, f"b1 {label} profile", four_frames, "4 frames", top=8)
+    profile_window(torch, f"b1 {label} profile", four_frames, "4 frames", top=8, ours=True)
     results_counts[f"b1 {label}"] = counts
     del model, outs
     torch.cuda.empty_cache()
@@ -1534,10 +1591,12 @@ def _train_setup(torch, np, n_batches: int = 4, hw: tuple = (H, W), **overrides)
     return cfg, state, vgg, make_train_step(cfg, vgg), batches
 
 
-def profile_window(torch, label: str, run, what: str, top: int = 12, table: bool = False) -> None:
+def profile_window(torch, label: str, run, what: str, top: int = 12, table: bool = False,
+                   ours: bool = False) -> None:
     """torch.profiler over ``run()``: device time by kernel and the busy
-    share of the window's wall time; with ``table`` the full operator table
-    goes to stderr."""
+    share of the window's wall time; with ``ours`` also every kernel of the
+    port's own (``ircolor::``) and their sum; with ``table`` the full
+    operator table goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1558,6 +1617,12 @@ def profile_window(torch, label: str, run, what: str, top: int = 12, table: bool
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
         log(f"    {dev_us(e) / 1e3:8.2f} ms  x{e.count:<4d} {e.key[:90]}")
+    if ours:
+        mine = [e for e in kernels if "ircolor" in e.key]
+        log(f"  the port's kernels: {sum(dev_us(e) for e in mine) / 1e3:.3f} ms of device time, "
+            f"{sum(e.count for e in mine)} launches")
+        for e in mine:
+            log(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
     if table:
         print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60),
               file=sys.stderr, flush=True)

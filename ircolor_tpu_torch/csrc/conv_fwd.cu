@@ -22,7 +22,12 @@
 //   pallas_resblock.py:conv3x3_dgrad_fused (:692, pallas_call :818), also
 //       run by pallas_encdec.py:113 (the segments: zero halos, p masked on
 //       load, no aux): the IN backward, the dgrad conv, the ReflectionPad
-//       fold, and the mask-stats / residual / plain epilogue.
+//       fold, and the mask-stats / residual / plain epilogue;
+//   and, not a Pallas kernel, XLA's int8 conv of the int8 route outside the
+//       fused blocks (quant.py:conv2d_int8 :93 and conv2d_int8_fixed,
+//       lax.conv_general_dilated on int8 operands, int32 sums): down1,
+//       down2, the unfused blocks and each leg of the int8 concat convs
+//       (up1, up2), on an input that arrives quantized.
 //
 //   out[b, r, c, co] = sum_{leg, ci, dy, dx} Xp[b, r+dy, c+dx, ci] * k[dy, dx, ci, co]
 //
@@ -31,9 +36,14 @@
 //   of the f32 values (over every leg, before rounding) for the caller's
 //   instance norm;
 // * store: out alone;
-// * q-stats (the int8 conv): y = f32(s32 acc) * sc[b, co] (cvt.rn, one
-//   multiply: the plain version's steps, so out is bit-identical to it),
-//   then the stats policy on y;
+// * q-stats (the int8 block conv): y = f32(s32 acc) * sc[b, co] (cvt.rn,
+//   one multiply: the plain version's steps, so out is bit-identical to
+//   it), then the stats policy on y;
+// * q-conv (the int8 conv): the same y, then + addend[b, r, c, co] (f32)
+//   and + bias[co] where given, each one IEEE add in the plain version's
+//   order, stored as f32 or bf16; no stats. Its channels need not fill
+//   the tile: the weights come zero-extended, A's last chunk runs into
+//   TMA's zero fill past C, and the channels past Cout are masked;
 // and the dgrad's, which add the fold first (see below):
 // * mask-stats (the block dgrad's launch 1): out = bf16(y * [aux > mm]) and
 //   per-(b, tile) sums of y_masked and y_masked * (aux - mm) * mi;
@@ -57,10 +67,14 @@
 // What bounds it on the H100: the tensor cores. At the flagship bottleneck
 // (32x128x160x256 -> 256) one forward conv is 0.77 TFLOP against 0.67 GB of
 // activations in and out (~1150 flop/byte, far above the card's ridge
-// point of ~295; the int8 conv: 0.77 TOP at twice the rate, ~590 a
+// point of ~295; the int8 block conv: 0.77 TOP at twice the rate, ~590 a
 // byte); at down2 (128 -> 256) and up1 (256 + 128 -> 128), 256x320,
 // ~770 and ~860 flop/byte; the dgrad at the b8 bottleneck 0.193 TFLOP
-// against ~0.34 GB (~600 flop/byte). The operand passes are memory-bound.
+// against ~0.34 GB (~600 flop/byte). The int8 conv at batch 1 is bound by
+// the int8 tensor cores at down2, the blocks and up1's first leg, by the
+// memory where the output is wider than the input or f32 (down1, up1's
+// second leg, up2); every site is a few hundred output blocks, so the
+// last wave decides much of its time. The operand passes are memory-bound.
 // The weights (at most 1.2 MB) and the planes' recent rows stay in L2, so
 // the tile's shape decides the L2 -> shared traffic: a stage moves 44 KB for
 // 6.3 MFLOP of wgmma (~0.007 byte a flop, ~5 TB/s at 700 TFLOP/s).
@@ -69,19 +83,21 @@
 // * Operand pass (tma.cuh, memory-bound): REFLECT writes the reflect-padded
 //   Zp (B, H+2, W+2, C) of x or of bf16(relu((x - mean)*inv)); VALID with
 //   mean/inv normalizes the padded input as it is; the dgrad writes dy; the
-//   int8 conv writes the reflect-padded quantized Zp as int8 (its reflect
-//   index map is where a spatial shard's halo row would come in). ZERO and
-//   VALID raw need none: the GEMM reads the input itself.
+//   int8 block conv writes the reflect-padded quantized Zp as int8 (its
+//   reflect index map is where a spatial shard's halo row would come in),
+//   and the int8 conv's reflect sites copy their quantized input into the
+//   reflect-padded Zp. ZERO and VALID raw need none: the GEMM reads the
+//   input itself.
 // * GEMM: a block owns TH x TW = 8 x 32 output pixels (M = 256) of one
 //   image and BN = 128 output channels (N; 64 where Cout % 128 != 0, the
 //   segments' dz of 64): two consumer warpgroups of 4 rows (two m64
 //   sub-tiles, 2 rows each) and one producer warp, one thread of which
-//   issues the copies. The dgrad's policies take a producer warpgroup in
-//   its place, which hands its registers to the consumers (setmaxnreg: 40
-//   for it, 232 for them, where a 384-thread block gets 168 a thread; at
-//   168 their epilogues spilled up to 4.5 KB; the forward's policies ran
-//   slower as a 384-thread block). M = 256 halves the weight traffic a
-//   flop of the old 128-pixel tile.
+//   issues the copies. The dgrad's policies and q-conv take a producer
+//   warpgroup in its place, which hands its registers to the consumers
+//   (setmaxnreg: 40 for it, 232 for them, where a 384-thread block gets 168
+//   a thread; at 168 their epilogues spilled up to 4.5 KB, q-conv's 320
+//   bytes; the forward's policies ran slower as a 384-thread block).
+//   M = 256 halves the weight traffic a flop of the old 128-pixel tile.
 // * A (activations) is K-major: TMA copies a box of (KC = 32 channels, TW
 //   columns, TH + 2 rows, 1 image), 64-byte swizzled, one pixel a 64-byte
 //   row. A stage holds one such box at column c0 + dx: tap (dy, dx) is then
@@ -102,7 +118,10 @@
 //   bytes along the row as a k16 bf16 one, and a stage does twice the MACs
 //   for the same 44 KB. m64n128k32 s8 wgmmas into s32 accumulators (the
 //   same registers as f32 ones; |acc| <= 127 * 127 * 9 * C < 2^31 for C
-//   < 14,800: no saturation).
+//   < 14,800: no saturation). The q-conv policy also runs N = 64
+//   (m64n64k32, a 12 KB B box: 32 KB stages) where the plan picks it:
+//   Cout' = 64, or a batch-1 site whose N = 128 output blocks leave a
+//   short last wave on the 132 SMs.
 // * A stage is (leg, KC-channel chunk, dx): 20 KB of A and 12 KB of B per
 //   64 output channels, 4 stages (a ring of 2 stages of 64 channels, 88 KB
 //   each, gave the loads one stage of lead and ran slower on the H100). The
@@ -148,8 +167,9 @@ constexpr int KC = 32;                           // input channels a stage
 constexpr int KC_S8 = 64;                        // input channels an int8 stage
 constexpr int CONSUMERS = 2;                     // warpgroups, TH / 2 rows each
 // Threads of a block: the consumers and a producer warp, or (the dgrad's
-// policies) a producer warpgroup whose registers setmaxnreg hands over.
-constexpr int threads_of(bool dgrad) { return CONSUMERS * 128 + (dgrad ? 128 : 32); }
+// policies and q-conv: see wide_producer) a producer warpgroup whose
+// registers setmaxnreg hands over.
+constexpr int threads_of(bool wide) { return CONSUMERS * 128 + (wide ? 128 : 32); }
 constexpr int STAGES = 4;
 constexpr int A_ROW = KC * 2;                    // one pixel: 64 bytes
 constexpr int A_BYTES = (TH + 2) * TW * A_ROW;   // one dx buffer: 20 KB
@@ -173,16 +193,26 @@ struct Ring {
 
 // The epilogue policies (see the note at the top): the forward's stats and
 // store; the dgrad's mask-stats, residual and dz (store), which add the
-// fold; the int8 conv's q-stats, the one policy on s8 operands.
+// fold; on s8 operands, the int8 block conv's q-stats and the int8 conv's
+// q-conv.
 enum Epi {
   EPI_STATS = 0,
   EPI_STORE = 1,
   EPI_MASK_STATS = 2,
   EPI_RESIDUAL = 3,
   EPI_DZ = 4,
-  EPI_QSTATS = 5
+  EPI_QSTATS = 5,
+  EPI_QCONV = 6
 };
 __host__ __device__ constexpr bool is_dgrad(int epi) { return epi >= EPI_MASK_STATS && epi <= EPI_DZ; }
+__host__ __device__ constexpr bool is_s8(int epi) { return epi == EPI_QSTATS || epi == EPI_QCONV; }
+// The policies whose consumers need more than the 168 registers a thread of
+// a 288-thread block gets (three warps share a quarter of the register
+// file): q-conv's epilogue (the addend read one column group ahead) spilled
+// 320 bytes at N = 128 there.
+__host__ __device__ constexpr bool wide_producer(int epi) {
+  return is_dgrad(epi) || epi == EPI_QCONV;
+}
 
 // Registers a thread of this warpgroup may hold from here on: the producer
 // gives its share to the consumers, whose accumulators alone take 128.
@@ -273,13 +303,33 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(1));
 }
 
+// m64n64k32, the same operands with a 64-channel B box.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 struct FwdArgs {
   __nv_bfloat16* out;  // (B, H, W, Cout)
   float* partial;      // (B, ntiles, 2, Cout): the stats and mask-stats policies
   const __nv_bfloat16* aux;  // (B, H, W, Cout): mask-stats (raw1) and residual
   const float* mm;     // (B, Cout) mask-stats: aux's IN mean and inv
   const float* mi;
-  const float* sc;     // (B, Cout) q-stats: the dequant scale
+  const float* sc;     // (B, Cout) q-stats, q-conv: the dequant scale
+  const float* addend; // (B, H, W, Cout) q-conv: f32 added to y, or null
+  const float* bias;   // (Cout) q-conv: f32 added last, or null
+  float* out_f32;      // (B, H, W, Cout) q-conv: f32 output in out's place, or null
   const float* fold;   // (B, 2, W+2, Cout) f32 fold rows, or null (no fold)
   const float* fold_cols;  // (B, H, 2, Cout) f32 fold columns
   int H, W, Cout;      // the output plane
@@ -294,17 +344,18 @@ struct FwdArgs {
 // so the producer loads a task's first stages during the last one's
 // epilogue.
 template <int BN, int EPI>
-__global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
+__global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
     conv_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                          const __grid_constant__ CUtensorMap ta1,
                          const __grid_constant__ CUtensorMap tb0,
                          const __grid_constant__ CUtensorMap tb1, const FwdArgs a) {
   constexpr int STAGE = Ring<BN>::STAGE;
-  constexpr bool S8 = EPI == EPI_QSTATS;  // s8 operands, s32 accumulators
-  constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS || S8;
+  constexpr bool S8 = is_s8(EPI);  // s8 operands, s32 accumulators
+  constexpr bool QCONV = EPI == EPI_QCONV;
+  constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS || EPI == EPI_QSTATS;
   constexpr bool DGRAD = is_dgrad(EPI);
   constexpr int KCH = S8 ? KC_S8 : KC;  // input channels a stage
-  static_assert(!S8 || BN == 128, "the int8 conv runs N = 128");
+  static_assert(EPI != EPI_QSTATS || BN == 128, "the int8 block conv runs N = 128");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB
   const uint32_t red = base + STAGES * STAGE;
@@ -325,7 +376,7 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
   if (wg == CONSUMERS) {
     // Producer warp(group): one thread issues every copy. Stage j of a task: leg,
     // chunk (j / 3) and dx (j % 3); g counts stages over all tasks.
-    if constexpr (DGRAD) setmaxnreg_dec<40>();
+    if constexpr (wide_producer(EPI)) setmaxnreg_dec<40>();
     if (threadIdx.x != CONSUMERS * 128) return;
     int g = 0;
     for (int task = blockIdx.x; task < a.ntasks; task += gridDim.x) {
@@ -357,7 +408,7 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
 
   // Consumer warpgroup wg: output rows r0 + 4 wg + [0, 4) of each task, as
   // two m64 sub-tiles of 2 rows; BN output channels.
-  if constexpr (DGRAD) setmaxnreg_inc<232>();
+  if constexpr (wide_producer(EPI)) setmaxnreg_inc<232>();
   const int warp = (threadIdx.x / 32) % 4;
   float* redp = reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw)));
   float* maskv = reinterpret_cast<float*>(smem_raw + (maskp - smem_u32(smem_raw)));
@@ -367,10 +418,18 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
     const int b = mt / a.ntiles, tile = mt % a.ntiles;
     const int r0 = (tile / a.ntc) * TH, c0 = (tile % a.ntc) * TW;
     if constexpr (EPI == EPI_MASK_STATS || S8) {
-      // The task's mm and mi (or sc) into shared memory (the last task's
-      // epilogue is done with them: it ended on the consumers' barrier).
+      // The task's mm and mi (or sc, and q-conv's bias) into shared memory
+      // (the last task's epilogue is done with them: it ended on the
+      // consumers' barrier, which q-conv, with no sums, waits on here).
       const int x = threadIdx.x;
-      if constexpr (S8) {
+      if constexpr (QCONV) {
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+        const int co = co0 + x % BN;  // channels past Cout read as 0
+        if (x < 2 * BN)
+          maskv[x] = co >= a.Cout ? 0.f
+                     : x < BN     ? a.sc[(size_t)b * a.Cout + co]
+                                  : (a.bias != nullptr ? a.bias[co] : 0.f);
+      } else if constexpr (S8) {
         if (x < BN) maskv[x] = a.sc[(size_t)b * a.Cout + co0 + x];
       } else {
         if (x < 2 * BN) maskv[x] = x < BN ? a.mm[(size_t)b * a.Cout + co0 + x]
@@ -401,8 +460,10 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
           for (int t = 0; t < 2; ++t) {
             const uint32_t arow = (4 * wg + 2 * t + dy) * TW;  // first buffer row of the tap
             const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
-            if constexpr (S8) {
+            if constexpr (S8 && BN == 128) {
               wgmma_s8_n128(acc[t], da, db);
+            } else if constexpr (S8) {
+              wgmma_s8_n64(acc[t], da, db);
             } else if constexpr (BN == 128) {
               wgmma_n128(acc[t], da, db);
             } else {
@@ -444,39 +505,48 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
         else if (ec)
           fmain[t][h] = a.fold_cols + (((size_t)b * a.H + r) * 2 + (c != 1)) * a.Cout + co0 + cl;
       }
+    // q-conv: its addend, read like aux (channel co0 + cl < Cout always).
+    const bool qadd = QCONV && a.addend != nullptr;
     uint32_t nav[2][2];
-    float2 nf[2][2];
+    float2 nf[2][2], nad[2][2];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool ok = rw + 2 * t < a.H && cw + 8 * h < a.W;
-        nav[t][h] = AUX && ok ? ldg32(a.aux + obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout) : 0u;
+        const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout;
+        nav[t][h] = AUX && ok ? ldg32(a.aux + o) : 0u;
         nf[t][h] = fmain[t][h] ? ldg_f2(fmain[t][h]) : make_float2(0.f, 0.f);
+        nad[t][h] = qadd && ok ? ldg_f2(a.addend + o) : make_float2(0.f, 0.f);
       }
     wgmma_wait<0>();  // the loads above overlap the task's last wgmmas
     if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));  // the task's last stage
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
+      // q-conv: Cout % 16 == 0, so a group of 8 channels lies wholly below
+      // Cout or wholly past it, for every thread alike.
+      if (QCONV && co0 + 8 * i >= a.Cout) break;
       uint32_t av[2][2];
-      float2 fv[2][2];
+      float2 fv[2][2], adv[2][2];
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           av[t][h] = nav[t][h];
           fv[t][h] = nf[t][h];
+          adv[t][h] = nad[t][h];
           if (i + 1 < BN / 8) {
             const bool ok = rw + 2 * t < a.H && cw + 8 * h < a.W;
             const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout + 8 * (i + 1);
             if (AUX && ok) nav[t][h] = ldg32(a.aux + o);
             if (fmain[t][h]) nf[t][h] = ldg_f2(fmain[t][h] + 8 * (i + 1));
+            if (qadd && ok && co0 + 8 * (i + 1) < a.Cout) nad[t][h] = ldg_f2(a.addend + o);
           }
         }
-      float2 mm = make_float2(0.f, 0.f), mi = mm;  // S8: mm holds sc
+      float2 mm = make_float2(0.f, 0.f), mi = mm;  // S8: mm holds sc; q-conv: mi the bias
       if constexpr (EPI == EPI_MASK_STATS || S8)
         mm = *reinterpret_cast<const float2*>(maskv + 8 * i + cl);
-      if constexpr (EPI == EPI_MASK_STATS)
+      if constexpr (EPI == EPI_MASK_STATS || QCONV)
         mi = *reinterpret_cast<const float2*>(maskv + BN + 8 * i + cl);
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
@@ -522,7 +592,20 @@ __global__ void __launch_bounds__(threads_of(is_dgrad(EPI)), 1)
               y0 += a0;
               y1 += a1;
             }
-          } else if constexpr (EPI == EPI_STATS || S8) {
+          } else if constexpr (QCONV) {  // (addend + y) + bias, each one rounding
+            if (qadd) {
+              y0 = __fadd_rn(adv[t][h].x, y0);
+              y1 = __fadd_rn(adv[t][h].y, y1);
+            }
+            if (a.bias != nullptr) {
+              y0 = __fadd_rn(y0, mi.x);
+              y1 = __fadd_rn(y1, mi.y);
+            }
+            if (a.out_f32 != nullptr) {
+              *reinterpret_cast<float2*>(a.out_f32 + o) = make_float2(y0, y1);
+              continue;
+            }
+          } else if constexpr (STATS) {
             s1[0] += y0;
             s1[1] += y1;
             s2[0] += y0 * y0;
@@ -577,12 +660,12 @@ int make_weight_map(CUtensorMap* map, const void* k, int C, int Cout) {
 }
 
 // The int8 weights repacked K-major, (3, 3, Cout, C), as a 4-D map (C,
-// Cout, 3 dx, 3 dy), boxes of (KC_S8 input channels, 128 output channels,
+// Cout, 3 dx, 3 dy), boxes of (KC_S8 input channels, bn output channels,
 // 1 dx, 3 dy): 64-byte rows, one output channel a row.
-int make_q_weight_map(CUtensorMap* map, const void* k, int C, int Cout) {
+int make_q_weight_map(CUtensorMap* map, const void* k, int C, int Cout, int bn) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)Cout, 3, 3};
   const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)Cout * C, (cuuint64_t)3 * Cout * C};
-  const cuuint32_t box[4] = {KC_S8, 128, 1, 3};
+  const cuuint32_t box[4] = {KC_S8, (cuuint32_t)bn, 1, 3};
   return make_map_4d(map, k, dims, strides, box, 1);
 }
 
@@ -593,25 +676,33 @@ int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMa
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads_of(is_dgrad(EPI)), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1, a);
+  kernel<<<grid, threads_of(wide_producer(EPI)), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1, a);
   return (int)cudaGetLastError();
 }
 
 // The GEMM of leg 0 (x0, k0 (3, 3, C0, Cout)) and, with x1 non-null, leg 1
-// (x1, k1, C1) with a's pointers and policy: maps, tiling, launch. The
-// q-stats policy takes one int8 leg and k0 repacked (3, 3, Cout, C0).
+// (x1, k1, C1) with a's pointers and policy: maps, tiling, launch. The s8
+// policies take one int8 leg and k0 repacked K-major, (3, 3, Cout', C0'):
+// q-stats with C0' = C0 % 64 == 0 and Cout' = Cout % 128 == 0; q-conv with
+// C0 % 16 == 0 and Cout % 16 == 0, zero-extended to C0' (C0 rounded up to
+// 64: A's last chunk reads past C0 into TMA's zero fill) and Cout' (Cout
+// rounded up to bn; the epilogue masks the channels past Cout).
 int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
              FwdArgs a, int B, int H, int W, int Cout, int zero, int bn, int epi, int grid,
              cudaStream_t stream) {
-  const bool s8 = epi == EPI_QSTATS;
+  const bool s8 = is_s8(epi), qconv = epi == EPI_QCONV;
   const int kc = s8 ? KC_S8 : KC, esize = s8 ? 1 : 2;
-  if (C0 <= 0 || C0 % 64 || C1 % 64 || (x1 == nullptr) != (C1 == 0) || Cout % bn || B < 1 ||
-      H < 1 || W < 1 || grid < 1 || (s8 && (x1 != nullptr || bn != 128)))
+  const int c0p = qconv ? (C0 + kc - 1) / kc * kc : C0;
+  const int coutp = qconv ? (Cout + bn - 1) / bn * bn : Cout;
+  if (C0 <= 0 || C0 % (qconv ? 16 : 64) || C1 % 64 || (x1 == nullptr) != (C1 == 0) ||
+      Cout <= 0 || Cout % 16 || coutp % bn || B < 1 || H < 1 || W < 1 || grid < 1 ||
+      (s8 && x1 != nullptr) || (epi == EPI_QSTATS && bn != 128))
     return (int)cudaErrorInvalidValue;
   const int pad = zero ? 0 : 2;
   CUtensorMap ta0, ta1, tb0, tb1;
   int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, kc, esize);
-  if (err == 0) err = s8 ? make_q_weight_map(&tb0, k0, C0, Cout) : make_weight_map(&tb0, k0, C0, Cout);
+  if (err == 0)
+    err = s8 ? make_q_weight_map(&tb0, k0, c0p, coutp, bn) : make_weight_map(&tb0, k0, C0, Cout);
   if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
   if (err == 0 && x1 != nullptr) err = make_weight_map(&tb1, k1, C1, Cout);
   if (err != 0) return err;
@@ -622,11 +713,11 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
   a.H = H;
   a.W = W;
   a.Cout = Cout;
-  a.nchunk0 = C0 / kc;
+  a.nchunk0 = c0p / kc;
   a.nchunk1 = C1 / kc;
   a.ntc = (W + TW - 1) / TW;
   a.ntiles = ((H + TH - 1) / TH) * a.ntc;
-  a.ncob = Cout / bn;
+  a.ncob = coutp / bn;
   a.shift = zero ? 1 : 0;
   const long long tasks = (long long)B * a.ntiles * a.ncob;
   if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
@@ -640,6 +731,7 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
         return launch_gemm<128, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_RESIDUAL: return launch_gemm<128, EPI_RESIDUAL>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_QSTATS: return launch_gemm<128, EPI_QSTATS>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_QCONV: return launch_gemm<128, EPI_QCONV>(ta0, ta1, tb0, tb1, a, grid, stream);
     }
   } else if (bn == 64) {
     switch (epi) {
@@ -647,6 +739,7 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
       case EPI_MASK_STATS:
         return launch_gemm<64, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_RESIDUAL: return launch_gemm<64, EPI_RESIDUAL>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_QCONV: return launch_gemm<64, EPI_QCONV>(ta0, ta1, tb0, tb1, a, grid, stream);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -846,6 +939,47 @@ int ircolor_conv_q_gemm(const void* zq, const void* kq, const void* sc, int C, v
   a.partial = static_cast<float*>(partial);
   a.sc = static_cast<const float*>(sc);
   return run_gemm(zq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, 0, 128, EPI_QSTATS, grid,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The int8 conv's reflect pass: out (B, H+2, W+2, C) int8 = xq (B, H, W, C)
+// int8 reflect-padded by one pixel, 16 channels a unit. C % 16 == 0.
+int ircolor_conv_q8_pad(const void* xq, void* out, int B, int H, int W, int C, void* stream) {
+  using namespace ircolor;
+  if (C % 16 || B < 1 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  PassArgs a = {};
+  a.zq = static_cast<const int8_t*>(xq);
+  a.zp = out;
+  a.nzp = (long long)B * (H + 2) * (W + 2) * (C / 16);
+  a.H = H;
+  a.W = W;
+  a.Cz = C;
+  a.zpad = 1;
+  return launch_operand_pass(a, static_cast<cudaStream_t>(stream), true);
+}
+
+// The int8 conv's GEMM: out (B, H, W, Cout), bf16 or (out_f32) f32, =
+// ((f32(sum of xq against kq) * sc[b, co]) + addend) + bias, the addend (B,
+// H, W, Cout) and bias (Cout) f32 where non-null, sc (B, Cout) f32. zero =
+// 1: xq (B, H, W, C) int8, read with zero halos; zero = 0: reflect-padded,
+// (B, H+2, W+2, C). kq (3, 3, Cout', C') int8, zero-extended: C' is C
+// rounded up to 64, Cout' Cout rounded up to bn (128 or 64). C % 16 == 0,
+// Cout % 16 == 0.
+int ircolor_conv_qconv_gemm(const void* xq, const void* kq, const void* sc, const void* addend,
+                            const void* bias, void* out, int out_f32, int C, int B, int H, int W,
+                            int Cout, int zero, int bn, int grid, void* stream) {
+  using namespace ircolor;
+  if (sc == nullptr || (bn != 128 && bn != 64)) return (int)cudaErrorInvalidValue;
+  FwdArgs a = {};
+  if (out_f32) {
+    a.out_f32 = static_cast<float*>(out);
+  } else {
+    a.out = static_cast<__nv_bfloat16*>(out);
+  }
+  a.sc = static_cast<const float*>(sc);
+  a.addend = static_cast<const float*>(addend);
+  a.bias = static_cast<const float*>(bias);
+  return run_gemm(xq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, zero, bn, EPI_QCONV, grid,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -33,9 +33,11 @@ constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
 //   q = clamp(rint(z * qscale[b]), -127, 127)                (zm null)
 //   q = min(rint(relu((z - zm)*zi) * qfixed), 127)
 // The normalized value stays f32 up to the quantize: it is not rounded to
-// bf16 first.
+// bf16 first. With zq (the int8 conv's reflect sites) the input is int8
+// already and Z is zq reflect-padded, 16 bytes copied a unit.
 struct PassArgs {
   const __nv_bfloat16* z;     // (B, H, W, Cz), or null (no Z part)
+  const int8_t* zq;           // Q8: (B, H, W, Cz) int8 copied as it is, or null
   const __nv_bfloat16* p;     // (B, H, W, Co), or null (no dy part)
   const __nv_bfloat16* comp;  // (B, H, W, Co)
   const float* m;             // (B, Co) IN mean, inv, E[p], E[p*n]
@@ -83,7 +85,12 @@ __global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassAr
       // zpad = 0: the identity map (every index lies in range).
       const int h = reflect_index(rem / wo - a.zpad, a.H);
       const int w = reflect_index(rem % wo - a.zpad, a.W);
-      const __nv_bfloat16* src = a.z + (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8;
+      const size_t off = (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8;
+      if (Q8 && a.zq != nullptr) {
+        *reinterpret_cast<uint4*>(static_cast<int8_t*>(a.zp) + v * 16) = ldg16(a.zq + off);
+        continue;
+      }
+      const __nv_bfloat16* src = a.z + off;
       uint4 zv = ldg16(src);
       if constexpr (Q8) {
         const uint4 zv1 = ldg16(src + 8);

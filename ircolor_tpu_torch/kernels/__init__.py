@@ -27,9 +27,10 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
 
 ``conv3x3_reflect_fused``, ``conv3x3_sum_fused``, ``block.*`` and ``conv.*``
 run the bf16 conv of ``csrc/conv_fwd.cu`` in its reflect, zero and VALID
-halo modes. They and
-``blur_downsample_pallas`` are, like the JAX functions, on no generator
-route: the JAX tools call them, and so does ``chip_smoke.py``.
+halo modes; ``conv3x3_reflect_fused_q`` and ``conv_int8.conv3x3_int8`` run
+the same GEMM on s8 operands. ``conv3x3_sum_fused``, ``block.*``,
+``conv.*`` and ``blur_downsample_pallas`` are, like the JAX functions, on
+no generator route: the JAX tools call them, and so does ``chip_smoke.py``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """int8 3×3 conv of the int8 serving route outside the fused blocks
-(``csrc/conv_int8.cu``).
+(``csrc/conv_fwd.cu``: the forward conv's GEMM on s8 operands with the
+q-conv epilogue).
 
 Counterpart of the JAX package's XLA int8 conv: ``lax.conv_general_dilated``
 on int8 operands with int32 accumulation inside ``ops/quant.py:conv2d_int8``
@@ -10,36 +11,41 @@ kernel there. The operands arrive quantized; the kernel computes
     acc[b, y, x, co] = Σ_{dy, dx, ci} xq[b, y+dy−1, x+dx−1, ci] · wq[dy, dx, ci, co]
     out = ((f32(acc) · sc[b, co]) + addend) + bias[co]      (each term optional)
 
-with one pixel of zero or reflect padding built into the index map, and
-writes float32 or bf16. The epilogue rounds step by step like the plain
-version, so the two agree bit for bit.
+with one pixel of zero or reflect padding, and writes float32 or bf16. The
+epilogue rounds step by step like the plain version, so the two agree bit
+for bit.
+
+On the card, one or two launches of ``csrc/conv_fwd.cu``: for reflect
+padding the int8 form of the operand pass copies ``xq`` reflect-padded by
+one pixel; then the TMA + ``wgmma`` GEMM reads that (zero padding: ``xq``
+itself, TMA filling the halo with zeros) against the weights repacked
+K-major and zero-extended to (3, 3, Cout', Cin') (``resblock._q_weights``),
+and its q-conv epilogue dequantizes, adds, masks the channels past Cout
+and stores. The plan (``_plan``) is ``resblock._conv_plan`` on s8
+operands.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
 
-_KC = 32  # input channels (bytes) per K chunk of the kernel
 _PADS = ("zero", "reflect")
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+_CQ = 16  # Cin and Cout granule: a 16-byte TMA row stride, 8-channel epilogue groups
 
-_lib = None
 
+def _rb():
+    """``kernels/resblock.py`` (the shared conv GEMM's plan, library and
+    plain version), imported at first use: it imports ``int_conv_exact``
+    from here."""
+    from ircolor_tpu_torch.kernels import resblock
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = build.load("conv_int8")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ircolor_conv3x3_int8.argtypes = [p] * 6 + [i] * 7 + [p]
-        lib.ircolor_conv3x3_int8.restype = i
-        _lib = lib
-    return _lib
+    return resblock
 
 
 def int_conv_exact(q: torch.Tensor, kq: torch.Tensor, pad: str) -> torch.Tensor:
@@ -63,15 +69,82 @@ def int_conv_exact(q: torch.Tensor, kq: torch.Tensor, pad: str) -> torch.Tensor:
     return out
 
 
-def conv3x3_int8_plain(xq, wq, sc, *, pad="zero", bias=None, addend=None,
-                       out_dtype=torch.bfloat16):
-    """Plain version: the exact integer sums, then the kernel's epilogue."""
-    y = int_conv_exact(xq, wq, pad).float() * sc[:, None, None, :]
+def _epilogue(acc, sc, bias, addend, out_dtype):
+    """f32(acc) · sc, + addend, + bias, in ``out_dtype``: one rounding a step."""
+    y = acc.float() * sc[:, None, None, :]
     if addend is not None:
         y = addend + y
     if bias is not None:
         y = y + bias
     return y.to(out_dtype)
+
+
+def conv3x3_int8_plain(xq, wq, sc, *, pad="zero", bias=None, addend=None,
+                       out_dtype=torch.bfloat16):
+    """Plain version: the exact integer sums, then the kernel's epilogue."""
+    return _epilogue(int_conv_exact(xq, wq, pad), sc, bias, addend, out_dtype)
+
+
+def check_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
+    """Raise unless the card's int8 conv takes the shape: Cin and Cout
+    multiples of 16 (TMA's 16-byte row strides; the epilogue's groups of 8
+    channels), H, W ≥ 2 (reflect padding), B ≤ 65535."""
+    if c % _CQ or cout % _CQ or h < 2 or w < 2 or b > 65535:
+        raise ValueError(
+            f"conv3x3_int8 kernel: unsupported shape xq={(b, h, w, c)} Cout={cout} "
+            f"(needs Cin % {_CQ} == 0, Cout % {_CQ} == 0, H, W >= 2, B <= 65535)"
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str):
+    """The GEMM's plan, from the shapes alone: K in 64-channel chunks (Cin
+    rounded up), N = 128 output channels a block where Cout' (Cout rounded
+    up to 64) allows it and its output blocks fill the 132 SMs' waves as
+    well as N = 64's (waves × N no larger); else N = 64. Cached: a batch-1
+    frame asks for the same 24 plans again."""
+    rb = _rb()
+    coutp = -(-cout // 64) * 64
+    ntiles = -(-h // rb._CF_TH) * -(-w // rb._CF_TW)
+
+    def cost(bn: int) -> int:
+        return -(-b * ntiles * (coutp // bn) // rb._CF_WAVE) * bn
+
+    bn = 128 if coutp % 128 == 0 and cost(128) <= cost(64) else 64
+    return rb._conv_plan(b, h, w, (c,), cout, pad, s8=True, bn=bn)
+
+
+def _pad(xq: torch.Tensor) -> torch.Tensor:
+    """The reflect pass: ``xq`` reflect-padded by one pixel; on a CPU tensor
+    the bf16 operand pass's plain version, which copies any dtype."""
+    if xq.device.type == "cpu":
+        return _rb()._conv_pass_plain(xq)
+    b, h, w, c = xq.shape
+    out = torch.empty((b, h + 2, w + 2, c), dtype=torch.int8, device=xq.device)
+    err = _rb()._load_fwd().ircolor_conv_q8_pad(xq.data_ptr(), out.data_ptr(), b, h, w, c,
+                                                stream_ptr())
+    build.check(err, "int8 conv reflect pass")
+    return out
+
+
+def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
+    """The GEMM with the q-conv epilogue on ``src`` (``xq``, or its
+    reflect-padded copy) and the repacked weights ``kt``; on a CPU tensor
+    its plain version: the exact sums in the kernel's K order over whole
+    tiles (``resblock._conv_acc_plain``, the K-major weights read back as
+    HWIO), then the epilogue on the pixels and channels that exist."""
+    rb = _rb()
+    if src.device.type == "cpu":
+        acc = rb._conv_acc_plain([src], [kt.transpose(2, 3)], plan)
+        return _epilogue(acc[:, : plan.h, : plan.w, : plan.cout], sc, bias, addend, out_dtype)
+    b, c = src.shape[0], src.shape[-1]
+    out = torch.empty((b, plan.h, plan.w, plan.cout), dtype=out_dtype, device=src.device)
+    err = rb._load_fwd().ircolor_conv_qconv_gemm(
+        src.data_ptr(), kt.data_ptr(), sc.data_ptr(), rb._ptr(addend), rb._ptr(bias),
+        out.data_ptr(), int(out_dtype == torch.float32), c, b, plan.h, plan.w, plan.cout,
+        plan.shift, plan.bn, plan.grid, stream_ptr())
+    build.check(err, "int8 conv GEMM")
+    return out
 
 
 def conv3x3_int8(xq, wq, sc, *, pad="zero", bias=None, addend=None, out_dtype=torch.bfloat16):
@@ -87,7 +160,7 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", bias=None, addend=None, out_dtype=to
     b, h, w, c = xq.shape
     cout = wq.shape[-1]
     require(xq, "xq", torch.int8, (None, None, None, None))
-    # wq is packed below, so any layout will do.
+    # wq is repacked below, so any layout will do.
     require(wq.contiguous(), "wq", torch.int8, (3, 3, c, None))
     require(sc, "sc", torch.float32, (b, cout))
     if bias is not None:
@@ -96,21 +169,12 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", bias=None, addend=None, out_dtype=to
         require(addend, "addend", torch.float32, (b, h, w, cout))
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"conv3x3_int8: out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
-    if c % _KC or cout % 64 or h < 2 or w < 2 or b > 65535:
-        raise ValueError(
-            f"conv3x3_int8 kernel: unsupported shape xq={tuple(xq.shape)} Cout={cout} "
-            f"(needs Cin % {_KC} == 0, Cout % 64 == 0, H, W >= 2)"
-        )
-    wpk = wq.reshape(9, c // _KC, _KC, cout).permute(1, 0, 3, 2).contiguous()
-    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=xq.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _load().ircolor_conv3x3_int8(
-        xq.data_ptr(), wpk.data_ptr(), sc.data_ptr(), ptr(bias), ptr(addend), out.data_ptr(),
-        b, h, w, c, cout, int(pad == "reflect"), int(out_dtype == torch.float32), stream_ptr(),
-    )
-    build.check(err, "conv3x3_int8")
+    check_shape(b, h, w, c, cout)
+    if any(t.data_ptr() % 16 for t in (xq, addend) if t is not None):
+        raise ValueError("conv3x3_int8: xq and addend must start on 16-byte boundaries "
+                         "(TMA and the epilogue read them in 16- and 8-byte units)")
+    plan = _plan(b, h, w, c, cout, pad)
+    src = _pad(xq) if pad == "reflect" else xq
+    out = _gemm(src, _rb()._q_weights(wq, plan), sc, plan, bias, addend, out_dtype)
     LAUNCHES["conv3x3_int8"] += 1
     return out

@@ -63,6 +63,8 @@ def _load_fwd():
             (lib.ircolor_conv_dgrad_gemm, [p, p, i] + [p] * 7 + [i] * 5 + [p]),
             (lib.ircolor_conv_q_pass, [p] * 4 + [ctypes.c_float, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
+            (lib.ircolor_conv_q8_pad, [p, p] + [i] * 4 + [p]),
+            (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 9 + [p]),
         ):
             fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
@@ -157,11 +159,13 @@ class ConvPlan(NamedTuple):
     A box ``a_box`` (channels, columns, rows, images) read at column ``c0 +
     dx − shift``, row ``r0 − shift`` of the leg's source, and two weight
     boxes ``b_box`` (output channels, input channels, dx, dy) — or, in the
-    int8 conv's plan (``s8``: KC = 64 int8 channels, the same bytes), one
+    int8 convs' plans (``s8``: KC = 64 int8 channels, the same bytes), one
     box (input channels, output channels, dx, dy) of the K-major weights.
-    ``pass_pad``: the operand pass on every leg first — 1 reflect-pads
-    (and normalizes with mean/inv), 0 only normalizes the pre-padded input,
-    None runs no pass."""
+    An s8 leg's last chunk may run past its channels (TMA reads zeros
+    there), and ``ncob · bn`` past ``cout`` (the int8 conv's weights come
+    zero-extended to both). ``pass_pad``: the operand pass on every leg
+    first — 1 reflect-pads (and normalizes with mean/inv), 0 only
+    normalizes the pre-padded input, None runs no pass."""
 
     h: int
     w: int
@@ -181,18 +185,21 @@ class ConvPlan(NamedTuple):
 
 
 def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False,
-               s8: bool = False) -> ConvPlan:
+               s8: bool = False, bn: int | None = None) -> ConvPlan:
     """The plan of the forward conv of ``legs`` (input channels of each)
     into an h × w × cout output: a function of the shapes alone. ``s8``:
-    the int8 conv's (int8 stages of 64 channels, N = 128)."""
+    the int8 convs' (int8 stages of 64 channels). ``bn``: output channels
+    a block, by default 128 where cout % 128 == 0, else 64 (the int8 conv
+    picks its own, ``kernels/conv_int8.py:_plan``)."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
     kc = _CF_KC_S8 if s8 else _CF_KC
-    bn = _BN if cout % _BN == 0 else 64
-    ncob = cout // bn
+    if bn is None:
+        bn = _BN if cout % _BN == 0 else 64
+    ncob = -(-cout // bn)
     blocks = b * ntr * ntc * ncob
     b_box = (kc, bn, 1, 3) if s8 else (64, kc, 1, 3)
-    return ConvPlan(h, w, cout, tuple(c // kc for c in legs), int(halo == "zero"), pass_pad,
+    return ConvPlan(h, w, cout, tuple(-(-c // kc) for c in legs), int(halo == "zero"), pass_pad,
                     ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
                     (kc, _CF_TW, _CF_TH + 2, 1), b_box, bn)
 
@@ -238,23 +245,25 @@ def _conv_pass(x, mean=None, inv=None, *, pad: int = 1):
 
 
 def _conv_acc_plain(srcs, kernels, plan: ConvPlan) -> torch.Tensor:
-    """The GEMM's accumulator over whole tiles, (B, ntr·TH, ntc·TW, Cout),
-    in the kernel's K order: leg → chunk of the plan's KC channels → dx
-    buffer → dy (zeros where a box lies outside its source). f32 for bf16
-    operands; int8 operands are summed exactly, in float64 (exact while
-    |acc| < 2^53, which the s32 accumulator's range is far inside)."""
+    """The GEMM's accumulator over whole tiles, (B, ntr·TH, ntc·TW, the
+    kernels' Cout), in the kernel's K order: leg → chunk of the plan's KC
+    channels → dx buffer → dy (zeros where a box lies outside its source,
+    and in a leg's channels past its own up to its kernel's: TMA's fill).
+    f32 for bf16 operands; int8 operands are summed exactly, in float64
+    (exact while |acc| < 2^53, which the s32 accumulator's range is far
+    inside)."""
     b = srcs[0].shape[0]
     hh, ww = plan.ntr * _CF_TH, plan.ntc * _CF_TW
     kc = plan.a_box[0]
     s8 = srcs[0].dtype == torch.int8
     dt = torch.float64 if s8 else torch.float32
-    acc = srcs[0].new_zeros((b, hh, ww, plan.cout), dtype=dt)
+    acc = srcs[0].new_zeros((b, hh, ww, kernels[0].shape[-1]), dtype=dt)
     for x, k in zip(srcs, kernels):
-        xp = x.new_zeros((b, hh + 2, ww + 2, x.shape[-1]), dtype=dt)
-        s = plan.shift
-        xp[:, s : s + x.shape[1], s : s + x.shape[2]] = x.to(dt)[:, : hh + 2 - s, : ww + 2 - s]
+        xp = x.new_zeros((b, hh + 2, ww + 2, k.shape[2]), dtype=dt)
+        s, c = plan.shift, x.shape[-1]
+        xp[:, s : s + x.shape[1], s : s + x.shape[2], :c] = x.to(dt)[:, : hh + 2 - s, : ww + 2 - s]
         kf = k.to(dt) if s8 else k.to(torch.bfloat16).float()
-        for ci in range(0, x.shape[-1], kc):
+        for ci in range(0, k.shape[2], kc):
             for dx in range(3):
                 buf = xp[:, :, dx : dx + ww, ci : ci + kc]
                 for dy in range(3):
@@ -459,10 +468,17 @@ def _q_pass(x, qscale=None, mean=None, inv=None):
     return out
 
 
-def _q_weights(kq: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 weights repacked K-major, (3, 3, Cout, C): ``wgmma`` takes
-    s8 operands K-major only."""
-    return kq.transpose(2, 3).contiguous()
+def _q_weights(kq: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """HWIO int8 weights repacked K-major (``wgmma`` takes s8 operands
+    K-major only) and zero-extended to the plan's channels: (3, 3, ncob·bn,
+    chunks·64) — (3, 3, Cout, C) where those fill whole blocks."""
+    _, _, c, cout = kq.shape
+    cp, coutp = plan.chunks[0] * plan.a_box[0], plan.ncob * plan.bn
+    if (c, cout) == (cp, coutp):
+        return kq.transpose(2, 3).contiguous()
+    kt = kq.new_zeros((3, 3, coutp, cp))
+    kt[:, :, :cout, :c] = kq.transpose(2, 3)
+    return kt
 
 
 def _q_b_box(kflat: torch.Tensor, c: int, cout: int, ci0: int, co0: int, dx: int,
@@ -533,7 +549,7 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
     if qscale is not None:
         require(qscale, "qscale", torch.float32, (b,))
     plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
-    out, partial = _q_gemm(_q_pass(x, qscale, mean, inv), _q_weights(kq), sc, plan)
+    out, partial = _q_gemm(_q_pass(x, qscale, mean, inv), _q_weights(kq, plan), sc, plan)
     LAUNCHES["conv3x3_reflect_fused_q"] += 1
     s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
     return (out, *_moments(s[:, 0], s[:, 1], h * w))

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ircolor_tpu_torch.kernels import block, resblock
 from ircolor_tpu_torch.ops.norm import instance_norm_stats
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TH, TW = resblock._CF_TH, resblock._CF_TW
 

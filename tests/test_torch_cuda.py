@@ -221,16 +221,19 @@ def _int8(gen, *shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pad", ["zero", "reflect"])
-@pytest.mark.parametrize("b,hw", [(1, (16, 32)), (2, (13, 21))])  # full and partial 8×16 tiles
+@pytest.mark.parametrize("b,hw", [(1, (16, 32)), (2, (13, 21))])  # full and partial 8×32 tiles
 def test_conv_int8_matches_plain_bit_for_bit_on_card(cuda, pad, b, hw):
-    """Every Cin and Cout of the serving path; the four epilogue forms
-    (f32 legs, + addend + bias in bf16, + bias in bf16). The same IEEE
-    steps on exact integer sums: the outputs are equal."""
+    """Every Cin and Cout of the serving path at ngf 64, 32 and 16, and
+    channel counts that fill no 64-channel chunk (Cin 16, 32, 48, 96: A's
+    box runs past them into TMA's zero fill; Cout 16, 32, 48: masked); the four
+    epilogue forms (f32 legs, + addend + bias in bf16, + bias in bf16). The
+    same IEEE steps on exact integer sums: the outputs are equal, and a
+    repeat is bit-exact."""
     from ircolor_tpu_torch.kernels import conv_int8
 
     g = torch.Generator(device=cuda).manual_seed(5)
-    for cin in (64, 128, 256):
-        for cout in (64, 128, 256):
+    for cin in (16, 32, 48, 64, 96, 128, 256):
+        for cout in (16, 32, 48, 64, 128, 256):
             xq, wq = _int8(g, b, *hw, cin), _int8(g, 3, 3, cin, cout)
             sc = torch.rand(b, cout, device=cuda, generator=g) * 1e-4
             bias = torch.randn(cout, device=cuda, generator=g)
@@ -242,6 +245,44 @@ def test_conv_int8_matches_plain_bit_for_bit_on_card(cuda, pad, b, hw):
                 assert LAUNCHES["conv3x3_int8"] == before + 1
                 want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad=pad, **kw)
                 assert got.dtype == want.dtype and torch.equal(got, want), (cin, cout, kw.keys())
+                again = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, **kw)
+                assert torch.equal(got, again), (cin, cout, kw.keys())
+
+
+@pytest.mark.cuda
+def test_int8_route_ngf32_b1_runs_on_card(cuda):
+    """The ngf-32 generator's batch-1 int8 route (up2's Cout is 32, which
+    the card's int8 conv once refused) runs through the int8 conv on the
+    card, 10 launches for 2 blocks, and matches the same route on the CPU
+    within the int8 serving budget: |ΔPSNR| ≤ 0.02 dB and |ΔSSIM| ≤ 0.002
+    against a smooth target, a mean uint8 difference of at most 2 levels."""
+    from ircolor_tpu_torch.eval.metrics import batched_metrics, quantize_to_uint8_01
+    from ircolor_tpu_torch.models.generator import ResnetUNetGenerator
+
+    flags = dict(ngf=32, n_blocks=2, dtype=torch.bfloat16, quant_int8=True, pallas_block=True,
+                 pallas_norm_blur=True, pallas_norm_blur_min_area=18000,
+                 pallas_norm_blur_min_launch=600000, pallas_head=True,
+                 pallas_head_min_area=100000, pallas_head_min_launch=600000)
+    gen = ResnetUNetGenerator(**flags)
+    gen.init_weights("normal", 0.02, torch.Generator().manual_seed(0))
+    gen.eval()
+    x = torch.rand((1, 64, 80, 1), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    target = torch.nn.functional.interpolate(
+        torch.rand((1, 3, 8, 10), generator=torch.Generator().manual_seed(2)), size=(64, 80),
+        mode="bilinear").permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        assert gen._quant_convs(x)
+        want = gen(x).float()
+        gen.to(cuda)
+        before = LAUNCHES["conv3x3_int8"]
+        got = gen(x.to(cuda)).float().cpu()
+        # down1, down2, 2 × 2 block convs, up1's and up2's two legs each
+        assert LAUNCHES["conv3x3_int8"] == before + 10
+    preds = [quantize_to_uint8_01((y + 1.0) / 2.0) for y in (got, want)]
+    mg, mw = (batched_metrics(p, target) for p in preds)
+    assert float((mg["psnr"] - mw["psnr"]).abs().max()) <= 0.02
+    assert float((mg["ssim"] - mw["ssim"]).abs().max()) <= 0.002
+    assert float((preds[0] - preds[1]).abs().mean()) * 255 <= 2.0
 
 
 @pytest.mark.cuda
@@ -354,12 +395,14 @@ def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
     sc = torch.ones(1, 128, device=cuda)
     with pytest.raises(TypeError):  # bf16 activations: the kernel takes int8
         conv_int8.conv3x3_int8(xq.to(torch.bfloat16), wq, sc)
-    with pytest.raises(ValueError):  # Cin not a multiple of 32
-        conv_int8.conv3x3_int8(xq[..., :48].contiguous(), wq[:, :, :48], sc)
-    with pytest.raises(ValueError):  # Cout not a multiple of 64
-        conv_int8.conv3x3_int8(xq, wq[..., :96], sc[:, :96].contiguous())
+    with pytest.raises(ValueError, match="Cin % 16"):  # Cin not a multiple of 16
+        conv_int8.conv3x3_int8(xq[..., :40].contiguous(), wq[:, :, :40], sc)
+    with pytest.raises(ValueError, match="Cout % 16"):  # Cout not a multiple of 16
+        conv_int8.conv3x3_int8(xq, wq[..., :72], sc[:, :72].contiguous())
     with pytest.raises(ValueError):  # non-contiguous input
         conv_int8.conv3x3_int8(xq.transpose(1, 2).contiguous().transpose(1, 2), wq, sc)
+    with pytest.raises(ValueError, match="16-byte"):  # contiguous, 1 byte past a boundary
+        conv_int8.conv3x3_int8(_int8(g, 1 * 8 * 16 * 64 + 1)[1:].view(1, 8, 16, 64), wq, sc)
     with pytest.raises(TypeError):
         conv_int8.conv3x3_int8(xq, wq, sc, out_dtype=torch.float16)
     x = _bf16(g, 1, 16, 32, 64)

@@ -24,6 +24,7 @@ from ircolor_tpu_torch.kernels import encdec as te
 from ircolor_tpu_torch.kernels import resblock as tr
 from ircolor_tpu_torch.models import generator as tgen
 from ircolor_tpu_torch.models.wrapper import generator_from_config
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _BUFFERS = {"down1_down.filt", "down2_down.filt", "up1_up.filt", "up2_up.filt"}
 _SEGMENT_BIASES = ("down1.0.bias", "down2.0.bias", "up1_conv.0.bias")

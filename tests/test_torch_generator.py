@@ -20,6 +20,7 @@ from ircolor_tpu_torch.compat import state_dict_from_flax
 from ircolor_tpu_torch.config import Config
 from ircolor_tpu_torch.models import generator as tgen
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel, load_state_permissive
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _BUFFERS = ("down1_down.filt", "down2_down.filt", "up1_up.filt", "up2_up.filt")
 

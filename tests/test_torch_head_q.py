@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax import vjp
 
@@ -23,10 +24,21 @@ from ircolor_tpu.ops.norm import instance_norm_stats as jax_in_stats
 
 from ircolor_tpu_torch.kernels import LAUNCHES, blur, head
 from ircolor_tpu_torch.models import generator as tgen
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
+
+
+def _jax_vjp(fn, primals, cot):
+    """``jax.vjp`` of ``fn`` at ``primals``, applied to ``cot``: traced once
+    under ``jax.jit`` (eager interpret mode dispatches every op of every
+    grid step)."""
+    def pullback(primals, cot):
+        return vjp(fn, *primals)[1](cot)
+
+    return jax.jit(pullback)(tuple(jnp.asarray(p) for p in primals), jnp.asarray(cot))
 
 
 def _rel_l2(got, want):
@@ -77,9 +89,8 @@ def test_norm_relu_blur_down_grad_matches_jax(shape):
     rng = np.random.RandomState(sum(shape))
     x = rng.randn(*shape).astype(np.float32)
     g = rng.randn(shape[0], shape[1] // 2, shape[2] // 2, shape[3]).astype(np.float32)
-    _, f_vjp = vjp(functools.partial(pallas_blur.norm_relu_blur_down, interpret=True),
-                   jnp.asarray(x))
-    (want,) = f_vjp(jnp.asarray(g))
+    (want,) = _jax_vjp(functools.partial(pallas_blur.norm_relu_blur_down, interpret=True),
+                       (x,), g)
     xt = t(x).requires_grad_()
     (got,) = torch.autograd.grad(blur.norm_relu_blur_down(xt), xt, t(g))
     assert _rel_l2(got.numpy(), want) <= 1e-4
@@ -90,9 +101,7 @@ def test_outc_head_grad_matches_jax():
     x = (rng.rand(2, 16, 64, 8) * 2 - 1).astype(np.float32)
     k = (rng.rand(7, 7, 8, 3) * 0.2 - 0.1).astype(np.float32)
     g = rng.randn(2, 16, 64, 3).astype(np.float32)
-    _, f_vjp = vjp(functools.partial(pallas_head.outc_head, interpret=True),
-                   jnp.asarray(x), jnp.asarray(k))
-    want_x, want_k = f_vjp(jnp.asarray(g))
+    want_x, want_k = _jax_vjp(functools.partial(pallas_head.outc_head, interpret=True), (x, k), g)
     xt, kt = t(x).requires_grad_(), t(k).requires_grad_()
     got_x, got_k = torch.autograd.grad(head.outc_head(xt, kt), (xt, kt), t(g))
     assert _rel_l2(got_x.numpy(), want_x) <= 1e-4

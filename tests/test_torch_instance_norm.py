@@ -19,6 +19,7 @@ from ircolor_tpu_torch.compat import state_dict_from_flax
 from ircolor_tpu_torch.kernels import LAUNCHES
 from ircolor_tpu_torch.kernels import instance_norm as tin
 from ircolor_tpu_torch.models import generator as tgen
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

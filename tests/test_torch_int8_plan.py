@@ -20,6 +20,7 @@ from ircolor_tpu_torch.kernels import resblock
 from ircolor_tpu_torch.models.generator import ResnetBlock
 from ircolor_tpu_torch.ops.norm import instance_norm_stats
 from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TH, TW, KC = resblock._CF_TH, resblock._CF_TW, resblock._CF_KC_S8
 
@@ -74,9 +75,9 @@ def test_weight_repack_puts_each_weight_once_where_the_box_reads_it(c, cout):
     (dy, n, k), and over the plan's stages and output-channel blocks every
     (dy, dx, ci, co) is read exactly once."""
     ids = torch.arange(9 * c * cout, dtype=torch.int64).reshape(3, 3, c, cout)
-    kt = resblock._q_weights(ids)
-    assert kt.shape == (3, 3, cout, c) and kt.is_contiguous()
     plan = resblock._conv_plan(1, 16, 32, (c,), cout, "reflect", s8=True)
+    kt = resblock._q_weights(ids, plan)
+    assert kt.shape == (3, 3, cout, c) and kt.is_contiguous()
     assert plan.b_box == (KC, resblock._BN, 1, 3) and plan.bn == resblock._BN
     kflat = kt.reshape(-1)
     seen = torch.zeros(9 * c * cout, dtype=torch.int64)
@@ -132,7 +133,8 @@ def test_gemm_emulation_matches_plain(b, h, w, c, cout):
     plan = resblock._conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
     assert plan.ntiles == -(-h // TH) * -(-w // TW)
     for form, sc, kw in _forms(rng, x, kq, sw):
-        out, partial = resblock._q_gemm(resblock._q_pass(x, **kw), resblock._q_weights(kq), sc, plan)
+        kt = resblock._q_weights(kq, plan)
+        out, partial = resblock._q_gemm(resblock._q_pass(x, **kw), kt, sc, plan)
         assert partial.shape == (b, plan.ntiles, 2, cout)
         s = partial.sum(dim=1)
         mean, inv = resblock._moments(s[:, 0], s[:, 1], h * w)

@@ -7,16 +7,20 @@ against the plain versions on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ircolor_tpu.ops import pallas_blur, pallas_head, pallas_resblock
 from ircolor_tpu.ops.norm import instance_norm_stats as jax_in_stats
 
 from ircolor_tpu_torch.kernels import LAUNCHES, blur, conv_int8, head, resblock
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def t(a):
@@ -209,14 +213,17 @@ def test_conv7x7_head_matches_jax(shape):
     x = (rng.rand(*shape) * 2 - 1).astype(np.float32)
     k = (rng.rand(7, 7, c, 3) * 0.2 - 0.1).astype(np.float32)
     m, inv = (np.asarray(a) for a in jax_in_stats(jnp.asarray(x)))
-    want = pallas_head.conv7x7_head_pallas(
-        jnp.asarray(x), jnp.asarray(m), jnp.asarray(inv), jnp.asarray(k), interpret=True
+    # The JAX references traced once under jax.jit (eager interpret mode
+    # dispatches every op of every grid step).
+    want = jax.jit(functools.partial(pallas_head.conv7x7_head_pallas, interpret=True))(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(inv), jnp.asarray(k)
     )
     got = head.conv7x7_head_pallas(t(x), t(m), t(inv), t(k))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     np.testing.assert_allclose(
         head.outc_head(t(x), t(k)).numpy(),
-        np.asarray(pallas_head.outc_head(jnp.asarray(x), jnp.asarray(k), interpret=True)),
+        np.asarray(jax.jit(functools.partial(pallas_head.outc_head, interpret=True))(
+            jnp.asarray(x), jnp.asarray(k))),
         atol=1e-4,
     )
 

@@ -21,6 +21,7 @@ from ircolor_tpu_torch.ops import blurpool, norm
 from ircolor_tpu_torch.ops.padding import pad2d
 from ircolor_tpu_torch.ops.quant import quantize_weight_per_channel
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _x(shape, seed=0):

@@ -19,6 +19,7 @@ from ircolor_tpu.ops.pallas_block import conv3x3_norm_in_stats, conv3x3_stats
 
 from ircolor_tpu_torch.kernels import block, resblock
 from ircolor_tpu_torch.ops.padding import reflect_pad2d
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 B, H, W, C = 2, 16, 20, 8  # tests/test_pallas_block.py's shape
 

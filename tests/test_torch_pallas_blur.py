@@ -17,6 +17,7 @@ from ircolor_tpu.ops import pallas_blur as jb
 from ircolor_tpu_torch.kernels import LAUNCHES
 from ircolor_tpu_torch.kernels import blur as tb
 from ircolor_tpu_torch.ops.blurpool import blur_downsample
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _jax_blur = jax.jit(functools.partial(jb.blur_downsample_pallas, interpret=True))
 

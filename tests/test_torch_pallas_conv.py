@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from ircolor_tpu.ops import pallas_conv as jc
 
 from ircolor_tpu_torch.kernels import conv as tc
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _rand(shape, seed, scale=1.0):

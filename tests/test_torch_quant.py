@@ -26,6 +26,7 @@ from ircolor_tpu_torch.kernels import LAUNCHES
 from ircolor_tpu_torch.models import common as tcommon
 from ircolor_tpu_torch.models import generator as tgen
 from ircolor_tpu_torch.ops import quant as tquant
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def t(a):

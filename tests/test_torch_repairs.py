@@ -13,6 +13,7 @@ from ircolor_tpu_torch.eval.runner import run_test
 from ircolor_tpu_torch.models import generator as tgen
 from ircolor_tpu_torch.models import wrapper
 from ircolor_tpu_torch.train.state import create_train_state
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _pair():

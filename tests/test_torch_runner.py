@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,7 @@ from ircolor_tpu.ops.pallas_blur import norm_relu_blur_down_pallas as jnrbd
 from ircolor_tpu.ops.pallas_resblock import conv3x3_sum_fused as jsum
 
 from ircolor_tpu_torch.kernels import LAUNCHES, blur, resblock
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

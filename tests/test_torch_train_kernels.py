@@ -13,6 +13,7 @@ from ircolor_tpu.ops import pallas_resblock as jr
 
 from ircolor_tpu_torch.kernels import LAUNCHES
 from ircolor_tpu_torch.kernels import resblock as tr
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _inputs(seed, b, h, w, c):

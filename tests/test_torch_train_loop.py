@@ -20,6 +20,7 @@ from ircolor_tpu_torch.compat import state_dict_from_flax
 from ircolor_tpu_torch.config import Config
 from ircolor_tpu_torch.data import kaist as tkaist
 from ircolor_tpu_torch.data.pipeline import BatchLoader
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

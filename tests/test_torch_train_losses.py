@@ -25,6 +25,7 @@ from ircolor_tpu_torch.losses import gan, ssim, tv
 from ircolor_tpu_torch.losses.vgg import VGG16Features, load_vgg16
 from ircolor_tpu_torch.models.discriminator import NLayerDiscriminator
 from ircolor_tpu_torch.train.schedule import make_lr_schedule
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _np_tree(tree):
@@ -39,11 +40,12 @@ def _close_to_scale(got, want, rel=1e-5):
 
 def test_discriminator_matches_jax():
     jm = JD(input_nc=4)
-    params = _np_tree(jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 4)))["params"])
+    # One jitted init and apply: eager, flax compiles every initializer and op on its own.
+    params = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 4)))["params"])
     d = NLayerDiscriminator()
     d.load_state_dict(discriminator_state_dict_from_flax(params), strict=True)
     x = np.random.RandomState(2).uniform(-1, 1, (2, 48, 40, 4)).astype(np.float32)
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
     with torch.no_grad():
         got = d(torch.from_numpy(x)).numpy()
     assert got.shape == (2, 4, 3, 1)

@@ -51,6 +51,7 @@ from ircolor_tpu_torch.losses.vgg import VGG16Features
 from ircolor_tpu_torch.models import generator as tgen
 from ircolor_tpu_torch.train.state import create_train_state
 from ircolor_tpu_torch.train.step import METRIC_KEYS, make_train_step
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 _BUFFERS = {"down1_down.filt", "down2_down.filt", "up1_up.filt", "up2_up.filt"}
 _LR = 2e-4

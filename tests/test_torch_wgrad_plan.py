@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ircolor_tpu_torch.kernels import resblock
 from ircolor_tpu_torch.ops.norm import instance_norm_stats
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FORMS = {  # (pad, mask_p, znorm)
     "reflect raw": ("reflect", False, False),
