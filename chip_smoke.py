@@ -19,8 +19,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    (bit-exact and bit-exact on repeat at both N = 128 and 64, its reflect
    pass and GEMM timed apart, the IGMMA count and ptxas line of both
    instantiations: a spill fails the run; beside ``torch._int_mm`` over an
-   im2col), the int8 head (4q) at 32×512×640×64 (bit-exact; beside
-   ``torch._int_mm`` over an im2col), and the fused instance norm
+   im2col), the float head (4, within 2 bf16 ulps) and the int8 head (4q,
+   bit-exact) at 32×512×640×64, both bit-exact on repeat, after every
+   ``csrc/head.cu`` instantiation's ptxas line and ``HMMA`` / ``IMMA``
+   count (a spill or none fails the run), beside cuDNN's 7×7 conv and
+   ``torch._int_mm`` over an im2col, and the fused instance norm
    (kernel 11) at the 256² bottleneck of ``use_pallas`` serving,
    16×64×64×256: IN + ReLU and IN + residual in bf16 (1 bf16 ulp), IN +
    ReLU in f32 (1e-5), beside ``F.instance_norm``. The bf16 block conv
@@ -312,17 +315,22 @@ def check_kernels(torch, results: list) -> None:
                         bound_ms=sum(b for b, _ in bounds), bound_by=bounds[0][1],
                         library_ms=None))
 
-    # 7×7 head (#4), 32×512×640×64 → 3. f32 sums in another order, rounded
-    # to bf16: tolerance 2 bf16 ulps at the output's largest magnitude.
+    # 7×7 head (#4), 32×512×640×64 → 3 (csrc/head.cu, both forms one
+    # tensor-core kernel template). f32 sums in another order, rounded to
+    # bf16: tolerance 2 bf16 ulps at the output's largest magnitude; a
+    # repeat bit-exact (sums in a fixed order).
+    check_head_build()
     xt = randn(B, H, W, NGF).to(torch.bfloat16)
     kh = randn(7, 7, NGF, 3, scale=0.02).to(torch.bfloat16)
     mt, it = instance_norm_stats(xt)
     got = head.conv7x7_head_pallas(xt, mt, it, kh)
     want = head.conv7x7_head_plain(xt, mt, it, kh)
     err, tol = bf16_err(got, want), 2 * 2.0**-8 * float(want.float().abs().max())
-    log(f"[conv7x7_head] max|d|={err:.4g} mean|d|={bf16_mean_err(got, want):.3g} tol={tol:.4g}")
-    if err > tol:
-        raise AssertionError("conv7x7_head disagrees with its plain version")
+    repeat = torch.equal(head.conv7x7_head_pallas(xt, mt, it, kh), got)
+    log(f"[conv7x7_head] max|d|={err:.4g} mean|d|={bf16_mean_err(got, want):.3g} tol={tol:.4g} "
+        f"repeat bit-exact: {repeat} (plan {head._head_plan(B, H, W, NGF, False)})")
+    if err > tol or not repeat:
+        raise AssertionError("conv7x7_head disagrees with its plain version or its repeat")
     ms = cuda_time_ms(lambda: head.conv7x7_head_pallas(xt, mt, it, kh), 10)
     pms = cuda_time_ms(lambda: head.conv7x7_head_plain(xt, mt, it, kh), 5)
     # Library yardstick: cuDNN's bf16 7×7 conv of the reflect-padded,
@@ -345,9 +353,11 @@ def check_kernels(torch, results: list) -> None:
     got = head.conv7x7_head_pallas(xt, mt, it, kh, quant=True)
     want = head.conv7x7_head_q_plain(xt, mt, it, kh)
     err = bf16_err(got, want)
-    log(f"[conv7x7_head_q] bit-exact: {bool(torch.equal(got, want))} max|d|={err:.4g} (tol 0)")
-    if not torch.equal(got, want):
-        raise AssertionError("conv7x7_head_q disagrees with its plain version")
+    repeat = torch.equal(head.conv7x7_head_pallas(xt, mt, it, kh, quant=True), got)
+    log(f"[conv7x7_head_q] bit-exact: {bool(torch.equal(got, want))} max|d|={err:.4g} (tol 0) "
+        f"repeat bit-exact: {repeat} (plan {head._head_plan(B, H, W, NGF, True)})")
+    if not torch.equal(got, want) or not repeat:
+        raise AssertionError("conv7x7_head_q disagrees with its plain version or its repeat")
     del got, want
     ms = cuda_time_ms(lambda: head.conv7x7_head_pallas(xt, mt, it, kh, quant=True), 10)
     pms = cuda_time_ms(lambda: head.conv7x7_head_q_plain(xt, mt, it, kh), 1, 1)
@@ -527,10 +537,16 @@ EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats", "q-con
 def kernel_key(name: str) -> str:
     """A kernel of a library by its mangled name: "gemm nBN <policy>" for
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
-    wgrad's, "fold" (the dgrad's fold lines), "pass" (the operand pass) or
-    "pass q8" (its int8 form)."""
+    wgrad's, "fold" (the dgrad's fold lines), "pass" (the operand pass),
+    "pass q8" (its int8 form) or "head bf16 kK" / "head s8 kK" for
+    csrc/head.cu's instantiations (K MMA K steps a staged unit; "multi":
+    the one for C past 64 channels, several units a row)."""
     import re
 
+    found = re.search(r"head_kernelILb(\d)ELi(\d+)ELb(\d)E", name)
+    if found:
+        multi = " multi" if found[3] == "1" else ""
+        return f"head {'s8' if found[1] == '1' else 'bf16'} k{found[2]}{multi}"
     if "operand_pass" in name:
         return "pass q8" if "ILb1E" in name else "pass"
     if "ILb1E" in name:
@@ -556,10 +572,11 @@ def ptxas_lines(source: str) -> dict:
 
 
 @functools.lru_cache
-def hgmma_by_kernel(source: str) -> dict:
-    """``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions in the SASS of
-    each kernel of ``csrc/<source>.cu``'s library, by ``kernel_key``: a
-    GEMM must issue ``wgmma``."""
+def hgmma_by_kernel(source: str, ops: tuple = ("HGMMA", "IGMMA")) -> dict:
+    """Tensor-core instructions in the SASS of each kernel of
+    ``csrc/<source>.cu``'s library, by ``kernel_key``: by default ``HGMMA``
+    (bf16) and ``IGMMA`` (int8), the ``wgmma`` a GEMM must issue; the head
+    counts ``mma.sync``'s ``HMMA`` and ``IMMA`` too."""
     import shutil
 
     from ircolor_tpu_torch.kernels import build
@@ -572,7 +589,7 @@ def hgmma_by_kernel(source: str) -> dict:
         if "Function :" in line:
             key = kernel_key(line.split("Function :", 1)[1].strip())
             out.setdefault(key, 0)
-        elif key and ("HGMMA" in line or "IGMMA" in line):
+        elif key and any(op in line for op in ops):
             out[key] += 1
     return out
 
@@ -688,6 +705,28 @@ def dgrad_parts(torch, args, kw) -> str:
             f"    ptxas {key}: {ptx.get(key, missing)}; fold: {ptx.get('fold', missing)}; "
             f"pass: {ptx.get('pass', missing)}; {hgmma_by_kernel('conv_fwd').get(key, 0)} HGMMA "
             f"in its SASS")
+
+
+def check_head_build() -> None:
+    """Every instantiation of csrc/head.cu (bf16 with 1, 2 or 4 K steps a
+    unit, s8 with 1 or 2, and each form's several-unit one for C > 64)
+    issues tensor-core MMAs (``HMMA`` / ``IMMA``, or ``wgmma``) and spills
+    nothing; their ptxas lines are printed."""
+    from ircolor_tpu_torch.kernels import head
+
+    head._load()
+    ptx = ptxas_lines("head")
+    mma = hgmma_by_kernel("head", ("HMMA", "IMMA", "HGMMA", "IGMMA"))
+    keys = ["head bf16 k1", "head bf16 k2", "head bf16 k4", "head bf16 k4 multi",
+            "head s8 k1", "head s8 k2", "head s8 k2 multi"]
+    for key in keys:
+        line = ptx.get(key, "not built in this process")
+        log(f"[head build {key}] {mma.get(key, 0)} tensor-core instructions in its SASS; "
+            f"ptxas {line}")
+        if not mma.get(key):
+            raise AssertionError(f"the head ({key}) issues no tensor-core instruction")
+        if key in ptx and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"the head ({key}) spills: {line}")
 
 
 def check_gemm_build(what: str, policies: tuple) -> None:

@@ -68,6 +68,46 @@ def test_blur_and_head_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 48, 64, 136])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 244),  # two whole 122-column strips
+    (2, 20, 70),   # a partial strip
+    (1, 4, 4),     # the minimum plane
+    (1, 150, 260), # two row bands and three strips, the last partial
+])
+def test_head_kernel_matches_plain_on_card(cuda, c, shape):
+    """``csrc/head.cu``'s bf16 form against ``conv7x7_head_plain``: channels
+    that fill no K step (8, 24, 48), 64-channel units (136), whole and partial
+    tiles; one launch a call, and a repeat bit-exact."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = _bf16(g, *shape, c)
+    k = _bf16(g, 7, 7, c, 3, scale=0.02)
+    m, i = instance_norm_stats(x)
+    before = LAUNCHES["conv7x7_head"]
+    got = head.conv7x7_head_pallas(x, m, i, k)
+    assert LAUNCHES["conv7x7_head"] == before + 1
+    want = head.conv7x7_head_plain(x, m, i, k).float()
+    assert float((got.float() - want).abs().max()) <= 2 * 2.0**-8 * float(want.abs().max())
+    assert torch.equal(head.conv7x7_head_pallas(x, m, i, k), got)
+
+
+@pytest.mark.cuda
+def test_head_takes_the_generators_weight_view_on_card(cuda):
+    """The generator hands the head an HWIO view of its OIHW weight (not
+    contiguous): both forms take it and match their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = _bf16(g, 2, 20, 70, 64)
+    k = _bf16(g, 3, 64, 7, 7, scale=0.02).permute(2, 3, 1, 0)
+    assert not k.is_contiguous()
+    m, i = instance_norm_stats(x)
+    want = head.conv7x7_head_plain(x, m, i, k).float()
+    got = head.conv7x7_head_pallas(x, m, i, k).float()
+    assert float((got - want).abs().max()) <= 2 * 2.0**-8 * float(want.abs().max())
+    assert torch.equal(head.conv7x7_head_pallas(x, m, i, k, quant=True),
+                       head.conv7x7_head_q_plain(x, m, i, k))
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     x = torch.randn(1, 8, 16, 128, device=cuda)  # float32: the kernels are bf16-only
     k = torch.randn(3, 3, 128, 128, device=cuda)
@@ -81,6 +121,16 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # non-contiguous input
         xt = torch.randn(1, 8, 128, 16, device=cuda, dtype=torch.bfloat16).transpose(2, 3)
         blur.norm_relu_blur_down_pallas(xt, *instance_norm_stats(xt))
+    xh = torch.randn(1 * 8 * 16 * 64 + 1, device=cuda).to(torch.bfloat16)[1:].view(1, 8, 16, 64)
+    kh = torch.randn(7, 7, 64, 3, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # contiguous, 2 bytes past a boundary
+        head.conv7x7_head_pallas(xh, *instance_norm_stats(xh), kh)
+    with pytest.raises(ValueError, match="C % 8"):
+        xc = torch.randn(1, 8, 16, 12, device=cuda).to(torch.bfloat16)
+        head.conv7x7_head_pallas(xc, *instance_norm_stats(xc), kh[:, :, :12].contiguous())
+    with pytest.raises(ValueError):  # weights on the CPU
+        xa = xh.clone()
+        head.conv7x7_head_pallas(xa, *instance_norm_stats(xa), kh.cpu())
 
 
 def _bwd_inputs(g, b, h, w, c):
@@ -286,7 +336,11 @@ def test_int8_route_ngf32_b1_runs_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 20, 70, 64), (1, 16, 128, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 20, 70, 64), (1, 16, 128, 64),  # partial and whole strips
+    (2, 20, 70, 16), (2, 20, 70, 32), (2, 20, 70, 48),  # channels that fill no K step
+    (2, 16, 244, 32), (1, 4, 4, 64), (1, 150, 260, 96),  # whole strips; 64-channel units
+])
 def test_head_q_matches_plain_bit_for_bit_on_card(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(6)
     x = _bf16(g, *shape)
@@ -296,6 +350,7 @@ def test_head_q_matches_plain_bit_for_bit_on_card(cuda, shape):
     got = head.conv7x7_head_pallas(x, m, i, k, quant=True)
     assert LAUNCHES["conv7x7_head_q"] == before + 1
     assert torch.equal(got, head.conv7x7_head_q_plain(x, m, i, k))
+    assert torch.equal(head.conv7x7_head_pallas(x, m, i, k, quant=True), got)
 
 
 @pytest.mark.cuda
@@ -413,6 +468,9 @@ def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
                                  _bf16(g, 7, 7, 56, 3), quant=True)
     with pytest.raises(TypeError):
         head.conv7x7_head_pallas(x.float(), m, i, _bf16(g, 7, 7, 64, 3), quant=True)
+    with pytest.raises(ValueError, match="16-byte"):  # contiguous, 2 bytes past a boundary
+        xm = _bf16(g, 1 * 16 * 32 * 64 + 1)[1:].view(1, 16, 32, 64)
+        head.conv7x7_head_pallas(xm, m, i, _bf16(g, 7, 7, 64, 3), quant=True)
 
 
 # --- kernel 11 (fused instance norm) and the enc/dec segment modes -----------
