@@ -19,7 +19,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    (bit-exact and bit-exact on repeat at both N = 128 and 64, its reflect
    pass and GEMM timed apart, the IGMMA count and ptxas line of both
    instantiations: a spill fails the run; beside ``torch._int_mm`` over an
-   im2col), the float head (4, within 2 bf16 ulps) and the int8 head (4q,
+   im2col); its stride-2 form at the no_antialias down convs at b32
+   (down1 512×640×64 → 256×320×128, down2 256×320×128 → 128×160×256:
+   the phase pass and the GEMM timed apart, bit-exact, beside
+   ``torch._int_mm`` over a stride-2 im2col), the float head (4, within 2
+   bf16 ulps) and the int8 head (4q,
    bit-exact) at 32×512×640×64, both bit-exact on repeat, after every
    ``csrc/head.cu`` instantiation's ptxas line and ``HMMA`` / ``IMMA``
    count (a spill or none fails the run), beside cuDNN's 7×7 conv and
@@ -106,6 +110,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    with ``use_pallas`` (18 kernel-11 launches a step), and the latter's G
    gradient against the plain forwards (every used parameter finite and
    present, ≤ 1e-2 relative L2, bit-exact repeat).
+
+7. The generator variants ``Config`` reaches, at the same full width:
+   b32 serving of ``norm="batch"`` int8 (the int8 conv at all 24 sites a
+   forward) and float (no kernel), ``no_antialias`` + ``no_antialias_up``
+   int8 (18 int8 block convs and the head; the tails are off) and
+   ``norm="batch"`` + ``no_antialias`` int8 (22 int8 conv launches and 2 of
+   its stride-2 form a forward), each with frames/s and peak memory and
+   held kernel route against plain route (phase 4's budget; the batch
+   norms' running statistics calibrated on one batch first, so that the
+   prediction is live); ``no_antialias``
+   int8 at b1 (latency; down1 and down2 on the stride-2 form); training
+   with ``remat`` at b8 (36 block convs a step: each block's forward and
+   its recompute; the G gradient bit-identical to the step without
+   ``remat``, peak memory beside phase 5's) and one ``norm="batch"``
+   training step (no kernel; finite losses, every running statistic moved).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -394,6 +413,7 @@ def check_kernels(torch, results: list) -> None:
     del xt
     torch.cuda.empty_cache()
     check_conv_int8(torch, results, randn)
+    check_conv_int8_s2(torch, results)
     # These launches were comparisons, not the main path: leave the counts
     # as they were.
     LAUNCHES.update(before)
@@ -419,20 +439,23 @@ INT8_SITES_B = (
 )
 
 
-def im2col_int8(torch, xq, pad: str):
-    """(B·H·W, 9·C) int8 columns of the padded input, tap-major, for the
-    library yardstick ``torch._int_mm`` (built outside its timing)."""
+def im2col_int8(torch, xq, pad: str, stride: int = 1):
+    """(B·Ho·Wo, 9·C) int8 columns of the padded input at ``stride``,
+    tap-major, for the library yardstick ``torch._int_mm`` (built outside
+    its timing)."""
     b, h, w, c = xq.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     xp = torch.zeros((b, h + 2, w + 2, c), dtype=torch.int8, device=xq.device)
     xp[:, 1:-1, 1:-1] = xq
     if pad == "reflect":
         xp[:, 0], xp[:, -1] = xp[:, 2].clone(), xp[:, -3].clone()
         xp[:, :, 0], xp[:, :, -1] = xp[:, :, 2].clone(), xp[:, :, -3].clone()
-    cols = torch.empty((b, h, w, 9, c), dtype=torch.int8, device=xq.device)
+    cols = torch.empty((b, ho, wo, 9, c), dtype=torch.int8, device=xq.device)
     for tap in range(9):
         dy, dx = divmod(tap, 3)
-        cols[:, :, :, tap] = xp[:, dy : dy + h, dx : dx + w]
-    return cols.reshape(b * h * w, 9 * c)
+        cols[:, :, :, tap] = xp[:, dy : dy + stride * (ho - 1) + 1 : stride,
+                                dx : dx + stride * (wo - 1) + 1 : stride]
+    return cols.reshape(b * ho * wo, 9 * c)
 
 
 def check_conv_int8(torch, results: list, randn) -> None:
@@ -530,6 +553,94 @@ def check_conv_int8(torch, results: list, randn) -> None:
                         library_ms=row["library_ms"]))
 
 
+# The stride-2 form's sites: the no_antialias down convs at b32 (down1
+# 512×640×64 → 256×320×128, down2 256×320×128 → 128×160×256), zero halos,
+# + bias, bf16 out; a b32 forward of the norm="batch" + no_antialias route
+# launches each once.
+INT8_S2_SITES = (
+    ("down1", B, H, W, NGF, 2 * NGF),
+    ("down2", B, H // 2, W // 2, 2 * NGF, 4 * NGF),
+)
+
+
+def check_conv_int8_s2(torch, results: list) -> None:
+    """Phase 2, the int8 conv's stride-2 form (``csrc/conv_fwd.cu``: the
+    phase pass writes the input's four parity planes, then the q-conv GEMM
+    runs six stages a chunk): each site against ``conv3x3_int8_plain(...,
+    stride=2)`` (tolerance 0) and bit-exact on repeat, timed with the pass
+    and the GEMM apart, the GEMM also at the other N, beside
+    ``torch._int_mm`` over a stride-2 im2col (the GEMM alone); the
+    instantiations' ptxas lines and IGMMA counts (a spill fails the run).
+    The row sums the two sites: one b32 forward's stride-2 launches."""
+    from ircolor_tpu_torch.kernels import conv_int8, resblock
+
+    log(f"[int8 conv s2 phase pass] ptxas {ptxas_lines('conv_fwd').get('phase', 'not built')}")
+    check_gemm_build("int8 conv s2", ("q-conv s2",))
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    for label, bb, hh, ww, cin, cout in INT8_S2_SITES:
+        xq = torch.randint(-127, 128, (bb, hh, ww, cin), device=dev, generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), device=dev, generator=gen,
+                           dtype=torch.int8)
+        sc = torch.rand(bb, cout, device=dev, generator=gen) * 1e-4
+        kw = dict(pad="zero", stride=2, bias=torch.randn(cout, device=dev, generator=gen))
+        got = conv_int8.conv3x3_int8(xq, wq, sc, **kw)
+        want = conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw)
+        exact = bool(torch.equal(got, want))
+        repeat = bool(torch.equal(got, conv_int8.conv3x3_int8(xq, wq, sc, **kw)))
+        ms = cuda_time_ms(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **kw), 20)
+        pms = cuda_time_ms(lambda: conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw), 1, 1)
+        ho, wo = conv_int8.out_hw(hh, ww, "zero", 2)
+        plan = conv_int8._plan(bb, ho, wo, cin, cout, "zero", 2)
+        src = conv_int8._phases(xq, "zero", ho, wo)
+        tp = cuda_time_ms(lambda: conv_int8._phases(xq, "zero", ho, wo), 20)
+        gemm_ms = {}
+        for bn in (128, 64):
+            p = resblock._conv_plan(bb, ho, wo, (cin,), cout, "zero", s8=True, bn=bn, stride=2)
+            kt = resblock._q_weights(wq, p)
+            alt = conv_int8._gemm(src, kt, sc, p, bias=kw["bias"])
+            exact = exact and bool(torch.equal(alt, want))
+            del alt
+            gemm_ms[bn] = cuda_time_ms(lambda: conv_int8._gemm(src, kt, sc, p, bias=kw["bias"]), 20)
+        del got, want, src
+        cols = im2col_int8(torch, xq, "zero", 2)
+        wmat = wq.reshape(9 * cin, cout).t().contiguous().t()
+        lib = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
+        del cols
+        npix = bb * ho * wo
+        nbytes = xq.numel() + 9 * cin * cout + bb * cout * 4 + cout * 4 + npix * cout * 2
+        ops = 2 * npix * 9 * cin * cout
+        b_ms, b_by = bound(ops, nbytes, PEAK_INT8)
+        other = " ".join(f"N={bn} {t:.4f} ms" for bn, t in gemm_ms.items() if bn != plan.bn)
+        log(f"[conv3x3_int8 s2 {label} {bb}x{hh}x{ww}x{cin}->{ho}x{wo}x{cout} zero] bit-exact: "
+            f"{exact} (tol 0), repeat bit-exact: {repeat}; kernel {ms:.4f} ms = phase pass "
+            f"{tp:.4f} + GEMM N={plan.bn} {gemm_ms[plan.bn]:.4f} ms "
+            f"({ops / gemm_ms[plan.bn] / 1e9:.1f} TOP/s, {plan.blocks} output blocks); other {other}; "
+            f"plain {pms:.3f} ms; _int_mm over a stride-2 im2col {lib:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by})")
+        if not (exact and repeat):
+            raise AssertionError(f"conv3x3_int8 s2 {label} disagrees with its plain version")
+        row["ms"] += ms
+        row["plain_ms"] += pms
+        row["library_ms"] += lib
+        row["bound_ms"] += b_ms
+        row["ops_ms"] += ops / PEAK_INT8 * 1e3
+        row["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
+        del xq, wq, kw
+        torch.cuda.empty_cache()
+    log(f"    one b32 forward's 2 stride-2 launches: kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, _int_mm {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms")
+    results.append(dict(name="conv3x3_int8_s2", route="cuda",
+                        source="ircolor_tpu_torch/csrc/conv_fwd.cu",
+                        replaces="ircolor_tpu/ops/quant.py:93",
+                        max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                        bound_ms=row["bound_ms"],
+                        bound_by="operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+                        library_ms=row["library_ms"]))
+
+
 # csrc/conv_fwd.cu's epilogue policies, by their template number.
 EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats", "q-conv")
 
@@ -537,8 +648,9 @@ EPI_NAMES = ("stats", "store", "mask-stats", "residual", "dz", "q-stats", "q-con
 def kernel_key(name: str) -> str:
     """A kernel of a library by its mangled name: "gemm nBN <policy>" for
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
-    wgrad's, "fold" (the dgrad's fold lines), "pass" (the operand pass),
-    "pass q8" (its int8 form) or "head bf16 kK" / "head s8 kK" for
+    wgrad's ("... s2": the int8 conv's stride-2 form), "fold" (the dgrad's
+    fold lines), "pass" (the operand pass), "pass q8" (its int8 form),
+    "phase" (the stride-2 pass) or "head bf16 kK" / "head s8 kK" for
     csrc/head.cu's instantiations (K MMA K steps a staged unit; "multi":
     the one for C past 64 channels, several units a row)."""
     import re
@@ -549,11 +661,13 @@ def kernel_key(name: str) -> str:
         return f"head {'s8' if found[1] == '1' else 'bf16'} k{found[2]}{multi}"
     if "operand_pass" in name:
         return "pass q8" if "ILb1E" in name else "pass"
+    if "phase_pass" in name:
+        return "phase"
     if "ILb1E" in name:
         return "gemm swap"
-    found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", name)
+    found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
     if found:
-        return f"gemm n{found[1]} {EPI_NAMES[int(found[2])]}"
+        return f"gemm n{found[1]} {EPI_NAMES[int(found[2])]}{' s2' if found[3] == '1' else ''}"
     return "gemm" if "gemm" in name else "fold" if "fold" in name else "pass"
 
 
@@ -1402,6 +1516,38 @@ def serving_config(**overrides):
     return Config.from_json(FLAGSHIP.read_text()).replace(mode="test", seed=SEED, **overrides)
 
 
+def calibrate_batch_norms(torch, module, run, label: str):
+    """Set every batch norm's running statistics to those of its input in
+    one ``run()`` (eval mode; each norm sees inputs that the norms before
+    it already normalize with calibrated statistics), as a trained
+    network's would be. The init's (0, 1) shrink a random network's
+    activations about 3× a layer under batch norm, and its prediction
+    comes out nearly flat (std 0.014 at the flagship widths on the CPU,
+    against 0.5 under instance norm). Fails unless the prediction is live:
+    uint8 std of at least 10 levels. Returns ``run()``'s result."""
+    from ircolor_tpu_torch.models.common import BatchNorm
+
+    def hook(m, args):
+        x = args[0].float()
+        mean = x.mean(dim=(0, 1, 2))
+        m.running_mean.copy_(mean)
+        m.running_var.copy_(torch.clamp(x.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0))
+
+    handles = [m.register_forward_pre_hook(hook) for m in module.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        out = run()
+    finally:
+        for h in handles:
+            h.remove()
+    std = float(out[0].float().std())
+    log(f"[{label}] batch norms calibrated on one batch ({len(handles)} norms); "
+        f"prediction uint8 std {std:.2f}")
+    if not handles or std < 10.0:
+        raise AssertionError(f"{label}: calibration left {len(handles)} norms, uint8 std {std:.2f}")
+    return out
+
+
 def expect_launches(label: str, counts: dict, per_forward: dict, forwards: int) -> None:
     """Fail unless ``counts`` is ``per_forward`` × ``forwards`` for every
     kernel (0 for the kernels ``per_forward`` does not name)."""
@@ -1412,9 +1558,11 @@ def expect_launches(label: str, counts: dict, per_forward: dict, forwards: int) 
 
 
 def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict,
-          results_counts: dict, hw: tuple = (H, W), batch: int = B, n_batches: int = 3) -> float:
+          results_counts: dict, hw: tuple = (H, W), batch: int = B, n_batches: int = 3,
+          profile: bool = False) -> float:
     """Phase 3: returns frames/s over ``n_batches`` batches of the resolved
-    test batch (32 at 512×640, 16 at 256²)."""
+    test batch (32 at 512×640, 16 at 256²); with ``profile`` also a
+    ``torch.profiler`` window of one batch."""
     from ircolor_tpu_torch.eval.runner import make_infer_fn
     from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
@@ -1428,8 +1576,11 @@ def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict
         (torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
         for ir, gt in synthetic_batches(np, n_batches, batch, hw)
     ]
+    if cfg.norm == "batch":  # the warm-up also calibrates the batch norms
+        calibrate_batch_norms(torch, model.module, lambda: infer(*batches[0]), f"serve {label}")
     pred, m = infer(*batches[0])  # warm-up: cuDNN algorithm picks
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1442,8 +1593,13 @@ def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict
     check_outputs(torch, f"serve {label}", outs, batch, hw)
     mm = {k: float(v.mean()) for k, v in outs[-1][1].items()}
     log(f"[serve {label}] {fps:.2f} frames/s ({len(batches)} batches of {batch} at "
-        f"{hw[0]}x{hw[1]}, {1e3 * dt / len(batches):.2f} ms per batch); last-batch metrics {mm}")
+        f"{hw[0]}x{hw[1]}, {1e3 * dt / len(batches):.2f} ms per batch), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last-batch metrics {mm}")
     results_counts[label] = counts
+    if profile:
+        profile_window(torch, f"serve {label} profile", lambda: infer(*batches[0]), "one batch",
+                       top=10, ours=True)
+        LAUNCHES.update(counts)
     del model, batches, outs
     torch.cuda.empty_cache()
     return fps
@@ -1461,7 +1617,8 @@ def check_outputs(torch, label: str, outs, b: int, hw: tuple = (H, W)) -> None:
 B1_FRAMES, B1_WARMUP = 64, 4
 
 
-def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_counts: dict):
+def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_counts: dict,
+               overrides: dict | None = None):
     """Phase 3 at batch 1: one frame at a time through ``make_infer_fn``,
     a synchronize after each; returns (mean, median) ms per frame over
     ``B1_FRAMES`` frames after ``B1_WARMUP`` warm-up frames."""
@@ -1469,7 +1626,8 @@ def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_co
     from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 
-    cfg = serving_config(test_batch_size=1, quant_int8=None if quant else False)
+    cfg = serving_config(test_batch_size=1, quant_int8=None if quant else False,
+                         **(overrides or {}))
     if (cfg.resolved_hw, cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != ((H, W), 1, quant):
         raise AssertionError(f"{FLAGSHIP.name} at batch 1 no longer resolves to int8={quant}")
     model = IRColorizationModel(cfg, "cuda")
@@ -1565,6 +1723,9 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
     infer = make_infer_fn(model.module)
     ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, batch, hw)[0])
     before = dict(LAUNCHES)
+    if cfg.norm == "batch":
+        calibrate_batch_norms(torch, model.module, lambda: infer(ir, gt), f"kernel route {label}")
+        LAUNCHES.update(before)
     pred_k, m_k = infer(ir, gt)
     ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     pred_k2, _ = infer(ir, gt)
@@ -1694,6 +1855,7 @@ def train_step_phase(torch, np, label: str = "train", per_step: dict | None = No
         vals = {k: float(m[k]) for k in METRIC_KEYS}
         _check_loss_sanity(vals, cfg, 1, i + 1)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    PEAK_GIB[label] = peak_gb
     log(f"[{label}] {hw[0]}x{hw[1]} b{TRAIN_B} bf16: {n * TRAIN_B / dt:.2f} frames/s "
         f"({1e3 * dt / n:.1f} ms per step), peak memory {peak_gb:.2f} GiB; last losses "
         + ", ".join(f"{k}={float(metrics[-1][k]):.4f}" for k in METRIC_KEYS))
@@ -1706,6 +1868,7 @@ def train_step_phase(torch, np, label: str = "train", per_step: dict | None = No
 
 TRAIN_PER_STEP = {"conv3x3_reflect_fused": 18, "conv3x3_dgrad_fused": 18,
                   "conv3x3_wgrad_fused": 18}
+PEAK_GIB: dict = {}  # peak device memory of each training phase, by label
 
 
 def g_grads(torch, cfg, state, vgg, batch, params):
@@ -1891,6 +2054,110 @@ def train_tail_head_phase(torch, np) -> dict:
     return counts
 
 
+# Phase 7's serving routes: (label, overrides, batch, quant, launches a
+# forward). Batch norm gates every fused kernel off, so int8 runs the int8
+# conv at all 24 sites; no_antialias turns the tails off and its down convs
+# into the stride-2 form (counted apart); with the head on at b32 the int8
+# enc/dec convs stay float and int8 rides in the fused blocks.
+BN, NO_AA = {"norm": "batch"}, {"no_antialias": True}
+NO_AA_BOTH = {"no_antialias": True, "no_antialias_up": True}
+S2_SITES = {"conv3x3_int8": 22, "conv3x3_int8_s2": 2}
+VARIANT_ROUTES = (
+    ("batch int8", BN, B, True, {"conv3x3_int8": 24}),
+    ("batch float", {**BN, "quant_int8": False}, B, False, {}),
+    ("no_aa+up int8", NO_AA_BOTH, B, True, {"conv3x3_reflect_fused_q": 18, "conv7x7_head": 1}),
+    ("batch no_aa int8", {**BN, **NO_AA}, B, True, S2_SITES),
+)
+REMAT_PER_STEP = {**TRAIN_PER_STEP, "conv3x3_reflect_fused": 36}  # + the recompute
+
+
+def variant_phase(torch, np, counts: dict) -> None:
+    """Phase 7: the generator variants ``Config`` reaches, at full width
+    (the flagship config: 512×640, ngf 64, 9 blocks, random weights from
+    seed 0, the batch norms calibrated on one batch, synthetic batches).
+    Serving: each route of ``VARIANT_ROUTES`` at b32 (frames/s, launches,
+    peak memory) and held kernel route against plain route (phase 4's
+    budget; the int8-conv-only routes bit for bit with the int8 conv on its
+    plain version); no_antialias int8 at b1
+    (latency; down1 and down2 on the stride-2 form, the other 22 sites
+    stride 1). Training at b8: ``remat`` (row 2 twice a block: the forward
+    and its recompute) with the G gradient bit-identical to the same step
+    without ``remat`` and its peak memory beside the flagship step's; and
+    one ``norm="batch"`` step (no kernel: the norm gates them off) with
+    finite losses and G's and D's running statistics moved."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ircolor_tpu_torch.train.loop import _check_loss_sanity
+    from ircolor_tpu_torch.train.step import METRIC_KEYS
+
+    fps = {}
+    for label, overrides, batch, quant, per_forward in VARIANT_ROUTES:
+        fps[label] = serve(torch, np, label, overrides, quant, per_forward, counts,
+                           profile=label.startswith("batch"))
+    lat = latency_b1(torch, np, "no_aa int8", True, S2_SITES, counts, NO_AA)
+    for label, overrides, batch, quant, per_forward in VARIANT_ROUTES:
+        if per_forward:
+            exact = ("conv3x3_int8",) if "conv3x3_int8" in per_forward else ()
+            kernel_vs_plain_route(torch, np, label, overrides, batch, per_forward, exact)
+    kernel_vs_plain_route(torch, np, "no_aa int8 b1", NO_AA, 1, S2_SITES, ("conv3x3_int8",))
+    log("[variants] b32 frames/s: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+        + f"; no_aa int8 b1 {lat[0]:.3f} ms mean, {lat[1]:.3f} median")
+
+    # remat: the flagship step with each block recomputed in the backward.
+    counts["train remat"], setup = train_step_phase(torch, np, "train remat", REMAT_PER_STEP,
+                                                    profile=False, remat=True)
+    cfg, state, vgg, batch = setup
+    params = [p for _, p in state.g.named_parameters()]
+    before = dict(LAUNCHES)
+    with deterministic(torch):
+        loss_r, grad_r = g_grads(torch, cfg, state, vgg, batch, params)
+        state.g.remat = False
+        loss_n, grad_n = g_grads(torch, cfg, state, vgg, batch, params)
+        state.g.remat = True
+    LAUNCHES.update(before)
+    same = bool(torch.equal(loss_r, loss_n)) and all(
+        (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+        for a, b in zip(grad_r, grad_n))
+    log(f"[train remat] G gradient bit-identical to the step without remat: {same} (tol 0); "
+        f"peak memory {PEAK_GIB['train remat']:.2f} GiB (without remat, phase 5: "
+        f"{PEAK_GIB['train']:.2f} GiB)")
+    if not same:
+        raise AssertionError("remat changes the G gradient")
+    del setup, state, grad_r, grad_n
+    torch.cuda.empty_cache()
+
+    # norm="batch" training: one step after a warm-up, no kernel launched.
+    cfg, state, vgg, step, batches = _train_setup(torch, np, 2, norm="batch")
+    stats0 = {f"{n}.{k}": v.clone() for n, net in (("G", state.g), ("D", state.d))
+              for k, v in net.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, m = step(state, batches[1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["train batch"] = dict(LAUNCHES)
+    expect_launches("train batch (forwards = steps)", counts["train batch"], {}, 1)
+    vals = {k: float(m[k]) for k in METRIC_KEYS}
+    _check_loss_sanity(vals, cfg, 1, 2)
+    stats1 = {f"{n}.{k}": v for n, net in (("G", state.g), ("D", state.d))
+              for k, v in net.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+    finite = all(bool(torch.isfinite(v).all()) for v in stats1.values())
+    log(f"[train batch] {H}x{W} b{TRAIN_B} bf16 norm=batch: one step {1e3 * dt:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; running statistics moved {moved} of "
+        f"{len(stats0)}, finite {finite}; losses "
+        + ", ".join(f"{k}={v:.4f}" for k, v in vals.items()))
+    if moved != len(stats0) or not finite:
+        raise AssertionError("norm=batch training: running statistics did not move")
+    profile_window(torch, "train batch profile", lambda: step(state, batches[1]), "one step",
+                   top=10)
+    LAUNCHES.update(counts["train batch"])
+    del state, vgg, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2039,6 +2306,8 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
 
+    variant_phase(torch, np, counts)
+
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held
     # each run to 0 for every kernel it does not name); say so once.
@@ -2060,6 +2329,7 @@ def main() -> int:
                 "conv7x7_head": "int8", "conv3x3_reflect_fused": "float",
                 "conv3x3_dgrad_fused": "train", "conv3x3_wgrad_fused": "train",
                 "conv3x3_int8": "b1 int8 (a)", "conv7x7_head_q": "int8 (b)",
+                "conv3x3_int8_s2": "batch no_aa int8",
                 "fused_instance_norm": "256x256 float use_pallas",
                 "fused_instance_norm_residual": "256x256 float use_pallas",
                 "conv3x3_dgrad_fused_seg": "train encdec",

@@ -27,7 +27,8 @@
 //       fused blocks (quant.py:conv2d_int8 :93 and conv2d_int8_fixed,
 //       lax.conv_general_dilated on int8 operands, int32 sums): down1,
 //       down2, the unfused blocks and each leg of the int8 concat convs
-//       (up1, up2), on an input that arrives quantized.
+//       (up1, up2), on an input that arrives quantized; stride 1 or 2
+//       (the no_antialias down convs), zero, reflect or VALID halos.
 //
 //   out[b, r, c, co] = sum_{leg, ci, dy, dx} Xp[b, r+dy, c+dx, ci] * k[dy, dx, ci, co]
 //
@@ -137,6 +138,19 @@
 //   Its global reads (aux, the fold terms) are read-only loads issued one
 //   column group (i) ahead, and mm/mi sit in shared memory: read where
 //   used, each was a round trip the idle tensor cores waited on.
+// * Stride 2 (q-conv only): the int8 phase pass writes the four (row,
+//   column) parity planes of the padded input, P[py][px][u, v] = Xp[2u+py,
+//   2v+px], each (Ho+1) x (Wo+1), stacked as Q (B, 2(Ho+1), 2(Wo+1), C):
+//   then out[i, j] reads tap (dy, dx) at Q[ro(dy) + i, co(dx) + j] with ro =
+//   {0, Ho+1, 1} and co = {0, Wo+1, 1}. The column offset is the A box's
+//   column; the rows are not one box's rows at offset dy (dy = 1 lies in the
+//   odd plane), so a stage is (chunk, dx, row parity): the even box serves
+//   dy = 0 and 2 at row offsets 0 and 1, the odd box dy = 1. Six stages a
+//   chunk, the same wgmmas as stride 1; A's L2 reads double, B's box is the
+//   stride-1 one (its unused tap rides along). The pass adds a read and a
+//   write of the input (TMA elementStrides of 2 would avoid both; not
+//   taken: this form reuses the stride-1 stage and the VALID halo mode as
+//   they are).
 // * Persistent grid (one wave, fixed by the shapes in the Python plan):
 //   a block runs every grid-th output block, the ring running on, so the
 //   next block's first loads overlap this one's epilogue. Output blocks
@@ -339,11 +353,56 @@ struct FwdArgs {
   int shift;           // 1: A reads the unpadded input from -1 (zero halos)
 };
 
+// One stage of a consumer warpgroup: wait for it, issue its wgmmas, keep
+// them in flight and free the stage before. TAPS: the taps dy (bit dy) the
+// stage's A box serves, at buffer row offset dy (stride 1: all three) or
+// dy / 2 (stride 2: the even box dy 0 and 2 at rows 0 and 1, the odd box
+// dy 1 at row 0).
+template <int BN, bool S8, int TAPS, bool S2, typename Acc>
+__device__ __forceinline__ void consume_stage(Acc (&acc)[2][BN / 2], uint32_t base,
+                                              uint32_t full0, uint32_t empty0, int& g, int j,
+                                              int wg, int lane) {
+  const int s = g % STAGES;
+  const uint32_t st = base + s * Ring<BN>::STAGE;
+  mbar_wait(full0 + 8 * s, (g / STAGES) & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    if (!((TAPS >> dy) & 1)) continue;
+#pragma unroll
+    for (int ks = 0; ks < A_ROW / 32; ++ks) {  // 32 bytes of A's row: k16 bf16, k32 s8
+      // bf16: 16 rows of the MN-major B; s8: 32 bytes of each K-major
+      // output channel's row of tap dy.
+      const uint64_t db = S8 ? smem_desc_k64(st + A_BYTES + dy * BN * KC_S8 + ks * 32)
+                             : smem_desc(st + A_BYTES + dy * B_ATOM + ks * 2048, B_HALF);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        // first buffer row of the tap
+        const uint32_t arow = (4 * wg + 2 * t + (S2 ? dy / 2 : dy)) * TW;
+        const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
+        if constexpr (S8 && BN == 128) {
+          wgmma_s8_n128(acc[t], da, db);
+        } else if constexpr (S8) {
+          wgmma_s8_n64(acc[t], da, db);
+        } else if constexpr (BN == 128) {
+          wgmma_n128(acc[t], da, db);
+        } else {
+          wgmma_n64(acc[t], da, db);
+        }
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<1>();  // the stage before this one is done with its buffers
+  if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));
+  ++g;
+}
+
 // Persistent: block x runs output blocks task = x, x + gridDim.x, ...,
 // task = (b * ntiles + tile) * ncob + cob. The ring runs on across tasks,
 // so the producer loads a task's first stages during the last one's
-// epilogue.
-template <int BN, int EPI>
+// epilogue. S2: stride 2 over the parity planes (q-conv only).
+template <int BN, int EPI, bool S2 = false>
 __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
     conv_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                          const __grid_constant__ CUtensorMap ta1,
@@ -355,13 +414,15 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
   constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS || EPI == EPI_QSTATS;
   constexpr bool DGRAD = is_dgrad(EPI);
   constexpr int KCH = S8 ? KC_S8 : KC;  // input channels a stage
+  constexpr int SPC = S2 ? 6 : 3;       // stages a chunk: dx (x row parity)
   static_assert(EPI != EPI_QSTATS || BN == 128, "the int8 block conv runs N = 128");
+  static_assert(!S2 || QCONV, "stride 2 is the int8 conv's");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB
   const uint32_t red = base + STAGES * STAGE;
   const uint32_t maskp = red + Ring<BN>::RED_BYTES;
   const uint32_t full0 = maskp + Ring<BN>::MASK_BYTES, empty0 = full0 + STAGES * 8;
-  const int nst = 3 * (a.nchunk0 + a.nchunk1);
+  const int nst = SPC * (a.nchunk0 + a.nchunk1);
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -375,7 +436,8 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
 
   if (wg == CONSUMERS) {
     // Producer warp(group): one thread issues every copy. Stage j of a task: leg,
-    // chunk (j / 3) and dx (j % 3); g counts stages over all tasks.
+    // chunk (j / 3) and dx (j % 3); stride 2: chunk (j / 6), dx ((j / 2) % 3)
+    // and row parity (j % 2). g counts stages over all tasks.
     if constexpr (wide_producer(EPI)) setmaxnreg_dec<40>();
     if (threadIdx.x != CONSUMERS * 128) return;
     int g = 0;
@@ -387,13 +449,19 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
         const int s = g % STAGES;
         const uint32_t full = full0 + 8 * s, dst = base + s * STAGE;
         mbar_wait(empty0 + 8 * s, ((g / STAGES) & 1) ^ 1);
-        const int chunk = j / 3, dx = j % 3;
+        const int chunk = j / SPC, dx = S2 ? (j / 2) % 3 : j % 3;
         const bool leg1 = chunk >= a.nchunk0;
         const int ci0 = (leg1 ? chunk - a.nchunk0 : chunk) * KCH;
         const CUtensorMap* ta = leg1 ? &ta1 : &ta0;
         const CUtensorMap* tb = leg1 ? &tb1 : &tb0;
         mbar_expect_tx(full, STAGE);
-        tma_load(dst, ta, full, ci0, c0 + dx - a.shift, r0 - a.shift, b);
+        if constexpr (S2) {  // the parity planes, H + 1 rows, W + 1 columns each:
+          // columns {0, W + 1, 1}[dx], rows {0, H + 1}[parity]
+          tma_load(dst, ta, full, ci0, c0 + (dx == 1 ? a.W + 1 : dx / 2), r0 + (j % 2) * (a.H + 1),
+                   b);
+        } else {
+          tma_load(dst, ta, full, ci0, c0 + dx - a.shift, r0 - a.shift, b);
+        }
         if constexpr (S8) {  // one K-major box: [dy][BN co][64 ci]
           tma_load(dst + A_BYTES, tb, full, ci0, co0, dx, 0);
         } else {
@@ -443,38 +511,13 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0;
-    for (int j = 0; j < nst; ++j, ++g) {
-      const int s = g % STAGES;
-      const uint32_t st = base + s * STAGE;
-      mbar_wait(full0 + 8 * s, (g / STAGES) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int ks = 0; ks < A_ROW / 32; ++ks) {  // 32 bytes of A's row: k16 bf16, k32 s8
-          // bf16: 16 rows of the MN-major B; s8: 32 bytes of each K-major
-          // output channel's row of tap dy.
-          const uint64_t db = S8 ? smem_desc_k64(st + A_BYTES + dy * BN * KC_S8 + ks * 32)
-                                 : smem_desc(st + A_BYTES + dy * B_ATOM + ks * 2048, B_HALF);
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const uint32_t arow = (4 * wg + 2 * t + dy) * TW;  // first buffer row of the tap
-            const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
-            if constexpr (S8 && BN == 128) {
-              wgmma_s8_n128(acc[t], da, db);
-            } else if constexpr (S8) {
-              wgmma_s8_n64(acc[t], da, db);
-            } else if constexpr (BN == 128) {
-              wgmma_n128(acc[t], da, db);
-            } else {
-              wgmma_n64(acc[t], da, db);
-            }
-          }
-        }
+    for (int j = 0; j < nst;) {
+      if constexpr (S2) {  // the even box (dy 0, 2), then the odd one (dy 1)
+        consume_stage<BN, S8, 5, true>(acc, base, full0, empty0, g, j++, wg, lane);
+        consume_stage<BN, S8, 2, true>(acc, base, full0, empty0, g, j++, wg, lane);
+      } else {
+        consume_stage<BN, S8, 7, false>(acc, base, full0, empty0, g, j++, wg, lane);
       }
-      wgmma_commit();
-      wgmma_wait<1>();  // the stage before this one is done with its buffers
-      if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));
     }
     // Epilogue. Accumulator i of a thread: sub-tile row p = 16*warp +
     // lane/4 (+8 for the odd pair), column 8*(i/4) + 2*(lane%4) (+1); row p
@@ -669,10 +712,10 @@ int make_q_weight_map(CUtensorMap* map, const void* k, int C, int Cout, int bn) 
   return make_map_4d(map, k, dims, strides, box, 1);
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, bool S2 = false>
 int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMap& tb0,
                 const CUtensorMap& tb1, const FwdArgs& a, int grid, cudaStream_t stream) {
-  auto kernel = conv_fwd_gemm_kernel<BN, EPI>;
+  auto kernel = conv_fwd_gemm_kernel<BN, EPI, S2>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -686,21 +729,24 @@ int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMa
 // q-stats with C0' = C0 % 64 == 0 and Cout' = Cout % 128 == 0; q-conv with
 // C0 % 16 == 0 and Cout % 16 == 0, zero-extended to C0' (C0 rounded up to
 // 64: A's last chunk reads past C0 into TMA's zero fill) and Cout' (Cout
-// rounded up to bn; the epilogue masks the channels past Cout).
+// rounded up to bn; the epilogue masks the channels past Cout). stride 2
+// (q-conv, zero = 0): x0 is the parity planes (B, 2(H+1), 2(W+1), C0).
 int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
              FwdArgs a, int B, int H, int W, int Cout, int zero, int bn, int epi, int grid,
-             cudaStream_t stream) {
+             cudaStream_t stream, int stride = 1) {
   const bool s8 = is_s8(epi), qconv = epi == EPI_QCONV;
   const int kc = s8 ? KC_S8 : KC, esize = s8 ? 1 : 2;
   const int c0p = qconv ? (C0 + kc - 1) / kc * kc : C0;
   const int coutp = qconv ? (Cout + bn - 1) / bn * bn : Cout;
   if (C0 <= 0 || C0 % (qconv ? 16 : 64) || C1 % 64 || (x1 == nullptr) != (C1 == 0) ||
       Cout <= 0 || Cout % 16 || coutp % bn || B < 1 || H < 1 || W < 1 || grid < 1 ||
-      (s8 && x1 != nullptr) || (epi == EPI_QSTATS && bn != 128))
+      (s8 && x1 != nullptr) || (epi == EPI_QSTATS && bn != 128) ||
+      (stride != 1 && (stride != 2 || !qconv || zero)))
     return (int)cudaErrorInvalidValue;
   const int pad = zero ? 0 : 2;
+  const int src_h = stride == 2 ? 2 * (H + 1) : H + pad, src_w = stride == 2 ? 2 * (W + 1) : W + pad;
   CUtensorMap ta0, ta1, tb0, tb1;
-  int err = make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, kc, esize);
+  int err = make_nhwc_map(&ta0, x0, B, src_h, src_w, C0, TH + 2, TW, kc, esize);
   if (err == 0)
     err = s8 ? make_q_weight_map(&tb0, k0, c0p, coutp, bn) : make_weight_map(&tb0, k0, C0, Cout);
   if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
@@ -722,6 +768,10 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
   const long long tasks = (long long)B * a.ntiles * a.ncob;
   if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   a.ntasks = (int)tasks;
+  if (stride == 2) {
+    return bn == 128 ? launch_gemm<128, EPI_QCONV, true>(ta0, ta1, tb0, tb1, a, grid, stream)
+                     : launch_gemm<64, EPI_QCONV, true>(ta0, ta1, tb0, tb1, a, grid, stream);
+  }
   if (bn == 128) {
     switch (epi) {
       case EPI_STATS: return launch_gemm<128, EPI_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
@@ -848,6 +898,43 @@ __global__ void __launch_bounds__(96) dgrad_fold_kernel(const FoldArgs a) {
     }
 }
 
+// ------------------------------------------------ stride-2 phase pass ----
+
+// q (B, 2 hp, 2 wp, C) int8: the four (row, column) parity planes of Xp,
+// xq (B, H, W, C) padded by pad pixels (0 or 1; reflected where refl, else
+// zeros): q[b, py hp + u, px wp + v] = Xp[2u + py, 2v + px], zero past Xp.
+// Memory-bound, one 16-channel unit (16 bytes) a step, grid-stride.
+struct PhaseArgs {
+  const int8_t* xq;
+  int8_t* q;
+  long long units;
+  int H, W, C, hp, wp, pad, refl;
+};
+
+__global__ void __launch_bounds__(PASS_THREADS) phase_pass_kernel(const PhaseArgs a) {
+  const long long stride = (long long)gridDim.x * PASS_THREADS;
+  const int cu = a.C / 16, qw = 2 * a.wp;
+  const long long plane = (long long)2 * a.hp * qw;
+  for (long long v = (long long)blockIdx.x * PASS_THREADS + threadIdx.x; v < a.units; v += stride) {
+    const long long pix = v / cu;
+    const int c16 = (int)(v - pix * cu) * 16;
+    const long long b = pix / plane;
+    const int rem = (int)(pix - b * plane);
+    const int qr = rem / qw, qc = rem % qw;
+    const int py = qr >= a.hp, px = qc >= a.wp;
+    int r = 2 * (qr - py * a.hp) + py - a.pad, c = 2 * (qc - px * a.wp) + px - a.pad;
+    const int lo = a.refl ? -1 : 0;  // reflect: Xp's rows -1 and H exist
+    const bool inside = r >= lo && r < a.H - lo && c >= lo && c < a.W - lo;
+    if (a.refl) {
+      r = reflect_index(r, a.H);
+      c = reflect_index(c, a.W);
+    }
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (inside) val = ldg16(a.xq + (((size_t)b * a.H + r) * a.W + c) * a.C + c16);
+    *reinterpret_cast<uint4*>(a.q + v * 16) = val;
+  }
+}
+
 }  // namespace
 }  // namespace ircolor
 
@@ -958,16 +1045,43 @@ int ircolor_conv_q8_pad(const void* xq, void* out, int B, int H, int W, int C, v
   return launch_operand_pass(a, static_cast<cudaStream_t>(stream), true);
 }
 
+// The int8 conv's stride-2 pass: q (B, 2(Ho+1), 2(Wo+1), C) int8 = the
+// parity planes of xq (B, H, W, C) padded by pad (0 or 1) pixels, reflected
+// where refl, else zeros (see phase_pass_kernel). C % 16 == 0.
+int ircolor_conv_q8_phase(const void* xq, void* q, int B, int H, int W, int C, int Ho, int Wo,
+                          int pad, int refl, void* stream) {
+  using namespace ircolor;
+  if (C % 16 || B < 1 || H < 2 || W < 2 || Ho < 1 || Wo < 1 || (pad != 0 && pad != 1) ||
+      (refl && !pad))
+    return (int)cudaErrorInvalidValue;
+  PhaseArgs a;
+  a.xq = static_cast<const int8_t*>(xq);
+  a.q = static_cast<int8_t*>(q);
+  a.units = (long long)B * 2 * (Ho + 1) * 2 * (Wo + 1) * (C / 16);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.hp = Ho + 1;
+  a.wp = Wo + 1;
+  a.pad = pad;
+  a.refl = refl;
+  const long long need = (a.units + PASS_THREADS - 1) / PASS_THREADS;
+  const int blocks = (int)(need < PASS_MAX_BLOCKS ? need : PASS_MAX_BLOCKS);
+  phase_pass_kernel<<<blocks, PASS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // The int8 conv's GEMM: out (B, H, W, Cout), bf16 or (out_f32) f32, =
 // ((f32(sum of xq against kq) * sc[b, co]) + addend) + bias, the addend (B,
 // H, W, Cout) and bias (Cout) f32 where non-null, sc (B, Cout) f32. zero =
-// 1: xq (B, H, W, C) int8, read with zero halos; zero = 0: reflect-padded,
-// (B, H+2, W+2, C). kq (3, 3, Cout', C') int8, zero-extended: C' is C
-// rounded up to 64, Cout' Cout rounded up to bn (128 or 64). C % 16 == 0,
+// 1: xq (B, H, W, C) int8, read with zero halos; zero = 0: padded, (B, H+2,
+// W+2, C); stride 2 (zero = 0): xq the parity planes (B, 2(H+1), 2(W+1), C)
+// of ircolor_conv_q8_phase. kq (3, 3, Cout', C') int8, zero-extended: C' is
+// C rounded up to 64, Cout' Cout rounded up to bn (128 or 64). C % 16 == 0,
 // Cout % 16 == 0.
 int ircolor_conv_qconv_gemm(const void* xq, const void* kq, const void* sc, const void* addend,
                             const void* bias, void* out, int out_f32, int C, int B, int H, int W,
-                            int Cout, int zero, int bn, int grid, void* stream) {
+                            int Cout, int zero, int stride, int bn, int grid, void* stream) {
   using namespace ircolor;
   if (sc == nullptr || (bn != 128 && bn != 64)) return (int)cudaErrorInvalidValue;
   FwdArgs a = {};
@@ -980,7 +1094,7 @@ int ircolor_conv_qconv_gemm(const void* xq, const void* kq, const void* sc, cons
   a.addend = static_cast<const float*>(addend);
   a.bias = static_cast<const float*>(bias);
   return run_gemm(xq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, zero, bn, EPI_QCONV, grid,
-                  static_cast<cudaStream_t>(stream));
+                  static_cast<cudaStream_t>(stream), stride);
 }
 
 // The dgrad's operand pass: dy (B, H, W, C) = the IN backward of (p, comp)

@@ -10,8 +10,10 @@ host decode threads, starts each batch's device→host copy as soon as the
 step is queued, writes the mirrored predictions, collages,
 ``metrics_test.csv`` with its "# Summary" block and the Top-K folder.
 
-Multi-device test modes (``dp_devices``/``sp_devices`` > 1) are not ported
-yet; ``generator_from_config`` rejects them.
+Every generator variant of ``Config`` serves (``norm``, ``no_antialias``,
+``no_antialias_up``; batch norm on its running statistics). Multi-device
+test modes (``dp_devices``/``sp_devices`` > 1) are not ported yet;
+``reject_unported`` rejects them.
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
   head.conv7x7_head_pallas          ← pallas_head.conv7x7_head_pallas
   head.conv7x7_head_pallas(quant=True) ← the same with quant=True (outc_head_q)
   conv_int8.conv3x3_int8            ← XLA's int8 conv in ops/quant.conv2d_int8(_fixed)
+    (stride 1 or 2; the stride-2 form, the no_antialias down convs, counted
+    apart as ``conv3x3_int8_s2``)
   instance_norm.run_in / run_in_res ← pallas_kernels._run_in / _run_in_res
   block.conv3x3_stats / conv3x3_norm_in_stats ← pallas_block.conv3x3_stats /
     conv3x3_norm_in_stats
@@ -44,6 +46,7 @@ LAUNCHES: dict[str, int] = {
     "conv7x7_head": 0,
     "conv7x7_head_q": 0,
     "conv3x3_int8": 0,
+    "conv3x3_int8_s2": 0,
     "conv3x3_dgrad_fused": 0,
     "conv3x3_wgrad_fused": 0,
     "conv3x3_dgrad_fused_seg": 0,

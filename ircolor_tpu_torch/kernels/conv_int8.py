@@ -8,21 +8,24 @@ and ``conv2d_int8_fixed`` (``QuantConv`` in down1, down2 and the unfused
 resnet blocks; the int8 ``ConcatConv3x3`` legs of up1 and up2). Not a Pallas
 kernel there. The operands arrive quantized; the kernel computes
 
-    acc[b, y, x, co] = Σ_{dy, dx, ci} xq[b, y+dy−1, x+dx−1, ci] · wq[dy, dx, ci, co]
+    acc[b, y, x, co] = Σ_{dy, dx, ci} Xp[b, s·y+dy, s·x+dx, ci] · wq[dy, dx, ci, co]
     out = ((f32(acc) · sc[b, co]) + addend) + bias[co]      (each term optional)
 
-with one pixel of zero or reflect padding, and writes float32 or bf16. The
-epilogue rounds step by step like the plain version, so the two agree bit
-for bit.
+with Xp the input padded by one pixel of zeros or reflection, or as it
+comes (``"valid"``: the caller padded it), stride s 1 or 2, and writes
+float32 or bf16. The epilogue rounds step by step like the plain version,
+so the two agree bit for bit.
 
-On the card, one or two launches of ``csrc/conv_fwd.cu``: for reflect
-padding the int8 form of the operand pass copies ``xq`` reflect-padded by
-one pixel; then the TMA + ``wgmma`` GEMM reads that (zero padding: ``xq``
-itself, TMA filling the halo with zeros) against the weights repacked
-K-major and zero-extended to (3, 3, Cout', Cin') (``resblock._q_weights``),
-and its q-conv epilogue dequantizes, adds, masks the channels past Cout
-and stores. The plan (``_plan``) is ``resblock._conv_plan`` on s8
-operands.
+On the card, one or two launches of ``csrc/conv_fwd.cu``: at stride 1 with
+reflect padding the int8 form of the operand pass copies ``xq``
+reflect-padded by one pixel; at stride 2 the phase pass writes the four
+(row, column) parity planes of the padded input (``_phases``); then the TMA
++ ``wgmma`` GEMM reads that (zero padding at stride 1: ``xq`` itself, TMA
+filling the halo with zeros; VALID: ``xq`` as it is) against the weights
+repacked K-major and zero-extended to (3, 3, Cout', Cin')
+(``resblock._q_weights``), and its q-conv epilogue dequantizes, adds,
+masks the channels past Cout and stores. The plan (``_plan``) is
+``resblock._conv_plan`` on s8 operands.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch.nn.functional as F
 
 from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
 
-_PADS = ("zero", "reflect")
+_PADS = ("zero", "reflect", "valid")
+_STRIDES = (1, 2)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _CQ = 16  # Cin and Cout granule: a 16-byte TMA row stride, 8-channel epilogue groups
 
@@ -48,24 +52,35 @@ def _rb():
     return resblock
 
 
-def int_conv_exact(q: torch.Tensor, kq: torch.Tensor, pad: str) -> torch.Tensor:
+def out_hw(h: int, w: int, pad: str, stride: int = 1) -> tuple[int, int]:
+    """Output plane of a 3×3 conv with one pixel of ``pad`` (none for
+    ``"valid"``) at ``stride``."""
+    p = 0 if pad == "valid" else 1
+    return (h + 2 * p - 3) // stride + 1, (w + 2 * p - 3) // stride + 1
+
+
+def int_conv_exact(q: torch.Tensor, kq: torch.Tensor, pad: str, stride: int = 1) -> torch.Tensor:
     """Exact integer conv of integer-valued NHWC ``q`` with an integer HWIO
-    ``kq`` (square, odd size k), SAME size with (k−1)/2 pixels of ``pad``
-    padding, as float64: one matrix product per tap, exact for integer sums
-    below 2^53 whatever the summation order. One image at a time, so the
-    float64 copies stay small at serving batch sizes."""
+    ``kq`` (square, odd size k) at ``stride``, over ``q`` padded by (k−1)/2
+    pixels of ``pad`` (``"zero"``, ``"reflect"``; ``"valid"``: none), as
+    float64: one matrix product per tap, exact for integer sums below 2^53
+    whatever the summation order. One image at a time, so the float64
+    copies stay small at serving batch sizes."""
     b, h, w, _ = q.shape
     k = kq.shape[0]
-    r = (k - 1) // 2
+    r = 0 if pad == "valid" else (k - 1) // 2
     mode = "reflect" if pad == "reflect" else "constant"
+    ho, wo = (h + 2 * r - k) // stride + 1, (w + 2 * r - k) // stride + 1
     kd = kq.double()
-    out = torch.zeros((b, h, w, kq.shape[-1]), dtype=torch.float64, device=q.device)
+    out = torch.zeros((b, ho, wo, kq.shape[-1]), dtype=torch.float64, device=q.device)
     for i in range(b):
         qp = F.pad(q[i : i + 1].double().permute(0, 3, 1, 2), (r, r, r, r), mode=mode)
         qp = qp[0].permute(1, 2, 0)
         for dy in range(k):
             for dx in range(k):
-                out[i] += qp[dy : dy + h, dx : dx + w] @ kd[dy, dx]
+                tap = qp[dy : dy + stride * (ho - 1) + 1 : stride,
+                         dx : dx + stride * (wo - 1) + 1 : stride]
+                out[i] += tap @ kd[dy, dx]
     return out
 
 
@@ -79,30 +94,34 @@ def _epilogue(acc, sc, bias, addend, out_dtype):
     return y.to(out_dtype)
 
 
-def conv3x3_int8_plain(xq, wq, sc, *, pad="zero", bias=None, addend=None,
+def conv3x3_int8_plain(xq, wq, sc, *, pad="zero", stride=1, bias=None, addend=None,
                        out_dtype=torch.bfloat16):
     """Plain version: the exact integer sums, then the kernel's epilogue."""
-    return _epilogue(int_conv_exact(xq, wq, pad), sc, bias, addend, out_dtype)
+    return _epilogue(int_conv_exact(xq, wq, pad, stride), sc, bias, addend, out_dtype)
 
 
-def check_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
+def check_shape(b: int, h: int, w: int, c: int, cout: int, pad: str = "zero",
+                stride: int = 1) -> None:
     """Raise unless the card's int8 conv takes the shape: Cin and Cout
     multiples of 16 (TMA's 16-byte row strides; the epilogue's groups of 8
-    channels), H, W ≥ 2 (reflect padding), B ≤ 65535."""
-    if c % _CQ or cout % _CQ or h < 2 or w < 2 or b > 65535:
+    channels), H, W ≥ 2 (reflect padding) and an output of at least one
+    pixel, B ≤ 65535."""
+    ho, wo = out_hw(h, w, pad, stride)
+    if c % _CQ or cout % _CQ or h < 2 or w < 2 or ho < 1 or wo < 1 or b > 65535:
         raise ValueError(
-            f"conv3x3_int8 kernel: unsupported shape xq={(b, h, w, c)} Cout={cout} "
-            f"(needs Cin % {_CQ} == 0, Cout % {_CQ} == 0, H, W >= 2, B <= 65535)"
+            f"conv3x3_int8 kernel: unsupported shape xq={(b, h, w, c)} Cout={cout} pad={pad} "
+            f"stride={stride} (needs Cin % {_CQ} == 0, Cout % {_CQ} == 0, H, W >= 2, "
+            "an output pixel, B <= 65535)"
         )
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str):
-    """The GEMM's plan, from the shapes alone: K in 64-channel chunks (Cin
-    rounded up), N = 128 output channels a block where Cout' (Cout rounded
-    up to 64) allows it and its output blocks fill the 132 SMs' waves as
-    well as N = 64's (waves × N no larger); else N = 64. Cached: a batch-1
-    frame asks for the same 24 plans again."""
+def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str, stride: int = 1):
+    """The GEMM's plan for an h × w output, from the shapes alone: K in
+    64-channel chunks (Cin rounded up), N = 128 output channels a block
+    where Cout' (Cout rounded up to 64) allows it and its output blocks fill
+    the 132 SMs' waves as well as N = 64's (waves × N no larger); else N =
+    64. Cached: a batch-1 frame asks for the same 24 plans again."""
     rb = _rb()
     coutp = -(-cout // 64) * 64
     ntiles = -(-h // rb._CF_TH) * -(-w // rb._CF_TW)
@@ -111,7 +130,7 @@ def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str):
         return -(-b * ntiles * (coutp // bn) // rb._CF_WAVE) * bn
 
     bn = 128 if coutp % 128 == 0 and cost(128) <= cost(64) else 64
-    return rb._conv_plan(b, h, w, (c,), cout, pad, s8=True, bn=bn)
+    return rb._conv_plan(b, h, w, (c,), cout, pad, s8=True, bn=bn, stride=stride)
 
 
 def _pad(xq: torch.Tensor) -> torch.Tensor:
@@ -127,14 +146,53 @@ def _pad(xq: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _phases_plain(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
+    """Plain version of the stride-2 pass: Xp (``xq`` padded by one pixel of
+    ``pad``, or as it is for ``"valid"``) zero-extended to (2(ho+1),
+    2(wo+1)), then its parity planes stacked, rows (even, odd) of columns
+    (even, odd): Q[py·(ho+1) + u, px·(wo+1) + v] = Xp[2u + py, 2v + px]."""
+    b, h, w, c = xq.shape
+    if pad == "valid":
+        xp = xq
+    elif pad == "reflect":
+        rows = _rb()._reflect_rows
+        xp = xq[:, rows(h)][:, :, rows(w)]
+    else:
+        xp = xq.new_zeros((b, h + 2, w + 2, c))
+        xp[:, 1:-1, 1:-1] = xq
+    ext = xq.new_zeros((b, 2 * (ho + 1), 2 * (wo + 1), c))
+    ext[:, : xp.shape[1], : xp.shape[2]] = xp
+    return torch.cat([torch.cat([ext[:, py::2, px::2] for px in (0, 1)], dim=2)
+                      for py in (0, 1)], dim=1)
+
+
+def _phases(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
+    """The stride-2 pass (the plain version for CPU tensors)."""
+    if xq.device.type == "cpu":
+        return _phases_plain(xq, pad, ho, wo)
+    b, h, w, c = xq.shape
+    out = torch.empty((b, 2 * (ho + 1), 2 * (wo + 1), c), dtype=torch.int8, device=xq.device)
+    err = _rb()._load_fwd().ircolor_conv_q8_phase(
+        xq.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo, int(pad != "valid"),
+        int(pad == "reflect"), stream_ptr())
+    build.check(err, "int8 conv stride-2 pass")
+    return out
+
+
 def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
-    """The GEMM with the q-conv epilogue on ``src`` (``xq``, or its
-    reflect-padded copy) and the repacked weights ``kt``; on a CPU tensor
-    its plain version: the exact sums in the kernel's K order over whole
-    tiles (``resblock._conv_acc_plain``, the K-major weights read back as
-    HWIO), then the epilogue on the pixels and channels that exist."""
+    """The GEMM with the q-conv epilogue on ``src`` (``xq``, its
+    reflect-padded copy, or at stride 2 its parity planes) and the repacked
+    weights ``kt``; on a CPU tensor, at stride 1, its plain version: the
+    exact sums in the kernel's reads over whole tiles
+    (``resblock._conv_acc_plain`` in its K order, the K-major weights read
+    back as HWIO), then the epilogue on the pixels and channels that exist.
+    ``conv3x3_int8`` never calls it on the CPU: its plain version there is
+    ``conv3x3_int8_plain``."""
     rb = _rb()
     if src.device.type == "cpu":
+        if plan.stride != 1:
+            raise NotImplementedError("the stride-2 GEMM has no CPU emulation here; "
+                                      "conv3x3_int8_plain is its plain version")
         acc = rb._conv_acc_plain([src], [kt.transpose(2, 3)], plan)
         return _epilogue(acc[:, : plan.h, : plan.w, : plan.cout], sc, bias, addend, out_dtype)
     b, c = src.shape[0], src.shape[-1]
@@ -142,23 +200,36 @@ def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
     err = rb._load_fwd().ircolor_conv_qconv_gemm(
         src.data_ptr(), kt.data_ptr(), sc.data_ptr(), rb._ptr(addend), rb._ptr(bias),
         out.data_ptr(), int(out_dtype == torch.float32), c, b, plan.h, plan.w, plan.cout,
-        plan.shift, plan.bn, plan.grid, stream_ptr())
+        plan.shift, plan.stride, plan.bn, plan.grid, stream_ptr())
     build.check(err, "int8 conv GEMM")
     return out
 
 
-def conv3x3_int8(xq, wq, sc, *, pad="zero", bias=None, addend=None, out_dtype=torch.bfloat16):
-    """(B, H, W, Cin) int8 ``xq`` ⊛ (3, 3, Cin, Cout) int8 ``wq``, stride 1,
-    one pixel of ``pad`` (``"zero"`` | ``"reflect"``) padding; dequantized
-    by ``sc`` (B, Cout) float32, then ``+ addend`` (B, H, W, Cout) float32
+def _source(xq: torch.Tensor, pad: str, stride: int, plan) -> torch.Tensor:
+    """What the GEMM reads: the parity planes (stride 2), the reflect copy
+    (stride 1, reflect), else ``xq`` itself."""
+    if stride == 2:
+        return _phases(xq, pad, plan.h, plan.w)
+    return _pad(xq) if pad == "reflect" else xq
+
+
+def conv3x3_int8(xq, wq, sc, *, pad="zero", stride=1, bias=None, addend=None,
+                 out_dtype=torch.bfloat16):
+    """(B, H, W, Cin) int8 ``xq`` ⊛ (3, 3, Cin, Cout) int8 ``wq`` at
+    ``stride`` (1 | 2), one pixel of ``pad`` (``"zero"`` | ``"reflect"``)
+    padding or none (``"valid"``: ``xq`` comes padded); dequantized by
+    ``sc`` (B, Cout) float32, then ``+ addend`` (B, Ho, Wo, Cout) float32
     and ``+ bias`` (Cout,) float32 where given, in ``out_dtype``."""
     if pad not in _PADS:
         raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    if stride not in _STRIDES:
+        raise ValueError(f"stride must be one of {_STRIDES}, got {stride!r}")
     if xq.device.type == "cpu":
-        return conv3x3_int8_plain(xq, wq, sc, pad=pad, bias=bias, addend=addend,
+        return conv3x3_int8_plain(xq, wq, sc, pad=pad, stride=stride, bias=bias, addend=addend,
                                   out_dtype=out_dtype)
     b, h, w, c = xq.shape
     cout = wq.shape[-1]
+    ho, wo = out_hw(h, w, pad, stride)
     require(xq, "xq", torch.int8, (None, None, None, None))
     # wq is repacked below, so any layout will do.
     require(wq.contiguous(), "wq", torch.int8, (3, 3, c, None))
@@ -166,15 +237,15 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", bias=None, addend=None, out_dtype=to
     if bias is not None:
         require(bias, "bias", torch.float32, (cout,))
     if addend is not None:
-        require(addend, "addend", torch.float32, (b, h, w, cout))
+        require(addend, "addend", torch.float32, (b, ho, wo, cout))
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"conv3x3_int8: out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
-    check_shape(b, h, w, c, cout)
+    check_shape(b, h, w, c, cout, pad, stride)
     if any(t.data_ptr() % 16 for t in (xq, addend) if t is not None):
         raise ValueError("conv3x3_int8: xq and addend must start on 16-byte boundaries "
                          "(TMA and the epilogue read them in 16- and 8-byte units)")
-    plan = _plan(b, h, w, c, cout, pad)
-    src = _pad(xq) if pad == "reflect" else xq
+    plan = _plan(b, ho, wo, c, cout, pad, stride)
+    src = _source(xq, pad, stride, plan)
     out = _gemm(src, _rb()._q_weights(wq, plan), sc, plan, bias, addend, out_dtype)
-    LAUNCHES["conv3x3_int8"] += 1
+    LAUNCHES["conv3x3_int8_s2" if stride == 2 else "conv3x3_int8"] += 1
     return out

@@ -159,16 +159,16 @@ def conv7x7_head_q_plain(x, mean, inv, kernel):
 
 
 def check_shape(b: int, h: int, w: int, c: int, kernel_shape: tuple, quant: bool) -> HeadPlan:
-    """The card's guard: (7, 7, C, 3) weights, C % 8 (int8: C % 16), H, W
-    ≥ 4 (reflect padding by 3), B ≤ 65535, the plan's shared memory within
-    the block's 227 KB. Returns the plan."""
-    cc = 16 if quant else 8
+    """The card's guard: (7, 7, C, 3) weights, C % 8 (the staging's 16-byte
+    loads; channels past C up to the unit are zero-filled, in both forms),
+    H, W ≥ 4 (reflect padding by 3), B ≤ 65535, the plan's shared memory
+    within the block's 227 KB. Returns the plan."""
     plan = _head_plan(b, h, w, c, quant)
-    if (tuple(kernel_shape) != (_KS, _KS, c, 3) or c % cc or h < 4 or w < 4 or b > 65535
+    if (tuple(kernel_shape) != (_KS, _KS, c, 3) or c % 8 or h < 4 or w < 4 or b > 65535
             or plan.smem > _SMEM_LIMIT):
         raise ValueError(
             f"conv7x7 head kernel: unsupported x={(b, h, w, c)} "
-            f"kernel={tuple(kernel_shape)} (needs (7, 7, C, 3), C % {cc} == 0, "
+            f"kernel={tuple(kernel_shape)} (needs (7, 7, C, 3), C % 8 == 0, "
             "H, W >= 4, B <= 65535)"
         )
     return plan

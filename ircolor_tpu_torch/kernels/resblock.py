@@ -64,7 +64,8 @@ def _load_fwd():
             (lib.ircolor_conv_q_pass, [p] * 4 + [ctypes.c_float, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
             (lib.ircolor_conv_q8_pad, [p, p] + [i] * 4 + [p]),
-            (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 9 + [p]),
+            (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 10 + [p]),
+            (lib.ircolor_conv_q8_phase, [p, p] + [i] * 8 + [p]),
         ):
             fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
@@ -165,7 +166,9 @@ class ConvPlan(NamedTuple):
     there), and ``ncob · bn`` past ``cout`` (the int8 conv's weights come
     zero-extended to both). ``pass_pad``: the operand pass on every leg
     first — 1 reflect-pads (and normalizes with mean/inv), 0 only
-    normalizes the pre-padded input, None runs no pass."""
+    normalizes the pre-padded input, None runs no pass. ``stride`` 2 (the
+    int8 conv): the source is the parity planes, (B, 2(h+1), 2(w+1), C),
+    and a chunk runs six stages, (dx, row parity)."""
 
     h: int
     w: int
@@ -182,16 +185,20 @@ class ConvPlan(NamedTuple):
     a_box: tuple
     b_box: tuple
     bn: int = _BN
+    stride: int = 1
 
 
 def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False,
-               s8: bool = False, bn: int | None = None) -> ConvPlan:
+               s8: bool = False, bn: int | None = None, stride: int = 1) -> ConvPlan:
     """The plan of the forward conv of ``legs`` (input channels of each)
     into an h × w × cout output: a function of the shapes alone. ``s8``:
     the int8 convs' (int8 stages of 64 channels). ``bn``: output channels
     a block, by default 128 where cout % 128 == 0, else 64 (the int8 conv
-    picks its own, ``kernels/conv_int8.py:_plan``)."""
+    picks its own, ``kernels/conv_int8.py:_plan``). ``stride`` 2: the int8
+    conv over parity planes (its own pass makes them; no halo, no shift)."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
+    if stride == 2:
+        halo = "valid"
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
     kc = _CF_KC_S8 if s8 else _CF_KC
     if bn is None:
@@ -201,7 +208,7 @@ def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = 
     b_box = (kc, bn, 1, 3) if s8 else (64, kc, 1, 3)
     return ConvPlan(h, w, cout, tuple(-(-c // kc) for c in legs), int(halo == "zero"), pass_pad,
                     ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
-                    (kc, _CF_TW, _CF_TH + 2, 1), b_box, bn)
+                    (kc, _CF_TW, _CF_TH + 2, 1), b_box, bn, stride)
 
 
 def _conv_blocks(plan: ConvPlan):

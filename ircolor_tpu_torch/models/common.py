@@ -3,6 +3,9 @@
 * ``use_bias_for_norm``: conv bias iff instance norm.
 * ``norm_nhwc``: instance norm in the JAX package's dtype rule — one-pass
   statistics on the bf16 path, two-pass on the f32 parity path.
+* ``BatchNorm``, ``make_norm``, ``apply_norm``: the JAX ``Norm`` dispatch
+  (``instance`` | ``batch`` | ``none``) as modules under the reference's
+  state_dict names.
 * ``conv_nhwc``: a ``nn.Conv2d``'s parameters applied to an NHWC tensor in
   the compute dtype (the JAX ``Conv(dtype=...)`` casts the same way).
 * ``quant_conv_nhwc``: the same on the int8 route (``QuantConv``).
@@ -13,6 +16,8 @@
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -37,6 +42,83 @@ def norm_nhwc(x: torch.Tensor) -> torch.Tensor:
     return instance_norm(x)
 
 
+class BatchNorm(nn.Module):
+    """Batch norm of NHWC tensors with ``nn.BatchNorm2d``'s state (``weight``,
+    ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``: the
+    reference's keys) and the JAX package's arithmetic (flax ``BatchNorm``,
+    momentum 0.9 ≡ torch's 0.1, eps 1e-5). Training: the batch statistics
+    over (B, H, W) in float32, the mean and the biased variance E[x²] −
+    mean² (clipped at 0), which also update the running statistics as
+    0.9·r + 0.1·batch — torch's ``BatchNorm2d`` would feed them the
+    unbiased variance, n/(n − 1) larger. Eval: the running statistics. The
+    output is float32 whatever the input's dtype, as flax promotes a bf16
+    input against its float32 parameters. Under ``frozen_running_stats``
+    (a checkpointed block's recompute) the statistics are not updated
+    again."""
+
+    update_stats = True
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean(dim=(0, 1, 2))
+            var = torch.clamp(x32.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                    self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """No ``BatchNorm`` of ``module`` updates its running statistics inside:
+    the recompute of a checkpointed block (``remat``) repeats a forward
+    whose update has already happened, and flax's ``nn.remat`` does not
+    update twice."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+def make_norm(norm: str, channels: int) -> nn.Module:
+    """The norm layer of the reference's ``get_norm_layer``: a parameterless
+    ``nn.InstanceNorm2d`` (applied as ``norm_nhwc``), ``BatchNorm``, or
+    ``nn.Identity`` for ``"none"``."""
+    if norm == "instance":
+        return nn.InstanceNorm2d(channels)
+    if norm == "batch":
+        return BatchNorm(channels)
+    if norm == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"Normalization type [{norm}] not supported")
+
+
+def apply_norm(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A ``make_norm`` layer on an NHWC tensor."""
+    if isinstance(layer, nn.InstanceNorm2d):
+        return norm_nhwc(x)
+    return layer(x)
+
+
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(dtype)
     y = F.conv2d(
@@ -53,12 +135,14 @@ def _hwio(conv: nn.Conv2d) -> torch.Tensor:
 def quant_conv_nhwc(
     conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, *, pad: str = "zero"
 ) -> torch.Tensor:
-    """The JAX ``QuantConv``: a 3×3 stride-1 ``nn.Conv2d``'s float32
-    parameters applied on the int8 route (``ops.quant.conv2d_int8``) with
-    one pixel of ``pad`` (``"zero"``, or ``"reflect"`` for the resnet
-    blocks, which reflect-pad and then convolve VALID in the JAX package:
-    the same sums)."""
-    return conv2d_int8(x, _hwio(conv), pad=pad, bias=conv.bias, out_dtype=dtype)
+    """The JAX ``QuantConv``: a 3×3 ``nn.Conv2d``'s float32 parameters, at
+    its stride (1, or 2 in the no_antialias down convs), applied on the
+    int8 route (``ops.quant.conv2d_int8``) with one pixel of ``pad``
+    (``"zero"``, or ``"reflect"`` for the resnet blocks, which reflect-pad
+    and then convolve VALID in the JAX package: the same sums) or none
+    (``"valid"``: ``x`` comes padded)."""
+    return conv2d_int8(x, _hwio(conv), pad=pad, stride=conv.stride[0], bias=conv.bias,
+                       out_dtype=dtype)
 
 
 def concat_conv3x3(
@@ -82,6 +166,23 @@ def concat_conv3x3(
     if conv.bias is not None:
         y = y + conv.bias.to(dtype)[None, :, None, None]
     return to_nhwc(y)
+
+
+def init_norm_(bn: BatchNorm, gain: float, gen: torch.Generator) -> None:
+    """The reference ``init_weights`` of a batch norm: weight N(1, gain),
+    bias zero."""
+    nn.init.normal_(bn.weight, 1.0, gain, generator=gen)
+    nn.init.zeros_(bn.bias)
+
+
+def init_module_(module: nn.Module, init_type: str, gain: float, gen: torch.Generator) -> None:
+    """``init_conv_`` on every conv (and transposed conv) of ``module`` and
+    ``init_norm_`` on every batch norm, in module order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            init_conv_(m, init_type, gain, gen)
+        elif isinstance(m, BatchNorm):
+            init_norm_(m, gain, gen)
 
 
 def init_conv_(conv: nn.Conv2d, init_type: str, gain: float, gen: torch.Generator) -> None:

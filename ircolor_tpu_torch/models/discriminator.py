@@ -8,10 +8,12 @@ At input_nc=4 (IR 1 ch ⊕ RGB 3 ch), ndf=64, n_layers=3:
   model.8   4×4 conv s1 256→512 + IN + LeakyReLU(0.2)
   model.11  4×4 conv s1 512→1                           (patch score map)
 
-All convs pad 1; instance norm without affine parameters. Activations are
-NHWC like the generator's; the ``nn.Sequential`` gives the parameters the
-reference state_dict names, and ``forward`` applies its members itself in
-the compute dtype (plain cuDNN convs on the card).
+All convs pad 1. ``norm``: instance norm without affine parameters (the
+default), ``batch`` (``models.common.BatchNorm`` at ``model.3``, ``.6``,
+``.9``, convs without bias) or ``none``. Activations are NHWC like the
+generator's; the ``nn.Sequential`` gives the parameters the reference
+state_dict names, and ``forward`` applies its members itself in the
+compute dtype (plain cuDNN convs on the card).
 """
 
 from __future__ import annotations
@@ -20,7 +22,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.models.common import conv_nhwc, init_conv_, norm_nhwc, use_bias_for_norm
+from ircolor_tpu_torch.models.common import (
+    apply_norm,
+    conv_nhwc,
+    init_module_,
+    make_norm,
+    use_bias_for_norm,
+)
 
 
 class NLayerDiscriminator(nn.Module):
@@ -34,8 +42,6 @@ class NLayerDiscriminator(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if norm != "instance":
-            raise NotImplementedError(f"norm={norm!r} is not ported yet (ROADMAP.md, Queue 1)")
         use_bias = use_bias_for_norm(norm)
         self.dtype = dtype
         layers: list[nn.Module] = [
@@ -46,22 +52,20 @@ class NLayerDiscriminator(nn.Module):
             nf_prev, nf_mult = nf_mult, min(2**n, 8)
             layers += [
                 nn.Conv2d(ndf * nf_prev, ndf * nf_mult, 4, stride=2, padding=1, bias=use_bias),
-                nn.InstanceNorm2d(ndf * nf_mult),
+                make_norm(norm, ndf * nf_mult),
                 nn.LeakyReLU(0.2, True),
             ]
         nf_prev, nf_mult = nf_mult, min(2**n_layers, 8)
         layers += [
             nn.Conv2d(ndf * nf_prev, ndf * nf_mult, 4, stride=1, padding=1, bias=use_bias),
-            nn.InstanceNorm2d(ndf * nf_mult),
+            make_norm(norm, ndf * nf_mult),
             nn.LeakyReLU(0.2, True),
             nn.Conv2d(ndf * nf_mult, 1, 4, stride=1, padding=1),
         ]
         self.model = nn.Sequential(*layers)
 
     def init_weights(self, init_type: str, gain: float, gen: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv_(m, init_type, gain, gen)
+        init_module_(self, init_type, gain, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, input_nc) → (B, H', W', 1) patch scores, compute dtype."""
@@ -69,8 +73,8 @@ class NLayerDiscriminator(nn.Module):
         for layer in self.model:
             if isinstance(layer, nn.Conv2d):
                 h = conv_nhwc(layer, h, self.dtype)
-            elif isinstance(layer, nn.InstanceNorm2d):
-                h = norm_nhwc(h)
-            else:
+            elif isinstance(layer, nn.LeakyReLU):
                 h = F.leaky_relu(h, 0.2)
+            else:
+                h = apply_norm(layer, h)
         return h

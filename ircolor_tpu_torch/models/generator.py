@@ -1,16 +1,29 @@
 """ResNet-bottleneck U-Net generator (``ircolor_tpu/models/generator.py``),
-default topology, inference and training.
+inference and training, with the variants its ``Config`` and module API
+reach.
 
-  encoder    inc: ReflectPad3 + 7×7 conv 1→64 + IN + ReLU
-             down1/down2: 3×3 conv + IN + ReLU + blur-pool /2
-  bottleneck n_blocks × ResnetBlock(256)
-  decoder    up1/up2: AA-upsample ×2 → conv over concat(skip) + IN + ReLU
+  encoder    inc: ReflectPad3 + 7×7 conv 1→64 + norm + ReLU
+             down1/down2: 3×3 conv + norm + ReLU + blur-pool /2
+               (``no_antialias``: a stride-2 3×3 conv, no blur-pool)
+  bottleneck n_blocks × ResnetBlock(256) (``remat``: each recomputed in
+             the backward, ``torch.utils.checkpoint``)
+  decoder    up1/up2: AA-upsample ×2 (``no_antialias_up``: a 3×3 stride-2
+             ConvTranspose, output_padding 1) → conv over concat(skip) +
+             norm + ReLU
              outc: ReflectPad3 + 7×7 conv 64→3 + tanh
+
+``norm``: ``instance`` (the default; parameterless), ``batch``
+(``models.common.BatchNorm``: the JAX package's flax arithmetic under
+``nn.BatchNorm2d``'s state) or ``none``. The resnet blocks also take
+``padding_type`` (``reflect`` | ``replicate`` | ``zero``) and
+``use_dropout`` (0.5 between the convs): through the module API only, as in
+the JAX package, whose wrapper fixes reflect and no dropout.
 
 Activations are NHWC tensors (``ops.layout``). The ``nn.Sequential``
 containers exist to give the parameters the reference state_dict names
 (``inc.1``, ``down1.0``, ``resblocks.{i}.conv_block.{1,5}``, ``up1_conv.0``,
-``outc.1``, ...); ``forward`` applies their members itself.
+``outc.1``, the norms ``inc.2``, ``down1.1``, ..., ``up1_up`` for a
+ConvTranspose, ...); ``forward`` applies their members itself.
 
 Routing is the JAX generator's, flag for flag and gate for gate (the area,
 launch and small-batch-band gates, the channel alignment checks,
@@ -33,22 +46,26 @@ tails.
 
 int8 serving (``quant_int8``) follows the JAX generator too: int8 inside
 the fused blocks where they engage; the int8 route of ``QuantConv``
-(``quant_conv_nhwc``) in down1, down2 and the unfused blocks, and the int8
-``concat_conv3x3`` in up1 and up2, wherever neither the fused tails nor the
-fused head engage (``_quant_convs``: batch 1 at 512×640, small planes);
+(``quant_conv_nhwc``) in down1, down2 (stride 2 under ``no_antialias``) and
+the unfused blocks, and the int8 ``concat_conv3x3`` in up1 and up2,
+wherever neither the fused tails nor the fused head engage
+(``_quant_convs``: batch 1 at 512×640, small planes, and every batch where
+the norm is not instance norm, which gates every fused kernel off);
 ``quant_fixed_u2`` (the fixed-scale up2 conv, where the fused kernels took
 int8 off the decoder) and ``quant_head`` (the int8 head) as opt-in modes.
-inc and the float 7×7 head stay float.
+inc, the ConvTranspose ups and the float 7×7 head stay float.
 
-Not ported yet (raise ``NotImplementedError``; ``ROADMAP.md``):
-``no_antialias``, ``no_antialias_up``, zero/replicate pads, dropout,
-batch/none norms, the spatial mesh, remat.
+Not ported yet (``ROADMAP.md``): the spatial mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ircolor_tpu_torch.kernels.blur import norm_blur_supported, norm_relu_blur_down
 from ircolor_tpu_torch.kernels.encdec import conv_in_relu_fused, seg_tile_h
@@ -56,16 +73,20 @@ from ircolor_tpu_torch.kernels.head import head_supported, outc_head, outc_head_
 from ircolor_tpu_torch.kernels.instance_norm import instance_norm_auto
 from ircolor_tpu_torch.kernels.resblock import resnet_block_pallas, resnet_block_pallas_q
 from ircolor_tpu_torch.models.common import (
+    apply_norm,
     concat_conv3x3,
     conv_nhwc,
-    init_conv_,
+    frozen_running_stats,
+    init_module_,
+    make_norm,
     norm_nhwc,
     quant_conv_nhwc,
     use_bias_for_norm,
 )
 from ircolor_tpu_torch.ops.blurpool import blur_downsample, blur_upsample_aa
 from ircolor_tpu_torch.ops.filters import binomial_filter_2d
-from ircolor_tpu_torch.ops.padding import reflect_pad2d
+from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
+from ircolor_tpu_torch.ops.padding import pad2d, reflect_pad2d
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners
 
 
@@ -110,13 +131,24 @@ class _Blur(nn.Module):
         self.register_buffer("filt", filt[None, None].repeat(channels, 1, 1, 1))
 
 
+_PRE_PADS = {"reflect": nn.ReflectionPad2d, "replicate": nn.ReplicationPad2d}
+
+
 class ResnetBlock(nn.Module):
-    """ReflectPad → 3×3 conv → IN → ReLU → ReflectPad → 3×3 conv → IN, + x."""
+    """pad → 3×3 conv → norm → ReLU → [dropout] → pad → 3×3 conv → norm, + x.
+
+    ``conv_block`` is the reference's ``build_conv_block`` Sequential: a pad
+    module before each conv for reflect and replicate padding (zero pads
+    inside the conv), dropout after the first ReLU, so the convs sit at 1
+    and 5 by default (0 and 3 for zero padding; one later with dropout)."""
 
     def __init__(
         self,
         dim: int,
         *,
+        padding_type: str = "reflect",
+        norm: str = "instance",
+        use_dropout: bool = False,
         use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
         pallas_block: bool = False,
@@ -127,7 +159,12 @@ class ResnetBlock(nn.Module):
         use_pallas: bool = False,
     ):
         super().__init__()
+        if padding_type not in (*_PRE_PADS, "zero"):
+            raise NotImplementedError(f"Padding [{padding_type}] is not implemented")
         self.dim = dim
+        self.padding_type = padding_type
+        self.norm = norm
+        self.use_dropout = use_dropout
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.pallas_block = pallas_block
@@ -135,15 +172,28 @@ class ResnetBlock(nn.Module):
         self.pallas_block_min_area = pallas_block_min_area
         self.pallas_block_min_launch = pallas_block_min_launch
         self.quant_int8 = quant_int8
-        self.conv_block = nn.Sequential(
-            nn.ReflectionPad2d(1),
-            nn.Conv2d(dim, dim, 3, bias=use_bias),
-            nn.InstanceNorm2d(dim),
-            nn.ReLU(True),
-            nn.ReflectionPad2d(1),
-            nn.Conv2d(dim, dim, 3, bias=use_bias),
-            nn.InstanceNorm2d(dim),
-        )
+        pre = _PRE_PADS.get(padding_type)
+        layers: list[nn.Module] = []
+        for i in range(2):
+            if pre is not None:
+                layers.append(pre(1))
+            layers.append(nn.Conv2d(dim, dim, 3, padding=0 if pre else 1, bias=use_bias))
+            layers.append(make_norm(norm, dim))
+            if i == 0:
+                layers.append(nn.ReLU(True))
+                if use_dropout:
+                    layers.append(nn.Dropout(0.5))
+        self.conv_block = nn.Sequential(*layers)
+        convs = [j for j, m in enumerate(layers) if isinstance(m, nn.Conv2d)]
+        self._conv_idx = tuple(convs)
+
+    @property
+    def conv1(self) -> nn.Conv2d:
+        return self.conv_block[self._conv_idx[0]]
+
+    @property
+    def conv2(self) -> nn.Conv2d:
+        return self.conv_block[self._conv_idx[1]]
 
     @property
     def quant(self) -> bool:
@@ -161,7 +211,10 @@ class ResnetBlock(nn.Module):
             else self.pallas_block_min_area
         )
         return (
-            self.pallas_block
+            self.norm == "instance"
+            and self.pallas_block
+            and not self.use_dropout
+            and self.padding_type == "reflect"
             and _fused_dtype_ok(self.dtype)
             and _fused_tile_h(h) is not None
             and w % 8 == 0
@@ -173,8 +226,20 @@ class ResnetBlock(nn.Module):
             )
         )
 
+    def _conv(self, layer: nn.Conv2d, y: torch.Tensor) -> torch.Tensor:
+        """The JAX block's ``conv``: pre-pad (reflect, replicate) then VALID,
+        or the zero-padded conv; on the int8 route a reflect pad is the int8
+        conv's own (the same sums: quantizing the padded input gives the
+        same grid), a replicate pad is made first and convolved VALID."""
+        pre = self.padding_type if self.padding_type in _PRE_PADS else None
+        if self.quant:
+            if pre == "replicate":
+                return quant_conv_nhwc(layer, pad2d(y, 1, pre), self.dtype, pad="valid")
+            return quant_conv_nhwc(layer, y, self.dtype, pad=pre or "zero")
+        return conv_nhwc(layer, y if pre is None else pad2d(y, 1, pre), self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv1, conv2 = self.conv_block[1], self.conv_block[5]
+        conv1, conv2 = self.conv1, self.conv2
         if self.fused(x):
             # The block's backward returns dk in the compute dtype. The
             # biases are inert through IN: no gradient.
@@ -183,18 +248,16 @@ class ResnetBlock(nn.Module):
                 return resnet_block_pallas_q(x, k1, k2)
             return resnet_block_pallas(x, k1, k2, bwd=self.pallas_block_bwd)
 
-        def conv(layer, y):
-            if self.quant:
-                return quant_conv_nhwc(layer, y, self.dtype, pad="reflect")
-            return conv_nhwc(layer, reflect_pad2d(y, 1), self.dtype)
-
-        if self.use_pallas:
+        if self.norm == "instance" and self.use_pallas and not self.use_dropout:
             # conv → IN → ReLU and conv → IN (+ x) each one kernel 11 launch
             # where its gate admits the plane.
-            h = instance_norm_auto(conv(conv1, x), relu=True, use_pallas=True)
-            return instance_norm_auto(conv(conv2, h), residual=x, use_pallas=True)
-        h = torch.relu(norm_nhwc(conv(conv1, x)))
-        return x + norm_nhwc(conv(conv2, h))
+            h = instance_norm_auto(self._conv(conv1, x), relu=True, use_pallas=True)
+            return instance_norm_auto(self._conv(conv2, h), residual=x, use_pallas=True)
+        n1, n2 = self.conv_block[self._conv_idx[0] + 1], self.conv_block[self._conv_idx[1] + 1]
+        h = torch.relu(apply_norm(n1, self._conv(conv1, x)))
+        if self.use_dropout:
+            h = F.dropout(h, 0.5, self.training)
+        return x + apply_norm(n2, self._conv(conv2, h))
 
 
 class ResnetUNetGenerator(nn.Module):
@@ -208,6 +271,11 @@ class ResnetUNetGenerator(nn.Module):
         n_blocks: int = 9,
         *,
         norm: str = "instance",
+        use_dropout: bool = False,
+        padding_type: str = "reflect",
+        no_antialias: bool = False,
+        no_antialias_up: bool = False,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
         pallas_block: bool = False,
@@ -226,11 +294,13 @@ class ResnetUNetGenerator(nn.Module):
         quant_head: bool = False,
     ):
         super().__init__()
-        if norm != "instance":
-            raise NotImplementedError(f"norm={norm!r} is not ported yet (ROADMAP.md, Queue 1)")
         use_bias = use_bias_for_norm(norm)
         self.ngf = ngf
         self.n_blocks = n_blocks
+        self.norm = norm
+        self.no_antialias = no_antialias
+        self.no_antialias_up = no_antialias_up
+        self.remat = remat
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.pallas_encdec_bwd = pallas_encdec_bwd
@@ -245,23 +315,30 @@ class ResnetUNetGenerator(nn.Module):
         self.quant_head = quant_head
 
         def norm_relu(c):
-            return [nn.InstanceNorm2d(c), nn.ReLU(True)]
+            return [make_norm(norm, c), nn.ReLU(True)]
 
+        def up(c):
+            if no_antialias_up:
+                return nn.ConvTranspose2d(c, c, 3, 2, 1, output_padding=1, bias=use_bias)
+            return _Blur(c)
+
+        sd = 2 if no_antialias else 1
         self.inc = nn.Sequential(
             nn.ReflectionPad2d(3), nn.Conv2d(input_nc, ngf, 7, bias=use_bias),
             *norm_relu(ngf),
         )
         self.down1 = nn.Sequential(
-            nn.Conv2d(ngf, ngf * 2, 3, padding=1, bias=use_bias), *norm_relu(ngf * 2)
+            nn.Conv2d(ngf, ngf * 2, 3, sd, padding=1, bias=use_bias), *norm_relu(ngf * 2)
         )
-        self.down1_down = _Blur(ngf * 2)
+        self.down1_down = None if no_antialias else _Blur(ngf * 2)
         self.down2 = nn.Sequential(
-            nn.Conv2d(ngf * 2, ngf * 4, 3, padding=1, bias=use_bias), *norm_relu(ngf * 4)
+            nn.Conv2d(ngf * 2, ngf * 4, 3, sd, padding=1, bias=use_bias), *norm_relu(ngf * 4)
         )
-        self.down2_down = _Blur(ngf * 4)
+        self.down2_down = None if no_antialias else _Blur(ngf * 4)
         self.resblocks = nn.Sequential(*[
             ResnetBlock(
-                ngf * 4, use_bias=use_bias, dtype=dtype, pallas_block=pallas_block,
+                ngf * 4, padding_type=padding_type, norm=norm, use_dropout=use_dropout,
+                use_bias=use_bias, dtype=dtype, pallas_block=pallas_block,
                 pallas_block_min_area=pallas_block_min_area,
                 pallas_block_min_launch=pallas_block_min_launch,
                 pallas_block_bwd=pallas_block_bwd, quant_int8=quant_int8,
@@ -269,12 +346,12 @@ class ResnetUNetGenerator(nn.Module):
             )
             for _ in range(n_blocks)
         ])
-        self.up1_up = _Blur(ngf * 4)
+        self.up1_up = up(ngf * 4)
         self.up1_conv = nn.Sequential(
             nn.Conv2d(ngf * 4 + ngf * 2, ngf * 2, 3, padding=1, bias=use_bias),
             *norm_relu(ngf * 2),
         )
-        self.up2_up = _Blur(ngf * 2)
+        self.up2_up = up(ngf * 2)
         self.up2_conv = nn.Sequential(
             nn.Conv2d(ngf * 2 + ngf, ngf, 3, padding=1, bias=use_bias),
             *norm_relu(ngf),
@@ -284,9 +361,7 @@ class ResnetUNetGenerator(nn.Module):
         )
 
     def init_weights(self, init_type: str, gain: float, gen: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv_(m, init_type, gain, gen)
+        init_module_(self, init_type, gain, gen)
 
     # --- the JAX generator's gates -----------------------------------------
 
@@ -294,6 +369,8 @@ class ResnetUNetGenerator(nn.Module):
         b, h, w, _ = y.shape
         return (
             self.pallas_norm_blur
+            and self.norm == "instance"
+            and not self.no_antialias
             and _fused_dtype_ok(self.dtype)
             and (
                 (h * w >= self.pallas_norm_blur_min_area
@@ -307,6 +384,7 @@ class ResnetUNetGenerator(nn.Module):
         b, h, w, _ = y.shape
         return (
             self.pallas_head
+            and self.norm == "instance"
             and _fused_dtype_ok(self.dtype)
             and (
                 (h * w >= self.pallas_head_min_area
@@ -325,14 +403,16 @@ class ResnetUNetGenerator(nn.Module):
     def _quant_convs(self, x: torch.Tensor) -> bool:
         """The JAX ``quant_convs``: whether down1, down2, up1 and up2 take
         the int8 route — int8 on (and not training) and neither the fused
-        tails nor the fused head engage for this input."""
+        tails nor the fused head engage for this input (neither does under
+        a norm other than instance norm, nor the tails under
+        ``no_antialias``)."""
         if not self.quant:
             return False
         if not _fused_dtype_ok(self.dtype):
             return True
         bb, bh, bw = x.shape[0], x.shape[1], x.shape[2]
         ngf = self.ngf
-        nb_on = self.pallas_norm_blur and any(
+        nb_on = self.pallas_norm_blur and self.norm == "instance" and not self.no_antialias and any(
             ((hh * ww >= self.pallas_norm_blur_min_area
               and bb * hh * ww >= self.pallas_norm_blur_min_launch)
              or _xla_smallbatch_band(bb))
@@ -341,6 +421,7 @@ class ResnetUNetGenerator(nn.Module):
         )
         head_on = (
             self.pallas_head
+            and self.norm == "instance"
             and ((bh * bw >= self.pallas_head_min_area
                   and bb * bh * bw >= self.pallas_head_min_launch)
                  or _xla_smallbatch_band(bb))
@@ -351,10 +432,11 @@ class ResnetUNetGenerator(nn.Module):
     def _encdec_seg(self, zs: tuple, cout: int, quant_convs: bool) -> str | None:
         """The JAX ``encdec_seg``: the wgrad mode of the fused-backward
         segment for conv(concat(zs)) → IN → ReLU, or None where it does not
-        engage (training only; dgrad needs the output 128-aligned, the fused
-        wgrad every input leg — down1's 64-channel leg takes ``"xla"``)."""
-        if not (self.training and self.pallas_encdec_bwd and _fused_dtype_ok(self.dtype)
-                and not quant_convs):
+        engage (training only, instance norm, stride-1 down convs; dgrad
+        needs the output 128-aligned, the fused wgrad every input leg —
+        down1's 64-channel leg takes ``"xla"``)."""
+        if not (self.training and self.pallas_encdec_bwd and self.norm == "instance"
+                and not self.no_antialias and _fused_dtype_ok(self.dtype) and not quant_convs):
             return None
         h, w = zs[0].shape[1], zs[0].shape[2]
         if cout % 128 or w % 8:
@@ -365,10 +447,12 @@ class ResnetUNetGenerator(nn.Module):
 
     # --- forward -------------------------------------------------------------
 
-    def _norm_relu(self, y: torch.Tensor) -> torch.Tensor:
-        if self.use_pallas:
+    def _norm_relu(self, y: torch.Tensor, layer: nn.Module | None = None) -> torch.Tensor:
+        """The stage's norm (``layer``, its ``make_norm`` module; None: instance
+        norm) + ReLU; instance norm through kernel 11 under ``use_pallas``."""
+        if self.norm == "instance" and self.use_pallas:
             return instance_norm_auto(y, relu=True, use_pallas=True)
-        return torch.relu(norm_nhwc(y))
+        return torch.relu(norm_nhwc(y) if layer is None else apply_norm(layer, y))
 
     def _down(self, seq: nn.Sequential, x: torch.Tensor, quant: bool) -> torch.Tensor:
         seg = self._encdec_seg((x,), seq[0].out_channels, quant)
@@ -380,7 +464,38 @@ class ResnetUNetGenerator(nn.Module):
             y = conv_nhwc(seq[0], x, self.dtype)
         if self._norm_blur_ok(y):
             return norm_relu_blur_down(y)
-        return blur_downsample(self._norm_relu(y))
+        y = self._norm_relu(y, seq[1])
+        return y if self.no_antialias else blur_downsample(y)
+
+    def _up(self, layer: nn.Module, y: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """×2 upsample to the skip's plane: the AA upsample, or the
+        ConvTranspose in the compute dtype (flax ``ConvTranspose(dtype=...)``
+        casts its input and parameters the same way), then the bilinear
+        align-corners fix-up where the planes differ."""
+        if self.no_antialias_up:
+            dt = self.dtype
+            bias = None if layer.bias is None else layer.bias.to(dt)
+            y = to_nhwc(F.conv_transpose2d(
+                to_nchw(y.to(dt)), layer.weight.to(dt), bias, stride=2, padding=1,
+                output_padding=1))
+        else:
+            y = blur_upsample_aa(y)
+        if y.shape[1:3] != skip.shape[1:3]:
+            y = bilinear_align_corners(y, tuple(skip.shape[1:3]))
+        return y
+
+    def _blocks(self, h: torch.Tensor) -> torch.Tensor:
+        """The bottleneck; with ``remat`` (and a graph to record) each block
+        is recomputed in the backward instead of keeping its activations
+        (the JAX ``nn.remat``; dropout replays its mask)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.resblocks(h)
+
+        for block in self.resblocks:
+            h = checkpoint(block, h, use_reentrant=False,
+                           context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                       frozen_running_stats(b)))
+        return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """IR (B, H, W, input_nc) in [-1, 1] → RGB (B, H, W, output_nc) in
@@ -390,23 +505,20 @@ class ResnetUNetGenerator(nn.Module):
         dec_quant = "dynamic" if quant_convs else None
 
         x0 = conv_nhwc(self.inc[1], reflect_pad2d(x.to(dt), 3), dt)
-        x0 = self._norm_relu(x0)                                # (B, H, W, 64)
+        x0 = self._norm_relu(x0, self.inc[2])                  # (B, H, W, 64)
         x1 = self._down(self.down1, x0, quant_convs)            # (B, H/2, W/2, 128)
         x2 = self._down(self.down2, x1, quant_convs)            # (B, H/4, W/4, 256)
-        h = self.resblocks(x2)
+        h = self._blocks(x2)
 
-        y = blur_upsample_aa(h)
-        if y.shape[1:3] != x1.shape[1:3]:
-            y = bilinear_align_corners(y, tuple(x1.shape[1:3]))
+        y = self._up(self.up1_up, h, x1)
         seg = self._encdec_seg((y, x1), self.up1_conv[0].out_channels, quant_convs)
         if seg is not None:
             y = conv_in_relu_fused(seg, (y, x1), _hwio(self.up1_conv[0], dt))
         else:
-            y = self._norm_relu(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant))
+            y = self._norm_relu(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant),
+                                self.up1_conv[1])
 
-        y = blur_upsample_aa(y)
-        if y.shape[1:3] != x0.shape[1:3]:
-            y = bilinear_align_corners(y, tuple(x0.shape[1:3]))
+        y = self._up(self.up2_up, y, x0)
         # The fixed-scale int8 up2 conv only where the fused kernels took
         # the dynamic int8 route off the decoder (the JAX ``quant_fixed``).
         if self.quant and not quant_convs and self.quant_fixed_u2:
@@ -417,5 +529,5 @@ class ResnetUNetGenerator(nn.Module):
         if self._head_ok(y):
             head = outc_head_q if self.quant and self.quant_head else outc_head
             return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
-        y = self._norm_relu(y)
+        y = self._norm_relu(y, self.up2_conv[1])
         return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))

@@ -1,11 +1,13 @@
 """Generator wrapper: construction from Config, weight loading, forward
 (``ircolor_tpu/models/wrapper.py``).
 
-Random init is N(0, init_gain) kernels and zero biases from a
-``torch.Generator`` seeded with ``cfg.seed`` — the same distribution as the
-JAX package, not the same numbers. ``.pth`` loading is permissive like the
-reference: a ``{'state_dict': ...}`` wrapper is unwrapped, missing keys keep
-their init, extra or mis-shaped keys are ignored, with a warning either way.
+Random init is N(0, init_gain) kernels, N(1, init_gain) batch-norm
+weights and zero biases from a ``torch.Generator`` seeded with ``cfg.seed``
+— the same distribution as the JAX package, not the same numbers. ``.pth``
+loading is permissive like the reference: a ``{'state_dict': ...}`` wrapper
+is unwrapped, missing keys keep their init, extra or mis-shaped keys are
+ignored, with a warning either way; batch-norm running statistics load
+with the weights (the module serves in eval mode, on them).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def resolve_precision(cfg: Config) -> bool | None:
 def reject_unported(cfg: Config) -> None:
     """Raise on what the port does not run: ``ValueError`` for the config
     the JAX runner refuses (a W mesh axis without an H one), else
-    ``NotImplementedError`` for a mode not ported yet."""
+    ``NotImplementedError`` for the multi-device modes, not ported yet."""
     if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
         raise ValueError(
             f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "
@@ -51,23 +53,19 @@ def reject_unported(cfg: Config) -> None:
             "total devices tiled (sp_devices/sp_w_devices)×sp_w_devices); "
             "set --sp-devices as well"
         )
-    unported = {
-        "no_antialias": cfg.no_antialias,
-        "no_antialias_up": cfg.no_antialias_up,
-        "remat": cfg.remat,
-        "sp_devices > 1": cfg.sp_devices > 1,
-        "dp_devices > 1": cfg.dp_devices > 1,
-    }
-    for name, on in unported.items():
+    for name, on in (("sp_devices > 1", cfg.sp_devices > 1),
+                     ("dp_devices > 1", cfg.dp_devices > 1)):
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
-    """Build the generator per cfg. On the f32 path ``conv_precision`` sets
-    TF32 for convolutions and matmuls (``resolve_precision``): off for
-    ``highest`` (the default: the JAX f32 parity path runs HIGHEST-precision
-    convs), on for ``high`` and ``default``."""
+    """Build the generator per cfg (the JAX wrapper's: reflect padding, no
+    dropout; ``norm``, ``no_antialias``, ``no_antialias_up`` and ``remat``
+    from the config). On the f32 path ``conv_precision`` sets TF32 for
+    convolutions and matmuls (``resolve_precision``): off for ``highest``
+    (the default: the JAX f32 parity path runs HIGHEST-precision convs), on
+    for ``high`` and ``default``."""
     reject_unported(cfg)
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
@@ -81,6 +79,9 @@ def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
         ngf=cfg.ngf,
         n_blocks=cfg.n_blocks,
         norm=cfg.norm,
+        no_antialias=cfg.no_antialias,
+        no_antialias_up=cfg.no_antialias_up,
+        remat=cfg.remat,
         dtype=_DTYPES[cfg.compute_dtype],
         use_pallas=cfg.use_pallas,
         pallas_block=cfg.pallas_block,

@@ -9,8 +9,10 @@ norm, which absorbs the scales exactly; the only error is rounding noise.
 
 ``conv2d_int8`` / ``conv2d_int8_fixed`` are the JAX package's XLA int8
 route (``QuantConv``, the int8 ``ConcatConv3x3``), here on the hand-written
-int8 implicit-GEMM conv ``kernels.conv_int8.conv3x3_int8``: 3×3, stride 1,
-one pixel of zero or reflect padding. The arithmetic is the JAX
+int8 implicit-GEMM conv ``kernels.conv_int8.conv3x3_int8``: 3×3, stride 1
+or 2, one pixel of zero or reflect padding or none (``"valid"``, an input
+the caller padded, as the JAX package pads and then convolves VALID). The
+arithmetic is the JAX
 package's, step for step, because the rounding flips are the whole error
 budget: ``torch.round`` rounds half to even as ``jnp.rint``/``jnp.round``
 do; the dequantization is ``f32(acc) · (sx · sw)`` with the product of the
@@ -53,18 +55,19 @@ def _float_or_none(t):
     return None if t is None else t.float().contiguous()
 
 
-def conv2d_int8(x, kernel, *, pad: str = "zero", bias=None, addend=None, out_dtype=None):
-    """3×3 stride-1 NHWC conv on int8 operands with one pixel of ``pad``
-    (``"zero"`` or ``"reflect"``) padding: per-sample dynamic activations,
-    per-channel weights, int32 sums, dequantized in float32, then
-    ``+ addend`` (a float32 term summed before the bias, as the second leg
-    of a concat conv adds the first) and ``+ bias``, cast to ``out_dtype``
-    (default x's dtype)."""
+def conv2d_int8(x, kernel, *, pad: str = "zero", stride: int = 1, bias=None, addend=None,
+                out_dtype=None):
+    """3×3 NHWC conv at ``stride`` (1 or 2) on int8 operands with one pixel
+    of ``pad`` (``"zero"`` or ``"reflect"``) padding, or none
+    (``"valid"``): per-sample dynamic activations, per-channel weights,
+    int32 sums, dequantized in float32, then ``+ addend`` (a float32 term
+    summed before the bias, as the second leg of a concat conv adds the
+    first) and ``+ bias``, cast to ``out_dtype`` (default x's dtype)."""
     xq, sx = quantize_dynamic(x)
     wq, sw = quantize_weight_per_channel(kernel)
     sc = (sx.reshape(-1, 1) * sw[None, :]).contiguous()
-    return conv3x3_int8(xq, wq, sc, pad=pad, bias=_float_or_none(bias), addend=addend,
-                        out_dtype=out_dtype or x.dtype)
+    return conv3x3_int8(xq, wq, sc, pad=pad, stride=stride, bias=_float_or_none(bias),
+                        addend=addend, out_dtype=out_dtype or x.dtype)
 
 
 def quantize_fixed(x: torch.Tensor, clip: float = _QCLIP) -> torch.Tensor:
@@ -73,12 +76,12 @@ def quantize_fixed(x: torch.Tensor, clip: float = _QCLIP) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() * (127.0 / clip)), -127, 127).to(torch.int8)
 
 
-def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", bias=None,
-                      addend=None, out_dtype=None):
+def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", stride: int = 1,
+                      bias=None, addend=None, out_dtype=None):
     """``conv2d_int8`` with the fixed input scale 127/``clip`` instead of
     the per-sample amax (no reduction over the input): for ≈6σ-bounded
     chains of IN + ReLU outputs, the decoder's up2 site."""
     wq, sw = quantize_weight_per_channel(kernel)
     sc = (sw * (clip / 127.0))[None, :].expand(x.shape[0], -1).contiguous()
-    return conv3x3_int8(quantize_fixed(x, clip), wq, sc, pad=pad, bias=_float_or_none(bias),
-                        addend=addend, out_dtype=out_dtype or x.dtype)
+    return conv3x3_int8(quantize_fixed(x, clip), wq, sc, pad=pad, stride=stride,
+                        bias=_float_or_none(bias), addend=addend, out_dtype=out_dtype or x.dtype)

@@ -1,11 +1,13 @@
 """Checkpoints (``ircolor_tpu/train/checkpoint.py``).
 
 * ``netG_epoch_{k:03d}.pth`` / ``netG_best.pth``: the generator's
-  state_dict under the reference's names — loadable by the reference, by
-  the JAX package (``compat.torch_import.load_generator_pth``) and by
-  ``run_test``.
-* The full train state (G, D, both Adam states, step, epoch, best and last
-  val L1) as ``<state_dir>/{epoch:04d}.pt`` for ``--resume``.
+  state_dict under the reference's names, batch-norm running statistics
+  included — loadable by the reference, by the JAX package
+  (``compat.torch_import.load_generator_pth``, which reads the convs) and
+  by ``run_test``.
+* The full train state (G and D with their buffers, both Adam states,
+  step, epoch, best and last val L1) as ``<state_dir>/{epoch:04d}.pt`` for
+  ``--resume``.
 
 The JAX package's ``.msgpack`` exports are not ported (ROADMAP.md, Queue 1).
 """
@@ -21,10 +23,12 @@ from ircolor_tpu_torch.train.state import TrainState
 
 
 def save_netg_pth(g: torch.nn.Module, path_stem: str) -> str:
-    """Write ``<path_stem>.pth`` (float32, on the CPU); returns the path."""
+    """Write ``<path_stem>.pth`` (floating entries as float32, the batch
+    norms' integer counts as they are, on the CPU); returns the path."""
     os.makedirs(os.path.dirname(path_stem) or ".", exist_ok=True)
     path = path_stem + ".pth"
-    torch.save({k: v.detach().float().cpu() for k, v in g.state_dict().items()}, path)
+    torch.save({k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
+                for k, v in g.state_dict().items()}, path)
     return path
 
 

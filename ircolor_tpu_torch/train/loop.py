@@ -10,9 +10,11 @@ before the full-state save, so a resume restores the right best), and the
 next epoch's LR printed at each epoch's end. ``--resume`` continues from the
 newest full state.
 
-Single device only; ``dp_devices``/``sp_devices`` > 1 raise
-NotImplementedError (``generator_from_config``), as do ``profile_dir``,
-``debug_nans`` and ``.msgpack`` initial weights (ROADMAP.md, Queue 1).
+Every generator variant of ``Config`` trains (``norm``, ``no_antialias``,
+``no_antialias_up``, ``remat``). Single device only; ``dp_devices``/
+``sp_devices`` > 1 raise NotImplementedError (``reject_unported``), as do
+``profile_dir``, ``debug_nans`` and ``.msgpack`` initial weights
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

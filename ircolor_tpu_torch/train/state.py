@@ -1,5 +1,7 @@
 """Train state (``ircolor_tpu/train/state.py``): G and D, their Adam
-optimizers with the per-step LR schedules, and the step counter.
+optimizers with the per-step LR schedules, and the step counter. Under
+``norm="batch"`` the running statistics are buffers of G and D (the JAX
+state's ``g_stats`` and ``d_stats``), saved with them.
 
 Adam: β = (beta1, beta2) from the config (0.5, 0.999), eps 1e-8. torch's
 update is lr·m̂/(√v̂ + eps), optax's ``adam``; each step's LR is set from

@@ -11,6 +11,13 @@ against the updated D, with the composite G loss.
       + λ_ssim·(1 − SSIM), with D' the updated D, whose parameters take no
       gradient here; one Adam step on G.
 
+Under ``norm="batch"`` the step keeps the JAX package's structure, whose
+running statistics follow torch's train-mode semantics: G runs twice (a
+no-grad forward whose output feeds the D phase, then the G phase's own
+forward), D runs on the real and the fake halves one after the other (its
+batch statistics would mix a concatenated batch), and the G phase's D
+forward updates D's statistics once more.
+
 Losses are computed in float32 whatever the compute dtype, and a λ of 0
 skips its term: the term is never computed. Loss values come back as 0-d
 device tensors; the caller decides when to read them.
@@ -88,15 +95,21 @@ def make_train_step(
     ``lambda_perc`` is 0. ``update_d=False`` skips the D phase (an ablation
     knob; the reference always steps D)."""
 
+    has_bn = cfg.norm == "batch"
+
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         g, d = state.g, state.d
         ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
-        fake = g(ir)
-        fake_detached = fake.detach()
+        if has_bn:
+            with torch.no_grad():
+                fake_detached = g(ir)
+        else:
+            fake = g(ir)
+            fake_detached = fake.detach()
 
         if update_d:
             d.requires_grad_(True)
-            if cfg.d_concat:
+            if cfg.d_concat and not has_bn:
                 both = torch.cat([
                     torch.cat([ir, rgb], dim=-1),
                     torch.cat([ir, fake_detached.float()], dim=-1),
@@ -110,9 +123,11 @@ def make_train_step(
             loss_d.backward()
             _adam_step(state.opt_d, state.sched_d(state.step))
         else:
-            loss_d = torch.zeros((), dtype=torch.float32, device=fake.device)
+            loss_d = torch.zeros((), dtype=torch.float32, device=ir.device)
 
         # G phase against the updated D; D's parameters take no gradient.
+        if has_bn:
+            fake = g(ir)
         d.requires_grad_(False)
         try:
             if cfg.lambda_gan != 0.0:

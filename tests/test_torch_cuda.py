@@ -300,6 +300,57 @@ def test_conv_int8_matches_plain_bit_for_bit_on_card(cuda, pad, b, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (1, 512, 640, 64, 128),   # no_antialias down1 at b1, ngf 64
+    (1, 256, 320, 128, 256),  # down2
+    (1, 512, 640, 32, 64),    # the same at ngf 32
+    (1, 256, 320, 64, 128),
+    (2, 19, 75, 16, 48),      # odd planes, partial tiles, channels that fill no chunk
+    (2, 14, 40, 96, 32),
+])
+def test_conv_int8_stride2_matches_plain_bit_for_bit_on_card(cuda, b, h, w, cin, cout):
+    """The stride-2 form (the phase pass, then the GEMM's six stages a
+    chunk) against ``conv3x3_int8_plain(stride=2)``: zero halos at every
+    site shape, reflect and VALID at the small ones; the phase pass equals
+    its plain version; one launch counted a call (as ``conv3x3_int8_s2``);
+    a repeat bit-exact."""
+    from ircolor_tpu_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(b * h + cin)
+    xq, wq = _int8(g, b, h, w, cin), _int8(g, 3, 3, cin, cout)
+    sc = torch.rand(b, cout, device=cuda, generator=g) * 1e-4
+    bias = torch.randn(cout, device=cuda, generator=g)
+    pads = ("zero",) if h >= 256 else ("zero", "reflect", "valid")
+    for pad in pads:
+        ho, wo = conv_int8.out_hw(h, w, pad, 2)
+        assert torch.equal(conv_int8._phases(xq, pad, ho, wo),
+                           conv_int8._phases_plain(xq, pad, ho, wo))
+        before = dict(LAUNCHES)
+        got = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, bias=bias)
+        assert LAUNCHES["conv3x3_int8_s2"] == before["conv3x3_int8_s2"] + 1
+        assert LAUNCHES["conv3x3_int8"] == before["conv3x3_int8"]
+        want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad=pad, stride=2, bias=bias)
+        assert got.shape == (b, ho, wo, cout) and torch.equal(got, want), pad
+        assert torch.equal(conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, bias=bias), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (64, 128), (256, 256)])
+def test_conv_int8_valid_matches_plain_bit_for_bit_on_card(cuda, cin, cout):
+    """VALID at stride 1 (a replicate-padded block input: the GEMM on the
+    input as it comes, no pass), f32 and bf16 outputs, partial tiles."""
+    from ircolor_tpu_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    xq, wq = _int8(g, 2, 15, 43, cin), _int8(g, 3, 3, cin, cout)
+    sc = torch.rand(2, cout, device=cuda, generator=g) * 1e-4
+    for kw in (dict(out_dtype=torch.float32), dict(bias=torch.randn(cout, device=cuda, generator=g))):
+        got = conv_int8.conv3x3_int8(xq, wq, sc, pad="valid", **kw)
+        want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad="valid", **kw)
+        assert got.shape == (2, 13, 41, cout) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_int8_route_ngf32_b1_runs_on_card(cuda):
     """The ngf-32 generator's batch-1 int8 route (up2's Cout is 32, which
     the card's int8 conv once refused) runs through the int8 conv on the
@@ -339,6 +390,7 @@ def test_int8_route_ngf32_b1_runs_on_card(cuda):
 @pytest.mark.parametrize("shape", [
     (2, 20, 70, 64), (1, 16, 128, 64),  # partial and whole strips
     (2, 20, 70, 16), (2, 20, 70, 32), (2, 20, 70, 48),  # channels that fill no K step
+    (2, 20, 70, 8), (2, 16, 244, 24),  # C % 16 != 0: ngf 8 and 24 (the head gate admits them)
     (2, 16, 244, 32), (1, 4, 4, 64), (1, 150, 260, 96),  # whole strips; 64-channel units
 ])
 def test_head_q_matches_plain_bit_for_bit_on_card(cuda, shape):
@@ -462,10 +514,10 @@ def test_int8_wrappers_raise_on_unsupported_cuda_input(cuda):
         conv_int8.conv3x3_int8(xq, wq, sc, out_dtype=torch.float16)
     x = _bf16(g, 1, 16, 32, 64)
     m, i = instance_norm_stats(x)
-    with pytest.raises(ValueError):  # C % 16 != 0 for the int8 head
-        xs = x[..., :56].contiguous()
-        head.conv7x7_head_pallas(xs, m[:, :56].contiguous(), i[:, :56].contiguous(),
-                                 _bf16(g, 7, 7, 56, 3), quant=True)
+    with pytest.raises(ValueError, match="C % 8"):  # C % 8 != 0 for the int8 head
+        xs = x[..., :52].contiguous()
+        head.conv7x7_head_pallas(xs, m[:, :52].contiguous(), i[:, :52].contiguous(),
+                                 _bf16(g, 7, 7, 52, 3), quant=True)
     with pytest.raises(TypeError):
         head.conv7x7_head_pallas(x.float(), m, i, _bf16(g, 7, 7, 64, 3), quant=True)
     with pytest.raises(ValueError, match="16-byte"):  # contiguous, 2 bytes past a boundary

@@ -160,7 +160,14 @@ def test_weights_cross_both_ways(tmp_path):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tgen.ResnetUNetGenerator(norm="batch")
-    with pytest.raises(NotImplementedError):
-        IRColorizationModel(Config(no_antialias=True), "cpu")
+    """Only the multi-device modes are left unported; the variants the
+    JAX ``Config`` reaches build (``tests/test_torch_variants.py`` holds
+    them against JAX), and an unknown norm raises as in JAX."""
+    with pytest.raises(NotImplementedError, match="dp_devices"):
+        IRColorizationModel(Config(dp_devices=2), "cpu")
+    with pytest.raises(NotImplementedError, match="sp_devices"):
+        IRColorizationModel(Config(sp_devices=2), "cpu")
+    with pytest.raises(NotImplementedError, match="Normalization type"):
+        tgen.ResnetUNetGenerator(norm="group")
+    assert tgen.ResnetUNetGenerator(norm="batch").norm == "batch"
+    assert IRColorizationModel(Config(no_antialias=True, img_size=32), "cpu").module.no_antialias

@@ -189,8 +189,8 @@ def test_emulation_matches_plain(shape, quant, c):
 
 def test_every_head_gate_shape_is_accepted():
     """Every plane the generator's head gate (``head_supported``, copied
-    from JAX) admits at ngf 8–64 passes the card's guard in the float form,
-    and in the int8 form where C % 16 == 0; C = 8 and 24 included."""
+    from JAX) admits at ngf 8–64 passes the card's guard in both forms;
+    C = 8 and 24 included."""
     admitted = set()
     for c in range(8, 72, 8):
         for h in [*range(4, 72, 4), 128, 256, 512]:
@@ -200,8 +200,7 @@ def test_every_head_gate_shape_is_accepted():
                 for b in (1, 2, 32):
                     plan = head.check_shape(b, h, w, c, (7, 7, c, 3), False)
                     assert plan.grid[0] * TW >= w and plan.grid[1] * plan.th >= h
-                    if c % 16 == 0:
-                        head.check_shape(b, h, w, c, (7, 7, c, 3), True)
+                    head.check_shape(b, h, w, c, (7, 7, c, 3), True)
                 admitted.add((h, w, c))
     for c in (8, 24):
         for w in (128, 256, 512, 640):
@@ -212,8 +211,10 @@ def test_every_head_gate_shape_is_accepted():
 def test_card_guard_refusals():
     with pytest.raises(ValueError, match="C % 8"):
         head.check_shape(1, 16, 16, 12, (7, 7, 12, 3), False)
-    with pytest.raises(ValueError, match="C % 16"):
-        head.check_shape(1, 16, 16, 24, (7, 7, 24, 3), True)
+    with pytest.raises(ValueError, match="C % 8"):
+        head.check_shape(1, 16, 16, 20, (7, 7, 20, 3), True)
+    for c in (8, 24):  # the int8 form takes what the head gate admits
+        head.check_shape(1, 16, 16, c, (7, 7, c, 3), True)
     with pytest.raises(ValueError, match="H, W >= 4"):
         head.check_shape(1, 3, 16, 16, (7, 7, 16, 3), False)
     with pytest.raises(ValueError, match="B <= 65535"):
