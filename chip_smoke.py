@@ -126,6 +126,26 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ``remat``, peak memory beside phase 5's) and one ``norm="batch"``
    training step (no kernel; finite losses, every running statistic moved).
 
+8. Spatial test mode on a 1-D H mesh of this card (every shard on
+   cuda:0, S = 2 and 4): (a) rows 1 and 2 in their halo forms at the
+   flagship bottleneck split into S shards (row 1 at b32, row 2 at b4),
+   each against its plain version (row 1: ≤ 2.5 quant steps, ≤ 1e-3
+   differing; row 2: 2 bf16 ulps), the provided form bit-identical to the
+   separate one, conv1 on each shard bit-identical to the same rows of the
+   unsharded kernel's output, the summed statistics within 1e-5 relative
+   of the unsharded kernel's; timed beside the bound and the library call
+   on the halo slab. (b) ``make_infer_fn`` over ``spatial_generator`` for
+   int8 b32 and float b4 at S = 2 and 4, against the unsharded step with
+   the same rebuild (tails and head off) and against the same spatial step
+   with rows 1 and 2 on their plain versions (phase 4's budget each; the
+   int8 cells to its metric part and a uint8 mean |d| of at most 1.5× the
+   unsharded route's own kernel-vs-plain distance, with the route
+   bit-identical when the int8 conv runs its plain version and on repeat);
+   |d| on the rows by the seams against the interior rows' (≤ 1.5×), a
+   check that must flag an injected seam fault; 18·S halo-form launches a
+   forward (int8: and 6·S int8 convs); frames/s and peak memory beside the
+   unsharded steps'.
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -1485,15 +1505,22 @@ def slice5_compositions(torch, g, w, xs) -> None:
     torch.cuda.empty_cache()
 
 
+# The synthetic batches already made, by (batch, plane): their generator
+# and the batches so far. Every phase that asks for the first n batches of a
+# shape reads the same frames, made once.
+_SYNTHETIC: dict = {}
+
+
 def synthetic_batches(np, n: int, b: int, hw: tuple = (H, W)):
     """IR-like frames (smooth gradients + a warm blob, a little sensor
     noise) with the RGB a fixed colormap of the IR, as uint16 / uint8 — the
-    pattern of ``ircolor_tpu/data/synthetic.py``, made here with numpy."""
-    rng = np.random.RandomState(SEED)
+    pattern of ``ircolor_tpu/data/synthetic.py``, made here with numpy: the
+    first ``n`` batches of ``b`` frames of the stream seeded with ``SEED``
+    for this shape (made once, then kept)."""
+    rng, out = _SYNTHETIC.setdefault((b, hw), (np.random.RandomState(SEED), []))
     h, w = hw
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    out = []
-    for _ in range(n):
+    while len(out) < n:
         ir = np.empty((b, h, w, 1), np.uint16)
         gt = np.empty((b, h, w, 3), np.uint8)
         for j in range(b):
@@ -1507,7 +1534,7 @@ def synthetic_batches(np, n: int, b: int, hw: tuple = (H, W)):
                             np.clip(0.9 - f, 0, 1)], axis=2)
             gt[j] = np.rint(rgb * 255)
         out.append((ir, gt))
-    return out
+    return out[:n]
 
 
 def serving_config(**overrides):
@@ -1745,31 +1772,44 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
         if LAUNCHES != mid:
             raise AssertionError("the plain route launched a kernel")
     LAUNCHES.update(before)
-    d = (pred_k.int() - pred_p.int()).abs()
-    mean_d = float(d.float().mean())
-    hist = [float((d <= j).float().mean()) for j in (0, 1, 2, 4)]
-    dpsnr = float((m_k["psnr"] - m_p["psnr"]).abs().max())
-    dssim = float((m_k["ssim"] - m_p["ssim"]).abs().max())
+    delta = route_delta(torch, pred_k, m_k, pred_p, m_p)
     log(f"[kernel vs plain route, {label}, b{batch}] kernels run {ran}; "
-        f"repeat bit-identical: {repeat}; uint8 max|d|={int(d.max())} "
-        f"mean|d|={mean_d:.4f}; share with |d|<=0/1/2/4: "
-        f"{', '.join(f'{h:.4f}' for h in hist)}; |dPSNR|={dpsnr:.5f} dB |dSSIM|={dssim:.6f}")
+        f"repeat bit-identical: {repeat}; {delta['text']}")
     expect_launches(f"kernel route {label}", ran, per_forward, 1)
     if not (repeat and same_swapped):
         raise AssertionError(f"{label}: kernel-route runs differ (repeat {repeat}, "
                              f"new kernels on plain versions {same_swapped})")
-    # Bound: the repository's int8 serving budget on the metrics (0.02 dB
-    # PSNR, 0.002 SSIM per image), and on the uint8 image a mean difference
-    # of at most 2 levels with 95% of values within 4. Each kernel alone
-    # matches its plain version bit for bit or to one bf16 ulp (phase 2);
-    # here the conv statistics, summed in another order, move the next
-    # conv's normalize (and, for int8, its rounding) by an ulp here and
-    # there, and 9 blocks of a random-weight network compound that, while
-    # the bf16 output grid makes one ulp of the prediction 1-2 uint8 levels.
-    if not (dpsnr <= 0.02 and dssim <= 0.002 and (not uint8_bound or (mean_d <= 2.0 and hist[3] >= 0.95))):
+    if not within_budget(delta, uint8_bound):
         raise AssertionError(f"{label}: kernel route disagrees with the plain route")
     del model, pred_k, pred_p
     torch.cuda.empty_cache()
+
+
+def route_delta(torch, pred_a, m_a, pred_b, m_b) -> dict:
+    """How far two serving steps' uint8 predictions and per-image metrics
+    lie apart."""
+    d = (pred_a.int() - pred_b.int()).abs()
+    out = dict(max_d=int(d.max()), mean_d=float(d.float().mean()),
+               hist=[float((d <= j).float().mean()) for j in (0, 1, 2, 4)],
+               dpsnr=float((m_a["psnr"] - m_b["psnr"]).abs().max()),
+               dssim=float((m_a["ssim"] - m_b["ssim"]).abs().max()))
+    out["text"] = (f"uint8 max|d|={out['max_d']} mean|d|={out['mean_d']:.4f}; share with "
+                   f"|d|<=0/1/2/4: {', '.join(f'{h:.4f}' for h in out['hist'])}; "
+                   f"|dPSNR|={out['dpsnr']:.5f} dB |dSSIM|={out['dssim']:.6f}")
+    return out
+
+
+def within_budget(delta: dict, uint8_bound: bool = True) -> bool:
+    """The repository's int8 serving budget on the metrics (0.02 dB PSNR,
+    0.002 SSIM per image), and on the uint8 image a mean difference of at
+    most 2 levels with 95% of values within 4. Each kernel alone matches
+    its plain version bit for bit or to one bf16 ulp (phase 2); between two
+    routes the conv statistics, summed in another order, move the next
+    conv's normalize (and, for int8, its rounding) by an ulp here and
+    there, and 9 blocks of a random-weight network compound that, while
+    the bf16 output grid makes one ulp of the prediction 1-2 uint8 levels."""
+    return (delta["dpsnr"] <= 0.02 and delta["dssim"] <= 0.002
+            and (not uint8_bound or (delta["mean_d"] <= 2.0 and delta["hist"][3] >= 0.95)))
 
 
 def _train_setup(torch, np, n_batches: int = 4, hw: tuple = (H, W), **overrides):
@@ -2158,6 +2198,317 @@ def variant_phase(torch, np, counts: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 8: spatial test mode on a 1-D H mesh of one card (every shard on
+# cuda:0): the H-shard counts, and the serving cells (label, int8, batch):
+# int8 at the default b32, float at b4 (the small-batch band, where the
+# float blocks' per-shard gate holds).
+SP_SHARDS = (2, 4)
+SP_CELLS = (("int8", True, B), ("float", False, 4))
+# The int8 cells' uint8 limit, set from readings: the spatial step's mean
+# |d| to the unsharded step at most SP_INT8_NOISE_K × the unsharded route's
+# own distance between its kernel and plain rows 1 and 2 in the same run
+# (on an H100 the cells read 2.45-2.46 against 1.89: 1.30×).
+SP_INT8_NOISE_K = 1.5
+# The seam check: the mean uint8 |d| to the unsharded step on the rows
+# within SEAM_BAND rows of a shard seam, over the mean on the rows at least
+# SEAM_FAR rows from every seam, at most SEAM_RATIO_MAX. Sum-order noise
+# is spread over the image; a wrong halo row lands at the seams.
+SEAM_BAND, SEAM_FAR, SEAM_RATIO_MAX = 8, 32, 1.5
+
+
+def check_halo_kernels(torch, results: list) -> None:
+    """Phase 8a: rows 1 and 2 in their halo forms at the flagship
+    bottleneck split into S = 2 and 4 (row 1 at b32, row 2 at b4, the
+    spatial cells' batches), both forms each (conv1: raw input; conv2:
+    normalize + ReLU on load, by the image's IN moments). On every shard
+    the separate form against its plain version (row 1: ≤ 2.5 quant steps,
+    ≤ 1e-3 differing; row 2: 2 bf16 ulps), the provided form (the same
+    slab) bit-identical to it, conv1's raw output bit-identical to the
+    same rows of the unsharded kernel's, and the sums added over the
+    shards within 1e-5 relative of the unsharded kernel's moments. Timed
+    at the shard shape of S = 2 (the row in the kernels line) and of S =
+    4, beside the bound, the plain version and the library call on the
+    halo slab (row 2: cuDNN of the W-padded slab; row 1: ``torch._int_mm``
+    over an int8 im2col of its quantized padded slab)."""
+    import torch.nn.functional as F
+
+    from ircolor_tpu_torch.kernels import LAUNCHES, resblock
+    from ircolor_tpu_torch.ops.norm import instance_norm_stats
+    from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+    from ircolor_tpu_torch.parallel.spatial import all_sum, exchange_halo_rows, shard_h
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    before = dict(LAUNCHES)
+    hb, wb, cb = H // 4, W // 4, NGF * 4
+    k = (torch.randn(3, 3, cb, cb, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    kq, sw = quantize_weight_per_channel(k)
+    for name, quant, b in (("conv3x3_reflect_fused_q_halo", True, B),
+                           ("conv3x3_reflect_fused_halo", False, 4)):
+        x = torch.randn(b, hb, wb, cb, device=dev, generator=gen).to(torch.bfloat16)
+        m0, i0 = instance_norm_stats(x)
+        if quant:
+            amax = x.float().abs().amax(dim=(1, 2, 3)).clamp(min=1e-12)
+            sc1 = ((amax / 127.0)[:, None] * sw[None, :]).contiguous()
+            sc2 = ((_QCLIP / 127.0) * sw[None, :]).expand(b, -1).contiguous()
+            forms = (("conv1", (kq, sc1), dict(qscale=(127.0 / amax).contiguous())),
+                     ("conv2", (kq, sc2), dict(mean=m0, inv=i0)))
+            fn, plain = resblock.conv3x3_reflect_fused_q, resblock.conv3x3_reflect_fused_q_plain
+        else:
+            forms = (("conv1", (k,), {}), ("conv2", (k,), dict(mean=m0, inv=i0)))
+            fn, plain = resblock.conv3x3_reflect_fused, resblock.conv3x3_reflect_fused_plain
+        errs, timing = [], {}
+        for n in SP_SHARDS:
+            xs = shard_h(x, [dev] * n)
+            halos = exchange_halo_rows(xs, 1)
+            hl = hb // n
+            for form, args, kw in forms:
+                one = fn(x, *args, **kw)
+                sums, worst, frac = [], 0.0, 0.0
+                for i, (xi, hr) in enumerate(zip(xs, halos)):
+                    got = fn(xi, *args, **kw, halo="separate", halo_rows=hr, sums=True)
+                    slab = torch.cat([hr[0], xi, hr[1]], dim=1).contiguous()
+                    prov = fn(slab, *args, **kw, halo="provided", sums=True)
+                    want = plain(xi, *args, **kw, halo="separate", halo_rows=hr)
+                    d = (got[0].float() - want[0].float()).abs()
+                    if quant:
+                        worst = max(worst, float((d / (args[1] * 127.0)[:, None, None, :]).max()))
+                        frac = max(frac, float((d > want[0].float().abs() * 2.0**-8).float().mean()))
+                        ok = worst <= 2.5 and frac <= 1e-3
+                    else:
+                        worst = max(worst, float(d.max()) / float(want[0].float().abs().max()))
+                        ok = worst <= 2 * 2.0**-8
+                    same = all(torch.equal(a, c) for a, c in zip(got, prov))
+                    rows = form != "conv1" or torch.equal(got[0], one[0][:, i * hl : (i + 1) * hl])
+                    if not (ok and same and rows):
+                        raise AssertionError(f"{name} {form} S={n} shard {i}: plain ok {ok}, "
+                                             f"provided = separate {same}, conv1 rows {rows}")
+                    errs.append(float(d.max()))
+                    sums.append(got[1])
+                s = all_sum(sums)[0]
+                m, inv = resblock._moments(s[:, 0], s[:, 1], hb * wb)
+                rel = max(float((m - one[1]).abs().max() / one[1].abs().max()),
+                          float(((inv - one[2]) / one[2]).abs().max()))
+                what = "quant steps (tol 2.5), differing share " + f"{frac:.3g}" if quant \
+                    else "of the output's scale (tol 2 bf16 ulps)"
+                log(f"[{name} {form} S={n}] local {tuple(xs[0].shape)}: max|d| vs plain "
+                    f"{worst:.4g} {what}; provided = separate, "
+                    f"{'conv1 rows = unsharded kernel rows; ' if form == 'conv1' else ''}"
+                    f"summed moments vs unsharded {rel:.3g} relative (tol 1e-5)")
+                if rel > 1e-5:
+                    raise AssertionError(f"{name} {form} S={n}: summed moments {rel:.3g}")
+            # Times at the shard shape (conv1 and conv2 means), shard 0.
+            x0, hr0 = xs[0], halos[0]
+            ms = [cuda_time_ms(lambda: fn(x0, *args, **kw, halo="separate", halo_rows=hr0,
+                                          sums=True), 10) for _, args, kw in forms]
+            pms = [cuda_time_ms(lambda: plain(x0, *args, **kw, halo="separate", halo_rows=hr0),
+                                1, 1) for _, args, kw in forms]
+            slab = torch.cat([hr0[0], x0, hr0[1]], dim=1).contiguous()
+            if quant:
+                kw1 = forms[0][2]
+                zq = resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0)
+                tpass = cuda_time_ms(
+                    lambda: resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0), 10)
+                cols = torch.empty((b, hl, wb, 9, cb), dtype=torch.int8, device=dev)
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    cols[:, :, :, tap] = zq[:, dy : dy + hl, dx : dx + wb]
+                cols = cols.reshape(b * hl * wb, 9 * cb)
+                wmat = kq.reshape(9 * cb, cb).t().contiguous().t()
+                lib = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
+                lib_what = f"torch._int_mm over the slab's int8 im2col ({cols.numel() / 1e9:.2f} GB)"
+                del cols, zq
+                b_ms, b_by = bound(2 * b * hl * wb * 9 * cb * cb,
+                                   2 * x0.numel() * 2 + 4 * b * wb * cb + 9 * cb * cb
+                                   + b * cb * 4 * 3, PEAK_INT8)
+            else:
+                tpass = cuda_time_ms(
+                    lambda: resblock._conv_pass(x0, halo="separate", halo_rows=hr0), 10)
+                zp = F.pad(slab.permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
+                lib = cuda_time_ms(lambda: F.conv2d(zp, k.permute(3, 2, 0, 1)), 10)
+                lib_what = "cuDNN conv of the W-padded slab"
+                del zp
+                b_ms, b_by = bound(2 * b * hl * wb * 9 * cb * cb,
+                                   2 * x0.numel() * 2 + 4 * b * wb * cb + 9 * cb * cb * 2
+                                   + b * cb * 8 * 2)
+            timing[n] = (sum(ms) / 2, sum(pms) / 2, b_ms, b_by, lib)
+            log(f"    S={n}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms (conv1 / conv2; the halo pass "
+                f"alone {tpass:.4f}), plain {pms[0]:.3f} / {pms[1]:.3f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {lib_what} {lib:.4f} ms")
+        ms, pms, b_ms, b_by, lib = timing[SP_SHARDS[0]]
+        results.append(dict(name=name, route="cuda", source="ircolor_tpu_torch/csrc/conv_fwd.cu",
+                            replaces="ircolor_tpu/ops/pallas_resblock.py:"
+                                     + ("1385" if quant else "280"),
+                            max_abs_err=max(errs), ms=ms, plain_ms=pms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib))
+        del x, xs, halos
+        torch.cuda.empty_cache()
+    LAUNCHES.update(before)
+
+
+def seam_ratio(torch, pred_a, pred_b, n: int) -> float:
+    """The mean uint8 |d| between two (B, H, W, 3) predictions on the rows
+    within SEAM_BAND rows of a seam of ``n`` equal H-shards, over the mean
+    on the rows at least SEAM_FAR rows from every seam."""
+    d = (pred_a.int() - pred_b.int()).abs().float().mean(dim=(0, 2, 3))
+    h = d.shape[0]
+    seams = torch.tensor([i * h // n for i in range(1, n)], device=d.device, dtype=torch.float32)
+    rows = torch.arange(h, device=d.device, dtype=torch.float32) + 0.5
+    dist = (rows[:, None] - seams[None, :]).abs().min(dim=1).values
+    band, far = float(d[dist < SEAM_BAND].mean()), float(d[dist >= SEAM_FAR].mean())
+    return band / far if far > 0 else (0.0 if band == 0 else float("inf"))
+
+
+def seams_cut_fault(torch, infer, batch):
+    """A seam fault for the seam check to find: the int8 enc/dec convs'
+    halo rows (``ops/quant.py``'s ``pad2d_spatial``) made from each shard
+    alone, zero at the seams, as if every shard were an image."""
+    from ircolor_tpu_torch.ops import quant as tquant
+
+    real = tquant.pad2d_spatial
+    tquant.pad2d_spatial = lambda xs, r, pad_type="reflect": [real([x], r, pad_type)[0]
+                                                              for x in xs]
+    try:
+        return infer(*batch)
+    finally:
+        tquant.pad2d_spatial = real
+
+
+def spatial_serving_phase(torch, np, counts: dict) -> None:
+    """Phase 8b: ``make_infer_fn`` over ``spatial_generator`` (the runner's
+    rebuild: tails and head off, every shard on cuda:0) for each cell of
+    ``SP_CELLS`` at S = 2 and 4, against the unsharded step of the same
+    weights and inputs with the same rebuild (tails and head off, so the
+    routes differ only by the sharding; under int8 its enc/dec convs then
+    run on the int8 conv too) and against the same spatial step with rows
+    1 and 2 on their plain versions: phase 4's serving budget each. The
+    int8 cell's decoder quantizes on a per-sample grid (up1, up2), where an
+    ulp of upstream difference moves a value across a rounding boundary and
+    the prediction by whole levels, so its uint8 limit is set from the
+    unsharded route's own distance between kernel and plain rows in the
+    same run (its rounding noise): mean |d| at most SP_INT8_NOISE_K times
+    that, beside the metric budget; and the spatial route with the int8
+    conv on its plain version must repeat the kernel route bit for bit.
+    Every spatial step's |d| to the unsharded step on the rows next to the
+    seams is held against its |d| on the interior rows (``seam_ratio``),
+    and the check must flag a seam fault injected into the int8 enc/dec
+    convs' halos at S = 2 (``seams_cut_fault``). A forward
+    must launch the halo forms 18·S times (and, int8, the int8 conv at the
+    6 enc/dec sites of each shard) and nothing else. Frames/s and peak
+    memory beside the unsharded steps' (the default route with tails and
+    head, and the rebuild) from the same run."""
+    import copy
+
+    from ircolor_tpu_torch.eval.runner import make_infer_fn, spatial_generator
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    rows12 = ("conv3x3_reflect_fused", "conv3x3_reflect_fused_q")
+
+    def swapped(infer, names, ir, gt):
+        mid = dict(LAUNCHES)
+        with plain_kernels(names):
+            out = infer(ir, gt)
+        ran = {k: LAUNCHES[k] - mid[k] for k in LAUNCHES if LAUNCHES[k] != mid[k]}
+        LAUNCHES.update(mid)
+        return out, ran
+
+    summary = []
+    for label, quant, batch in SP_CELLS:
+        cfg = serving_config(test_batch_size=batch, **({} if quant else dict(quant_int8=False)))
+        if (cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != (batch, quant):
+            raise AssertionError(f"spatial {label}: config no longer resolves to b{batch} "
+                                 f"int8={quant}")
+        model = IRColorizationModel(cfg, "cuda")
+        flat = copy.deepcopy(model.module)
+        flat.pallas_norm_blur = flat.pallas_head = False
+        block = "conv3x3_reflect_fused_q" if quant else "conv3x3_reflect_fused"
+        int8_sites = {"conv3x3_int8": 6} if quant else {}
+        runs = [("unsharded", make_infer_fn(model.module),
+                 {block: 18, "norm_relu_blur_down": 2, "conv7x7_head": 1}, 1),
+                ("unsharded, tails and head off", make_infer_fn(flat), {block: 18, **int8_sites},
+                 1)]
+        for n in SP_SHARDS:
+            g = spatial_generator(cfg.replace(sp_devices=n), model.module, "cuda:0")
+            per = {f"{block}_halo": 18 * n, **{k: v * n for k, v in int8_sites.items()}}
+            runs.append((f"sp{n}", make_infer_fn(g), per, n))
+        n_batches = 2 if batch >= 32 else 6
+        batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+                   for ir, gt in synthetic_batches(np, n_batches, batch)]
+        ref = None
+        for name, infer, per, n in runs:
+            pred, m = infer(*batches[0])  # warm-up; the output compared below
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            outs = [infer(ir, gt) for ir, gt in batches]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            key = f"spatial {label} {name}"
+            counts[key] = dict(LAUNCHES)
+            expect_launches(key, counts[key], per, n_batches)
+            check_outputs(torch, key, outs, batch)
+            fps = n_batches * batch / dt
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[{key}] {fps:.2f} frames/s ({n_batches} batches of {batch} at {H}x{W}, "
+                f"{1e3 * dt / n_batches:.2f} ms a batch), peak memory {peak:.2f} GiB")
+            summary.append(f"{label} {name} {fps:.2f} frames/s {peak:.2f} GiB")
+            if name == "unsharded":
+                default = (pred, m)
+                continue
+            (pred_p, m_p), ran = swapped(infer, rows12, *batches[0])
+            plain = route_delta(torch, pred, m, pred_p, m_p)
+            if ref is None:
+                ref, noise = (pred, m), plain
+                log(f"    the default route (tails and head on) against this one: "
+                    f"{route_delta(torch, *default, *ref)['text']}\n"
+                    f"    this route against rows 1 and 2 on their plain versions (its "
+                    f"rounding noise): {plain['text']}")
+                continue
+            delta = route_delta(torch, pred, m, *ref)
+            seam = seam_ratio(torch, pred, ref[0], n)
+            exact = True
+            if quant:  # the int8 conv's kernel equals its plain version bit for bit
+                (pred_i, _), _ = swapped(infer, ("conv3x3_int8",), *batches[0])
+                exact = bool(torch.equal(pred_i, pred)) and bool(
+                    torch.equal(infer(*batches[0])[0], pred))
+                del pred_i
+            limit = SP_INT8_NOISE_K * noise["mean_d"]
+            log(f"    against the unsharded step: {delta['text']}; seam/interior mean |d| "
+                f"{seam:.4f} (tol {SEAM_RATIO_MAX})\n"
+                f"    against rows 1 and 2 on their plain versions (launched there: {ran}): "
+                f"{plain['text']}"
+                + (f"\n    uint8 mean |d| {delta['mean_d']:.4f} to the unsharded step and "
+                   f"{plain['mean_d']:.4f} to the plain rows, tol {SP_INT8_NOISE_K} x the "
+                   f"unsharded route's noise {noise['mean_d']:.4f} = {limit:.4f}"
+                   f"\n    the int8 conv on its plain version, and a repeat: bit-identical "
+                   f"{exact} (tol 0)" if quant else ""))
+            ok = (within_budget(delta, uint8_bound=not quant)
+                  and within_budget(plain, uint8_bound=not quant) and seam <= SEAM_RATIO_MAX
+                  and (not quant or max(delta["mean_d"], plain["mean_d"]) <= limit))
+            if set(ran) - set(int8_sites) or not exact or not ok:
+                raise AssertionError(f"{key}: outside the serving budget or the seam bound, a "
+                                     f"route not bit-identical, or the plain route launched "
+                                     f"{ran}")
+            del pred_p
+            if quant and n == SP_SHARDS[0]:
+                pred_f, m_f = seams_cut_fault(torch, infer, batches[0])
+                fault = route_delta(torch, pred_f, m_f, *ref)
+                seam_f = seam_ratio(torch, pred_f, ref[0], n)
+                log(f"    a seam fault (the int8 enc/dec convs' halos zero at the seams) "
+                    f"against the unsharded step: {fault['text']}; seam/interior mean |d| "
+                    f"{seam_f:.4f}: the seam check flags it {seam_f > SEAM_RATIO_MAX}, the "
+                    f"metric budget {not within_budget(fault, uint8_bound=False)}, the noise "
+                    f"limit {fault['mean_d'] > limit}")
+                if seam_f <= SEAM_RATIO_MAX:
+                    raise AssertionError(f"{key}: the seam check missed an injected seam fault")
+                del pred_f
+        del model, flat, runs, batches, outs, ref, default, noise
+        torch.cuda.empty_cache()
+    log("[spatial serve] " + "; ".join(summary))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2191,10 +2542,20 @@ def main() -> int:
     log(f"[card] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     results: list = []
+    t_phase = t0
+
+    def phase_done(what: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - t_phase:.1f} s (total {now - t0:.1f} s)")
+        t_phase = now
+
+    phase_done("build")
     check_kernels(torch, results)
     check_instance_norm(torch, results)
     check_bwd_kernels(torch, results)
     check_segment_kernels(torch, results)
+    phase_done("phases 2, 2b")
     counts: dict = {}
 
     # Phase 2c: TPU kernels 7-10 (the JAX tools' functions at the flagship
@@ -2217,6 +2578,7 @@ def main() -> int:
             + ", ".join(f"{k} {tuple(v.shape)}" for k, v in outs.items()))
         del g5, w5, xs5, outs
     torch.cuda.empty_cache()
+    phase_done("phase 2c")
     blocks_tails_head = {"norm_relu_blur_down": 2, "conv7x7_head": 1}
     int8_default = {"conv3x3_reflect_fused_q": 18, **blocks_tails_head}
     float_default = {"conv3x3_reflect_fused": 18, **blocks_tails_head}
@@ -2268,6 +2630,7 @@ def main() -> int:
         + " / ".join(f"{v:.2f}" for v in fps256["float use_pallas"]) + " frames/s")
     log(f"[serve] 512x640 b1 latency (mean / median ms per frame): int8 (a) "
         f"{lat_int8[0]:.3f} / {lat_int8[1]:.3f}, float {lat_float[0]:.3f} / {lat_float[1]:.3f}")
+    phase_done("phases 3, 4")
     counts["train"], setup = train_step_phase(torch, np)
     bwd_vs_xla(torch, setup)
     del setup
@@ -2306,7 +2669,13 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
 
+    phase_done("phases 5, 6, 5b, 5c")
     variant_phase(torch, np, counts)
+    phase_done("phase 7")
+    check_halo_kernels(torch, results)
+    phase_done("phase 8a")
+    spatial_serving_phase(torch, np, counts)
+    phase_done("phase 8b")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held
@@ -2330,6 +2699,8 @@ def main() -> int:
                 "conv3x3_dgrad_fused": "train", "conv3x3_wgrad_fused": "train",
                 "conv3x3_int8": "b1 int8 (a)", "conv7x7_head_q": "int8 (b)",
                 "conv3x3_int8_s2": "batch no_aa int8",
+                "conv3x3_reflect_fused_q_halo": "spatial int8 sp2",
+                "conv3x3_reflect_fused_halo": "spatial float sp2",
                 "fused_instance_norm": "256x256 float use_pallas",
                 "fused_instance_norm_residual": "256x256 float use_pallas",
                 "conv3x3_dgrad_fused_seg": "train encdec",

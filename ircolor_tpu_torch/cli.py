@@ -2,7 +2,9 @@
 [--flag ...]`` (``ircolor_tpu/cli.py``). Every ``Config`` field is a flag, as
 in the JAX package, plus ``--config path.json`` and ``--device {cuda,cpu}``
 (default ``cuda``: without a card the run stops; ``--device cpu`` is the one
-way onto the CPU). ``export`` is not ported yet."""
+way onto the CPU). ``test --sp-devices N`` runs spatial test mode over N
+H-shards (``eval.runner.spatial_generator``: all on the CPU with ``--device
+cpu``, else spread over the visible cards). ``export`` is not ported yet."""
 
 from __future__ import annotations
 

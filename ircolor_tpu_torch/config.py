@@ -94,8 +94,8 @@ class Config:
     conv_precision: str = "highest"     # f32: highest = TF32 off; high, default allow it
     batch_transport: str = "int"        # uint16/uint8 transport | "float"
     dp_devices: int = 0                 # >1: not ported (ROADMAP Queue 1)
-    sp_devices: int = 1                 # >1: not ported (ROADMAP Queue 1)
-    sp_w_devices: int = 1
+    sp_devices: int = 1                 # >1: test mode on a 1-D H mesh; training not ported
+    sp_w_devices: int = 1               # >1 (2-D H×W tiling): not ported (ROADMAP Queue 1)
     dp_mode: str = "gspmd"
     resume: bool = False
     orbax_dir: str | None = None

@@ -951,16 +951,23 @@ int ircolor_conv_fwd_smem(int bn) {
 
 // The operand pass: out (B, H+2*pad, W+2*pad, C) = x (B, H, W, C),
 // reflect-padded by one pixel (pad = 1) or as it is (pad = 0), of
-// bf16(relu((x - mean)*inv)) where mean is non-null.
-int ircolor_conv_fwd_pass(const void* x, const void* mean, const void* inv, void* out, int B,
-                          int H, int W, int C, int pad, void* stream) {
+// bf16(relu((x - mean)*inv)) where mean is non-null. The spatial halo
+// form (pad = 1): with top and bot non-null, (B, 1, W, C) each, rows -1
+// and H are theirs. Columns stay reflected.
+int ircolor_conv_fwd_pass(const void* x, const void* mean, const void* inv, const void* top,
+                          const void* bot, void* out, int B, int H, int W, int C, int pad,
+                          void* stream) {
   using namespace ircolor;
-  if (C % 8 || (pad != 0 && pad != 1)) return (int)cudaErrorInvalidValue;
+  if (C % 8 || (pad != 0 && pad != 1) || (top == nullptr) != (bot == nullptr) ||
+      (top != nullptr && pad != 1))
+    return (int)cudaErrorInvalidValue;
   PassArgs a = {};
   a.z = static_cast<const __nv_bfloat16*>(x);
   a.zm = static_cast<const float*>(mean);
   a.zi = static_cast<const float*>(inv);
   a.zp = static_cast<__nv_bfloat16*>(out);
+  a.top = static_cast<const __nv_bfloat16*>(top);
+  a.bot = static_cast<const __nv_bfloat16*>(bot);
   a.ndy = 0;
   a.nzp = (long long)B * (H + 2 * pad) * (W + 2 * pad) * (C / 8);
   a.H = H;
@@ -991,11 +998,15 @@ int ircolor_conv_fwd_gemm(const void* x0, const void* k0, int C0, const void* x1
 // The int8 conv's operand pass: out (B, H+2, W+2, C) int8 = x (B, H, W,
 // C) bf16 reflect-padded by one pixel and quantized: clamp(rint(x *
 // qscale[b]), -127, 127) where mean is null, else min(rint(relu((x -
-// mean)*inv) * qfixed), 127). C % 16 == 0.
+// mean)*inv) * qfixed), 127). C % 16 == 0. The halo form as in
+// ircolor_conv_fwd_pass (top / bot rows), the halo rows quantized like
+// the rest.
 int ircolor_conv_q_pass(const void* x, const void* qscale, const void* mean, const void* inv,
-                        float qfixed, void* out, int B, int H, int W, int C, void* stream) {
+                        const void* top, const void* bot, float qfixed, void* out, int B, int H,
+                        int W, int C, void* stream) {
   using namespace ircolor;
-  if (C % 16 || (mean == nullptr) == (qscale == nullptr) || (mean == nullptr) != (inv == nullptr))
+  if (C % 16 || (mean == nullptr) == (qscale == nullptr) || (mean == nullptr) != (inv == nullptr) ||
+      (top == nullptr) != (bot == nullptr))
     return (int)cudaErrorInvalidValue;
   PassArgs a = {};
   a.z = static_cast<const __nv_bfloat16*>(x);
@@ -1004,6 +1015,8 @@ int ircolor_conv_q_pass(const void* x, const void* qscale, const void* mean, con
   a.zi = static_cast<const float*>(inv);
   a.qfixed = qfixed;
   a.zp = out;
+  a.top = static_cast<const __nv_bfloat16*>(top);
+  a.bot = static_cast<const __nv_bfloat16*>(bot);
   a.ndy = 0;
   a.nzp = (long long)B * (H + 2) * (W + 2) * (C / 16);
   a.H = H;

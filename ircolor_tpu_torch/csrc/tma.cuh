@@ -35,6 +35,11 @@ constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
 // The normalized value stays f32 up to the quantize: it is not rounded to
 // bf16 first. With zq (the int8 conv's reflect sites) the input is int8
 // already and Z is zq reflect-padded, 16 bytes copied a unit.
+// The spatial halo form of the block convs (zpad = 1; the JAX kernels'
+// halo "separate"): rows -1 and H of Zp come from the 1-row tensors top /
+// bot (the neighbour shards' edge rows). The halo rows take the same
+// normalize or quantize as interior rows, and columns, corners included,
+// stay reflected within their row.
 struct PassArgs {
   const __nv_bfloat16* z;     // (B, H, W, Cz), or null (no Z part)
   const int8_t* zq;           // Q8: (B, H, W, Cz) int8 copied as it is, or null
@@ -50,6 +55,8 @@ struct PassArgs {
   float qfixed;               // Q8: conv2's fixed grid, with zm
   __nv_bfloat16* dy;          // (B, H, W, Co)
   void* zp;                   // (B, H+2*zpad, W+2*zpad, Cz), bf16 or (Q8) int8
+  const __nv_bfloat16* top;   // (B, 1, W, Cz) row -1 of Z, with bot; or null
+  const __nv_bfloat16* bot;   // (B, 1, W, Cz) row H of Z
   long long ndy, nzp;         // 16-byte units of each output
   int H, W, Cz, Co, mask_p, zpad;
 };
@@ -83,14 +90,18 @@ __global__ void __launch_bounds__(PASS_THREADS) operand_pass_kernel(const PassAr
       const long long b = pix / plane;
       const int rem = (int)(pix - b * plane);
       // zpad = 0: the identity map (every index lies in range).
-      const int h = reflect_index(rem / wo - a.zpad, a.H);
+      const int hp = rem / wo - a.zpad;  // -1 .. H with zpad = 1
+      const int h = reflect_index(hp, a.H);
       const int w = reflect_index(rem % wo - a.zpad, a.W);
       const size_t off = (((size_t)b * a.H + h) * a.W + w) * a.Cz + c8;
       if (Q8 && a.zq != nullptr) {
         *reinterpret_cast<uint4*>(static_cast<int8_t*>(a.zp) + v * 16) = ldg16(a.zq + off);
         continue;
       }
-      const __nv_bfloat16* src = a.z + off;
+      const size_t row_off = ((size_t)b * a.W + w) * a.Cz + c8;  // in a (B, 1, W, Cz) row
+      const __nv_bfloat16* src = (hp < 0 && a.top != nullptr)    ? a.top + row_off
+                                 : (hp >= a.H && a.bot != nullptr) ? a.bot + row_off
+                                                                   : a.z + off;
       uint4 zv = ldg16(src);
       if constexpr (Q8) {
         const uint4 zv1 = ldg16(src + 8);

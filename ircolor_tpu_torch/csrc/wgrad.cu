@@ -263,7 +263,7 @@ int ircolor_wgrad_transform(const void* z, const void* p, const void* comp, cons
                             const void* zi, void* dy, void* zp, int B, int H, int W, int Cz,
                             int Co, int mask_p, void* stream) {
   using namespace ircolor;
-  PassArgs a;
+  PassArgs a = {};
   a.z = static_cast<const __nv_bfloat16*>(z);
   a.p = static_cast<const __nv_bfloat16*>(p);
   a.comp = static_cast<const __nv_bfloat16*>(comp);

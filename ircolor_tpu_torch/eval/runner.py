@@ -1,5 +1,6 @@
 """Test mode: the serving step plus metrics and artifact export
-(``ircolor_tpu/eval/runner.py``), on one device.
+(``ircolor_tpu/eval/runner.py``), on one device or, with ``sp_devices`` >
+1, with the image rows sharded over a 1-D H mesh (``spatial_generator``).
 
 ``make_infer_fn`` is the step a user pays for: it decodes the integer
 transport (uint16 or uint8 IR, uint8 GT) on the device, runs the generator,
@@ -11,13 +12,15 @@ step is queued, writes the mirrored predictions, collages,
 ``metrics_test.csv`` with its "# Summary" block and the Top-K folder.
 
 Every generator variant of ``Config`` serves (``norm``, ``no_antialias``,
-``no_antialias_up``; batch norm on its running statistics). Multi-device
-test modes (``dp_devices``/``sp_devices`` > 1) are not ported yet;
-``reject_unported`` rejects them.
+``no_antialias_up``; batch norm on its running statistics), on one device.
+Data-parallel test mode (``dp_devices`` > 1) and 2-D H×W tiling are not
+ported yet, and ``reject_unported`` rejects them; the generator's spatial
+forward rejects the variants under ``sp_devices`` > 1.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -33,11 +36,47 @@ from ircolor_tpu_torch.eval.metrics import batched_metrics, quantize_to_uint8_01
 from ircolor_tpu_torch.export.collage import make_comparison_collage, save_comparison_image
 from ircolor_tpu_torch.export.topk import save_best_k_outputs, write_metrics_csv
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel, reject_unported
+from ircolor_tpu_torch.parallel.spatial import (
+    gather_h,
+    make_spatial_mesh,
+    shard_h,
+)
 from ircolor_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
 _MKEYS = ("mae", "mse", "psnr", "ssim")
+
+
+def spatial_generator(cfg: Config, module: torch.nn.Module,
+                      device: str | torch.device | None = None) -> torch.nn.Module:
+    """The generator for test mode over ``cfg.sp_devices`` H-shards (JAX
+    ``runner.py:186-260``, its 1-D H mesh): a copy of ``module`` with the
+    norm-blur tails and the head off (they reflect at the image's edges)
+    and ``spatial_mesh`` set, so the fused blocks run their halo forms per
+    shard. The mesh: every shard on ``device`` where it names one
+    (``"cpu"``, or ``"cuda:i"``), else (None or ``"cuda"``) the shards
+    spread over the visible cards (raises where there are fewer). H must
+    divide by 4 × the shard count, so that every blur-pool stage keeps
+    equal, even shards."""
+    n = cfg.sp_devices
+    h = cfg.resolved_hw[0]
+    if h % (4 * n):
+        raise ValueError(f"img height {h} must divide by 4 × the H-shard count {n} "
+                         f"(sp_devices={n}): every stage's shards keep an even number of rows")
+    dev = None if device is None else torch.device(device)
+    if dev is None or (dev.type == "cuda" and dev.index is None):
+        mesh = make_spatial_mesh(n)
+    else:
+        mesh = make_spatial_mesh(n, [dev] * n)
+    log.info("[TEST] spatial sharding: rebuilding generator with pallas_norm_blur=False / "
+             "pallas_head=False (in-kernel reflect halos are incompatible with image-axis "
+             "sharding); fused resblocks run their halo forms per shard where the per-shard "
+             "gate holds; H %d over %s", h, [str(d) for d in mesh])
+    spatial = copy.deepcopy(module)
+    spatial.pallas_norm_blur = spatial.pallas_head = False
+    spatial.spatial_mesh = mesh
+    return spatial
 
 
 def make_infer_fn(module: torch.nn.Module):
@@ -47,7 +86,11 @@ def make_infer_fn(module: torch.nn.Module):
     ``ir`` is uint16 ``round(ir01·65535)``, uint8 ``round(ir01·255)`` or
     float in [−1, 1]; ``gt01`` uint8 ``round(gt01·255)`` or float in [0, 1].
     The prediction arithmetic runs in the generator's compute dtype, as the
-    JAX step's does."""
+    JAX step's does. With the module's ``spatial_mesh`` set
+    (``spatial_generator``) the decoded batch is sharded over the mesh and
+    the prediction gathered onto shard 0's device before the uint8 step and
+    the metrics (SSIM's window crosses the seams)."""
+    mesh = getattr(module, "spatial_mesh", None)
 
     @torch.inference_mode()
     def infer(ir: torch.Tensor, gt01: torch.Tensor):
@@ -57,7 +100,11 @@ def make_infer_fn(module: torch.nn.Module):
             ir = ir.float() / 255.0 * 2.0 - 1.0
         if gt01.dtype == torch.uint8:
             gt01 = gt01.float() / 255.0
-        fake = module(ir)                                   # (B, H, W, 3) [-1, 1]
+        if mesh is None:
+            fake = module(ir)                               # (B, H, W, 3) [-1, 1]
+        else:
+            fake = gather_h(module(shard_h(ir, mesh)))
+            gt01 = gt01.to(fake.device)
         pred01q = quantize_to_uint8_01((fake + 1.0) / 2.0)
         pred_u8 = (pred01q * 255.0).to(torch.uint8)
         return pred_u8, batched_metrics(pred01q, gt01)
@@ -115,7 +162,8 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict[str,
         )
     size_hw = cfg.resolved_hw
     bsz = cfg.resolved_test_batch_size
-    infer = make_infer_fn(model.module)
+    module = model.module if cfg.sp_devices <= 1 else spatial_generator(cfg, model.module, device)
+    infer = make_infer_fn(module)
 
     metrics_list: list[dict[str, Any]] = []
     sums = {k: 0.0 for k in _MKEYS}

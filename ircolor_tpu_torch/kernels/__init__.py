@@ -3,11 +3,16 @@
 Every wrapper takes the JAX function's NHWC signature and dispatches on the
 device of its input alone: a CPU tensor runs the plain PyTorch version in
 the same module; a CUDA tensor launches the kernel (built from ``csrc/`` at
-first use) or raises — no fallback, no silent move to the CPU. The wrapper
+first use) or raises — no fallback, no silent move to the CPU — on the
+tensor's own card and its current stream (``on_input_card``). The wrapper
 adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
 
   resblock.conv3x3_reflect_fused    ← pallas_resblock.conv3x3_reflect_fused
   resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
+    (both also in the spatial halo forms ``halo="separate"`` /
+    ``"provided"``, counted apart as ``*_halo``; the card runs
+    ``"provided"`` as ``"separate"`` on the slab's rows;
+    ``resblock.resnet_block_pallas(_q)_spatial`` run them)
   resblock.conv3x3_dgrad_fused      ← pallas_resblock.conv3x3_dgrad_fused
   resblock.conv3x3_wgrad_fused      ← pallas_resblock.conv3x3_wgrad_fused
     (both also in the enc/dec segment modes: ``pad="zero"``, ``mask_p``,
@@ -37,11 +42,15 @@ no generator route: the JAX tools call them, and so does ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 LAUNCHES: dict[str, int] = {
     "conv3x3_reflect_fused": 0,
     "conv3x3_reflect_fused_q": 0,
+    "conv3x3_reflect_fused_halo": 0,
+    "conv3x3_reflect_fused_q_halo": 0,
     "norm_relu_blur_down": 0,
     "conv7x7_head": 0,
     "conv7x7_head_q": 0,
@@ -81,5 +90,34 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> Non
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def on_input_card(fn):
+    """Decorate a function that launches kernels through ctypes: it runs
+    with the card of its first tensor argument (or of the first tensor of a
+    list argument) as the current device. A ctypes launch goes to the
+    thread's current device, so without this a tensor on another card than
+    the current one (a shard of a spatial mesh over several cards) would be
+    read by a launch on the wrong card."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        for a in (*args, *kwargs.values()):
+            t = a[0] if isinstance(a, (list, tuple)) and a else a
+            if isinstance(t, torch.Tensor):
+                break
+        else:
+            raise TypeError(f"{fn.__name__}: no tensor argument")
+        if not t.is_cuda:
+            return fn(*args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s card, for a launch on that card;
+    raises unless it is the current device (``on_input_card``)."""
+    if torch.cuda.current_device() != t.device.index:
+        raise RuntimeError(f"a launch on {t.device} with cuda:{torch.cuda.current_device()} "
+                           "current: the launcher must run under on_input_card")
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
 from ircolor_tpu_torch.ops.blurpool import blur_downsample
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 
@@ -60,6 +60,7 @@ def blur_downsample_plain(x):
     return _blur_down_f32(x.float()).to(x.dtype)
 
 
+@on_input_card
 def blur_downsample_pallas(x):
     """(B, H, W, C) → (B, H/2, W/2, C) binomial-3 reflect blur-pool. Refuses
     what the JAX function refuses (``supported``); on the card also C % 8."""
@@ -75,12 +76,13 @@ def blur_downsample_pallas(x):
     if c % 8:
         raise ValueError(f"blur_downsample kernel: C={c} (needs C % 8 == 0)")
     out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    err = _load().ircolor_blur_down(x.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr())
+    err = _load().ircolor_blur_down(x.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x))
     build.check(err, "blur_downsample")
     LAUNCHES["blur_downsample"] += 1
     return out
 
 
+@on_input_card
 def norm_relu_blur_down_pallas(x, mean, inv):
     """(B, H, W, C) raw conv output + per-(B, C) IN ``(mean, inv_std)`` →
     blur-pool of ``relu((x − mean)·inv)``, (B, H/2, W/2, C)."""
@@ -98,7 +100,7 @@ def norm_relu_blur_down_pallas(x, mean, inv):
     out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     err = _load().ircolor_norm_relu_blur_down(
         x.data_ptr(), mean.data_ptr(), inv.data_ptr(), out.data_ptr(),
-        b, h, w, c, stream_ptr(),
+        b, h, w, c, stream_ptr(x),
     )
     build.check(err, "norm_relu_blur_down")
     LAUNCHES["norm_relu_blur_down"] += 1

@@ -35,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
 
 _PADS = ("zero", "reflect", "valid")
 _STRIDES = (1, 2)
@@ -133,6 +133,7 @@ def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str, stride: int = 1):
     return rb._conv_plan(b, h, w, (c,), cout, pad, s8=True, bn=bn, stride=stride)
 
 
+@on_input_card
 def _pad(xq: torch.Tensor) -> torch.Tensor:
     """The reflect pass: ``xq`` reflect-padded by one pixel; on a CPU tensor
     the bf16 operand pass's plain version, which copies any dtype."""
@@ -141,7 +142,7 @@ def _pad(xq: torch.Tensor) -> torch.Tensor:
     b, h, w, c = xq.shape
     out = torch.empty((b, h + 2, w + 2, c), dtype=torch.int8, device=xq.device)
     err = _rb()._load_fwd().ircolor_conv_q8_pad(xq.data_ptr(), out.data_ptr(), b, h, w, c,
-                                                stream_ptr())
+                                                stream_ptr(xq))
     build.check(err, "int8 conv reflect pass")
     return out
 
@@ -166,6 +167,7 @@ def _phases_plain(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
                       for py in (0, 1)], dim=1)
 
 
+@on_input_card
 def _phases(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
     """The stride-2 pass (the plain version for CPU tensors)."""
     if xq.device.type == "cpu":
@@ -174,11 +176,12 @@ def _phases(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
     out = torch.empty((b, 2 * (ho + 1), 2 * (wo + 1), c), dtype=torch.int8, device=xq.device)
     err = _rb()._load_fwd().ircolor_conv_q8_phase(
         xq.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo, int(pad != "valid"),
-        int(pad == "reflect"), stream_ptr())
+        int(pad == "reflect"), stream_ptr(xq))
     build.check(err, "int8 conv stride-2 pass")
     return out
 
 
+@on_input_card
 def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
     """The GEMM with the q-conv epilogue on ``src`` (``xq``, its
     reflect-padded copy, or at stride 2 its parity planes) and the repacked
@@ -200,7 +203,7 @@ def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
     err = rb._load_fwd().ircolor_conv_qconv_gemm(
         src.data_ptr(), kt.data_ptr(), sc.data_ptr(), rb._ptr(addend), rb._ptr(bias),
         out.data_ptr(), int(out_dtype == torch.float32), c, b, plan.h, plan.w, plan.cout,
-        plan.shift, plan.stride, plan.bn, plan.grid, stream_ptr())
+        plan.shift, plan.stride, plan.bn, plan.grid, stream_ptr(src))
     build.check(err, "int8 conv GEMM")
     return out
 

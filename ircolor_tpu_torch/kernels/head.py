@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
 from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
@@ -174,6 +174,7 @@ def check_shape(b: int, h: int, w: int, c: int, kernel_shape: tuple, quant: bool
     return plan
 
 
+@on_input_card
 def conv7x7_head_pallas(x, mean, inv, kernel, *, quant: bool = False):
     """(B, H, W, C) raw up2 conv output + per-(B, C) IN ``(mean, inv_std)``
     + (7, 7, C, Cout) weights → ``conv7×7_reflect3(relu((x−mean)·inv))``,
@@ -204,7 +205,7 @@ def conv7x7_head_pallas(x, mean, inv, kernel, *, quant: bool = False):
     err = _load().ircolor_conv7x7_head(
         x.data_ptr(), mean.data_ptr(), inv.data_ptr(), wt.data_ptr(), bidx.data_ptr(),
         sc_ptr, out.data_ptr(), b, h, w, c, int(quant), plan.kst, plan.th, plan.nchunk,
-        plan.smem, stream_ptr(),
+        plan.smem, stream_ptr(x),
     )
     build.check(err, name)
     LAUNCHES[name] += 1

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
 from ircolor_tpu_torch.ops.norm import instance_norm
 
 # The JAX kernel's budget: 12 double-buffered plane-equivalents (16 with a
@@ -92,6 +92,7 @@ def fused_instance_norm_residual_plain(x: torch.Tensor, r: torch.Tensor) -> torc
     return (_normalize(x)[0] + r.float()).to(x.dtype)
 
 
+@on_input_card
 def _launch(mode: str, x: torch.Tensor, r: torch.Tensor | None) -> torch.Tensor:
     b, h, w, c = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -106,7 +107,7 @@ def _launch(mode: str, x: torch.Tensor, r: torch.Tensor | None) -> torch.Tensor:
     vec = int(c % (16 // x.itemsize) == 0 and all(p % 16 == 0 for p in ptrs))
     err = _load().ircolor_instance_norm(
         int(x.dtype == torch.float32), _MODES[mode], vec, x.data_ptr(),
-        None if r is None else r.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(),
+        None if r is None else r.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x),
     )
     name = "fused_instance_norm_residual" if r is not None else "fused_instance_norm"
     build.check(err, name)

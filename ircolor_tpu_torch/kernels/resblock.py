@@ -8,8 +8,11 @@ Counterparts of ``ircolor_tpu/ops/pallas_resblock.py``:
 ``conv3x3_dgrad_fused``, ``conv3x3_wgrad_fused`` (also in the enc/dec
 segment modes ``pad="zero"``, ``mask_p``, no aux, which
 ``kernels/encdec.py`` runs), ``resnet_block_pallas`` (differentiable,
-``bwd`` = ``"xla"`` | ``"fused"`` | ``"fused_wg"``) and
-``resnet_block_pallas_q`` and ``conv3x3_sum_fused`` (one or two input
+``bwd`` = ``"xla"`` | ``"fused"`` | ``"fused_wg"``),
+``resnet_block_pallas_q``, their spatial forms over a list of H-shards
+(``resnet_block_pallas(_q)_spatial``: the block convs' halo forms, the
+neighbour shards' rows as halo rows and the IN sums added across shards)
+and ``conv3x3_sum_fused`` (one or two input
 legs, zero or reflect halos, the IN stats of the f32 sum; ``_launch_bf16``
 also serves ``kernels/block.py`` and ``kernels/conv.py`` in the VALID
 mode). A bf16 conv is an operand pass where its halo or a normalize needs
@@ -33,10 +36,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, require, stream_ptr
+from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
 from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per_channel
+from ircolor_tpu_torch.parallel.spatial import all_max, all_sum, exchange_halo_rows
 
 _EPS = 1e-5
 _BN = 128  # output channels per block of the conv kernels
@@ -56,12 +60,12 @@ def _load_fwd():
         if (lib.ircolor_conv_fwd_tile_rows(), lib.ircolor_conv_fwd_tile_cols()) != (_CF_TH, _CF_TW):
             raise RuntimeError("csrc/conv_fwd.cu and _conv_plan disagree on the tile shape")
         for fn, args in (
-            (lib.ircolor_conv_fwd_pass, [p] * 4 + [i] * 5 + [p]),
+            (lib.ircolor_conv_fwd_pass, [p] * 6 + [i] * 5 + [p]),
             (lib.ircolor_conv_fwd_gemm, [p, p, i, p, p, i, p, p] + [i] * 6 + [p]),
             (lib.ircolor_conv_dgrad_pass, [p] * 7 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_fold, [p] * 4 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_gemm, [p, p, i] + [p] * 7 + [i] * 5 + [p]),
-            (lib.ircolor_conv_q_pass, [p] * 4 + [ctypes.c_float, p] + [i] * 4 + [p]),
+            (lib.ircolor_conv_q_pass, [p] * 6 + [ctypes.c_float, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
             (lib.ircolor_conv_q8_pad, [p, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 10 + [p]),
@@ -115,22 +119,74 @@ def _normalize_relu(x, mean, inv):
 # ---------------------------------------------------------------- bf16 ----
 
 
-def conv3x3_reflect_fused_plain(x, kernel, mean=None, inv=None):
-    """Plain version: (out, mean, inv) of ``conv3x3_reflect_fused``."""
-    z = x if mean is None else _normalize_relu(x, mean, inv).to(x.dtype)
-    y = _conv_reflect(z.float(), kernel.to(x.dtype).float())
-    n = y.shape[1] * y.shape[2]
-    m, i = _moments(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), n)
-    return y.to(x.dtype), m, i
+# The spatial halo forms of the block convs (JAX ``halo``): ``"reflect"``
+# reflects rows −1 and H from x itself; ``"separate"`` takes them from
+# ``halo_rows = (top, bot)``, (B, 1, W, C) each (the neighbour shards' edge
+# rows); ``"provided"``: x is a slab of H + 2 rows whose first and last are
+# those rows (no product path runs it: it keeps the JAX API, and on the card
+# runs as ``"separate"`` on the slab's rows, ``_pass_halo_args``). Columns
+# are reflected within each row in every form.
+HALOS = ("reflect", "provided", "separate")
 
 
-def conv3x3_reflect_fused(x, kernel, mean=None, inv=None):
-    """ReflectionPad(1) 3×3 conv of unpadded NHWC ``x`` with HWIO ``kernel``
-    → (raw output, IN mean, IN inv_std of it). With ``mean``/``inv`` the
-    input is normalized and ReLU'd on load (rounded to x's dtype)."""
+def _check_halo(x, halo: str, halo_rows) -> None:
+    """The JAX function's halo asserts, as ``ValueError``s."""
+    if halo not in HALOS:
+        raise ValueError(f"halo must be one of {HALOS}, got {halo!r}")
+    if (halo_rows is not None) != (halo == "separate"):
+        raise ValueError("halo_rows go with halo='separate', and only with it")
+    if halo == "separate":
+        b, _, w, c = x.shape
+        for t in halo_rows:
+            if tuple(t.shape) != (b, 1, w, c) or t.device != x.device:
+                raise ValueError(f"halo rows: expected {(b, 1, w, c)} on {x.device}, "
+                                 f"got {tuple(t.shape)} on {t.device}")
+
+
+def _halo_slab(x, halo: str = "reflect", halo_rows=None):
+    """The rows −1 … H that a halo form reads: (B, H + 2, W, C)."""
+    if halo == "provided":
+        return x
+    if halo == "separate":
+        return torch.cat([halo_rows[0], x, halo_rows[1]], dim=1)
+    return x[:, _reflect_rows(x.shape[1])]
+
+
+def _stats_out(s1, s2, n: int, sums: bool):
+    """The IN statistics a block conv returns: the (B, 2, Cout) sums Σy,
+    Σy² (``sums``, for a caller that adds them across shards first) or
+    (mean, inv_std) over its n pixels."""
+    return (torch.stack([s1, s2], dim=1),) if sums else _moments(s1, s2, n)
+
+
+def conv3x3_reflect_fused_plain(x, kernel, mean=None, inv=None, *, halo="reflect",
+                                halo_rows=None, sums=False):
+    """Plain version: (out, mean, inv) of ``conv3x3_reflect_fused``, or
+    (out, sums) with ``sums``."""
+    _check_halo(x, halo, halo_rows)
+    slab = _halo_slab(x, halo, halo_rows)
+    z = slab if mean is None else _normalize_relu(slab, mean, inv).to(x.dtype)
+    zp = F.pad(z.float().permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
+    y = F.conv2d(zp, kernel.to(x.dtype).float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    out = _stats_out(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), y.shape[1] * y.shape[2], sums)
+    return (y.to(x.dtype), *out)
+
+
+def conv3x3_reflect_fused(x, kernel, mean=None, inv=None, *, halo="reflect", halo_rows=None,
+                          sums=False):
+    """3×3 conv of NHWC ``x`` with HWIO ``kernel`` under ReflectionPad(1),
+    its rows −1 and H per ``halo`` (``HALOS``) → (raw output, IN mean, IN
+    inv_std of it), or (raw output, (B, 2, Cout) Σy, Σy²) with ``sums``.
+    With ``mean``/``inv`` the input (halo rows included) is normalized and
+    ReLU'd on load (rounded to x's dtype). The halo forms count apart, as
+    ``conv3x3_reflect_fused_halo``."""
     if x.device.type == "cpu":
-        return conv3x3_reflect_fused_plain(x, kernel, mean, inv)
-    return _launch_bf16("conv3x3_reflect_fused", "reflect", (x,), (kernel,), mean=mean, inv=inv)
+        return conv3x3_reflect_fused_plain(x, kernel, mean, inv, halo=halo, halo_rows=halo_rows,
+                                           sums=sums)
+    _check_halo(x, halo, halo_rows)
+    name = "conv3x3_reflect_fused" + ("" if halo == "reflect" else "_halo")
+    return _launch_bf16(name, halo, (x,), (kernel,), mean=mean, inv=inv, halo_rows=halo_rows,
+                        sums=sums)
 
 
 # ------------------------------------------- halo modes and input legs ----
@@ -229,24 +285,46 @@ def _conv_a_offsets():
             for wg in range(_CF_WG) for t in range(2) for dy in range(3)}
 
 
-def _conv_pass_plain(x, mean=None, inv=None, *, pad: int = 1):
+def _conv_pass_plain(x, mean=None, inv=None, *, pad: int = 1, halo="reflect", halo_rows=None):
     """Plain version of the operand pass: x, or bf16(relu((x − mean)·inv)),
-    reflect-padded by one pixel (``pad`` 1, through common.cuh's index map)
-    or as it is (``pad`` 0)."""
-    z = x if mean is None else _normalize_relu(x, mean, inv).to(x.dtype)
+    padded by one pixel (``pad`` 1: rows −1 and H per ``halo``, columns
+    reflected through common.cuh's index map) or as it is (``pad`` 0)."""
     if not pad:
-        return z
-    return z[:, _reflect_rows(z.shape[1])][:, :, _reflect_rows(z.shape[2])].contiguous()
+        return x if mean is None else _normalize_relu(x, mean, inv).to(x.dtype)
+    slab = _halo_slab(x, halo, halo_rows)
+    z = slab if mean is None else _normalize_relu(slab, mean, inv).to(x.dtype)
+    return z[:, :, _reflect_rows(z.shape[2])].contiguous()
 
 
-def _conv_pass(x, mean=None, inv=None, *, pad: int = 1):
+def _pass_halo_args(x, halo: str, halo_rows):
+    """(x, top, bot) of a pass launch, tensors the caller holds until the
+    launch is queued (their memory is not reused before it). The pass reads
+    its halo rows from ``top``/``bot`` alone: the ``provided`` slab goes as
+    its interior rows with its edge rows as the separate halo rows. The
+    halo rows must start on 16-byte boundaries, as x does."""
+    if halo == "provided":
+        x, halo_rows = x[:, 1:-1].contiguous(), (x[:, :1].contiguous(), x[:, -1:].contiguous())
+    top = bot = None
+    if halo_rows is not None:
+        top, bot = halo_rows
+        for t, name in ((top, "top"), (bot, "bot")):
+            require(t, f"halo row {name}", x.dtype, (x.shape[0], 1, x.shape[2], x.shape[3]))
+            if t.data_ptr() % 16:
+                raise ValueError("halo rows must start on 16-byte boundaries")
+    return x, top, bot
+
+
+@on_input_card
+def _conv_pass(x, mean=None, inv=None, *, pad: int = 1, halo="reflect", halo_rows=None):
     """The operand pass (the plain version for CPU tensors)."""
     if x.device.type == "cpu":
-        return _conv_pass_plain(x, mean, inv, pad=pad)
+        return _conv_pass_plain(x, mean, inv, pad=pad, halo=halo, halo_rows=halo_rows)
+    x, top, bot = _pass_halo_args(x, halo, halo_rows)
     b, h, w, c = x.shape
     out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
     err = _load_fwd().ircolor_conv_fwd_pass(
-        x.data_ptr(), _ptr(mean), _ptr(inv), out.data_ptr(), b, h, w, c, pad, stream_ptr())
+        x.data_ptr(), _ptr(mean), _ptr(inv), _ptr(top), _ptr(bot), out.data_ptr(), b, h, w, c,
+        pad, stream_ptr(x))
     build.check(err, "conv operand pass")
     return out
 
@@ -303,6 +381,7 @@ def _conv_gemm_plain(srcs, kernels, plan: ConvPlan, stats: bool = True, sc=None)
     return out, torch.stack([_tile_sums(y, plan), _tile_sums(y.square(), plan)], dim=2)
 
 
+@on_input_card
 def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
     """The GEMM: (bf16 out, per-tile moments or None); the plain version
     for CPU tensors."""
@@ -322,25 +401,28 @@ def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
     err = _load_fwd().ircolor_conv_fwd_gemm(
         x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], _ptr(x1), _ptr(k1),
         0 if x1 is None else x1.shape[-1], out.data_ptr(), _ptr(partial), b, plan.h, plan.w,
-        plan.cout, plan.shift, plan.grid, stream_ptr(),
+        plan.cout, plan.shift, plan.grid, stream_ptr(srcs[0]),
     )
     build.check(err, "conv GEMM")
     return out, partial
 
 
 def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
-                 stats: bool = True):
+                 stats: bool = True, halo_rows=None, sums: bool = False):
     """The bf16 conv (``csrc/conv_fwd.cu``) in ``halo`` mode over one or
     two input legs (``kernels[i]`` (3, 3, Cᵢ, Cout) for ``legs[i]``; the K
     loop runs leg 0's channels, then leg 1's, into one f32 accumulator):
     the operand pass where the plan has one, then the GEMM. ``valid``: the
-    legs are pre-padded, the output is 2 smaller in H and W. ``mean``/``inv``
-    (one leg, not with zero halos): the input is normalized + ReLU'd first.
-    Returns the bf16 output, and with ``stats`` its IN (mean, inv) from the
-    f32 sums. Raises on what the kernel does not take."""
+    legs are pre-padded, the output is 2 smaller in H and W. ``provided`` /
+    ``separate`` (one leg): the block conv's spatial halo forms, planned
+    as ``reflect``. ``mean``/``inv`` (one leg, not with zero halos): the
+    input is normalized + ReLU'd first. Returns the bf16 output, and with
+    ``stats`` its IN (mean, inv) from the f32 sums, or with ``sums`` the
+    (B, 2, Cout) sums. Raises on what the kernel does not take."""
     x0 = legs[0]
     b, hi, wi = x0.shape[:3]
-    h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
+    h = hi - 2 if halo in ("valid", "provided") else hi
+    w = wi - 2 if halo == "valid" else wi
     cout = kernels[0].shape[-1]
     if len(legs) > 2:
         raise ValueError(f"{name} kernel: at most 2 input legs, got {len(legs)}")
@@ -361,16 +443,19 @@ def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
             raise ValueError(f"{name} kernel: mean/inv take one leg and reflect or VALID halos")
         require(mean, "mean", torch.float32, (b, x0.shape[-1]))
         require(inv, "inv", torch.float32, (b, x0.shape[-1]))
-    plan = _conv_plan(b, h, w, [x.shape[-1] for x in legs], cout, halo, norm=mean is not None)
+    spatial = halo in ("provided", "separate")
+    plan = _conv_plan(b, h, w, [x.shape[-1] for x in legs], cout,
+                      "reflect" if spatial else halo, norm=mean is not None)
     srcs = legs
     if plan.pass_pad is not None:
-        srcs = [_conv_pass(x, mean, inv, pad=plan.pass_pad) for x in legs]
-    out, partial = _conv_gemm(srcs, kernels, plan, stats)
+        srcs = [_conv_pass(x, mean, inv, pad=plan.pass_pad, halo=halo if spatial else "reflect",
+                           halo_rows=halo_rows) for x in legs]
+    out, partial = _conv_gemm(srcs, kernels, plan, stats or sums)
     LAUNCHES[name] += 1
-    if not stats:
+    if not (stats or sums):
         return out
     s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
-    return (out, *_moments(s[:, 0], s[:, 1], h * w))
+    return (out, *_stats_out(s[:, 0], s[:, 1], h * w, sums))
 
 
 def _check_sum_fused(inputs, kernels, pad: str, tile_h: int) -> None:
@@ -435,14 +520,16 @@ def _quantize_input(x, qscale, mean, inv):
     return torch.clamp(torch.round(xf * qscale[:, None, None, None]), -127.0, 127.0)
 
 
-def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None):
+def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None,
+                                  halo="reflect", halo_rows=None, sums=False):
     """Plain version of ``conv3x3_reflect_fused_q``: the exact integer conv,
     dequantized in float32."""
-    q = _quantize_input(x, qscale, mean, inv)
-    y = int_conv_exact(q, kq, "reflect").float() * sc[:, None, None, :]
-    n = y.shape[1] * y.shape[2]
-    m, i = _moments(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), n)
-    return y.to(x.dtype), m, i
+    _check_halo(x, halo, halo_rows)
+    q = _quantize_input(_halo_slab(x, halo, halo_rows), qscale, mean, inv)
+    y = int_conv_exact(q[:, :, _reflect_rows(q.shape[2])], kq, "valid").float()
+    y = y * sc[:, None, None, :]
+    out = _stats_out(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), y.shape[1] * y.shape[2], sums)
+    return (y.to(x.dtype), *out)
 
 
 # The int8 conv on the card: the operand pass writes the quantized,
@@ -455,22 +542,25 @@ def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None
 _QFIXED = 127.0 / _QCLIP
 
 
-def _q_pass_plain(x, qscale=None, mean=None, inv=None):
+def _q_pass_plain(x, qscale=None, mean=None, inv=None, *, halo="reflect", halo_rows=None):
     """Plain version of the int8 operand pass: ``_quantize_input`` as int8,
-    reflect-padded by one pixel through common.cuh's index map."""
-    q = _quantize_input(x, qscale, mean, inv).to(torch.int8)
-    return q[:, _reflect_rows(q.shape[1])][:, :, _reflect_rows(q.shape[2])].contiguous()
+    padded by one pixel (rows −1 and H per ``halo``, columns reflected
+    through common.cuh's index map)."""
+    q = _quantize_input(_halo_slab(x, halo, halo_rows), qscale, mean, inv).to(torch.int8)
+    return q[:, :, _reflect_rows(q.shape[2])].contiguous()
 
 
-def _q_pass(x, qscale=None, mean=None, inv=None):
+@on_input_card
+def _q_pass(x, qscale=None, mean=None, inv=None, *, halo="reflect", halo_rows=None):
     """The int8 operand pass (the plain version for CPU tensors)."""
     if x.device.type == "cpu":
-        return _q_pass_plain(x, qscale, mean, inv)
+        return _q_pass_plain(x, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
+    x, top, bot = _pass_halo_args(x, halo, halo_rows)
     b, h, w, c = x.shape
     out = torch.empty((b, h + 2, w + 2, c), dtype=torch.int8, device=x.device)
-
-    err = _load_fwd().ircolor_conv_q_pass(x.data_ptr(), _ptr(qscale), _ptr(mean), _ptr(inv),
-                                          _QFIXED, out.data_ptr(), b, h, w, c, stream_ptr())
+    err = _load_fwd().ircolor_conv_q_pass(
+        x.data_ptr(), _ptr(qscale), _ptr(mean), _ptr(inv), _ptr(top), _ptr(bot), _QFIXED,
+        out.data_ptr(), b, h, w, c, stream_ptr(x))
     build.check(err, "int8 operand pass")
     return out
 
@@ -500,6 +590,7 @@ def _q_b_box(kflat: torch.Tensor, c: int, cout: int, ci0: int, co0: int, dx: int
     return kflat[(ci0 + k) + (co0 + n) * c + dx * cout * c + dy * 3 * cout * c]
 
 
+@on_input_card
 def _q_gemm(zq, kt, sc, plan: ConvPlan):
     """The int8 GEMM: (bf16 out, per-tile sums); the plain version for CPU
     tensors."""
@@ -510,7 +601,7 @@ def _q_gemm(zq, kt, sc, plan: ConvPlan):
     partial = torch.empty((b, plan.ntiles, 2, plan.cout), dtype=torch.float32, device=zq.device)
     err = _load_fwd().ircolor_conv_q_gemm(
         zq.data_ptr(), kt.data_ptr(), sc.data_ptr(), c, out.data_ptr(), partial.data_ptr(), b,
-        plan.h, plan.w, plan.cout, plan.grid, stream_ptr())
+        plan.h, plan.w, plan.cout, plan.grid, stream_ptr(zq))
     build.check(err, "int8 conv GEMM")
     return out, partial
 
@@ -524,11 +615,14 @@ def _check_q_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
         )
 
 
-def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
+def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo="reflect",
+                            halo_rows=None, sums=False):
     """int8 form: ``kq`` (3, 3, C, Cout) int8, ``sc`` (B, Cout) dequant
     scale, and exactly one of ``qscale`` (B,) = 127/amax (conv1: quantize
     the raw input) or ``mean``/``inv`` (conv2: normalize + ReLU, then the
-    fixed 127/6 grid).
+    fixed 127/6 grid). ``halo``, ``halo_rows`` and ``sums`` as in
+    ``conv3x3_reflect_fused`` (the halo rows quantized like the rest); the
+    halo forms count apart, as ``conv3x3_reflect_fused_q_halo``.
 
     On the card two launches of ``csrc/conv_fwd.cu``: the int8 operand pass,
     then the GEMM on s8 operands with the q-stats epilogue; the output is
@@ -537,9 +631,13 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
     if (mean is None) == (qscale is None):
         raise ValueError("need exactly one of qscale / (mean, inv)")
     if x.device.type == "cpu":
-        return conv3x3_reflect_fused_q_plain(x, kq, sc, qscale=qscale, mean=mean, inv=inv)
+        return conv3x3_reflect_fused_q_plain(x, kq, sc, qscale=qscale, mean=mean, inv=inv,
+                                             halo=halo, halo_rows=halo_rows, sums=sums)
+    _check_halo(x, halo, halo_rows)
     require(x, "x", torch.bfloat16, (None, None, None, None))
     b, h, w, c = x.shape
+    if halo == "provided":
+        h -= 2
     cout = kq.shape[-1]
     if kq.shape[:3] != (3, 3, c) or kq.device != x.device:
         raise ValueError(f"kq: expected (3, 3, {c}, Cout) on {x.device}")
@@ -556,10 +654,11 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None):
     if qscale is not None:
         require(qscale, "qscale", torch.float32, (b,))
     plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
-    out, partial = _q_gemm(_q_pass(x, qscale, mean, inv), _q_weights(kq, plan), sc, plan)
-    LAUNCHES["conv3x3_reflect_fused_q"] += 1
+    zq = _q_pass(x, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
+    out, partial = _q_gemm(zq, _q_weights(kq, plan), sc, plan)
+    LAUNCHES["conv3x3_reflect_fused_q" + ("" if halo == "reflect" else "_halo")] += 1
     s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
-    return (out, *_moments(s[:, 0], s[:, 1], h * w))
+    return (out, *_stats_out(s[:, 0], s[:, 1], h * w, sums))
 
 
 # ------------------------------------------------------------ backward ----
@@ -666,6 +765,7 @@ def _dgrad_kernel(kernel_fwd: torch.Tensor) -> torch.Tensor:
     return kernel_fwd.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
 
 
+@on_input_card
 def _dgrad_pass(p, comp, m, inv, gm, gy, mask_p=False):
     """The operand pass in its dy mode: ``_in_bwd_input`` (itself for CPU
     tensors)."""
@@ -675,7 +775,7 @@ def _dgrad_pass(p, comp, m, inv, gm, gy, mask_p=False):
     dy = torch.empty_like(p)
     err = _load_fwd().ircolor_conv_dgrad_pass(
         p.data_ptr(), comp.data_ptr(), m.data_ptr(), inv.data_ptr(), gm.data_ptr(), gy.data_ptr(),
-        dy.data_ptr(), b, h, w, c, int(mask_p), stream_ptr())
+        dy.data_ptr(), b, h, w, c, int(mask_p), stream_ptr(p))
     build.check(err, "dgrad operand pass")
     return dy
 
@@ -701,6 +801,7 @@ def _dgrad_fold_plain(dy, kernel_fwd):
     return rows, cols
 
 
+@on_input_card
 def _dgrad_fold(dy, kernel_fwd):
     """The fold-line kernel: (rows, cols) f32 (the plain version for CPU
     tensors)."""
@@ -713,7 +814,7 @@ def _dgrad_fold(dy, kernel_fwd):
     cols = torch.empty((b, h, 2, cout), dtype=torch.float32, device=dy.device)
     err = _load_fwd().ircolor_conv_dgrad_fold(
         dy.data_ptr(), k.data_ptr(), rows.data_ptr(), cols.data_ptr(), b, h, w, c, cout,
-        stream_ptr())
+        stream_ptr(dy))
     build.check(err, "dgrad fold lines")
     return rows, cols
 
@@ -762,6 +863,7 @@ def _dgrad_gemm_plain(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=
     return y.to(torch.bfloat16), partial
 
 
+@on_input_card
 def _dgrad_gemm(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=None):
     """The GEMM with the dgrad's epilogue (the plain version for CPU
     tensors)."""
@@ -778,7 +880,7 @@ def _dgrad_gemm(dy, kdg, plan: DgradPlan, aux=None, mask_stats=None, fold=None):
 
     err = _load_fwd().ircolor_conv_dgrad_gemm(
         dy.data_ptr(), kdg.data_ptr(), c, _ptr(aux), _ptr(mm), _ptr(mi), _ptr(rows), _ptr(cols),
-        out.data_ptr(), _ptr(partial), b, cp.h, cp.w, cp.cout, cp.grid, stream_ptr())
+        out.data_ptr(), _ptr(partial), b, cp.h, cp.w, cp.cout, cp.grid, stream_ptr(dy))
     build.check(err, "dgrad GEMM")
     return out, partial
 
@@ -977,6 +1079,7 @@ def _wgrad_transform_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="refle
     return _conv_pass_plain(z, *(znorm or (None, None)), pad=1), dy
 
 
+@on_input_card
 def _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect", mask_p=False):
     """The transform pass (the plain version for CPU tensors)."""
     if p.device.type == "cpu":
@@ -991,7 +1094,7 @@ def _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect", m
     err = _load_wgrad().ircolor_wgrad_transform(
         _ptr(z) if zp is not None else None, p.data_ptr(), comp.data_ptr(), m.data_ptr(),
         inv.data_ptr(), gm.data_ptr(), gy.data_ptr(), _ptr(zm), _ptr(zi), dy.data_ptr(), _ptr(zp),
-        b, h, w, cz, p.shape[-1], int(mask_p), stream_ptr(),
+        b, h, w, cz, p.shape[-1], int(mask_p), stream_ptr(p),
     )
     build.check(err, "wgrad transform")
     return (z if zp is None else zp), dy
@@ -1025,6 +1128,7 @@ def _wgrad_gemm_plain(zsrc, dy, plan: WgradPlan, *, pad="reflect") -> torch.Tens
     return ws
 
 
+@on_input_card
 def _wgrad_gemm(zsrc, dy, plan: WgradPlan, *, pad="reflect") -> torch.Tensor:
     """The GEMM into the plan's workspace slots (the plain version for CPU
     tensors)."""
@@ -1035,7 +1139,7 @@ def _wgrad_gemm(zsrc, dy, plan: WgradPlan, *, pad="reflect") -> torch.Tensor:
     ws = torch.empty((plan.slots, 9, cz, co), dtype=torch.float32, device=dy.device)
     err = _load_wgrad().ircolor_wgrad_gemm(
         zsrc.data_ptr(), dy.data_ptr(), ws.data_ptr(), b, h, w, cz, co, int(pad == "reflect"),
-        plan.slots, plan.cps, stream_ptr(),
+        plan.slots, plan.cps, stream_ptr(dy),
     )
     build.check(err, "wgrad GEMM")
     return ws
@@ -1161,3 +1265,56 @@ def resnet_block_pallas_q(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor) -
     sc2 = ((_QCLIP / 127.0) * sw2[None, :]).expand(b, -1).contiguous()
     raw2, m2, i2 = conv3x3_reflect_fused_q(raw1, kq2, sc2, mean=m1, inv=i1)
     return _block_epilogue(x, raw2, m2, i2)
+
+
+# ----------------------------------------------------- spatial blocks ----
+# The JAX package's shard_map blocks (pallas_resblock.py:1577, :1606) over
+# a list of H-shards (``parallel/spatial.py``): each conv runs per shard in
+# its ``"separate"`` halo form, its halo rows the neighbour shards' edge
+# rows (reflected at the image's edges); the per-shard Σy, Σy² are added
+# across shards and the moments taken over the global H·W, so the instance
+# norms cover the whole image, as the unsharded block's do.
+
+
+def _spatial_conv(conv, xs, kwargs):
+    """One block conv over the shards, ``conv(x, **kwargs[i])`` in its
+    ``"separate"`` halo form: (raw output shards, each shard's (mean, inv)
+    of the global image)."""
+    halos = exchange_halo_rows(xs, 1, "reflect")
+    outs = [conv(x, halo="separate", halo_rows=hr, sums=True, **kw)
+            for x, hr, kw in zip(xs, halos, kwargs)]
+    n = sum(x.shape[1] for x in xs) * xs[0].shape[2]
+    stats = [_moments(s[:, 0], s[:, 1], n) for s in all_sum([o[1] for o in outs])]
+    return [o[0] for o in outs], stats
+
+
+def resnet_block_pallas_spatial(xs, k1: torch.Tensor, k2: torch.Tensor) -> list:
+    """``resnet_block_pallas`` (inference) over the H-shards ``xs``: two
+    halo-form conv launches per shard and the epilogue; returns the output
+    shards."""
+    raw1, st1 = _spatial_conv(conv3x3_reflect_fused, xs,
+                              [dict(kernel=k1.to(x.device)) for x in xs])
+    raw2, st2 = _spatial_conv(conv3x3_reflect_fused, raw1,
+                              [dict(kernel=k2.to(x.device), mean=m, inv=i) for x, (m, i) in
+                               zip(xs, st1)])
+    return [_block_epilogue(x, r, *st) for x, r, st in zip(xs, raw2, st2)]
+
+
+def resnet_block_pallas_q_spatial(xs, k1: torch.Tensor, k2: torch.Tensor) -> list:
+    """``resnet_block_pallas_q`` over the H-shards ``xs``: the per-sample
+    amax is the maximum across shards (JAX's pmax), so every shard
+    quantizes on the unsharded block's grid."""
+    b = xs[0].shape[0]
+    kq1, sw1 = quantize_weight_per_channel(k1)
+    kq2, sw2 = quantize_weight_per_channel(k2)
+    amax = all_max([torch.clamp(x.abs().amax(dim=(1, 2, 3)).float(), min=_AMAX_FLOOR)
+                    for x in xs])
+    sc1 = (amax[0] / 127.0)[:, None] * sw1[None, :]
+    sc2 = ((_QCLIP / 127.0) * sw2[None, :]).expand(b, -1)
+    raw1, st1 = _spatial_conv(conv3x3_reflect_fused_q, xs, [
+        dict(kq=kq1.to(x.device), sc=sc1.to(x.device).contiguous(), qscale=127.0 / a)
+        for x, a in zip(xs, amax)])
+    raw2, st2 = _spatial_conv(conv3x3_reflect_fused_q, raw1, [
+        dict(kq=kq2.to(x.device), sc=sc2.to(x.device).contiguous(), mean=m, inv=i)
+        for x, (m, i) in zip(xs, st1)])
+    return [_block_epilogue(x, r, *st) for x, r, st in zip(xs, raw2, st2)]

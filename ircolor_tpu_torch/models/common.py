@@ -13,6 +13,10 @@
   ``conv(a, K[:, :Ca]) + conv(b, K[:, Ca:])`` without materializing the
   concat, exactly as ``ConcatConv3x3`` adds its two terms; float, or int8
   with dynamic or fixed activation scales.
+* ``norm_nhwc_spatial``, ``conv_nhwc_spatial``, ``quant_conv_nhwc_spatial``,
+  ``concat_conv3x3_spatial``: the same on an image held as a list of
+  H-shards (``parallel/spatial.py``), each shard's conv over its rows and
+  their halo (stride 1), the instance norm by the global statistics.
 """
 
 from __future__ import annotations
@@ -24,8 +28,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
-from ircolor_tpu_torch.ops.norm import instance_norm, instance_norm_onepass
-from ircolor_tpu_torch.ops.quant import conv2d_int8, conv2d_int8_fixed
+from ircolor_tpu_torch.ops.norm import (
+    instance_norm,
+    instance_norm_onepass,
+    instance_norm_onepass_spatial,
+    instance_norm_spatial,
+)
+from ircolor_tpu_torch.ops.padding import pad2d_spatial
+from ircolor_tpu_torch.ops.quant import conv2d_int8, conv2d_int8_fixed, conv2d_int8_spatial
 
 NORM_TYPES = ("instance", "batch", "none")
 
@@ -166,6 +176,59 @@ def concat_conv3x3(
     if conv.bias is not None:
         y = y + conv.bias.to(dtype)[None, :, None, None]
     return to_nhwc(y)
+
+
+def norm_nhwc_spatial(xs) -> list[torch.Tensor]:
+    """``norm_nhwc`` of the image whose H-shards are ``xs``."""
+    if xs[0].dtype == torch.bfloat16:
+        return instance_norm_onepass_spatial(xs)
+    return instance_norm_spatial(xs)
+
+
+def conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *, pad: int,
+                      pad_type: str) -> list[torch.Tensor]:
+    """``conv_nhwc`` (stride 1) of ``pad`` pixels of ``pad_type`` padding
+    and ``conv`` applied VALID, on the image whose H-shards are ``xs``: the
+    conv's own zero padding (down1, down2) or a pad module before it (inc,
+    outc, the resnet blocks' reflect pads)."""
+    out = []
+    for slab in pad2d_spatial([x.to(dtype) for x in xs], pad, pad_type):
+        dev = slab.device
+        bias = None if conv.bias is None else conv.bias.to(dev, dtype)
+        out.append(to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias)))
+    return out
+
+
+def quant_conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *,
+                            pad: str = "zero") -> list[torch.Tensor]:
+    """``quant_conv_nhwc`` (stride 1) on the image whose H-shards are
+    ``xs`` (``ops.quant.conv2d_int8_spatial``)."""
+    return conv2d_int8_spatial(xs, _hwio(conv), pad=pad, bias=conv.bias, out_dtype=dtype)
+
+
+def concat_conv3x3_spatial(conv: nn.Conv2d, as_, bs, dtype: torch.dtype,
+                           quant: str | None = None) -> list[torch.Tensor]:
+    """``concat_conv3x3`` on the images whose H-shards are ``as_`` and
+    ``bs``, float or on the dynamic int8 route (the fixed-scale route runs
+    only where the fused kernels took int8 off the decoder, which they
+    never do under spatial sharding)."""
+    ca = as_[0].shape[-1]
+    if quant == "dynamic":
+        k = _hwio(conv)
+        ya = conv2d_int8_spatial(as_, k[:, :, :ca], out_dtype=torch.float32)
+        return conv2d_int8_spatial(bs, k[:, :, ca:], addends=ya, bias=conv.bias, out_dtype=dtype)
+    if quant is not None:
+        raise NotImplementedError(f"the spatial concat conv takes quant None or 'dynamic', "
+                                  f"got {quant!r}")
+    out = []
+    for sa, sb in zip(pad2d_spatial([a.to(dtype) for a in as_], 1, "zero"),
+                      pad2d_spatial([b.to(dtype) for b in bs], 1, "zero")):
+        w = conv.weight.to(sa.device, dtype)
+        y = F.conv2d(to_nchw(sa), w[:, :ca]) + F.conv2d(to_nchw(sb), w[:, ca:])
+        if conv.bias is not None:
+            y = y + conv.bias.to(sa.device, dtype)[None, :, None, None]
+        out.append(to_nhwc(y))
+    return out
 
 
 def init_norm_(bn: BatchNorm, gain: float, gen: torch.Generator) -> None:

@@ -55,7 +55,19 @@ the norm is not instance norm, which gates every fused kernel off);
 int8 off the decoder) and ``quant_head`` (the int8 head) as opt-in modes.
 inc, the ConvTranspose ups and the float 7×7 head stay float.
 
-Not ported yet (``ROADMAP.md``): the spatial mesh.
+Spatial test mode (``spatial_mesh``, the JAX field): with a 1-D H mesh
+(``parallel/spatial.py``: an ordered list of devices) the forward takes and
+returns a list of H-shards. inc and outc read 3-row reflect halos, down1,
+down2, up1 and up2 1-row zero halos, the blur-pools 1-row halos with the
+stride-2 phase kept global, the upsample its global grid; every instance
+norm and int8 amax is reduced across shards. The resnet blocks take their
+fused route per shard where the JAX per-shard gate holds (the shard's rows
+``local_h``, and ``_SP_BAND_MIN_AREA`` in the b2–7 band): the halo forms of
+the block convs (``resnet_block_pallas(_q)_spatial``). Inference only, with
+the norm-blur tails and the head off (``check_spatial_compat``); the
+variants (batch or no norm, ``no_antialias``, ``no_antialias_up``, other
+pads, dropout, ``use_pallas``) raise ``NotImplementedError`` under it
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -71,23 +83,38 @@ from ircolor_tpu_torch.kernels.blur import norm_blur_supported, norm_relu_blur_d
 from ircolor_tpu_torch.kernels.encdec import conv_in_relu_fused, seg_tile_h
 from ircolor_tpu_torch.kernels.head import head_supported, outc_head, outc_head_q
 from ircolor_tpu_torch.kernels.instance_norm import instance_norm_auto
-from ircolor_tpu_torch.kernels.resblock import resnet_block_pallas, resnet_block_pallas_q
+from ircolor_tpu_torch.kernels.resblock import (
+    resnet_block_pallas,
+    resnet_block_pallas_q,
+    resnet_block_pallas_q_spatial,
+    resnet_block_pallas_spatial,
+)
 from ircolor_tpu_torch.models.common import (
     apply_norm,
     concat_conv3x3,
+    concat_conv3x3_spatial,
     conv_nhwc,
+    conv_nhwc_spatial,
     frozen_running_stats,
     init_module_,
     make_norm,
     norm_nhwc,
+    norm_nhwc_spatial,
     quant_conv_nhwc,
+    quant_conv_nhwc_spatial,
     use_bias_for_norm,
 )
-from ircolor_tpu_torch.ops.blurpool import blur_downsample, blur_upsample_aa
+from ircolor_tpu_torch.ops.blurpool import (
+    blur_downsample,
+    blur_downsample_spatial,
+    blur_upsample_aa,
+    blur_upsample_aa_spatial,
+)
 from ircolor_tpu_torch.ops.filters import binomial_filter_2d
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
 from ircolor_tpu_torch.ops.padding import pad2d, reflect_pad2d
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners
+from ircolor_tpu_torch.parallel.spatial import check_spatial_compat
 
 
 def _fused_dtype_ok(dtype) -> bool:
@@ -109,6 +136,9 @@ def _fused_tile_h(h: int) -> int | None:
 _FUSED_MIN_AREA = 12288
 _FUSED_MIN_LAUNCH = 40960
 _QUANT_FUSED_MIN_AREA = 4096
+# The smallest per-shard bottleneck plane at which the b2–7 band engages
+# the fused blocks under spatial sharding (the JAX gate, probed on TPUs).
+_SP_BAND_MIN_AREA = 5120
 
 
 def _xla_smallbatch_band(b: int) -> bool:
@@ -201,8 +231,11 @@ class ResnetBlock(nn.Module):
         train``): rounding has no gradient, so a training call runs float."""
         return self.quant_int8 and not self.training
 
-    def fused(self, x: torch.Tensor) -> bool:
-        """The JAX ResnetBlock's fused-route gate (single device)."""
+    def fused(self, x: torch.Tensor, sp_n: int = 1) -> bool:
+        """The JAX ResnetBlock's fused-route gate for ``x``, the whole input
+        or (``sp_n`` > 1) one of its ``sp_n`` H-shards: the plane gates
+        take the shard's rows, and the b2–7 band needs a shard plane of
+        ``_SP_BAND_MIN_AREA``."""
         b, h, w, c = x.shape
         quant = self.quant
         min_area = (
@@ -222,7 +255,7 @@ class ResnetBlock(nn.Module):
             and self.dim % 128 == 0
             and (
                 (h * w >= min_area and b * h * w >= self.pallas_block_min_launch)
-                or _xla_smallbatch_band(b)
+                or (_xla_smallbatch_band(b) and (sp_n == 1 or h * w >= _SP_BAND_MIN_AREA))
             )
         )
 
@@ -259,6 +292,22 @@ class ResnetBlock(nn.Module):
             h = F.dropout(h, 0.5, self.training)
         return x + apply_norm(n2, self._conv(conv2, h))
 
+    def _conv_spatial(self, layer: nn.Conv2d, xs: list) -> list:
+        if self.quant:
+            return quant_conv_nhwc_spatial(layer, xs, self.dtype, pad="reflect")
+        return conv_nhwc_spatial(layer, xs, self.dtype, pad=1, pad_type="reflect")
+
+    def forward_spatial(self, xs: list) -> list:
+        """The block over the H-shards ``xs`` (instance norm, reflect pads,
+        no dropout: the generator checks): the fused halo route where the
+        per-shard gate holds, else the plain ops with their halos."""
+        if self.fused(xs[0], len(xs)):
+            k1, k2 = _hwio(self.conv1, self.dtype), _hwio(self.conv2, self.dtype)
+            blk = resnet_block_pallas_q_spatial if self.quant else resnet_block_pallas_spatial
+            return blk(xs, k1, k2)
+        h = [torch.relu(t) for t in norm_nhwc_spatial(self._conv_spatial(self.conv1, xs))]
+        return [x + y for x, y in zip(xs, norm_nhwc_spatial(self._conv_spatial(self.conv2, h)))]
+
 
 class ResnetUNetGenerator(nn.Module):
     """U-Net encoder/decoder with a ResNet bottleneck (module docstring)."""
@@ -292,6 +341,7 @@ class ResnetUNetGenerator(nn.Module):
         quant_int8: bool = False,
         quant_fixed_u2: bool = False,
         quant_head: bool = False,
+        spatial_mesh: list | None = None,
     ):
         super().__init__()
         use_bias = use_bias_for_norm(norm)
@@ -313,6 +363,9 @@ class ResnetUNetGenerator(nn.Module):
         self.quant_int8 = quant_int8
         self.quant_fixed_u2 = quant_fixed_u2
         self.quant_head = quant_head
+        # A 1-D H mesh (parallel.spatial.make_spatial_mesh): the forward
+        # takes and returns H-shards (module docstring).
+        self.spatial_mesh = spatial_mesh
 
         def norm_relu(c):
             return [make_norm(norm, c), nn.ReLU(True)]
@@ -499,7 +552,10 @@ class ResnetUNetGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """IR (B, H, W, input_nc) in [-1, 1] → RGB (B, H, W, output_nc) in
-        [-1, 1], in the compute dtype."""
+        [-1, 1], in the compute dtype; with ``spatial_mesh`` set, ``x`` and
+        the result are lists of H-shards."""
+        if self.spatial_mesh is not None:
+            return self._forward_spatial(x)
         dt = self.dtype
         quant_convs = self._quant_convs(x)
         dec_quant = "dynamic" if quant_convs else None
@@ -531,3 +587,73 @@ class ResnetUNetGenerator(nn.Module):
             return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
         y = self._norm_relu(y, self.up2_conv[1])
         return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))
+
+    # --- spatial test mode ---------------------------------------------------
+
+    def _check_spatial(self, xs: list) -> None:
+        """What the spatial forward runs: inference, the 1-D mesh's shard
+        count, the default model (the variants are not ported under it)."""
+        check_spatial_compat(self, self.spatial_mesh)
+        if self.training:
+            raise NotImplementedError("spatial training is not ported yet (ROADMAP.md, Queue 1)")
+        if len(xs) != len(self.spatial_mesh):
+            raise ValueError(f"{len(xs)} shards for a mesh of {len(self.spatial_mesh)} devices")
+        block = self.resblocks[0] if len(self.resblocks) else None
+        variants = {
+            f"norm={self.norm!r}": self.norm != "instance",
+            "no_antialias": self.no_antialias,
+            "no_antialias_up": self.no_antialias_up,
+            "use_pallas": self.use_pallas,
+            "use_dropout": block is not None and block.use_dropout,
+            f"padding_type={getattr(block, 'padding_type', None)!r}":
+                block is not None and block.padding_type != "reflect",
+        }
+        bad = [k for k, on in variants.items() if on]
+        if bad:
+            raise NotImplementedError(f"{', '.join(bad)} under sp_devices > 1 is not ported yet "
+                                      "(ROADMAP.md, Queue 1)")
+        h = xs[0].shape[1]
+        if any(x.shape[1] != h for x in xs) or h % 4:
+            raise ValueError("the spatial forward needs equal H-shards of a multiple of 4 rows "
+                             "(each blur-pool stage keeps an even shard)")
+
+    def _norm_relu_spatial(self, ys: list) -> list:
+        return [torch.relu(y) for y in norm_nhwc_spatial(ys)]
+
+    def _down_spatial(self, seq: nn.Sequential, xs: list, quant: bool) -> list:
+        if quant:
+            ys = quant_conv_nhwc_spatial(seq[0], xs, self.dtype)
+        else:
+            ys = conv_nhwc_spatial(seq[0], xs, self.dtype, pad=1, pad_type="zero")
+        return blur_downsample_spatial(self._norm_relu_spatial(ys))
+
+    def _up_spatial(self, ys: list, skips: list) -> list:
+        ys = blur_upsample_aa_spatial(ys)
+        if ys[0].shape[2] != skips[0].shape[2]:  # the rows match by the shard rule
+            ys = [bilinear_align_corners(y, tuple(s.shape[1:3])) for y, s in zip(ys, skips)]
+        return ys
+
+    def _forward_spatial(self, xs: list) -> list:
+        """The inference forward over the H-shards ``xs`` (module docstring):
+        the plain route's ops and the fused blocks, shard by shard, with
+        their halos and cross-shard reductions."""
+        self._check_spatial(xs)
+        dt = self.dtype
+        b, w = xs[0].shape[0], xs[0].shape[2]
+        gh = sum(x.shape[1] for x in xs)
+        quant_convs = self._quant_convs(torch.empty((b, gh, w, 1), device="meta"))
+        dec_quant = "dynamic" if quant_convs else None
+
+        x0 = self._norm_relu_spatial(conv_nhwc_spatial(self.inc[1], xs, dt, pad=3,
+                                                       pad_type="reflect"))
+        x1 = self._down_spatial(self.down1, x0, quant_convs)
+        x2 = self._down_spatial(self.down2, x1, quant_convs)
+        h = x2
+        for block in self.resblocks:
+            h = block.forward_spatial(h)
+        y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(h, x1), x1, dt, dec_quant)
+        y = self._norm_relu_spatial(y)
+        y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(y, x0), x0, dt, dec_quant)
+        y = self._norm_relu_spatial(y)
+        return [torch.tanh(o) for o in conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
+                                                         pad_type="reflect")]

@@ -4,11 +4,16 @@
 eps 1e-5, statistics in float32 whatever the compute dtype. The f32 parity
 path uses two-pass statistics; the bf16 path the one-pass E[x²]−μ² form,
 whose moments are also what the normalize-on-load kernels consume.
+The ``_spatial`` forms normalize an image held as a list of H-shards
+(``parallel/spatial.py``) by its global statistics: the per-shard sums are
+added across shards.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ircolor_tpu_torch.parallel.spatial import all_sum
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -43,3 +48,38 @@ def instance_norm_vjp(g: torch.Tensor, yhat: torch.Tensor, inv: torch.Tensor) ->
     gm = g.mean(dim=(1, 2), keepdim=True)
     gy = (g * yhat).mean(dim=(1, 2), keepdim=True)
     return inv.float()[:, None, None, :] * (g - gm - yhat * gy)
+
+
+def _pixels(xs) -> int:
+    return sum(x.shape[1] for x in xs) * xs[0].shape[2]
+
+
+def instance_norm_spatial(xs, eps: float = 1e-5) -> list[torch.Tensor]:
+    """``instance_norm`` of the image whose H-shards are ``xs``: two
+    passes over the shards, the global mean, then the global centred sum
+    of squares."""
+    n = _pixels(xs)
+    x32 = [x.float() for x in xs]
+    means = [s / n for s in all_sum([x.sum(dim=(1, 2), keepdim=True) for x in x32])]
+    var = [s / n for s in all_sum([(x - m).square().sum(dim=(1, 2), keepdim=True)
+                                   for x, m in zip(x32, means)])]
+    return [((x - m) * torch.rsqrt(v + eps)).to(xs[0].dtype) for x, m, v in zip(x32, means, var)]
+
+
+def instance_norm_stats_spatial(xs, eps: float = 1e-5) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``instance_norm_stats`` of the image whose H-shards are ``xs``, one
+    (mean, inv_std) per shard on its device: one pass, Σx and Σx² added
+    across shards."""
+    n = _pixels(xs)
+    sums = all_sum([torch.stack([x.float().sum(dim=(1, 2)), x.float().square().sum(dim=(1, 2))])
+                    for x in xs])
+    out = []
+    for s in sums:
+        mean, meansq = s[0] / n, s[1] / n
+        out.append((mean, torch.rsqrt(torch.clamp(meansq - mean.square(), min=0.0) + eps)))
+    return out
+
+
+def instance_norm_onepass_spatial(xs, eps: float = 1e-5) -> list[torch.Tensor]:
+    return [((x.float() - m[:, None, None, :]) * i[:, None, None, :]).to(x.dtype)
+            for x, (m, i) in zip(xs, instance_norm_stats_spatial(xs, eps))]

@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from ircolor_tpu_torch.kernels.conv_int8 import conv3x3_int8
+from ircolor_tpu_torch.ops.padding import pad2d_spatial
+from ircolor_tpu_torch.parallel.spatial import all_max
 
 # Smallest amax: keeps an all-zero tensor from producing an inf scale.
 _AMAX_FLOOR = 1e-12
@@ -49,6 +51,17 @@ def quantize_dynamic(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(amax, min=_AMAX_FLOOR) / 127.0
     xq = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return xq, scale
+
+
+def quantize_dynamic_spatial(xs) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``quantize_dynamic`` of the image whose H-shards are ``xs``, one
+    (int8 shard, (B, 1, 1, 1) scale) per shard, from the global amax."""
+    amax = all_max([x.float().abs().amax(dim=(1, 2, 3), keepdim=True) for x in xs])
+    out = []
+    for x, a in zip(xs, amax):
+        scale = torch.clamp(a, min=_AMAX_FLOOR) / 127.0
+        out.append((torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8), scale))
+    return out
 
 
 def _float_or_none(t):
@@ -85,3 +98,23 @@ def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", str
     sc = (sw * (clip / 127.0))[None, :].expand(x.shape[0], -1).contiguous()
     return conv3x3_int8(quantize_fixed(x, clip), wq, sc, pad=pad, stride=stride,
                         bias=_float_or_none(bias), addend=addend, out_dtype=out_dtype or x.dtype)
+
+
+def conv2d_int8_spatial(xs, kernel, *, pad: str = "zero", bias=None, addends=None,
+                        out_dtype=None) -> list[torch.Tensor]:
+    """``conv2d_int8`` (stride 1) of the image whose H-shards are ``xs``,
+    one output shard each: quantized from the global amax, then each shard
+    padded by its int8 halo rows (``pad`` at the image's edges) and ``pad``
+    columns and convolved VALID. ``addends``: one float32 term per shard."""
+    q = quantize_dynamic_spatial(xs)
+    wq, sw = quantize_weight_per_channel(kernel)
+    slabs = pad2d_spatial([xq for xq, _ in q], 1, pad)
+    out = []
+    for i, (slab, (_, sx)) in enumerate(zip(slabs, q)):
+        dev = slab.device
+        sc = (sx.reshape(-1, 1) * sw.to(dev)[None, :]).contiguous()
+        b = None if bias is None else bias.to(dev)
+        out.append(conv3x3_int8(slab, wq.to(dev), sc, pad="valid", bias=_float_or_none(b),
+                                addend=None if addends is None else addends[i],
+                                out_dtype=out_dtype or xs[i].dtype))
+    return out

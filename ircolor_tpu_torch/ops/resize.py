@@ -3,6 +3,9 @@
 Sample grid ``src = dst · (in − 1)/(out − 1)``, with the per-axis indices and
 weights computed once in float64 numpy, then a gather + lerp per axis in
 float32 — the same math as the JAX package's gather path.
+
+The grid is not shift-invariant, so an H-shard's rows take their sources
+and weights from their global positions (``interp_rows``).
 """
 
 from __future__ import annotations
@@ -20,16 +23,33 @@ def _align_corners_grid(in_size: int, out_size: int):
     return lo, lo + 1, (src - lo).astype(np.float32)
 
 
-def _interp_axis(x: torch.Tensor, axis: int, in_size: int, out_size: int) -> torch.Tensor:
-    if in_size == out_size:
-        return x
-    lo, hi, w = _align_corners_grid(in_size, out_size)
+def _lerp(x: torch.Tensor, axis: int, lo, hi, w) -> torch.Tensor:
+    """x's slices ``lo`` and ``hi`` along ``axis`` mixed by weights ``w``."""
     xlo = x.index_select(axis, torch.from_numpy(lo).to(x.device))
     xhi = x.index_select(axis, torch.from_numpy(hi).to(x.device))
     shape = [1] * x.ndim
-    shape[axis] = out_size
+    shape[axis] = len(w)
     wj = torch.from_numpy(w).to(x.device).reshape(shape)
     return xlo * (1.0 - wj) + xhi * wj
+
+
+def _interp_axis(x: torch.Tensor, axis: int, in_size: int, out_size: int) -> torch.Tensor:
+    if in_size == out_size:
+        return x
+    return _lerp(x, axis, *_align_corners_grid(in_size, out_size))
+
+
+def interp_rows(x: torch.Tensor, rows, in_size: int, out_size: int, first: int) -> torch.Tensor:
+    """Rows ``rows`` (global output indices) of the align-corners resize
+    along H from ``in_size`` to ``out_size`` rows, of float ``x`` whose row
+    0 is global input row ``first``: the rows and weights of the whole
+    image's grid, the gather + lerp of ``_interp_axis``. Raises where a row
+    reads outside ``x``."""
+    lo, hi, w = (a[np.asarray(rows)] for a in _align_corners_grid(in_size, out_size))
+    lo, hi = lo - first, hi - first
+    if lo.min() < 0 or hi.max() >= x.shape[1]:
+        raise ValueError(f"rows {rows[0]}..{rows[-1]} read outside the slab's rows")
+    return _lerp(x, 1, lo, hi, w)
 
 
 def bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -68,7 +68,7 @@ def _check_loss_sanity(m: dict[str, float], cfg: Config, epoch: int, step: int) 
 
 
 def _reject_unported(cfg: Config) -> None:
-    reject_unported(cfg)
+    reject_unported(cfg, train=True)
     if cfg.profile_dir is not None:
         raise NotImplementedError("profile_dir is not ported yet (ROADMAP.md, Queue 1)")
     if cfg.debug_nans:

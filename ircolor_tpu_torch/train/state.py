@@ -69,7 +69,7 @@ def create_train_state(
     Multi-device training raises NotImplementedError (``generator_from_config``)."""
     dev = resolve_device(device)
     cfg = train_config(cfg)
-    g = generator_from_config(cfg)
+    g = generator_from_config(cfg, train=True)
     d = discriminator_from_config(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
     g.init_weights(cfg.init_type, cfg.init_gain, gen)

@@ -816,3 +816,144 @@ def test_slice5_wrappers_raise_on_unsupported_cuda_input(cuda):
         conv.conv3x3_valid_pallas(xp, k[..., :64].contiguous())
     with pytest.raises(ValueError, match="C % 8"):
         blur.blur_downsample_pallas(x[..., :4].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_halo_forms_match_plain_and_unsharded_rows_on_card(cuda, n):
+    """Rows 1 and 2 in their spatial halo forms on n shards of one card:
+    the operand passes bit-identical to their plain versions (separate and
+    provided), the int8 conv bit-identical to its plain version, the bf16
+    conv within 2 bf16 ulps of it; conv1's raw output on each shard
+    bit-identical to the same rows of the unsharded kernel's (the same
+    inputs and halo rows, and the GEMM's per-pixel K order does not depend
+    on the tile), the summed statistics within 1e-5 relative of the
+    unsharded kernel's; one ``*_halo`` launch counted a call."""
+    from ircolor_tpu_torch.ops.quant import quantize_weight_per_channel
+    from ircolor_tpu_torch.parallel.spatial import all_sum, exchange_halo_rows, shard_h
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    b, h, w, c = 2, 32, 40, 256
+    x = _bf16(g, b, h, w, c)
+    k = _bf16(g, 3, 3, c, c, scale=0.05)
+    kq, sw = quantize_weight_per_channel(k)
+    amax = x.float().abs().amax(dim=(1, 2, 3))
+    sc = ((amax / 127.0)[:, None] * sw[None, :]).contiguous()
+    qkw = dict(qscale=(127.0 / amax).contiguous())
+    xs = shard_h(x, [cuda] * n)
+    halos = exchange_halo_rows(xs, 1)
+    one = resblock.conv3x3_reflect_fused(x, k)
+    one_q = resblock.conv3x3_reflect_fused_q(x, kq, sc, **qkw)
+    outs, outs_q, sums, sums_q = [], [], [], []
+    for i, (xi, hr) in enumerate(zip(xs, halos)):
+        slab = torch.cat([hr[0], xi, hr[1]], dim=1).contiguous()
+        for form, kw in (("separate", dict(halo_rows=hr)), ("provided", {})):
+            src = xi if form == "separate" else slab
+            assert torch.equal(resblock._conv_pass(src, halo=form, **kw),
+                               resblock._conv_pass_plain(src, halo=form, **kw))
+            assert torch.equal(resblock._q_pass(src, halo=form, **qkw, **kw),
+                               resblock._q_pass_plain(src, halo=form, **qkw, **kw))
+        before = dict(LAUNCHES)
+        got = resblock.conv3x3_reflect_fused(xi, k, halo="separate", halo_rows=hr, sums=True)
+        got_q = resblock.conv3x3_reflect_fused_q(xi, kq, sc, halo="separate", halo_rows=hr,
+                                                 sums=True, **qkw)
+        assert LAUNCHES["conv3x3_reflect_fused_halo"] == before["conv3x3_reflect_fused_halo"] + 1
+        assert LAUNCHES["conv3x3_reflect_fused_q_halo"] == \
+            before["conv3x3_reflect_fused_q_halo"] + 1
+        want = resblock.conv3x3_reflect_fused_plain(xi, k, halo="separate", halo_rows=hr)
+        scale = float(want[0].float().abs().max())
+        assert float((got[0].float() - want[0].float()).abs().max()) <= 2 * 2.0**-8 * scale
+        want_q = resblock.conv3x3_reflect_fused_q_plain(xi, kq, sc, halo="separate",
+                                                        halo_rows=hr, **qkw)
+        assert torch.equal(got_q[0], want_q[0])
+        rows = slice(i * (h // n), (i + 1) * (h // n))
+        assert torch.equal(got[0], one[0][:, rows]) and torch.equal(got_q[0], one_q[0][:, rows])
+        outs.append(got[0])
+        sums.append(got[1])
+        sums_q.append(got_q[1])
+    for s, ref in ((all_sum(sums)[0], one), (all_sum(sums_q)[0], one_q)):
+        m, inv = resblock._moments(s[:, 0], s[:, 1], h * w)
+        assert float((m - ref[1]).abs().max() / ref[1].abs().max()) <= 1e-5
+        assert float(((inv - ref[2]) / ref[2]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_spatial_blocks_match_unsharded_on_card(cuda, n):
+    """``resnet_block_pallas(_q)_spatial`` on n shards of one card against
+    the unsharded kernel blocks: the float block within 2 bf16 ulps of the
+    output's largest magnitude (the statistics summed in another order move
+    a normalize by an ulp here and there), the int8 block within the same
+    and ≤ 1e-3 of its values differing; 2n halo-form launches a block."""
+    from ircolor_tpu_torch.parallel.spatial import gather_h, shard_h
+
+    g = torch.Generator(device=cuda).manual_seed(37)
+    x = _bf16(g, 4, 64, 40, 256)
+    k1, k2 = _bf16(g, 3, 3, 256, 256, scale=0.05), _bf16(g, 3, 3, 256, 256, scale=0.05)
+    xs = shard_h(x, [cuda] * n)
+    for spatial_blk, one_blk, name in (
+            (resblock.resnet_block_pallas_spatial, resblock.resnet_block_pallas,
+             "conv3x3_reflect_fused_halo"),
+            (resblock.resnet_block_pallas_q_spatial, resblock.resnet_block_pallas_q,
+             "conv3x3_reflect_fused_q_halo")):
+        before = LAUNCHES[name]
+        got = gather_h(spatial_blk(xs, k1, k2)).float()
+        assert LAUNCHES[name] == before + 2 * n
+        want = one_blk(x, k1, k2).float()
+        d = (got - want).abs()
+        assert float(d.max()) <= 2 * 2.0**-8 * float(want.abs().max()), name
+        assert float((d > 2.0**-8 * want.abs()).float().mean()) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_halo_forms_raise_on_unsupported_cuda_input(cuda):
+    x = torch.zeros(1, 8, 32, 256, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(3, 3, 256, 256, dtype=torch.bfloat16, device=cuda)
+    rows = (x[:, :1].contiguous(), x[:, -1:].contiguous())
+    with pytest.raises(ValueError):  # halo rows of another width
+        resblock.conv3x3_reflect_fused(x, k, halo="separate",
+                                       halo_rows=(rows[0][:, :, :16], rows[1][:, :, :16]))
+    with pytest.raises(TypeError):  # halo rows of another dtype
+        resblock._conv_pass(x, halo="separate", halo_rows=tuple(r.float() for r in rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+def test_spatial_generator_across_cards_matches_one_card(cuda, n, quant):
+    """The spatial mesh's default placement, shard i on cuda:i (a node with
+    n cards or more), against every shard on cuda:0, with the same weights
+    and input (b2 at 512×640, ngf 64, 2 blocks: the fused blocks' per-shard
+    gate holds): each kernel launches on its shard's own card and stream
+    (``on_input_card``), so the outputs are bit-identical, the halo forms
+    launch 2·n times a block, and the caller's current card is unchanged.
+    A launcher called with another card current raises."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards for shards on distinct cards")
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import spatial_generator
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+    from ircolor_tpu_torch.parallel.spatial import gather_h, shard_h
+
+    cfg = Config(img_height=512, img_width=640, compute_dtype="bf16", ngf=64, n_blocks=2,
+                 test_batch_size=2, quant_int8=quant, sp_devices=n)
+    model = IRColorizationModel(cfg, "cuda:0")
+    x = torch.rand((2, 512, 640, 1), generator=torch.Generator().manual_seed(41)) * 2 - 1
+    name = "conv3x3_reflect_fused_q_halo" if quant else "conv3x3_reflect_fused_halo"
+    outs = []
+    for dev in ("cuda:0", None):
+        g = spatial_generator(cfg, model.module, dev)
+        want = [torch.device("cuda", i if dev is None else 0) for i in range(n)]
+        assert g.spatial_mesh == want
+        before = LAUNCHES[name]
+        with torch.inference_mode():
+            ys = g(shard_h(x, g.spatial_mesh))
+        assert [y.device for y in ys] == want
+        assert LAUNCHES[name] == before + 2 * 2 * n
+        assert torch.cuda.current_device() == 0
+        outs.append(gather_h(ys).cpu())
+    assert torch.equal(outs[0], outs[1])
+    xs = torch.zeros(1, 8, 32, 256, dtype=torch.bfloat16, device="cuda:1")
+    with torch.cuda.device(0), pytest.raises(RuntimeError, match="on_input_card"):
+        resblock._conv_pass.__wrapped__(xs)
+    assert resblock._conv_pass(xs).device == xs.device

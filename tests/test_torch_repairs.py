@@ -95,5 +95,5 @@ def test_sp_w_devices_without_sp_devices_raises(tmp_path):
         with pytest.raises(ValueError, match="sp_w_devices=2 requires sp_devices > 1"):
             call()
     assert not (tmp_path / "out").exists()
-    with pytest.raises(NotImplementedError):  # with an H axis: not ported yet
+    with pytest.raises(NotImplementedError, match="sp_w_devices"):  # 2-D H×W: not ported yet
         wrapper.generator_from_config(cfg.replace(sp_devices=4))
