@@ -21,8 +21,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    instantiations: a spill fails the run; beside ``torch._int_mm`` over an
    im2col); its stride-2 form at the no_antialias down convs at b32
    (down1 512×640×64 → 256×320×128, down2 256×320×128 → 128×160×256:
-   the phase pass and the GEMM timed apart, bit-exact, beside
-   ``torch._int_mm`` over a stride-2 im2col), the float head (4, within 2
+   one GEMM launch reading the input through strided TMA boxes, counted
+   by ``torch.profiler``, timed beside its GEMM alone, the reflect pad's
+   pass and GEMM apart, bit-exact, beside ``torch._int_mm`` over a
+   stride-2 im2col), the float head (4, within 2
    bf16 ulps) and the int8 head (4q,
    bit-exact) at 32×512×640×64, both bit-exact on repeat, after every
    ``csrc/head.cu`` instantiation's ptxas line and ``HMMA`` / ``IMMA``
@@ -144,7 +146,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    |d| on the rows by the seams against the interior rows' (≤ 1.5×), a
    check that must flag an injected seam fault; 18·S halo-form launches a
    forward (int8: and 6·S int8 convs); frames/s and peak memory beside the
-   unsharded steps'.
+   unsharded steps'. (c) The same at 488×640 and S = 4, whose shards are
+   unequal inside the generator (61 rows after the first stride-2 stage,
+   31, 30, 31, 30 at the bottleneck): the blocks run their plain ops with
+   their halos, as JAX's do, the int8 conv at 24·S sites a forward (float:
+   no kernel), against the unsharded rebuild at that height.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -585,66 +591,108 @@ INT8_S2_SITES = (
 
 def check_conv_int8_s2(torch, results: list) -> None:
     """Phase 2, the int8 conv's stride-2 form (``csrc/conv_fwd.cu``: the
-    phase pass writes the input's four parity planes, then the q-conv GEMM
-    runs six stages a chunk): each site against ``conv3x3_int8_plain(...,
-    stride=2)`` (tolerance 0) and bit-exact on repeat, timed with the pass
-    and the GEMM apart, the GEMM also at the other N, beside
-    ``torch._int_mm`` over a stride-2 im2col (the GEMM alone); the
-    instantiations' ptxas lines and IGMMA counts (a spill fails the run).
-    The row sums the two sites: one b32 forward's stride-2 launches."""
+    q-conv GEMM at N = 64 reads the input through TMA boxes with element
+    strides of 2, three stages a chunk; no pass for zero halos): each site
+    against ``conv3x3_int8_plain(..., stride=2)`` (tolerance 0) and
+    bit-exact on repeat, the kernels one call launches counted by
+    ``torch.profiler`` (zero pad: the GEMM alone; reflect: the int8
+    reflect pass and the GEMM), the call timed beside its GEMM alone (TOP/s
+    each), ``torch._int_mm`` over a stride-2 im2col (the GEMM alone) and
+    the bound; the reflect pad (on no route) at down1 with its launches
+    timed apart; the instantiation's ptxas line and IGMMA count (a spill
+    fails the run). The row sums the two b32 sites: one b32 forward's
+    stride-2 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
     from ircolor_tpu_torch.kernels import conv_int8, resblock
 
-    log(f"[int8 conv s2 phase pass] ptxas {ptxas_lines('conv_fwd').get('phase', 'not built')}")
-    check_gemm_build("int8 conv s2", ("q-conv s2",))
+    check_gemm_build("int8 conv s2", ("q-conv s2",), (64,))
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+
+    def launched(fn) -> dict:
+        """The kernels a call of ``fn`` launches, by ``torch.profiler``: the
+        conv's GEMMs and reflect passes, the most in either of two calls
+        profiled apart (a profiler window can miss a launch's record; a
+        kernel the call launches shows in one of two), and the names of the
+        others (PyTorch's)."""
+        got = dict(gemm=0, passes=0, other=set())
+        for _ in range(2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+            gemm = [n for n in names if "conv_fwd_gemm_kernel" in n]
+            passes = [n for n in names if "operand_pass_kernel" in n]
+            got["gemm"] = max(got["gemm"], len(gemm))
+            got["passes"] = max(got["passes"], len(passes))
+            got["other"] |= {n[:60] for n in names if n not in gemm and n not in passes}
+        return got
+
+    def gemm_ms(xq, wq, sc, pad, bias) -> float:
+        """The plan's GEMM alone on ``pad``'s source."""
+        bb, hh, ww, cin = xq.shape
+        ho, wo = conv_int8.out_hw(hh, ww, pad, 2)
+        p = conv_int8._plan(bb, ho, wo, cin, wq.shape[-1], pad, 2)
+        src, kt = conv_int8._source(xq, pad), resblock._q_weights(wq, p)
+        return cuda_time_ms(lambda: conv_int8._gemm(src, kt, sc, p, bias=bias), 20)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+
     for label, bb, hh, ww, cin, cout in INT8_S2_SITES:
-        xq = torch.randint(-127, 128, (bb, hh, ww, cin), device=dev, generator=gen,
-                           dtype=torch.int8)
-        wq = torch.randint(-127, 128, (3, 3, cin, cout), device=dev, generator=gen,
-                           dtype=torch.int8)
+        xq, wq = int8(bb, hh, ww, cin), int8(3, 3, cin, cout)
         sc = torch.rand(bb, cout, device=dev, generator=gen) * 1e-4
         kw = dict(pad="zero", stride=2, bias=torch.randn(cout, device=dev, generator=gen))
         got = conv_int8.conv3x3_int8(xq, wq, sc, **kw)
         want = conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw)
         exact = bool(torch.equal(got, want))
         repeat = bool(torch.equal(got, conv_int8.conv3x3_int8(xq, wq, sc, **kw)))
+        ran = launched(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **kw))
         ms = cuda_time_ms(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **kw), 20)
         pms = cuda_time_ms(lambda: conv_int8.conv3x3_int8_plain(xq, wq, sc, **kw), 1, 1)
         ho, wo = conv_int8.out_hw(hh, ww, "zero", 2)
         plan = conv_int8._plan(bb, ho, wo, cin, cout, "zero", 2)
-        src = conv_int8._phases(xq, "zero", ho, wo)
-        tp = cuda_time_ms(lambda: conv_int8._phases(xq, "zero", ho, wo), 20)
-        gemm_ms = {}
-        for bn in (128, 64):
-            p = resblock._conv_plan(bb, ho, wo, (cin,), cout, "zero", s8=True, bn=bn, stride=2)
-            kt = resblock._q_weights(wq, p)
-            alt = conv_int8._gemm(src, kt, sc, p, bias=kw["bias"])
-            exact = exact and bool(torch.equal(alt, want))
-            del alt
-            gemm_ms[bn] = cuda_time_ms(lambda: conv_int8._gemm(src, kt, sc, p, bias=kw["bias"]), 20)
-        del got, want, src
+        g_ms = gemm_ms(xq, wq, sc, "zero", kw["bias"])
+        ops = 2 * bb * ho * wo * 9 * cin * cout
+        if (ran["gemm"], ran["passes"]) != (1, 0):
+            raise AssertionError(f"conv3x3_int8 s2 {label} zero pad launched {ran}, not the "
+                                 f"GEMM alone")
+        if label == "down1":  # the reflect pad: the int8 reflect pass, then the VALID GEMM
+            rkw = dict(kw, pad="reflect")
+            rgot = conv_int8.conv3x3_int8(xq, wq, sc, **rkw)
+            exact = exact and bool(torch.equal(rgot, conv_int8.conv3x3_int8_plain(xq, wq, sc, **rkw)))
+            del rgot
+            rran = launched(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **rkw))
+            rms = cuda_time_ms(lambda: conv_int8.conv3x3_int8(xq, wq, sc, **rkw), 10)
+            tp = cuda_time_ms(lambda: conv_int8._pad(xq), 10)
+            rg = gemm_ms(xq, wq, sc, "reflect", kw["bias"])
+            log(f"[conv3x3_int8 s2 {label} reflect] bit-exact: {exact}; launched {rran}; "
+                f"{rms:.4f} ms = reflect pass {tp:.4f} + GEMM {rg:.4f} ms")
+            if (rran["gemm"], rran["passes"]) != (1, 1):
+                raise AssertionError(f"conv3x3_int8 s2 {label} reflect pad launched {rran}")
+        del got, want
         cols = im2col_int8(torch, xq, "zero", 2)
         wmat = wq.reshape(9 * cin, cout).t().contiguous().t()
-        lib = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
+        lib_ms = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
         del cols
         npix = bb * ho * wo
         nbytes = xq.numel() + 9 * cin * cout + bb * cout * 4 + cout * 4 + npix * cout * 2
-        ops = 2 * npix * 9 * cin * cout
         b_ms, b_by = bound(ops, nbytes, PEAK_INT8)
-        other = " ".join(f"N={bn} {t:.4f} ms" for bn, t in gemm_ms.items() if bn != plan.bn)
         log(f"[conv3x3_int8 s2 {label} {bb}x{hh}x{ww}x{cin}->{ho}x{wo}x{cout} zero] bit-exact: "
-            f"{exact} (tol 0), repeat bit-exact: {repeat}; kernel {ms:.4f} ms = phase pass "
-            f"{tp:.4f} + GEMM N={plan.bn} {gemm_ms[plan.bn]:.4f} ms "
-            f"({ops / gemm_ms[plan.bn] / 1e9:.1f} TOP/s, {plan.blocks} output blocks); other {other}; "
-            f"plain {pms:.3f} ms; _int_mm over a stride-2 im2col {lib:.4f} ms; bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"{exact} (tol 0), repeat bit-exact: {repeat}; launched {ran} (torch.profiler: "
+            f"{ran['gemm']} GEMM, {ran['passes']} pass); kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s, {plan.blocks} output blocks of N {plan.bn}); GEMM "
+            f"alone {g_ms:.4f} ms {ops / g_ms / 1e9:.1f} TOP/s; plain {pms:.3f} ms; _int_mm over "
+            f"a stride-2 im2col {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: ops "
+            f"{ops / PEAK_INT8 * 1e3:.4f}, bytes {nbytes / PEAK_BYTES * 1e3:.4f})")
         if not (exact and repeat):
             raise AssertionError(f"conv3x3_int8 s2 {label} disagrees with its plain version")
         row["ms"] += ms
         row["plain_ms"] += pms
-        row["library_ms"] += lib
+        row["library_ms"] += lib_ms
         row["bound_ms"] += b_ms
         row["ops_ms"] += ops / PEAK_INT8 * 1e3
         row["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
@@ -669,8 +717,8 @@ def kernel_key(name: str) -> str:
     """A kernel of a library by its mangled name: "gemm nBN <policy>" for
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
     wgrad's ("... s2": the int8 conv's stride-2 form), "fold" (the dgrad's
-    fold lines), "pass" (the operand pass), "pass q8" (its int8 form),
-    "phase" (the stride-2 pass) or "head bf16 kK" / "head s8 kK" for
+    fold lines), "pass" (the operand pass), "pass q8" (its int8 form) or
+    "head bf16 kK" / "head s8 kK" for
     csrc/head.cu's instantiations (K MMA K steps a staged unit; "multi":
     the one for C past 64 channels, several units a row)."""
     import re
@@ -681,8 +729,6 @@ def kernel_key(name: str) -> str:
         return f"head {'s8' if found[1] == '1' else 'bf16'} k{found[2]}{multi}"
     if "operand_pass" in name:
         return "pass q8" if "ILb1E" in name else "pass"
-    if "phase_pass" in name:
-        return "phase"
     if "ILb1E" in name:
         return "gemm swap"
     found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
@@ -863,12 +909,12 @@ def check_head_build() -> None:
             raise AssertionError(f"the head ({key}) spills: {line}")
 
 
-def check_gemm_build(what: str, policies: tuple) -> None:
+def check_gemm_build(what: str, policies: tuple, bns: tuple = (128, 64)) -> None:
     """Every instantiation of csrc/conv_fwd.cu's GEMM with one of
-    ``policies`` (N 128 and 64) issues ``wgmma`` (HGMMA or IGMMA) and spills
-    nothing; their ptxas lines are printed."""
+    ``policies`` at the N of ``bns`` issues ``wgmma`` (HGMMA or IGMMA) and
+    spills nothing; their ptxas lines are printed."""
     ptx, hg = ptxas_lines("conv_fwd"), hgmma_by_kernel("conv_fwd")
-    for bn in (128, 64):
+    for bn in bns:
         for policy in policies:
             key = f"gemm n{bn} {policy}"
             line = ptx.get(key, "not built in this process")
@@ -2204,6 +2250,10 @@ def variant_phase(torch, np, counts: dict) -> None:
 # float blocks' per-shard gate holds).
 SP_SHARDS = (2, 4)
 SP_CELLS = (("int8", True, B), ("float", False, 4))
+# Phase 8c: a height whose shards are unequal inside the generator. 488
+# rows over 4 shards: 122 rows a shard, 61 (odd) after the first stride-2
+# stage, 31, 30, 31, 30 at the bottleneck (the fused halo blocks off).
+SP_UNEQUAL_H, SP_UNEQUAL_SHARDS = 488, (4,)
 # The int8 cells' uint8 limit, set from readings: the spatial step's mean
 # |d| to the unsharded step at most SP_INT8_NOISE_K × the unsharded route's
 # own distance between its kernel and plain rows 1 and 2 in the same run
@@ -2374,7 +2424,9 @@ def seams_cut_fault(torch, infer, batch):
         tquant.pad2d_spatial = real
 
 
-def spatial_serving_phase(torch, np, counts: dict) -> None:
+def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
+                          shards: tuple = SP_SHARDS, tag: str = "",
+                          noise_of: dict | None = None) -> tuple[dict, dict]:
     """Phase 8b: ``make_infer_fn`` over ``spatial_generator`` (the runner's
     rebuild: tails and head off, every shard on cuda:0) for each cell of
     ``SP_CELLS`` at S = 2 and 4, against the unsharded step of the same
@@ -2396,12 +2448,25 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
     must launch the halo forms 18·S times (and, int8, the int8 conv at the
     6 enc/dec sites of each shard) and nothing else. Frames/s and peak
     memory beside the unsharded steps' (the default route with tails and
-    head, and the rebuild) from the same run."""
+    head, and the rebuild) from the same run. Returns the frames/s by run
+    and each cell's noise (the uint8 mean |d| above) by cell.
+
+    Phase 8c (``hw`` another height, ``shards`` its S, ``tag`` its label):
+    the same checks where the shards are unequal at the bottleneck, so the
+    blocks run their plain ops with their halos (as JAX's ``local_h = 0``)
+    and a forward launches, under int8, the int8 conv at the 6 enc/dec
+    sites and the blocks' 18 convs of each shard, and nothing else (float:
+    no kernel). The unsharded rebuild at that height is the reference (no
+    default route); its bottleneck (122 rows at 488) takes no fused tile,
+    so it runs the same ops unsharded and has no kernel-vs-plain distance
+    of its own: the int8 limit scales ``noise_of``, phase 8b's noise of the
+    same cell in the same run."""
     import copy
 
     from ircolor_tpu_torch.eval.runner import make_infer_fn, spatial_generator
     from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+    from ircolor_tpu_torch.parallel.spatial import check_stage_heights
 
     rows12 = ("conv3x3_reflect_fused", "conv3x3_reflect_fused_q")
 
@@ -2413,9 +2478,12 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
         LAUNCHES.update(mid)
         return out, ran
 
-    summary = []
-    for label, quant, batch in SP_CELLS:
-        cfg = serving_config(test_batch_size=batch, **({} if quant else dict(quant_int8=False)))
+    summary, fps_by_run, noise_by_cell = [], {}, {}
+    size = {} if hw == (H, W) else dict(img_height=hw[0], img_width=hw[1])
+    for cell, quant, batch in SP_CELLS:
+        label = f"{cell}{tag}"
+        cfg = serving_config(test_batch_size=batch, **size,
+                             **({} if quant else dict(quant_int8=False)))
         if (cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != (batch, quant):
             raise AssertionError(f"spatial {label}: config no longer resolves to b{batch} "
                                  f"int8={quant}")
@@ -2424,18 +2492,24 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
         flat.pallas_norm_blur = flat.pallas_head = False
         block = "conv3x3_reflect_fused_q" if quant else "conv3x3_reflect_fused"
         int8_sites = {"conv3x3_int8": 6} if quant else {}
+        if not size:
+            flat_per = {block: 18, **int8_sites}
+        else:  # 122 bottleneck rows take no fused tile: the blocks' convs unfused here too
+            flat_per = {"conv3x3_int8": 24} if quant else {}
         runs = [("unsharded", make_infer_fn(model.module),
-                 {block: 18, "norm_relu_blur_down": 2, "conv7x7_head": 1}, 1),
-                ("unsharded, tails and head off", make_infer_fn(flat), {block: 18, **int8_sites},
-                 1)]
-        for n in SP_SHARDS:
+                 {block: 18, "norm_relu_blur_down": 2, "conv7x7_head": 1}, 1)] if not size else []
+        runs.append(("unsharded, tails and head off", make_infer_fn(flat), flat_per, 1))
+        for n in shards:
             g = spatial_generator(cfg.replace(sp_devices=n), model.module, "cuda:0")
-            per = {f"{block}_halo": 18 * n, **{k: v * n for k, v in int8_sites.items()}}
+            if len(set(check_stage_heights(hw[0], n, 2)[-1])) == 1:
+                per = {f"{block}_halo": 18 * n, **{k: v * n for k, v in int8_sites.items()}}
+            else:  # unequal bottleneck shards: the blocks' convs on the int8 conv or cuDNN
+                per = {"conv3x3_int8": 24 * n} if quant else {}
             runs.append((f"sp{n}", make_infer_fn(g), per, n))
         n_batches = 2 if batch >= 32 else 6
         batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
-                   for ir, gt in synthetic_batches(np, n_batches, batch)]
-        ref = None
+                   for ir, gt in synthetic_batches(np, n_batches, batch, hw)]
+        ref, default = None, None
         for name, infer, per, n in runs:
             pred, m = infer(*batches[0])  # warm-up; the output compared below
             torch.cuda.synchronize()
@@ -2448,23 +2522,28 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
             key = f"spatial {label} {name}"
             counts[key] = dict(LAUNCHES)
             expect_launches(key, counts[key], per, n_batches)
-            check_outputs(torch, key, outs, batch)
+            check_outputs(torch, key, outs, batch, hw)
             fps = n_batches * batch / dt
             peak = torch.cuda.max_memory_allocated() / 2**30
-            log(f"[{key}] {fps:.2f} frames/s ({n_batches} batches of {batch} at {H}x{W}, "
+            log(f"[{key}] {fps:.2f} frames/s ({n_batches} batches of {batch} at {hw[0]}x{hw[1]}, "
                 f"{1e3 * dt / n_batches:.2f} ms a batch), peak memory {peak:.2f} GiB")
             summary.append(f"{label} {name} {fps:.2f} frames/s {peak:.2f} GiB")
+            fps_by_run[key] = fps
             if name == "unsharded":
                 default = (pred, m)
                 continue
             (pred_p, m_p), ran = swapped(infer, rows12, *batches[0])
             plain = route_delta(torch, pred, m, pred_p, m_p)
             if ref is None:
-                ref, noise = (pred, m), plain
-                log(f"    the default route (tails and head on) against this one: "
-                    f"{route_delta(torch, *default, *ref)['text']}\n"
-                    f"    this route against rows 1 and 2 on their plain versions (its "
-                    f"rounding noise): {plain['text']}")
+                ref, noise = (pred, m), noise_of[cell] if noise_of else plain
+                noise_by_cell[cell] = noise
+                if default is not None:
+                    log(f"    the default route (tails and head on) against this one: "
+                        f"{route_delta(torch, *default, *ref)['text']}")
+                log(f"    this route against rows 1 and 2 on their plain versions (its "
+                    f"rounding noise): {plain['text']}"
+                    + (f"; the noise taken from phase 8b: {noise['mean_d']:.4f}"
+                       if noise_of else ""))
                 continue
             delta = route_delta(torch, pred, m, *ref)
             seam = seam_ratio(torch, pred, ref[0], n)
@@ -2475,13 +2554,14 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
                     torch.equal(infer(*batches[0])[0], pred))
                 del pred_i
             limit = SP_INT8_NOISE_K * noise["mean_d"]
+            whose = " (phase 8b's)" if noise_of else ""
             log(f"    against the unsharded step: {delta['text']}; seam/interior mean |d| "
                 f"{seam:.4f} (tol {SEAM_RATIO_MAX})\n"
                 f"    against rows 1 and 2 on their plain versions (launched there: {ran}): "
                 f"{plain['text']}"
                 + (f"\n    uint8 mean |d| {delta['mean_d']:.4f} to the unsharded step and "
                    f"{plain['mean_d']:.4f} to the plain rows, tol {SP_INT8_NOISE_K} x the "
-                   f"unsharded route's noise {noise['mean_d']:.4f} = {limit:.4f}"
+                   f"unsharded route's noise{whose} {noise['mean_d']:.4f} = {limit:.4f}"
                    f"\n    the int8 conv on its plain version, and a repeat: bit-identical "
                    f"{exact} (tol 0)" if quant else ""))
             ok = (within_budget(delta, uint8_bound=not quant)
@@ -2506,7 +2586,8 @@ def spatial_serving_phase(torch, np, counts: dict) -> None:
                 del pred_f
         del model, flat, runs, batches, outs, ref, default, noise
         torch.cuda.empty_cache()
-    log("[spatial serve] " + "; ".join(summary))
+    log(f"[spatial serve{tag}] " + "; ".join(summary))
+    return fps_by_run, noise_by_cell
 
 
 def main() -> int:
@@ -2674,8 +2755,11 @@ def main() -> int:
     phase_done("phase 7")
     check_halo_kernels(torch, results)
     phase_done("phase 8a")
-    spatial_serving_phase(torch, np, counts)
+    _, sp_noise = spatial_serving_phase(torch, np, counts)
     phase_done("phase 8b")
+    spatial_serving_phase(torch, np, counts, (SP_UNEQUAL_H, W), SP_UNEQUAL_SHARDS, " unequal",
+                          sp_noise)
+    phase_done("phase 8c")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held

@@ -138,19 +138,28 @@
 //   Its global reads (aux, the fold terms) are read-only loads issued one
 //   column group (i) ahead, and mm/mi sit in shared memory: read where
 //   used, each was a round trip the idle tensor cores waited on.
-// * Stride 2 (q-conv only): the int8 phase pass writes the four (row,
-//   column) parity planes of the padded input, P[py][px][u, v] = Xp[2u+py,
-//   2v+px], each (Ho+1) x (Wo+1), stacked as Q (B, 2(Ho+1), 2(Wo+1), C):
-//   then out[i, j] reads tap (dy, dx) at Q[ro(dy) + i, co(dx) + j] with ro =
-//   {0, Ho+1, 1} and co = {0, Wo+1, 1}. The column offset is the A box's
-//   column; the rows are not one box's rows at offset dy (dy = 1 lies in the
-//   odd plane), so a stage is (chunk, dx, row parity): the even box serves
-//   dy = 0 and 2 at row offsets 0 and 1, the odd box dy = 1. Six stages a
-//   chunk, the same wgmmas as stride 1; A's L2 reads double, B's box is the
-//   stride-1 one (its unused tap rides along). The pass adds a read and a
-//   write of the input (TMA elementStrides of 2 would avoid both; not
-//   taken: this form reuses the stride-1 stage and the VALID halo mode as
-//   they are).
+// * Stride 2 (q-conv only, no pass before it for zero or VALID halos):
+//   out[i, j] at tap (dy, dx) reads Xp[2i + dy, 2j + dx], Xp being xq
+//   zero-padded by one pixel (shift 1: xq row 2i + dy - 1) or the
+//   pre-padded input (VALID, shift 0; the reflect sites run the int8
+//   reflect pass first). The producer reads xq itself through tensor maps
+//   with TMA elementStrides of 2 on W and H: a box traversing 2 TW columns
+//   from 2 c0 + dx - shift lands the TW columns of tap dx densely, and the
+//   zero halo is TMA's out-of-bounds fill, as at stride 1. A stage is
+//   (chunk, dx), as at stride 1, and holds two A boxes: the TH + 1 input
+//   rows 2 r0 - shift + 2u (18 KB), which serve dy = 0 and 2 at buffer row
+//   offsets 0 and 1, and the TH rows 2 r0 + 1 - shift + 2u (16 KB), which
+//   serve dy = 1; then the B box once. 12 wgmmas a warpgroup a stage, as at
+//   stride 1; 58 KB a stage at N = 128, so 3 stages (4 at N = 64, 46 KB).
+//   Each box is whole 1 KB swizzle atoms, so the tap-as-row-offset
+//   descriptors hold in each box. HBM traffic is one read of xq. With one
+//   or two chunks a block (the down convs: Cin 64, 128) the epilogue is a
+//   third of a block's work, and its 4-byte fragment stores held the
+//   consumers (without them the GEMM took 0.57 of the time): the bf16 tile
+//   goes to a 32 KB shared buffer, 64 channels at a time (128-byte
+//   swizzled rows, so a warp's stores hit 32 banks), and out by one TMA
+//   store the consumers do not wait for; f32 output keeps the fragment
+//   stores. The plan runs N = 64 (kernels/conv_int8.py:_plan).
 // * Persistent grid (one wave, fixed by the shapes in the Python plan):
 //   a block runs every grid-th output block, the ring running on, so the
 //   next block's first loads overlap this one's epilogue. Output blocks
@@ -184,26 +193,35 @@ constexpr int CONSUMERS = 2;                     // warpgroups, TH / 2 rows each
 // policies and q-conv: see wide_producer) a producer warpgroup whose
 // registers setmaxnreg hands over.
 constexpr int threads_of(bool wide) { return CONSUMERS * 128 + (wide ? 128 : 32); }
-constexpr int STAGES = 4;
 constexpr int A_ROW = KC * 2;                    // one pixel: 64 bytes
 constexpr int A_BYTES = (TH + 2) * TW * A_ROW;   // one dx buffer: 20 KB
+constexpr int A2_TAPS02 = (TH + 1) * TW * A_ROW; // stride 2: the rows of dy 0, 2: 18 KB
+constexpr int A2_BYTES = A2_TAPS02 + TH * TW * A_ROW;  // + the rows of dy 1: 34 KB
 constexpr int B_ATOM = KC * 128;                 // KC ci x 64 co: 4 KB
 constexpr int B_HALF = 3 * B_ATOM;               // one 64-channel box: its three taps (dy)
 static_assert(TW == 32, "an m64 sub-tile is two whole rows on swizzle atoms");
 static_assert(TH == 4 * CONSUMERS, "two m64 sub-tiles of 2 rows a warpgroup");
 static_assert(A_BYTES % 1024 == 0 && B_HALF % 1024 == 0, "B boxes on 1 KB atoms");
+static_assert(A2_TAPS02 % 1024 == 0 && A2_BYTES % 1024 == 0, "stride-2 boxes on 1 KB atoms");
 static_assert(KC_S8 == A_ROW && 3 * 128 * KC_S8 == 2 * B_HALF,
               "an int8 stage has the bf16 stage's bytes at BN 128");
 
-// The ring and shared memory of a block with BN output channels.
-template <int BN>
+// The ring and shared memory of a block with BN output channels; S2 (BN
+// 64 only): the stride-2 stage (two A boxes) and the bf16 output tile
+// staged for its TMA store (no sums).
+template <int BN, bool S2 = false>
 struct Ring {
-  static constexpr int STAGE = A_BYTES + (BN / 64) * B_HALF;     // 44 KB at BN 128
-  static constexpr int RED_BYTES = CONSUMERS * 4 * BN * 2 * 4;   // the sums' warp partials
+  static_assert(!S2 || BN == 64, "the stride-2 form runs N = 64");
+  static constexpr int A = S2 ? A2_BYTES : A_BYTES;
+  static constexpr int STAGE = A + (BN / 64) * B_HALF;           // 44 KB at BN 128; S2 46 KB
+  static constexpr int STAGES = 4;
+  static constexpr int OUT_BYTES = S2 ? TH * TW * 64 * 2 : 0;    // 32 KB, 128-byte swizzled
+  static constexpr int RED_BYTES = S2 ? 0 : CONSUMERS * 4 * BN * 2 * 4;  // the sums' warp partials
   static constexpr int MASK_BYTES = 2 * BN * 4;                  // a task's mm, mi (or sc)
-  static constexpr int SMEM =
-      STAGES * STAGE + RED_BYTES + MASK_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+  static constexpr int SMEM = STAGES * STAGE + OUT_BYTES + RED_BYTES + MASK_BYTES +
+                              2 * STAGES * 8 + 1024;  // + barriers, alignment
 };
+static_assert(Ring<64, true>::SMEM <= 232448, "the stride-2 ring fits a block's shared memory");
 
 // The epilogue policies (see the note at the top): the forward's stats and
 // store; the dgrad's mask-stats, residual and dz (store), which add the
@@ -354,32 +372,33 @@ struct FwdArgs {
 };
 
 // One stage of a consumer warpgroup: wait for it, issue its wgmmas, keep
-// them in flight and free the stage before. TAPS: the taps dy (bit dy) the
-// stage's A box serves, at buffer row offset dy (stride 1: all three) or
-// dy / 2 (stride 2: the even box dy 0 and 2 at rows 0 and 1, the odd box
-// dy 1 at row 0).
-template <int BN, bool S8, int TAPS, bool S2, typename Acc>
+// them in flight and free the stage before. Tap dy's A operand starts at
+// buffer row dy (stride 1), or (S2) at row dy / 2 of the first box (dy 0,
+// 2) or row 0 of the second (dy 1).
+template <int BN, bool S8, bool S2, typename Acc>
 __device__ __forceinline__ void consume_stage(Acc (&acc)[2][BN / 2], uint32_t base,
                                               uint32_t full0, uint32_t empty0, int& g, int j,
                                               int wg, int lane) {
-  const int s = g % STAGES;
-  const uint32_t st = base + s * Ring<BN>::STAGE;
-  mbar_wait(full0 + 8 * s, (g / STAGES) & 1);
+  using R = Ring<BN, S2>;
+  const int s = g % R::STAGES;
+  const uint32_t st = base + s * R::STAGE;
+  mbar_wait(full0 + 8 * s, (g / R::STAGES) & 1);
   wgmma_fence();
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
-    if (!((TAPS >> dy) & 1)) continue;
 #pragma unroll
     for (int ks = 0; ks < A_ROW / 32; ++ks) {  // 32 bytes of A's row: k16 bf16, k32 s8
       // bf16: 16 rows of the MN-major B; s8: 32 bytes of each K-major
       // output channel's row of tap dy.
-      const uint64_t db = S8 ? smem_desc_k64(st + A_BYTES + dy * BN * KC_S8 + ks * 32)
+      const uint64_t db = S8 ? smem_desc_k64(st + R::A + dy * BN * KC_S8 + ks * 32)
                              : smem_desc(st + A_BYTES + dy * B_ATOM + ks * 2048, B_HALF);
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         // first buffer row of the tap
-        const uint32_t arow = (4 * wg + 2 * t + (S2 ? dy / 2 : dy)) * TW;
-        const uint64_t da = smem_desc_k64(st + arow * A_ROW + ks * 32);
+        const int row = 4 * wg + 2 * t;
+        const uint32_t abox = S2 && dy == 1 ? st + A2_TAPS02 : st;
+        const uint32_t arow = (row + (S2 ? dy / 2 : dy)) * TW;
+        const uint64_t da = smem_desc_k64(abox + arow * A_ROW + ks * 32);
         if constexpr (S8 && BN == 128) {
           wgmma_s8_n128(acc[t], da, db);
         } else if constexpr (S8) {
@@ -394,35 +413,39 @@ __device__ __forceinline__ void consume_stage(Acc (&acc)[2][BN / 2], uint32_t ba
   }
   wgmma_commit();
   wgmma_wait<1>();  // the stage before this one is done with its buffers
-  if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));
+  if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % R::STAGES));
   ++g;
 }
 
 // Persistent: block x runs output blocks task = x, x + gridDim.x, ...,
 // task = (b * ntiles + tile) * ncob + cob. The ring runs on across tasks,
 // so the producer loads a task's first stages during the last one's
-// epilogue. S2: stride 2 over the parity planes (q-conv only).
+// epilogue. S2: stride 2 (q-conv only), ta0 and ta1 the strided maps of
+// the input's rows of taps dy 0, 2 and of dy 1; tb1 (one leg: unused as
+// weights) the bf16 output's map, boxes of (64 channels, TW, TH, 1),
+// where a.out_f32 is null.
 template <int BN, int EPI, bool S2 = false>
 __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
     conv_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                          const __grid_constant__ CUtensorMap ta1,
                          const __grid_constant__ CUtensorMap tb0,
                          const __grid_constant__ CUtensorMap tb1, const FwdArgs a) {
-  constexpr int STAGE = Ring<BN>::STAGE;
+  using R = Ring<BN, S2>;
+  constexpr int STAGE = R::STAGE, STAGES = R::STAGES;
   constexpr bool S8 = is_s8(EPI);  // s8 operands, s32 accumulators
   constexpr bool QCONV = EPI == EPI_QCONV;
   constexpr bool STATS = EPI == EPI_STATS || EPI == EPI_MASK_STATS || EPI == EPI_QSTATS;
   constexpr bool DGRAD = is_dgrad(EPI);
   constexpr int KCH = S8 ? KC_S8 : KC;  // input channels a stage
-  constexpr int SPC = S2 ? 6 : 3;       // stages a chunk: dx (x row parity)
   static_assert(EPI != EPI_QSTATS || BN == 128, "the int8 block conv runs N = 128");
   static_assert(!S2 || QCONV, "stride 2 is the int8 conv's");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1 KB
-  const uint32_t red = base + STAGES * STAGE;
-  const uint32_t maskp = red + Ring<BN>::RED_BYTES;
-  const uint32_t full0 = maskp + Ring<BN>::MASK_BYTES, empty0 = full0 + STAGES * 8;
-  const int nst = SPC * (a.nchunk0 + a.nchunk1);
+  const uint32_t stage_out = base + STAGES * STAGE;  // S2: the staged output
+  const uint32_t red = stage_out + R::OUT_BYTES;
+  const uint32_t maskp = red + R::RED_BYTES;
+  const uint32_t full0 = maskp + R::MASK_BYTES, empty0 = full0 + STAGES * 8;
+  const int nst = 3 * (a.nchunk0 + a.nchunk1);
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -436,8 +459,7 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
 
   if (wg == CONSUMERS) {
     // Producer warp(group): one thread issues every copy. Stage j of a task: leg,
-    // chunk (j / 3) and dx (j % 3); stride 2: chunk (j / 6), dx ((j / 2) % 3)
-    // and row parity (j % 2). g counts stages over all tasks.
+    // chunk (j / 3) and dx (j % 3). g counts stages over all tasks.
     if constexpr (wide_producer(EPI)) setmaxnreg_dec<40>();
     if (threadIdx.x != CONSUMERS * 128) return;
     int g = 0;
@@ -449,21 +471,22 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
         const int s = g % STAGES;
         const uint32_t full = full0 + 8 * s, dst = base + s * STAGE;
         mbar_wait(empty0 + 8 * s, ((g / STAGES) & 1) ^ 1);
-        const int chunk = j / SPC, dx = S2 ? (j / 2) % 3 : j % 3;
+        const int chunk = j / 3, dx = j % 3;
         const bool leg1 = chunk >= a.nchunk0;
         const int ci0 = (leg1 ? chunk - a.nchunk0 : chunk) * KCH;
         const CUtensorMap* ta = leg1 ? &ta1 : &ta0;
         const CUtensorMap* tb = leg1 ? &tb1 : &tb0;
         mbar_expect_tx(full, STAGE);
-        if constexpr (S2) {  // the parity planes, H + 1 rows, W + 1 columns each:
-          // columns {0, W + 1, 1}[dx], rows {0, H + 1}[parity]
-          tma_load(dst, ta, full, ci0, c0 + (dx == 1 ? a.W + 1 : dx / 2), r0 + (j % 2) * (a.H + 1),
-                   b);
+        if constexpr (S2) {  // every other input column from 2 c0 + dx - shift;
+          // rows every other one from 2 r0 - shift (dy 0, 2), then from the row after (dy 1)
+          const int col = 2 * c0 + dx - a.shift, row = 2 * r0 - a.shift;
+          tma_load(dst, &ta0, full, ci0, col, row, b);
+          tma_load(dst + A2_TAPS02, &ta1, full, ci0, col, row + 1, b);
         } else {
           tma_load(dst, ta, full, ci0, c0 + dx - a.shift, r0 - a.shift, b);
         }
         if constexpr (S8) {  // one K-major box: [dy][BN co][64 ci]
-          tma_load(dst + A_BYTES, tb, full, ci0, co0, dx, 0);
+          tma_load(dst + R::A, tb, full, ci0, co0, dx, 0);
         } else {
 #pragma unroll
           for (int h = 0; h < BN / 64; ++h)
@@ -511,14 +534,7 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0;
-    for (int j = 0; j < nst;) {
-      if constexpr (S2) {  // the even box (dy 0, 2), then the odd one (dy 1)
-        consume_stage<BN, S8, 5, true>(acc, base, full0, empty0, g, j++, wg, lane);
-        consume_stage<BN, S8, 2, true>(acc, base, full0, empty0, g, j++, wg, lane);
-      } else {
-        consume_stage<BN, S8, 7, false>(acc, base, full0, empty0, g, j++, wg, lane);
-      }
-    }
+    for (int j = 0; j < nst; ++j) consume_stage<BN, S8, S2>(acc, base, full0, empty0, g, j, wg, lane);
     // Epilogue. Accumulator i of a thread: sub-tile row p = 16*warp +
     // lane/4 (+8 for the odd pair), column 8*(i/4) + 2*(lane%4) (+1); row p
     // of sub-tile t is output pixel (r0 + 4 wg + 2 t + p / TW, c0 + p % TW),
@@ -564,6 +580,22 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
       }
     wgmma_wait<0>();  // the loads above overlap the task's last wgmmas
     if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % STAGES));  // the task's last stage
+    // S2, bf16 out: the tile goes through stage_out (its 64 channels as
+    // 16-byte chunks k = i of a 128-byte row a pixel, chunk k at k ^ (row
+    // % 8): TMA's 128-byte swizzle, so the 8 pixels of a warp's store hit
+    // different banks), stored by one TMA store that the consumers do not
+    // wait for. The last task's store has read the buffer before it is
+    // written again.
+    const bool staged = S2 && a.out_f32 == nullptr;
+    // The thread's pixel (t, h) = (0, 0) in the staged tile: row 4 wg +
+    // warp / 2, column 16 (warp % 2) + lane / 4 (so pixel % 8 = lane / 4);
+    // (t, h) adds 2 t rows and 8 h columns.
+    const uint32_t sbase =
+        stage_out + ((4 * wg + warp / 2) * TW + 16 * (warp % 2) + lane / 4) * 128 + 2 * cl;
+    if (staged) {
+      if (threadIdx.x == 0) bulk_wait_all<true>();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+    }
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       // q-conv: Cout % 16 == 0, so a group of 8 channels lies wholly below
@@ -637,8 +669,9 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
             }
           } else if constexpr (QCONV) {  // (addend + y) + bias, each one rounding
             if (qadd) {
-              y0 = __fadd_rn(adv[t][h].x, y0);
-              y1 = __fadd_rn(adv[t][h].y, y1);
+              const float2 ad = adv[t][h];
+              y0 = __fadd_rn(ad.x, y0);
+              y1 = __fadd_rn(ad.y, y1);
             }
             if (a.bias != nullptr) {
               y0 = __fadd_rn(y0, mi.x);
@@ -654,8 +687,28 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
             s2[0] += y0 * y0;
             s2[1] += y1 * y1;
           }
+          if constexpr (S2) {
+            if (staged) {
+              const uint32_t at =
+                  sbase + (2 * t * TW + 8 * h) * 128 + ((i ^ (lane / 4)) << 4);
+              asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(y0, y1))
+                           : "memory");
+              continue;
+            }
+          }
           *reinterpret_cast<uint32_t*>(a.out + o) = pack_bf16x2(y0, y1);
         }
+      if constexpr (S2) {
+        // The channels end: store the tile.
+        if (staged && (i + 1 == BN / 8 || co0 + 8 * (i + 1) >= a.Cout)) {
+          fence_proxy_async();
+          asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+          if (threadIdx.x == 0) {
+            tma_store(&tb1, stage_out, co0, c0, r0, b);
+            bulk_commit();
+          }
+        }
+      }
       if constexpr (STATS) {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -690,6 +743,9 @@ __global__ void __launch_bounds__(threads_of(wide_producer(EPI)), 1)
       asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // red is free again
     }
   }
+  if constexpr (S2) {
+    if (threadIdx.x == 0) bulk_wait_all<false>();  // the last stores are done
+  }
 }
 
 // HWIO weights (3, 3, C, Cout) as a 4-D map (Cout, C, 3 dx, 3 dy), boxes of
@@ -716,10 +772,10 @@ template <int BN, int EPI, bool S2 = false>
 int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMap& tb0,
                 const CUtensorMap& tb1, const FwdArgs& a, int grid, cudaStream_t stream) {
   auto kernel = conv_fwd_gemm_kernel<BN, EPI, S2>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
+  constexpr int smem = Ring<BN, S2>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads_of(wide_producer(EPI)), Ring<BN>::SMEM, stream>>>(ta0, ta1, tb0, tb1, a);
+  kernel<<<grid, threads_of(wide_producer(EPI)), smem, stream>>>(ta0, ta1, tb0, tb1, a);
   return (int)cudaGetLastError();
 }
 
@@ -730,10 +786,11 @@ int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMa
 // C0 % 16 == 0 and Cout % 16 == 0, zero-extended to C0' (C0 rounded up to
 // 64: A's last chunk reads past C0 into TMA's zero fill) and Cout' (Cout
 // rounded up to bn; the epilogue masks the channels past Cout). stride 2
-// (q-conv, zero = 0): x0 is the parity planes (B, 2(H+1), 2(W+1), C0).
+// (q-conv, bn 64): x0 is (B, in_h, in_w, C0), read with zero halos (zero = 1) or
+// pre-padded (zero = 0), (H, W) = ((in_h + 2 zero - 3) / 2 + 1, ...).
 int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
              FwdArgs a, int B, int H, int W, int Cout, int zero, int bn, int epi, int grid,
-             cudaStream_t stream, int stride = 1) {
+             cudaStream_t stream, int stride = 1, int in_h = 0, int in_w = 0) {
   const bool s8 = is_s8(epi), qconv = epi == EPI_QCONV;
   const int kc = s8 ? KC_S8 : KC, esize = s8 ? 1 : 2;
   const int c0p = qconv ? (C0 + kc - 1) / kc * kc : C0;
@@ -741,21 +798,28 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
   if (C0 <= 0 || C0 % (qconv ? 16 : 64) || C1 % 64 || (x1 == nullptr) != (C1 == 0) ||
       Cout <= 0 || Cout % 16 || coutp % bn || B < 1 || H < 1 || W < 1 || grid < 1 ||
       (s8 && x1 != nullptr) || (epi == EPI_QSTATS && bn != 128) ||
-      (stride != 1 && (stride != 2 || !qconv || zero)))
+      (stride != 1 && (stride != 2 || !qconv || bn != 64)) ||
+      (stride == 2 && (in_h < 2 || in_w < 2 || in_h + 2 * zero < 3 || in_w + 2 * zero < 3 ||
+                       H != (in_h + 2 * zero - 3) / 2 + 1 || W != (in_w + 2 * zero - 3) / 2 + 1)))
     return (int)cudaErrorInvalidValue;
   const int pad = zero ? 0 : 2;
-  const int src_h = stride == 2 ? 2 * (H + 1) : H + pad, src_w = stride == 2 ? 2 * (W + 1) : W + pad;
   CUtensorMap ta0, ta1, tb0, tb1;
-  int err = make_nhwc_map(&ta0, x0, B, src_h, src_w, C0, TH + 2, TW, kc, esize);
+  int err = stride == 2
+                ? make_nhwc_map_s2(&ta0, x0, B, in_h, in_w, C0, TH + 1, TW, kc, esize)
+                : make_nhwc_map(&ta0, x0, B, H + pad, W + pad, C0, TH + 2, TW, kc, esize);
+  if (err == 0 && stride == 2) err = make_nhwc_map_s2(&ta1, x0, B, in_h, in_w, C0, TH, TW, kc, esize);
   if (err == 0)
     err = s8 ? make_q_weight_map(&tb0, k0, c0p, coutp, bn) : make_weight_map(&tb0, k0, C0, Cout);
   if (err == 0 && x1 != nullptr) err = make_nhwc_map(&ta1, x1, B, H + pad, W + pad, C1, TH + 2, TW, KC);
   if (err == 0 && x1 != nullptr) err = make_weight_map(&tb1, k1, C1, Cout);
   if (err != 0) return err;
   if (x1 == nullptr) {
-    ta1 = ta0;
+    if (stride == 1) ta1 = ta0;
     tb1 = tb0;
   }
+  // stride 2, bf16 out: tb1 is the output's map for the staged TMA stores.
+  if (stride == 2 && a.out != nullptr) err = make_nhwc_map(&tb1, a.out, B, H, W, Cout, TH, TW, 64);
+  if (err != 0) return err;
   a.H = H;
   a.W = W;
   a.Cout = Cout;
@@ -768,10 +832,7 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
   const long long tasks = (long long)B * a.ntiles * a.ncob;
   if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   a.ntasks = (int)tasks;
-  if (stride == 2) {
-    return bn == 128 ? launch_gemm<128, EPI_QCONV, true>(ta0, ta1, tb0, tb1, a, grid, stream)
-                     : launch_gemm<64, EPI_QCONV, true>(ta0, ta1, tb0, tb1, a, grid, stream);
-  }
+  if (stride == 2) return launch_gemm<64, EPI_QCONV, true>(ta0, ta1, tb0, tb1, a, grid, stream);
   if (bn == 128) {
     switch (epi) {
       case EPI_STATS: return launch_gemm<128, EPI_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
@@ -898,43 +959,6 @@ __global__ void __launch_bounds__(96) dgrad_fold_kernel(const FoldArgs a) {
     }
 }
 
-// ------------------------------------------------ stride-2 phase pass ----
-
-// q (B, 2 hp, 2 wp, C) int8: the four (row, column) parity planes of Xp,
-// xq (B, H, W, C) padded by pad pixels (0 or 1; reflected where refl, else
-// zeros): q[b, py hp + u, px wp + v] = Xp[2u + py, 2v + px], zero past Xp.
-// Memory-bound, one 16-channel unit (16 bytes) a step, grid-stride.
-struct PhaseArgs {
-  const int8_t* xq;
-  int8_t* q;
-  long long units;
-  int H, W, C, hp, wp, pad, refl;
-};
-
-__global__ void __launch_bounds__(PASS_THREADS) phase_pass_kernel(const PhaseArgs a) {
-  const long long stride = (long long)gridDim.x * PASS_THREADS;
-  const int cu = a.C / 16, qw = 2 * a.wp;
-  const long long plane = (long long)2 * a.hp * qw;
-  for (long long v = (long long)blockIdx.x * PASS_THREADS + threadIdx.x; v < a.units; v += stride) {
-    const long long pix = v / cu;
-    const int c16 = (int)(v - pix * cu) * 16;
-    const long long b = pix / plane;
-    const int rem = (int)(pix - b * plane);
-    const int qr = rem / qw, qc = rem % qw;
-    const int py = qr >= a.hp, px = qc >= a.wp;
-    int r = 2 * (qr - py * a.hp) + py - a.pad, c = 2 * (qc - px * a.wp) + px - a.pad;
-    const int lo = a.refl ? -1 : 0;  // reflect: Xp's rows -1 and H exist
-    const bool inside = r >= lo && r < a.H - lo && c >= lo && c < a.W - lo;
-    if (a.refl) {
-      r = reflect_index(r, a.H);
-      c = reflect_index(c, a.W);
-    }
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (inside) val = ldg16(a.xq + (((size_t)b * a.H + r) * a.W + c) * a.C + c16);
-    *reinterpret_cast<uint4*>(a.q + v * 16) = val;
-  }
-}
-
 }  // namespace
 }  // namespace ircolor
 
@@ -1058,45 +1082,22 @@ int ircolor_conv_q8_pad(const void* xq, void* out, int B, int H, int W, int C, v
   return launch_operand_pass(a, static_cast<cudaStream_t>(stream), true);
 }
 
-// The int8 conv's stride-2 pass: q (B, 2(Ho+1), 2(Wo+1), C) int8 = the
-// parity planes of xq (B, H, W, C) padded by pad (0 or 1) pixels, reflected
-// where refl, else zeros (see phase_pass_kernel). C % 16 == 0.
-int ircolor_conv_q8_phase(const void* xq, void* q, int B, int H, int W, int C, int Ho, int Wo,
-                          int pad, int refl, void* stream) {
-  using namespace ircolor;
-  if (C % 16 || B < 1 || H < 2 || W < 2 || Ho < 1 || Wo < 1 || (pad != 0 && pad != 1) ||
-      (refl && !pad))
-    return (int)cudaErrorInvalidValue;
-  PhaseArgs a;
-  a.xq = static_cast<const int8_t*>(xq);
-  a.q = static_cast<int8_t*>(q);
-  a.units = (long long)B * 2 * (Ho + 1) * 2 * (Wo + 1) * (C / 16);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.hp = Ho + 1;
-  a.wp = Wo + 1;
-  a.pad = pad;
-  a.refl = refl;
-  const long long need = (a.units + PASS_THREADS - 1) / PASS_THREADS;
-  const int blocks = (int)(need < PASS_MAX_BLOCKS ? need : PASS_MAX_BLOCKS);
-  phase_pass_kernel<<<blocks, PASS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
 // The int8 conv's GEMM: out (B, H, W, Cout), bf16 or (out_f32) f32, =
 // ((f32(sum of xq against kq) * sc[b, co]) + addend) + bias, the addend (B,
-// H, W, Cout) and bias (Cout) f32 where non-null, sc (B, Cout) f32. zero =
-// 1: xq (B, H, W, C) int8, read with zero halos; zero = 0: padded, (B, H+2,
-// W+2, C); stride 2 (zero = 0): xq the parity planes (B, 2(H+1), 2(W+1), C)
-// of ircolor_conv_q8_phase. kq (3, 3, Cout', C') int8, zero-extended: C' is
-// C rounded up to 64, Cout' Cout rounded up to bn (128 or 64). C % 16 == 0,
-// Cout % 16 == 0.
+// H, W, Cout) and bias (Cout) f32 where non-null, sc (B, Cout) f32. xq
+// (B, in_h, in_w, C) int8: read with zero halos (zero = 1) or padded (zero
+// = 0), at stride 1 (in_h, in_w = H, W, or H+2, W+2 padded) or 2 (the
+// input itself through strided boxes, no pass). kq (3, 3, Cout', C') int8,
+// zero-extended: C' is C rounded up to 64, Cout' Cout rounded up to bn (128
+// or 64). C % 16 == 0, Cout % 16 == 0.
 int ircolor_conv_qconv_gemm(const void* xq, const void* kq, const void* sc, const void* addend,
                             const void* bias, void* out, int out_f32, int C, int B, int H, int W,
-                            int Cout, int zero, int stride, int bn, int grid, void* stream) {
+                            int Cout, int zero, int stride, int in_h, int in_w, int bn, int grid,
+                            void* stream) {
   using namespace ircolor;
-  if (sc == nullptr || (bn != 128 && bn != 64)) return (int)cudaErrorInvalidValue;
+  if (sc == nullptr || (bn != 128 && bn != 64) ||
+      (stride == 1 && (in_h != H + 2 * !zero || in_w != W + 2 * !zero)))
+    return (int)cudaErrorInvalidValue;
   FwdArgs a = {};
   if (out_f32) {
     a.out_f32 = static_cast<float*>(out);
@@ -1107,7 +1108,7 @@ int ircolor_conv_qconv_gemm(const void* xq, const void* kq, const void* sc, cons
   a.addend = static_cast<const float*>(addend);
   a.bias = static_cast<const float*>(bias);
   return run_gemm(xq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, zero, bn, EPI_QCONV, grid,
-                  static_cast<cudaStream_t>(stream), stride);
+                  static_cast<cudaStream_t>(stream), stride, in_h, in_w);
 }
 
 // The dgrad's operand pass: dy (B, H, W, C) = the IN backward of (p, comp)

@@ -223,6 +223,35 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of shared memory into a 4-D tensor map (elements outside the
+// tensor are not written); one bulk async-group a commit. Before it, the
+// threads that wrote the box run fence_proxy_async and meet at a barrier.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The issuing thread's bulk stores have read their shared memory (READ) or
+// completed.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (READ) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+// Shared-memory writes of this thread, visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile (one
 // 128-byte row per K or M/N index, 8-row atoms of 1 KB): sbo = 1024, the
 // step between 8-row groups. MN-major operands: lbo = the step between
@@ -276,14 +305,21 @@ EncodeTiled encoder() {
 // A 4-D tensor map of bf16 (esize 2) or int8 (esize 1) elements: dims
 // innermost first, strides of dims 1..3 in bytes, the box in elements. Its
 // first dim is one swizzled row: 128 bytes (128-byte swizzle) or 64 (64-byte
-// swizzle). Returns 0 or a nonzero code.
+// swizzle). elem: the traversal strides of dims 1..3 (null: all 1); a box
+// dim of n * stride traverses that many elements and lands n of them,
+// densely, in shared memory. Returns 0 or a nonzero code.
 int make_map_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], int esize = 2) {
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], int esize = 2,
+                const cuuint32_t* elem3 = nullptr) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t row = box[0] * esize;
   if ((esize != 1 && esize != 2) || (row != 128 && row != 64)) return (int)cudaErrorInvalidValue;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; elem3 != nullptr && i < 3; ++i) {
+    if (elem3[i] < 1 || elem3[i] > 8 || box[i + 1] % elem3[i]) return (int)cudaErrorInvalidValue;
+    elem[i + 1] = elem3[i];
+  }
   const CUresult r =
       enc(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
           const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -301,6 +337,20 @@ int make_nhwc_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C,
                                  (cuuint64_t)H * W * C * esize};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
   return make_map_4d(map, ptr, dims, strides, box, esize);
+}
+
+// The same plane read at stride 2 in W and H: a box lands bw columns and
+// bh rows, every other one of the 2 bw columns and 2 bh rows it traverses
+// from its coordinates (TMA's elementStrides; out-of-bounds ones filled
+// with zeros, as in a dense box).
+int make_nhwc_map_s2(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bh, int bw,
+                     int bc, int esize) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * esize, (cuuint64_t)W * C * esize,
+                                 (cuuint64_t)H * W * C * esize};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, 2 * (cuuint32_t)bw, 2 * (cuuint32_t)bh, 1};
+  const cuuint32_t elem3[3] = {2, 2, 1};
+  return make_map_4d(map, ptr, dims, strides, box, esize, elem3);
 }
 
 }  // namespace

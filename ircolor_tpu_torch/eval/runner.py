@@ -37,6 +37,7 @@ from ircolor_tpu_torch.export.collage import make_comparison_collage, save_compa
 from ircolor_tpu_torch.export.topk import save_best_k_outputs, write_metrics_csv
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel, reject_unported
 from ircolor_tpu_torch.parallel.spatial import (
+    check_stage_heights,
     gather_h,
     make_spatial_mesh,
     shard_h,
@@ -57,13 +58,14 @@ def spatial_generator(cfg: Config, module: torch.nn.Module,
     shard. The mesh: every shard on ``device`` where it names one
     (``"cpu"``, or ``"cuda:i"``), else (None or ``"cuda"``) the shards
     spread over the visible cards (raises where there are fewer). H must
-    divide by 4 × the shard count, so that every blur-pool stage keeps
-    equal, even shards."""
+    divide by the shard count, as in JAX, and the bottleneck (after the two
+    stride-2 stages) keep a row a shard."""
     n = cfg.sp_devices
     h = cfg.resolved_hw[0]
-    if h % (4 * n):
-        raise ValueError(f"img height {h} must divide by 4 × the H-shard count {n} "
-                         f"(sp_devices={n}): every stage's shards keep an even number of rows")
+    try:
+        check_stage_heights(h, n, 2)
+    except ValueError as exc:
+        raise ValueError(f"img height {h} with sp_devices={n}: {exc}") from None
     dev = None if device is None else torch.device(device)
     if dev is None or (dev.type == "cuda" and dev.index is None):
         mesh = make_spatial_mesh(n)

@@ -16,16 +16,18 @@ comes (``"valid"``: the caller padded it), stride s 1 or 2, and writes
 float32 or bf16. The epilogue rounds step by step like the plain version,
 so the two agree bit for bit.
 
-On the card, one or two launches of ``csrc/conv_fwd.cu``: at stride 1 with
-reflect padding the int8 form of the operand pass copies ``xq``
-reflect-padded by one pixel; at stride 2 the phase pass writes the four
-(row, column) parity planes of the padded input (``_phases``); then the TMA
-+ ``wgmma`` GEMM reads that (zero padding at stride 1: ``xq`` itself, TMA
-filling the halo with zeros; VALID: ``xq`` as it is) against the weights
-repacked K-major and zero-extended to (3, 3, Cout', Cin')
+On the card, one or two launches of ``csrc/conv_fwd.cu``: with reflect
+padding the int8 form of the operand pass copies ``xq`` reflect-padded by
+one pixel; then the TMA + ``wgmma`` GEMM reads that (zero padding: ``xq``
+itself, TMA filling the halo with zeros; VALID: ``xq`` as it is) against
+the weights repacked K-major and zero-extended to (3, 3, Cout', Cin')
 (``resblock._q_weights``), and its q-conv epilogue dequantizes, adds,
-masks the channels past Cout and stores. The plan (``_plan``) is
-``resblock._conv_plan`` on s8 operands.
+masks the channels past Cout and stores. At stride 2 the GEMM reads its
+source through TMA boxes with element strides of 2 on W and H (every
+other column and row): a stage (64-channel chunk, dx) holds the input
+rows of taps dy 0 and 2 (TH + 1 of them) and those of dy 1 (TH), so a
+zero or VALID stride-2 conv is one launch with no pass. The plan
+(``_plan``) is ``resblock._conv_plan`` on s8 operands.
 """
 
 from __future__ import annotations
@@ -118,10 +120,14 @@ def check_shape(b: int, h: int, w: int, c: int, cout: int, pad: str = "zero",
 @functools.lru_cache(maxsize=256)
 def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str, stride: int = 1):
     """The GEMM's plan for an h × w output, from the shapes alone: K in
-    64-channel chunks (Cin rounded up), N = 128 output channels a block
-    where Cout' (Cout rounded up to 64) allows it and its output blocks fill
-    the 132 SMs' waves as well as N = 64's (waves × N no larger); else N =
-    64. Cached: a batch-1 frame asks for the same 24 plans again."""
+    64-channel chunks (Cin rounded up). At stride 1, N = 128 output
+    channels a block where Cout' (Cout rounded up to 64) allows it and its
+    output blocks fill the 132 SMs' waves as well as N = 64's (waves × N no
+    larger), else N = 64. At stride 2, N = 64, the one width the stride-2
+    GEMM is built for: its 46 KB stages ring 4 deep and its bf16 tile
+    leaves in one TMA store (an N = 128 form measured slower at both b32
+    and both b1 sites, ``PERF.md`` §6). Cached: a batch-1 frame asks for the
+    same 24 plans again."""
     rb = _rb()
     coutp = -(-cout // 64) * 64
     ntiles = -(-h // rb._CF_TH) * -(-w // rb._CF_TW)
@@ -129,7 +135,7 @@ def _plan(b: int, h: int, w: int, c: int, cout: int, pad: str, stride: int = 1):
     def cost(bn: int) -> int:
         return -(-b * ntiles * (coutp // bn) // rb._CF_WAVE) * bn
 
-    bn = 128 if coutp % 128 == 0 and cost(128) <= cost(64) else 64
+    bn = 128 if stride == 1 and coutp % 128 == 0 and cost(128) <= cost(64) else 64
     return rb._conv_plan(b, h, w, (c,), cout, pad, s8=True, bn=bn, stride=stride)
 
 
@@ -147,45 +153,11 @@ def _pad(xq: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _phases_plain(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
-    """Plain version of the stride-2 pass: Xp (``xq`` padded by one pixel of
-    ``pad``, or as it is for ``"valid"``) zero-extended to (2(ho+1),
-    2(wo+1)), then its parity planes stacked, rows (even, odd) of columns
-    (even, odd): Q[py·(ho+1) + u, px·(wo+1) + v] = Xp[2u + py, 2v + px]."""
-    b, h, w, c = xq.shape
-    if pad == "valid":
-        xp = xq
-    elif pad == "reflect":
-        rows = _rb()._reflect_rows
-        xp = xq[:, rows(h)][:, :, rows(w)]
-    else:
-        xp = xq.new_zeros((b, h + 2, w + 2, c))
-        xp[:, 1:-1, 1:-1] = xq
-    ext = xq.new_zeros((b, 2 * (ho + 1), 2 * (wo + 1), c))
-    ext[:, : xp.shape[1], : xp.shape[2]] = xp
-    return torch.cat([torch.cat([ext[:, py::2, px::2] for px in (0, 1)], dim=2)
-                      for py in (0, 1)], dim=1)
-
-
-@on_input_card
-def _phases(xq: torch.Tensor, pad: str, ho: int, wo: int) -> torch.Tensor:
-    """The stride-2 pass (the plain version for CPU tensors)."""
-    if xq.device.type == "cpu":
-        return _phases_plain(xq, pad, ho, wo)
-    b, h, w, c = xq.shape
-    out = torch.empty((b, 2 * (ho + 1), 2 * (wo + 1), c), dtype=torch.int8, device=xq.device)
-    err = _rb()._load_fwd().ircolor_conv_q8_phase(
-        xq.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo, int(pad != "valid"),
-        int(pad == "reflect"), stream_ptr(xq))
-    build.check(err, "int8 conv stride-2 pass")
-    return out
-
-
 @on_input_card
 def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
-    """The GEMM with the q-conv epilogue on ``src`` (``xq``, its
-    reflect-padded copy, or at stride 2 its parity planes) and the repacked
-    weights ``kt``; on a CPU tensor, at stride 1, its plain version: the
+    """The GEMM with the q-conv epilogue on ``src`` (``xq`` or its
+    reflect-padded copy) and the repacked weights ``kt``; on a CPU tensor,
+    at stride 1, its plain version: the
     exact sums in the kernel's reads over whole tiles
     (``resblock._conv_acc_plain`` in its K order, the K-major weights read
     back as HWIO), then the epilogue on the pixels and channels that exist.
@@ -198,21 +170,19 @@ def _gemm(src, kt, sc, plan, bias=None, addend=None, out_dtype=torch.bfloat16):
                                       "conv3x3_int8_plain is its plain version")
         acc = rb._conv_acc_plain([src], [kt.transpose(2, 3)], plan)
         return _epilogue(acc[:, : plan.h, : plan.w, : plan.cout], sc, bias, addend, out_dtype)
-    b, c = src.shape[0], src.shape[-1]
+    b, hi, wi, c = src.shape
     out = torch.empty((b, plan.h, plan.w, plan.cout), dtype=out_dtype, device=src.device)
     err = rb._load_fwd().ircolor_conv_qconv_gemm(
         src.data_ptr(), kt.data_ptr(), sc.data_ptr(), rb._ptr(addend), rb._ptr(bias),
         out.data_ptr(), int(out_dtype == torch.float32), c, b, plan.h, plan.w, plan.cout,
-        plan.shift, plan.stride, plan.bn, plan.grid, stream_ptr(src))
+        plan.shift, plan.stride, hi, wi, plan.bn, plan.grid, stream_ptr(src))
     build.check(err, "int8 conv GEMM")
     return out
 
 
-def _source(xq: torch.Tensor, pad: str, stride: int, plan) -> torch.Tensor:
-    """What the GEMM reads: the parity planes (stride 2), the reflect copy
-    (stride 1, reflect), else ``xq`` itself."""
-    if stride == 2:
-        return _phases(xq, pad, plan.h, plan.w)
+def _source(xq: torch.Tensor, pad: str) -> torch.Tensor:
+    """What the GEMM reads, at either stride: the reflect copy (reflect),
+    else ``xq`` itself."""
     return _pad(xq) if pad == "reflect" else xq
 
 
@@ -248,7 +218,7 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", stride=1, bias=None, addend=None,
         raise ValueError("conv3x3_int8: xq and addend must start on 16-byte boundaries "
                          "(TMA and the epilogue read them in 16- and 8-byte units)")
     plan = _plan(b, ho, wo, c, cout, pad, stride)
-    src = _source(xq, pad, stride, plan)
+    src = _source(xq, pad)
     out = _gemm(src, _rb()._q_weights(wq, plan), sc, plan, bias, addend, out_dtype)
     LAUNCHES["conv3x3_int8_s2" if stride == 2 else "conv3x3_int8"] += 1
     return out

@@ -68,8 +68,7 @@ def _load_fwd():
             (lib.ircolor_conv_q_pass, [p] * 6 + [ctypes.c_float, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
             (lib.ircolor_conv_q8_pad, [p, p] + [i] * 4 + [p]),
-            (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 10 + [p]),
-            (lib.ircolor_conv_q8_phase, [p, p] + [i] * 8 + [p]),
+            (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 12 + [p]),
         ):
             fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
@@ -223,8 +222,11 @@ class ConvPlan(NamedTuple):
     zero-extended to both). ``pass_pad``: the operand pass on every leg
     first — 1 reflect-pads (and normalizes with mean/inv), 0 only
     normalizes the pre-padded input, None runs no pass. ``stride`` 2 (the
-    int8 conv): the source is the parity planes, (B, 2(h+1), 2(w+1), C),
-    and a chunk runs six stages, (dx, row parity)."""
+    int8 conv): a stage holds two boxes of the source read at element
+    strides of 2 on W and H from column ``2·c0 + dx − shift``: ``a_box``
+    (traversed: 2·TW columns, 2·(TH + 1) rows; landed: TW × (TH + 1)
+    pixels) from row ``2·r0 − shift``, for taps dy 0 and 2, and its TH-row
+    form from the row after, for dy 1."""
 
     h: int
     w: int
@@ -251,10 +253,9 @@ def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = 
     the int8 convs' (int8 stages of 64 channels). ``bn``: output channels
     a block, by default 128 where cout % 128 == 0, else 64 (the int8 conv
     picks its own, ``kernels/conv_int8.py:_plan``). ``stride`` 2: the int8
-    conv over parity planes (its own pass makes them; no halo, no shift)."""
+    conv, reading its source through strided boxes (the halo as at stride
+    1)."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
-    if stride == 2:
-        halo = "valid"
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
     kc = _CF_KC_S8 if s8 else _CF_KC
     if bn is None:
@@ -262,9 +263,10 @@ def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = 
     ncob = -(-cout // bn)
     blocks = b * ntr * ntc * ncob
     b_box = (kc, bn, 1, 3) if s8 else (64, kc, 1, 3)
+    a_box = (kc, _CF_TW, _CF_TH + 2, 1) if stride == 1 else (kc, 2 * _CF_TW, 2 * (_CF_TH + 1), 1)
     return ConvPlan(h, w, cout, tuple(-(-c // kc) for c in legs), int(halo == "zero"), pass_pad,
-                    ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE),
-                    (kc, _CF_TW, _CF_TH + 2, 1), b_box, bn, stride)
+                    ntr, ntc, ntr * ntc, ncob, blocks, min(blocks, _CF_WAVE), a_box, b_box, bn,
+                    stride)
 
 
 def _conv_blocks(plan: ConvPlan):

@@ -57,13 +57,19 @@ inc, the ConvTranspose ups and the float 7×7 head stay float.
 
 Spatial test mode (``spatial_mesh``, the JAX field): with a 1-D H mesh
 (``parallel/spatial.py``: an ordered list of devices) the forward takes and
-returns a list of H-shards. inc and outc read 3-row reflect halos, down1,
-down2, up1 and up2 1-row zero halos, the blur-pools 1-row halos with the
-stride-2 phase kept global, the upsample its global grid; every instance
-norm and int8 amax is reduced across shards. The resnet blocks take their
-fused route per shard where the JAX per-shard gate holds (the shard's rows
-``local_h``, and ``_SP_BAND_MIN_AREA`` in the b2–7 band): the halo forms of
-the block convs (``resnet_block_pallas(_q)_spatial``). Inference only, with
+returns a list of H-shards: equal ones in, and after each stride-2 stage
+shard i holds the output rows r with 2r among its input rows (a stage's
+shards may differ by a row; H need only divide by the shard count, as in
+JAX, while the bottleneck keeps a row a shard). inc and outc read 3-row
+reflect halos, down1, down2, up1 and up2 1-row zero halos, the blur-pools
+1-row halos with the stride-2 phase kept global, the upsample its global
+grid, re-cut to the skip's shards; every instance norm and int8 amax is
+reduced across shards. The resnet blocks take their fused route per shard
+where the bottleneck's shards are equal and the JAX per-shard gate holds
+(the shard's rows ``local_h``, and ``_SP_BAND_MIN_AREA`` in the b2–7
+band): the halo forms of the block convs
+(``resnet_block_pallas(_q)_spatial``); unequal shards keep them off, as
+JAX's ``local_h = 0`` does where the rows do not divide. Inference only, with
 the norm-blur tails and the head off (``check_spatial_compat``); the
 variants (batch or no norm, ``no_antialias``, ``no_antialias_up``, other
 pads, dropout, ``use_pallas``) raise ``NotImplementedError`` under it
@@ -113,8 +119,8 @@ from ircolor_tpu_torch.ops.blurpool import (
 from ircolor_tpu_torch.ops.filters import binomial_filter_2d
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
 from ircolor_tpu_torch.ops.padding import pad2d, reflect_pad2d
-from ircolor_tpu_torch.ops.resize import bilinear_align_corners
-from ircolor_tpu_torch.parallel.spatial import check_spatial_compat
+from ircolor_tpu_torch.ops.resize import bilinear_align_corners, bilinear_align_corners_spatial
+from ircolor_tpu_torch.parallel.spatial import check_spatial_compat, check_stage_heights
 
 
 def _fused_dtype_ok(dtype) -> bool:
@@ -300,8 +306,9 @@ class ResnetBlock(nn.Module):
     def forward_spatial(self, xs: list) -> list:
         """The block over the H-shards ``xs`` (instance norm, reflect pads,
         no dropout: the generator checks): the fused halo route where the
-        per-shard gate holds, else the plain ops with their halos."""
-        if self.fused(xs[0], len(xs)):
+        per-shard gate holds on equal shards, else the plain ops with their
+        halos."""
+        if all(x.shape[1] == xs[0].shape[1] for x in xs) and self.fused(xs[0], len(xs)):
             k1, k2 = _hwio(self.conv1, self.dtype), _hwio(self.conv2, self.dtype)
             blk = resnet_block_pallas_q_spatial if self.quant else resnet_block_pallas_spatial
             return blk(xs, k1, k2)
@@ -613,9 +620,9 @@ class ResnetUNetGenerator(nn.Module):
             raise NotImplementedError(f"{', '.join(bad)} under sp_devices > 1 is not ported yet "
                                       "(ROADMAP.md, Queue 1)")
         h = xs[0].shape[1]
-        if any(x.shape[1] != h for x in xs) or h % 4:
-            raise ValueError("the spatial forward needs equal H-shards of a multiple of 4 rows "
-                             "(each blur-pool stage keeps an even shard)")
+        if any(x.shape[1] != h for x in xs):
+            raise ValueError("the spatial forward takes equal H-shards (parallel.spatial.shard_h)")
+        check_stage_heights(h * len(xs), len(xs), 2)  # down1, down2: a row a shard
 
     def _norm_relu_spatial(self, ys: list) -> list:
         return [torch.relu(y) for y in norm_nhwc_spatial(ys)]
@@ -628,9 +635,15 @@ class ResnetUNetGenerator(nn.Module):
         return blur_downsample_spatial(self._norm_relu_spatial(ys))
 
     def _up_spatial(self, ys: list, skips: list) -> list:
-        ys = blur_upsample_aa_spatial(ys)
-        if ys[0].shape[2] != skips[0].shape[2]:  # the rows match by the shard rule
-            ys = [bilinear_align_corners(y, tuple(s.shape[1:3])) for y, s in zip(ys, skips)]
+        """``_up``'s AA upsample on shards, cut as the skip's shards: the
+        upsample gives the skip's rows where the planes match (every even
+        stage height), else its own, and the bilinear fix-up resizes across
+        the shards."""
+        sizes = [s.shape[1] for s in skips]
+        rows_match = 2 * sum(y.shape[1] for y in ys) == sum(sizes)
+        ys = blur_upsample_aa_spatial(ys, out_heights=sizes if rows_match else None)
+        if not rows_match or ys[0].shape[2] != skips[0].shape[2]:
+            ys = bilinear_align_corners_spatial(ys, sizes, skips[0].shape[2])
         return ys
 
     def _forward_spatial(self, xs: list) -> list:

@@ -148,8 +148,13 @@ class IRColorizationModel:
         self.module = module.to(self.device).eval()
 
     def load_weights(self, path: str) -> None:
+        """A ``.pth`` / ``.pt`` generator state dict; a flax ``.msgpack``
+        file raises (not ported yet)."""
         if not os.path.isfile(path):
             raise FileNotFoundError(path)
+        if path.endswith(".msgpack"):
+            raise NotImplementedError(
+                f".msgpack generator weights are not ported yet (ROADMAP.md, Queue 1 item 2): {path}")
         state = torch.load(path, map_location="cpu", weights_only=True)
         load_state_permissive(self.module, state)
         self.module.to(self.device)

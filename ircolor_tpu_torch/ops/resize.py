@@ -5,13 +5,16 @@ weights computed once in float64 numpy, then a gather + lerp per axis in
 float32 — the same math as the JAX package's gather path.
 
 The grid is not shift-invariant, so an H-shard's rows take their sources
-and weights from their global positions (``interp_rows``).
+and weights from their global positions (``interp_rows``,
+``bilinear_align_corners_spatial``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ircolor_tpu_torch.parallel.spatial import gather_rows
 
 
 def _align_corners_grid(in_size: int, out_size: int):
@@ -59,3 +62,25 @@ def bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Te
     y = _interp_axis(x.float(), 1, h, oh)
     y = _interp_axis(y, 2, w, ow)
     return y.to(x.dtype).contiguous()
+
+
+def bilinear_align_corners_spatial(xs, out_heights, out_w: int) -> list[torch.Tensor]:
+    """``bilinear_align_corners`` of the image whose H-shards are ``xs`` to
+    ``sum(out_heights)`` × ``out_w``, as shards of ``out_heights`` rows,
+    shard i on ``xs[i]``'s device: each output row from its global sources
+    and weights, gathered from the shards that hold them; where the rows
+    already match shard for shard, each shard's columns alone."""
+    heights = [x.shape[1] for x in xs]
+    if list(out_heights) == heights:
+        return [bilinear_align_corners(x, (x.shape[1], out_w)) for x in xs]
+    gh, oh, w = sum(heights), sum(out_heights), xs[0].shape[2]
+    lo, hi, _ = _align_corners_grid(gh, oh)
+    out, start = [], 0
+    for x, n in zip(xs, out_heights):
+        rows = np.arange(start, start + n)
+        first, last = int(lo[rows].min()), int(hi[rows].max())
+        slab = gather_rows(xs, range(first, last + 1), x.device)
+        y = _interp_axis(interp_rows(slab.float(), rows, gh, oh, first), 2, w, out_w)
+        out.append(y.to(x.dtype).contiguous())
+        start += n
+    return out

@@ -6,14 +6,18 @@ of chips driven by one controller process: GSPMD partitions the plain
 stages, and the fused resnet blocks run under ``shard_map`` with their
 neighbours' halo rows and the instance-norm sums reduced across shards. The
 port keeps that layout in one process: the mesh is an ordered list of
-devices, an activation is a list of H-shards (shard i on device i, rows
-``[i·h, (i+1)·h)`` of every image), and the generator's spatial forward
-(``models/generator.py``) runs every op per shard with what it needs from
-the others:
+devices, an activation is a list of H-shards (shard i on device i, the
+rows of every image that follow shard i − 1's; the input's shards are
+equal, and each stride-2 stage gives shard i the output rows r with 2r
+among its input rows, ``stride2_heights``, so a stage's shards may differ
+by a row), and the generator's spatial forward (``models/generator.py``)
+runs every op per shard with what it needs from the others. A shard's
+global rows follow from the heights of the shards before it
+(``row_starts``):
 
-* ``exchange_halo_rows``: a convolution's or blur's rows from the
-  neighbour shards, and at the global edges the image's own padding
-  (reflect, zero or replicate) from the edge shard's rows;
+* ``exchange_halo_rows``: a convolution's or blur's rows from the shards
+  that hold them, and at the global edges the image's own padding
+  (reflect, zero or replicate) from the rows it mirrors or repeats;
 * ``all_sum`` / ``all_max``: the instance-norm sums and the int8 per-sample
   amax, reduced in shard order on shard 0's device and sent back.
 
@@ -26,6 +30,7 @@ shard is a CPU tensor. Only the 1-D H mesh is ported; 2-D H×W tiling
 
 from __future__ import annotations
 
+import bisect
 from collections.abc import Sequence
 
 import torch
@@ -63,37 +68,123 @@ def gather_h(shards: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([s.to(dev) for s in shards], dim=1)
 
 
+def row_starts(shards: Sequence[torch.Tensor]) -> list[int]:
+    """Each shard's first global row: the heights of the shards before it,
+    summed."""
+    out, start = [], 0
+    for x in shards:
+        out.append(start)
+        start += x.shape[1]
+    return out
+
+
+def stride2_heights(heights: Sequence[int]) -> list[int]:
+    """The shard heights after a stride-2 stage over shards of ``heights``
+    rows: shard i keeps the output rows r with 2r among its input rows,
+    ceil(end / 2) − ceil(start / 2) of them (the stage's ceil(H / 2) rows
+    in all)."""
+    out, start = [], 0
+    for h in heights:
+        out.append(-(-(start + h) // 2) - -(-start // 2))
+        start += h
+    return out
+
+
+def check_stage_heights(h: int, n: int, stages: int) -> list[list[int]]:
+    """The shard heights of an ``h``-row image over ``n`` equal shards and
+    after each of ``stages`` stride-2 stages; raises where ``h`` does not
+    divide by ``n`` or a stage leaves a shard no row (its ceil(H / 2^k)
+    rows must give each of the n shards one)."""
+    if h % n:
+        raise ValueError(f"height {h} must divide by the H-shard count {n}")
+    out = [[h // n] * n]
+    for k in range(stages):
+        out.append(stride2_heights(out[-1]))
+        if min(out[-1]) < 1:
+            raise ValueError(
+                f"height {h} over {n} H-shards leaves a shard no row after stride-2 stage {k + 1} "
+                f"(shard rows {out[-1]}): every shard needs a row of the {sum(out[-1])} there")
+    return out
+
+
+def gather_rows(shards: Sequence[torch.Tensor], rows: Sequence[int], device) -> torch.Tensor:
+    """The global rows ``rows`` (each inside the image) of the image whose
+    H-shards are ``shards``, (B, len(rows), W, C) contiguous on ``device``:
+    each run of consecutive rows of one shard, ascending or descending, is
+    one slice of it (a ``range`` of step 1: one slice a shard it meets)."""
+    starts = row_starts(shards)
+    if isinstance(rows, range) and rows.step == 1:
+        parts = [x[:, max(rows.start - s, 0) : rows.stop - s].to(device)
+                 for x, s in zip(shards, starts)
+                 if s < rows.stop and rows.start < s + x.shape[1]]
+        return (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).contiguous()
+    runs: list[list[int]] = []  # [shard, first local row, last, step]
+    for g in rows:
+        k = bisect.bisect_right(starts, g) - 1
+        loc = g - starts[k]
+        last = runs[-1] if runs else None
+        if last and last[0] == k and abs(loc - last[2]) == 1 and last[3] in (0, loc - last[2]):
+            last[2], last[3] = loc, loc - last[2]
+        else:
+            runs.append([k, loc, loc, 0])
+    parts = []
+    for k, first, last, step in runs:
+        part = shards[k][:, min(first, last) : max(first, last) + 1]
+        parts.append((part.flip(1) if step < 0 else part).to(device))
+    return (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).contiguous()
+
+
+def _pad_row(g: int, h: int, pad: str) -> int | None:
+    """The image row that row ``g`` of its ``pad`` padding repeats (None: a
+    zero row)."""
+    if 0 <= g < h:
+        return g
+    if pad == "zero":
+        return None
+    if pad == "replicate":
+        return min(max(g, 0), h - 1)
+    return -g if g < 0 else 2 * h - 2 - g
+
+
+def _halo(shards, lo: int, hi: int, h: int, pad: str, like: torch.Tensor) -> torch.Tensor:
+    """Rows ``lo`` .. ``hi`` − 1 of the ``h``-row image padded by ``pad``
+    on ``like``'s device, (B, hi − lo, W, C)."""
+    if 0 <= lo and hi <= h:
+        return gather_rows(shards, range(lo, hi), like.device)
+    rows, parts, i = [_pad_row(g, h, pad) for g in range(lo, hi)], [], 0
+    while i < len(rows):
+        j = i
+        while j < len(rows) and (rows[j] is None) == (rows[i] is None):
+            j += 1
+        if rows[i] is None:
+            parts.append(like.new_zeros((like.shape[0], j - i, *like.shape[2:])))
+        else:
+            parts.append(gather_rows(shards, rows[i:j], like.device))
+        i = j
+    return (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).contiguous()
+
+
 def exchange_halo_rows(shards: Sequence[torch.Tensor], r: int, pad: str = "reflect"):
     """Each shard's ``r`` rows above and below it as ``[(top, bot), ...]``,
-    (B, r, W, C) contiguous tensors on the shard's device: the neighbours'
-    edge rows inside the image, and at its top and bottom the global pad
-    ``pad`` (``PADS``) made from the edge shard's own rows. With ``r`` 1
-    and reflect: the JAX package's ``_exchange_halo_rows``
-    (``pallas_resblock.py:1554``)."""
+    (B, r, W, C) contiguous tensors on the shard's device: the image's rows
+    from whichever shards hold them (the neighbours', or past a neighbour
+    of fewer than ``r`` rows), and past the image's top and bottom its
+    ``pad`` (``PADS``) padding made from the rows it mirrors or repeats.
+    Shards of any heights of at least one row; reflect needs an image of
+    more than ``r`` rows. With ``r`` 1 and reflect: the JAX package's
+    ``_exchange_halo_rows`` (``pallas_resblock.py:1554``)."""
     if pad not in PADS:
         raise ValueError(f"pad must be one of {PADS}, got {pad!r}")
-    if min(s.shape[1] for s in shards) <= r:
-        raise ValueError(f"every shard needs more than {r} rows for a {r}-row halo")
+    h = sum(s.shape[1] for s in shards)
+    if min(s.shape[1] for s in shards) < 1 or (pad == "reflect" and h <= r):
+        raise ValueError(f"a {r}-row {pad} halo needs shards of at least one row and, for "
+                         f"reflect, an image of more than {r} rows (shard rows "
+                         f"{[s.shape[1] for s in shards]})")
     out = []
-    last = len(shards) - 1
-    for i, x in enumerate(shards):
-        if i > 0:
-            top = shards[i - 1][:, -r:].to(x.device)
-        elif pad == "reflect":
-            top = x[:, 1 : r + 1].flip(1)
-        elif pad == "zero":
-            top = x.new_zeros((x.shape[0], r, *x.shape[2:]))
-        else:
-            top = x[:, :1].expand(-1, r, -1, -1)
-        if i < last:
-            bot = shards[i + 1][:, :r].to(x.device)
-        elif pad == "reflect":
-            bot = x[:, -r - 1 : -1].flip(1)
-        elif pad == "zero":
-            bot = x.new_zeros((x.shape[0], r, *x.shape[2:]))
-        else:
-            bot = x[:, -1:].expand(-1, r, -1, -1)
-        out.append((top.contiguous(), bot.contiguous()))
+    for x, start in zip(shards, row_starts(shards)):
+        end = start + x.shape[1]
+        out.append((_halo(shards, start - r, start, h, pad, x),
+                    _halo(shards, end, end + r, h, pad, x)))
     return out
 
 

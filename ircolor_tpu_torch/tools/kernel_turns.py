@@ -1,0 +1,146 @@
+"""One turn of a P C C P comparison (parent, change, change, parent on one
+card): the kernel rows of ``chip_smoke.py``'s phases 2, 2b, 2c and 8a, run
+from the checkout at ROOT with that checkout's own ``chip_smoke.py`` and
+package (each builds its kernels under ``ROOT/build/kernels``). Prints the
+rows' CUDA-event times and library calls as one JSON line, ``TURN {...}``.
+
+    for r in build/parent . . build/parent; do
+        python3 ircolor_tpu_torch/tools/kernel_turns.py $r; done
+
+With ``--spatial``: instead, phase 8b (spatial serving at 512×640, S = 2
+and 4, with its checks), its frames/s by run as the ``TURN`` line.
+
+With ``--sass OTHER``: instead, every ``csrc/conv_fwd.cu`` kernel's SASS
+(``cuobjdump -sass``, addresses and encodings stripped) against the same
+kernel's in the checkout OTHER, one line a kernel: identical, the count
+of differing lines, or present in one checkout only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def _use(root: Path):
+    """Import ``ircolor_tpu_torch`` (and ``chip_smoke``) from ``root``."""
+    for name in [m for m in sys.modules if m.startswith("ircolor_tpu_torch") or m == "chip_smoke"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(root))
+    try:
+        return importlib.import_module("ircolor_tpu_torch.kernels.build")
+    finally:
+        sys.path.pop(0)
+
+
+def sass_by_kernel(root: Path) -> dict:
+    build = _use(root)
+    build.load("conv_fwd")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(build._lib_path("conv_fwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        # The anonymous namespace's mangled name carries a hash of the source.
+        line = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "(anon)", line)
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name:
+            body = re.sub(r"/\*.*?\*/", "", line).strip()
+            if body:
+                out[name].append(body)
+    return out
+
+
+def compare_sass(root: Path, other: Path) -> None:
+    a, b = sass_by_kernel(root), sass_by_kernel(other)
+    for name in sorted(set(a) | set(b)):
+        short = name.replace("_ZN7ircolor(anon)", "")[:72]
+        if name not in a or name not in b:
+            print(f"[sass] {short}: only in {root if name in a else other}")
+            continue
+        diff = sum(x != y for x, y in zip(a[name], b[name])) + abs(len(a[name]) - len(b[name]))
+        state = "identical" if diff == 0 else f"{diff} lines differ"
+        print(f"[sass] {short}: {state} ({len(a[name])} / {len(b[name])} lines)")
+
+
+def turn(root: Path) -> None:
+    import torch
+
+    build = _use(root)
+    sys.path.insert(0, str(root))
+    cs = importlib.import_module("chip_smoke")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[turn {root}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    res: list = []
+    cs.check_kernels(torch, res)
+    cs.check_bwd_kernels(torch, res)
+    with torch.inference_mode():
+        g5, w5, xs5 = cs.slice5_setup(torch)
+        cs.check_slice5_kernels(torch, res, w5, xs5)
+        del g5, w5, xs5
+    torch.cuda.empty_cache()
+    cs.check_halo_kernels(torch, res)
+    print(f"[turn {root}] phases {time.perf_counter() - t0:.1f} s", flush=True)
+    print("TURN " + json.dumps({"root": str(root), "ms": {r["name"]: r["ms"] for r in res},
+                                "library_ms": {r["name"]: r.get("library_ms") for r in res}}),
+          flush=True)
+
+
+def spatial_turn(root: Path) -> None:
+    """Phase 8b from ROOT's ``chip_smoke.py``; its frames/s read from the
+    lines it logs, so that a checkout whose phase returns nothing works."""
+    import numpy as np
+    import torch
+
+    build = _use(root)
+    sys.path.insert(0, str(root))
+    cs = importlib.import_module("chip_smoke")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    fps, log = {}, cs.log
+
+    def reading(msg: str) -> None:
+        found = re.match(r"\[(spatial [^\]]+)\] ([0-9.]+) frames/s", msg)
+        if found:
+            fps[found[1]] = float(found[2])
+        log(msg)
+
+    cs.log = reading
+    t0 = time.perf_counter()
+    cs.spatial_serving_phase(torch, np, {})
+    print(f"[turn {root}] phase 8b {time.perf_counter() - t0:.1f} s", flush=True)
+    print("TURN " + json.dumps({"root": str(root), "frames_per_s": fps}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", type=Path, help="the checkout whose kernels this turn runs")
+    ap.add_argument("--sass", type=Path, default=None,
+                    help="compare csrc/conv_fwd.cu's SASS against this checkout's instead")
+    ap.add_argument("--spatial", action="store_true",
+                    help="time phase 8b (spatial serving) instead of the kernel rows")
+    args = ap.parse_args()
+    if args.sass is not None:
+        compare_sass(args.root.resolve(), args.sass.resolve())
+    elif args.spatial:
+        spatial_turn(args.root.resolve())
+    else:
+        turn(args.root.resolve())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -309,11 +309,16 @@ def test_conv_int8_matches_plain_bit_for_bit_on_card(cuda, pad, b, hw):
     (2, 14, 40, 96, 32),
 ])
 def test_conv_int8_stride2_matches_plain_bit_for_bit_on_card(cuda, b, h, w, cin, cout):
-    """The stride-2 form (the phase pass, then the GEMM's six stages a
-    chunk) against ``conv3x3_int8_plain(stride=2)``: zero halos at every
-    site shape, reflect and VALID at the small ones; the phase pass equals
-    its plain version; one launch counted a call (as ``conv3x3_int8_s2``);
-    a repeat bit-exact."""
+    """The stride-2 form (the GEMM reading the input through strided TMA
+    boxes, three stages a chunk, its bf16 tile stored by TMA) against
+    ``conv3x3_int8_plain(stride=2)``: zero halos at every site shape,
+    reflect and VALID at the small ones, where f32 output with an addend
+    (stored from the fragments) also holds; the zero and VALID pads launch
+    the GEMM alone (no pass), the reflect pad the int8 reflect pass and the
+    GEMM (``torch.profiler``'s kernel names); one launch counted a call (as
+    ``conv3x3_int8_s2``); a repeat bit-exact."""
+    from torch.profiler import ProfilerActivity, profile
+
     from ircolor_tpu_torch.kernels import conv_int8
 
     g = torch.Generator(device=cuda).manual_seed(b * h + cin)
@@ -323,15 +328,25 @@ def test_conv_int8_stride2_matches_plain_bit_for_bit_on_card(cuda, b, h, w, cin,
     pads = ("zero",) if h >= 256 else ("zero", "reflect", "valid")
     for pad in pads:
         ho, wo = conv_int8.out_hw(h, w, pad, 2)
-        assert torch.equal(conv_int8._phases(xq, pad, ho, wo),
-                           conv_int8._phases_plain(xq, pad, ho, wo))
         before = dict(LAUNCHES)
-        got = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, bias=bias)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, bias=bias)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        gemms = [n for n in names if "conv_fwd_gemm_kernel" in n]
+        passes = [n for n in names if "operand_pass_kernel" in n]
+        assert len(gemms) == 1 and len(passes) == int(pad == "reflect"), (pad, names)
         assert LAUNCHES["conv3x3_int8_s2"] == before["conv3x3_int8_s2"] + 1
         assert LAUNCHES["conv3x3_int8"] == before["conv3x3_int8"]
         want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad=pad, stride=2, bias=bias)
         assert got.shape == (b, ho, wo, cout) and torch.equal(got, want), pad
         assert torch.equal(conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, bias=bias), got)
+        if h < 256:
+            kw = dict(out_dtype=torch.float32, bias=bias,
+                      addend=torch.randn(b, ho, wo, cout, device=cuda, generator=g))
+            got = conv_int8.conv3x3_int8(xq, wq, sc, pad=pad, stride=2, **kw)
+            want = conv_int8.conv3x3_int8_plain(xq, wq, sc, pad=pad, stride=2, **kw)
+            assert got.dtype == torch.float32 and torch.equal(got, want), pad
 
 
 @pytest.mark.cuda

@@ -1,14 +1,16 @@
 """The int8 conv at stride 2 and on a pre-padded (VALID) input, on the CPU.
 
-At stride 2 ``conv3x3_int8`` is two launches of ``csrc/conv_fwd.cu`` on the
-card: the phase pass writes the four (row, column) parity planes of the
-padded input stacked as Q (B, 2(Ho+1), 2(Wo+1), C), then the q-conv GEMM
-runs six stages a 64-channel chunk, (dx, row parity): the even box at Q row
-r0 serves taps dy = 0 and 2 at buffer rows 0 and 1, the odd box at row r0 +
-Ho + 1 serves dy = 1, each at column c0 + (0, Wo + 1, 1)[dx]. VALID at
-stride 1 is the GEMM on the input as it comes, shift 0. These tests hold
-that arithmetic, in Python, against the exact integer conv and the plain
-version against the JAX package's ``conv2d_int8(stride=2)``.
+At stride 2 ``conv3x3_int8`` is one launch of ``csrc/conv_fwd.cu``'s GEMM
+on the card for zero and VALID halos (two with reflect halos: the int8
+reflect pass first). The GEMM reads its source through TMA boxes with
+element strides of 2 on W and H: a stage (64-channel chunk, dx) holds the
+TH + 1 source rows 2·r0 − shift + 2u, which serve taps dy = 0 and 2 at
+buffer rows 4·wg + 2·t + dy // 2, and the TH rows from the row after,
+which serve dy = 1, each box TW columns, every other one from 2·c0 + dx −
+shift. VALID at stride 1 is the GEMM on the input as it comes, shift 0.
+These tests hold that arithmetic, in Python, against the exact integer
+conv and the plain version against the JAX package's
+``conv2d_int8(stride=2)``.
 """
 
 import numpy as np
@@ -29,70 +31,96 @@ def _int8(rng, *shape):
     return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
 
 
-def _a_box(src: torch.Tensor, ci0: int, col: int, row: int, b: int) -> torch.Tensor:
-    """What TMA copies for an A box at (ci0, col, row, b) of ``src``: (TH + 2
-    rows, TW columns, KC channels), zeros outside ``src``."""
-    box = torch.zeros((TH + 2, TW, KC), dtype=torch.float64)
+def _s2_box(src: torch.Tensor, ci0: int, col: int, row: int, b: int, rows: int) -> torch.Tensor:
+    """What TMA lands for a strided A box at (ci0, col, row, b) of ``src``
+    (element strides 2 on W and H): (``rows``, TW, KC), entry (u, v) =
+    src[b, row + 2u, col + 2v, ci0 : ci0 + KC], zeros outside ``src``."""
     _, h, w, c = src.shape
-    r0, r1 = max(row, 0), min(row + TH + 2, h)
-    c0, c1 = max(col, 0), min(col + TW, w)
+    r = row + 2 * torch.arange(rows)
+    q = col + 2 * torch.arange(TW)
+    box = torch.zeros((rows, TW, KC), dtype=torch.float64)
+    rin, qin = (r >= 0) & (r < h), (q >= 0) & (q < w)
     k1 = min(ci0 + KC, c)
-    if r0 < r1 and c0 < c1 and ci0 < k1:
-        box[r0 - row : r1 - row, c0 - col : c1 - col, : k1 - ci0] = src[b, r0:r1, c0:c1, ci0:k1].double()
+    if rin.any() and qin.any() and ci0 < k1:
+        sub = src[b][r[rin]][:, q[qin], ci0:k1].double()
+        box[rin.nonzero()[:, 0][:, None], qin.nonzero()[:, 0][None, :], : k1 - ci0] = sub
     return box
 
 
-@pytest.mark.parametrize("pad,h,w", [("zero", 17, 70), ("zero", 16, 64), ("reflect", 9, 33),
-                                     ("valid", 19, 67)])
-def test_phase_planes_hold_every_parity(pad, h, w):
-    """Q[py·(Ho+1) + u, px·(Wo+1) + v] = Xp[2u + py, 2v + px], Xp the input
-    padded as ``pad`` says, zeros past Xp; odd and even planes alike."""
-    rng = np.random.default_rng(3)
-    xq = _int8(rng, 2, h, w, 16)
-    ho, wo = conv_int8.out_hw(h, w, pad, 2)
-    q = conv_int8._phases(xq, pad, ho, wo)
-    assert q.shape == (2, 2 * (ho + 1), 2 * (wo + 1), 16) and q.dtype == torch.int8
+def _stage_boxes(src: torch.Tensor, plan, ci0: int, r0: int, c0: int, dx: int, b: int):
+    """A stage's two A boxes: the rows of taps dy 0 and 2 (TH + 1), then
+    those of dy 1 (TH), as the producer loads them."""
+    col, row = 2 * c0 + dx - plan.shift, 2 * r0 - plan.shift
+    return (_s2_box(src, ci0, col, row, b, TH + 1), _s2_box(src, ci0, col, row + 1, b, TH))
+
+
+def _tap_rows(boxes, dy: int, wg: int, t: int) -> torch.Tensor:
+    """Sub-tile t of warpgroup wg's A operand for tap dy: two box rows of
+    TW pixels, (64, KC), from the box and row offset the consumer's
+    descriptor names."""
+    row = 4 * wg + 2 * t
+    box, first = (boxes[1], row) if dy == 1 else (boxes[0], row + dy // 2)
+    return box[first : first + 2].reshape(2 * TW, KC)
+
+
+def _xp_ext(xq: torch.Tensor, pad: str) -> torch.Tensor:
+    """Xp (``xq`` padded by one pixel of ``pad``, or as it is for
+    ``"valid"``) followed by enough zero rows and columns for any tile."""
     p = 0 if pad == "valid" else 1
     mode = {"zero": "constant", "reflect": "reflect", "valid": "constant"}[pad]
     xp = torch.nn.functional.pad(xq.double().permute(0, 3, 1, 2), (p, p, p, p), mode=mode)
     xp = xp.permute(0, 2, 3, 1)
-    for py in (0, 1):
-        for px in (0, 1):
-            plane = q[:, py * (ho + 1) : (py + 1) * (ho + 1), px * (wo + 1) : (px + 1) * (wo + 1)]
-            for u in range(ho + 1):
-                for v in range(wo + 1):
-                    r, c = 2 * u + py, 2 * v + px
-                    want = xp[:, r, c] if r < xp.shape[1] and c < xp.shape[2] else 0 * xp[:, 0, 0]
-                    assert torch.equal(plane[:, u, v].double(), want), (py, px, u, v)
+    b, h, w, c = xp.shape
+    ext = torch.zeros((b, h + 4 * TH, w + 4 * TW, c), dtype=torch.float64)
+    ext[:, :h, :w] = xp
+    return ext
+
+
+@pytest.mark.parametrize("pad,h,w", [("zero", 17, 70), ("zero", 16, 64), ("reflect", 9, 33),
+                                     ("valid", 19, 67)])
+def test_strided_boxes_hold_every_tap(pad, h, w):
+    """Every output pixel of every tile (those past the plane too) finds
+    Xp[2i + dy, 2j + dx] in its stage's boxes at the tap's row offset, Xp
+    the input padded as ``pad`` says and zeros past it: the source is
+    ``xq`` itself (zero, VALID) or its reflect copy, with no other pass."""
+    rng = np.random.default_rng(3)
+    xq = _int8(rng, 2, h, w, 16)
+    ho, wo = conv_int8.out_hw(h, w, pad, 2)
+    plan = conv_int8._plan(2, ho, wo, 16, 16, pad, 2)
+    src = conv_int8._source(xq, pad)
+    assert (src is xq) == (pad != "reflect")
+    xp = _xp_ext(xq, pad)
+    i, j = torch.arange(TH), torch.arange(TW)
+    for _, _, bi, _, r0, c0, _ in resblock._conv_blocks(plan):
+        for dx in range(3):
+            boxes = _stage_boxes(src, plan, 0, r0, c0, dx, bi)
+            for dy in range(3):
+                want = xp[bi][(2 * (r0 + i) + dy)[:, None], (2 * (c0 + j) + dx)[None, :], :16]
+                got = torch.cat([_tap_rows(boxes, dy, wg, t) for wg in range(2) for t in range(2)])
+                assert torch.equal(got.reshape(TH, TW, KC)[..., :16], want), (r0, c0, dx, dy)
+                assert not got[:, 16:].any()
 
 
 def _stage_blocks(src: torch.Tensor, kt: torch.Tensor, plan):
     """The stride-2 GEMM, block by block, in the kernel's arithmetic: stage
-    (chunk, dx, parity) loads the A box at (chunk·64, c0 + (0, Wo+1, 1)[dx],
-    r0 + parity·(Ho+1)) of the parity planes ``src``; the even stage's taps
-    dy = 0 and 2 read its rows from 4·wg + 2·t + dy // 2, the odd stage's
-    dy = 1 from 4·wg + 2·t; the B box is the stride-1 one. Yields (batch
-    index, r0, c0, co0, the block's exact sums (TH, TW, bn) as float64, the
-    stages it ran)."""
-    ho, wo = plan.h, plan.w
+    (chunk, dx) loads the two strided A boxes of ``_stage_boxes`` and the
+    weight box at (chunk·64, co0, dx); tap dy's operand is ``_tap_rows``.
+    Yields (batch index, r0, c0, co0, the block's exact sums (TH, TW, bn)
+    as float64, the stages it ran)."""
     kflat, cinp, coutp = kt.reshape(-1).double(), kt.shape[3], kt.shape[2]
-    col_off, row_off = (0, wo + 1, 1), (0, ho + 1)
     for _, _, bi, _, r0, c0, co0 in resblock._conv_blocks(plan):
         acc = torch.zeros((TH * TW, plan.bn), dtype=torch.float64)
         stages = 0
         for chunk in range(plan.chunks[0]):
             for dx in range(3):
+                stages += 1
                 bbox = resblock._q_b_box(kflat, cinp, coutp, chunk * KC, co0, dx, plan.bn)
-                for par in (0, 1):
-                    stages += 1
-                    a = _a_box(src, chunk * KC, c0 + col_off[dx], r0 + row_off[par], bi)
-                    a = a.reshape(-1, KC)
-                    for dy in ((0, 2) if par == 0 else (1,)):
-                        for wg in range(2):
-                            for t in range(2):
-                                start = (4 * wg + 2 * t + dy // 2) * TW
-                                m = slice((4 * wg + 2 * t) * TW, (4 * wg + 2 * t + 2) * TW)
-                                acc[m] += a[start : start + 2 * TW] @ bbox[dy].T
+                boxes = _stage_boxes(src, plan, chunk * KC, r0, c0, dx, bi)
+                for dy in range(3):
+                    for wg in range(2):
+                        for t in range(2):
+                            m = slice((4 * wg + 2 * t) * TW, (4 * wg + 2 * t + 2) * TW)
+                            acc[m] += _tap_rows(boxes, dy, wg, t) @ bbox[dy].T
         yield bi, r0, c0, co0, acc.reshape(TH, TW, plan.bn), stages
 
 
@@ -116,14 +144,16 @@ def _stage_sums(src: torch.Tensor, kt: torch.Tensor, plan) -> torch.Tensor:
 def test_stride2_stages_compute_every_output_block(pad, c, cout):
     """Block by block, the stages of ``_stage_blocks`` give every output
     pixel and channel that exists the exact stride-2 integer conv, and the
-    channels past Cout zero; six stages a chunk."""
+    channels past Cout zero; three stages a chunk, (chunk, dx), as at
+    stride 1."""
     rng = np.random.default_rng(c + cout)
     b, h, w = 2, 19, 75  # partial tiles both ways, odd planes
     xq, wq = _int8(rng, b, h, w, c), _int8(rng, 3, 3, c, cout)
     ho, wo = conv_int8.out_hw(h, w, pad, 2)
     plan = conv_int8._plan(b, ho, wo, c, cout, pad, 2)
-    assert (plan.h, plan.w, plan.stride, plan.shift, plan.pass_pad) == (ho, wo, 2, 0, None)
-    src = conv_int8._source(xq, pad, 2, plan)
+    assert (plan.h, plan.w, plan.stride, plan.shift, plan.pass_pad) == (
+        ho, wo, 2, int(pad == "zero"), 1 if pad == "reflect" else None)
+    src = conv_int8._source(xq, pad)
     kt = resblock._q_weights(wq, plan)
     want = conv_int8.int_conv_exact(xq, wq, pad, 2)
     assert want.shape[1:3] == (ho, wo)
@@ -132,7 +162,7 @@ def test_stride2_stages_compute_every_output_block(pad, c, cout):
         hh, ww, nn = min(TH, ho - r0), min(TW, wo - c0), min(plan.bn, cout - co0)
         assert torch.equal(acc[:hh, :ww, :nn], want[bi, r0 : r0 + hh, c0 : c0 + ww, co0 : co0 + nn])
         assert not acc[:hh, :ww, nn:].any()
-        assert stages == 6 * plan.chunks[0]
+        assert stages == 3 * plan.chunks[0]
         seen += hh * ww * nn
     assert seen == b * ho * wo * cout
 
@@ -140,8 +170,9 @@ def test_stride2_stages_compute_every_output_block(pad, c, cout):
 @pytest.mark.parametrize("stride,pad", [(2, "zero"), (2, "reflect"), (2, "valid"), (1, "valid")])
 @pytest.mark.parametrize("cin,cout", [(16, 32), (48, 64), (128, 256)])
 def test_gemm_emulation_matches_plain_bit_for_bit(stride, pad, cin, cout):
-    """The chained plain launches (the phase pass and the stages' sums of
-    ``_stage_blocks`` at stride 2; at VALID stride 1 the GEMM's plain
+    """The chained plain launches (the reflect pass where the pad asks for
+    it and the stages' sums of ``_stage_blocks`` at stride 2; at VALID
+    stride 1 the GEMM's plain
     version on the input as it comes; the q-conv epilogue) give
     ``conv3x3_int8`` and ``conv3x3_int8_plain`` bit for bit: f32 and bf16
     output, with and without addend and bias."""
@@ -153,7 +184,7 @@ def test_gemm_emulation_matches_plain_bit_for_bit(stride, pad, cin, cout):
     bias = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32))
     addend = torch.from_numpy(rng.standard_normal((b, ho, wo, cout), dtype=np.float32))
     plan = conv_int8._plan(b, ho, wo, cin, cout, pad, stride)
-    src = conv_int8._source(xq, pad, stride, plan)
+    src = conv_int8._source(xq, pad)
     if stride == 1:
         assert src is xq and plan.shift == 0
     kt = resblock._q_weights(wq, plan)

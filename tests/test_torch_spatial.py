@@ -410,7 +410,7 @@ def test_spatial_mode_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="devices"):
         spatial_generator(cfg, m.module)
     with pytest.raises(ValueError, match="divide"):
-        spatial_generator(cfg.replace(img_size=36), m.module, "cpu")
+        spatial_generator(cfg.replace(img_size=33), m.module, "cpu")
     g = spatial_generator(cfg, m.module, "cpu")
     assert g.spatial_mesh == _mesh(2) and not (g.pallas_norm_blur or g.pallas_head)
     assert m.module.spatial_mesh is None  # a copy: the unsharded module is unchanged
