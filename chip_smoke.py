@@ -136,7 +136,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    separate one, conv1 on each shard bit-identical to the same rows of the
    unsharded kernel's output, the summed statistics within 1e-5 relative
    of the unsharded kernel's; timed beside the bound and the library call
-   on the halo slab. (b) ``make_infer_fn`` over ``spatial_generator`` for
+   on the halo slab, each call (and its operand pass and GEMM alone) also
+   as device / host ms a call: events around calls the card runs back to
+   back behind a ``torch.cuda._sleep``, the host clock around their
+   enqueue. (b) ``make_infer_fn`` over ``spatial_generator`` for
    int8 b32 and float b4 at S = 2 and 4, against the unsharded step with
    the same rebuild (tails and head off) and against the same spatial step
    with rows 1 and 2 on their plain versions (phase 4's budget each; the
@@ -144,7 +147,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    unsharded route's own kernel-vs-plain distance, with the route
    bit-identical when the int8 conv runs its plain version and on repeat);
    |d| on the rows by the seams against the interior rows' (≤ 1.5×), a
-   check that must flag an injected seam fault; 18·S halo-form launches a
+   check that must flag an injected seam fault (and, in the float cell, a
+   single wrong halo row in one bottleneck conv); 18·S halo-form launches a
    forward (int8: and 6·S int8 convs); frames/s and peak memory beside the
    unsharded steps'. (c) The same at 488×640 and S = 4, whose shards are
    unequal inside the generator (61 rows after the first stride-2 stage,
@@ -194,6 +198,53 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The first hold of the stream in split_time_ms: ~10 ms at the H100's
+# 1.98 GHz boost clock, 4× longer each time the host outlasts it.
+HOLD_CYCLES = 20_000_000
+
+
+def split_time_ms(fn, iters: int = 10, readings: int = 3, warmup: int = 2) -> list:
+    """``readings`` readings of one call of ``fn`` three ways, each over
+    ``iters`` calls: (device ms, host ms, event ms). Device: CUDA events
+    around the calls, recorded while ``torch.cuda._sleep`` holds the
+    stream until the host has enqueued them all (the start event still
+    pending when the host is done; else the hold grows), so the card runs
+    them back to back; host: ``time.perf_counter`` around that enqueue;
+    event: ``cuda_time_ms``, the events around calls that the card may
+    wait on the host for."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(readings):
+        cycles = HOLD_CYCLES
+        while True:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host = (time.perf_counter() - t0) * 1e3 / iters
+            held = not start.query()
+            end.record()
+            torch.cuda.synchronize()
+            if held:
+                break
+            if cycles >= 64 * HOLD_CYCLES:
+                raise AssertionError(f"split_time_ms: the host outlasted a hold of {cycles} cycles")
+            cycles *= 4
+        out.append((start.elapsed_time(end) / iters, host, cuda_time_ms(fn, iters, 0)))
+    return out
+
+
+def split_text(readings: list) -> str:
+    """Readings of ``split_time_ms`` as "device / host / event ms" each."""
+    return ", ".join(f"{d:.4f} / {h:.4f} / {e:.4f}" for d, h, e in readings)
+
+
 def bound(ops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms, what bounds it): operations over the peak for their type,
     or bytes moved (each input read once, each output written once) over
@@ -230,6 +281,9 @@ def check_kernels(torch, results: list) -> None:
     log(f"[conv GEMM] {hgmma} HGMMA instructions in the SASS of csrc/conv_fwd.cu")
     if hgmma == 0:
         raise AssertionError("the forward conv's GEMM issues no wgmma")
+    # Its N = 64 forms (the wave rule's pick at small grids: the halo forms
+    # at b4, the b2 band) must issue wgmma and spill nothing.
+    check_gemm_build("bf16 conv", ("stats", "store"), (64,))
     hb, wb, cb = H // 4, W // 4, NGF * 4
     x = randn(B, hb, wb, cb).to(torch.bfloat16)
     k = randn(3, 3, cb, cb, scale=0.05).to(torch.bfloat16)
@@ -717,7 +771,8 @@ def kernel_key(name: str) -> str:
     """A kernel of a library by its mangled name: "gemm nBN <policy>" for
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
     wgrad's ("... s2": the int8 conv's stride-2 form), "fold" (the dgrad's
-    fold lines), "pass" (the operand pass), "pass q8" (its int8 form) or
+    fold lines), "pass" (the operand pass), "pass q8" (its int8 form),
+    "tile sum" (the bf16 conv's in-order sum of its tile partials) or
     "head bf16 kK" / "head s8 kK" for
     csrc/head.cu's instantiations (K MMA K steps a staged unit; "multi":
     the one for C past 64 channels, several units a row)."""
@@ -729,6 +784,8 @@ def kernel_key(name: str) -> str:
         return f"head {'s8' if found[1] == '1' else 'bf16'} k{found[2]}{multi}"
     if "operand_pass" in name:
         return "pass q8" if "ILb1E" in name else "pass"
+    if "tile_sum" in name:
+        return "tile sum"
     if "ILb1E" in name:
         return "gemm swap"
     found = re.search(r"gemm_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
@@ -808,7 +865,7 @@ def conv_parts(torch, halo: str, legs, kernels, mean=None, inv=None, stats: bool
     b, hi, wi = legs[0].shape[:3]
     h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
     cout = kernels[0].shape[-1]
-    plan = resblock._conv_plan(b, h, w, [x.shape[-1] for x in legs], cout, halo,
+    plan = resblock._conv_plan(b, h, w, tuple(x.shape[-1] for x in legs), cout, halo,
                                norm=mean is not None)
 
     def run_pass():
@@ -2279,7 +2336,11 @@ def check_halo_kernels(torch, results: list) -> None:
     at the shard shape of S = 2 (the row in the kernels line) and of S =
     4, beside the bound, the plain version and the library call on the
     halo slab (row 2: cuDNN of the W-padded slab; row 1: ``torch._int_mm``
-    over an int8 im2col of its quantized padded slab)."""
+    over an int8 im2col of its quantized padded slab). Each timed call
+    (both forms, the operand pass and the GEMM alone, the library call)
+    is read three times three ways, device / host / event ms
+    (``split_time_ms``); the row's ``ms`` and ``library_ms`` are the event
+    readings' means. Returns the readings by row name, S and part."""
     import torch.nn.functional as F
 
     from ircolor_tpu_torch.kernels import LAUNCHES, resblock
@@ -2290,6 +2351,7 @@ def check_halo_kernels(torch, results: list) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     before = dict(LAUNCHES)
+    splits: dict = {}
     hb, wb, cb = H // 4, W // 4, NGF * 4
     k = (torch.randn(3, 3, cb, cb, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
     kq, sw = quantize_weight_per_channel(k)
@@ -2307,6 +2369,7 @@ def check_halo_kernels(torch, results: list) -> None:
         else:
             forms = (("conv1", (k,), {}), ("conv2", (k,), dict(mean=m0, inv=i0)))
             fn, plain = resblock.conv3x3_reflect_fused, resblock.conv3x3_reflect_fused_plain
+            check_n64_bits(torch, x, k, forms)
         errs, timing = [], {}
         for n in SP_SHARDS:
             xs = shard_h(x, [dev] * n)
@@ -2330,9 +2393,18 @@ def check_halo_kernels(torch, results: list) -> None:
                         ok = worst <= 2 * 2.0**-8
                     same = all(torch.equal(a, c) for a, c in zip(got, prov))
                     rows = form != "conv1" or torch.equal(got[0], one[0][:, i * hl : (i + 1) * hl])
+                    if not quant:  # the one C call enqueues the two launches' work, bit for bit
+                        plan = resblock._conv_plan(b, hl, wb, (cb,), cb, "reflect",
+                                                   norm="mean" in kw)
+                        two = resblock._conv_gemm(
+                            [resblock._conv_pass(xi, **kw, halo="separate", halo_rows=hr)],
+                            list(args), plan, True)
+                        same = same and torch.equal(got[0], two[0]) and torch.equal(
+                            got[1], resblock._tile_sum_plain(two[1]))
                     if not (ok and same and rows):
                         raise AssertionError(f"{name} {form} S={n} shard {i}: plain ok {ok}, "
-                                             f"provided = separate {same}, conv1 rows {rows}")
+                                             f"provided = separate (and, bf16, = the pass and "
+                                             f"GEMM launched apart) {same}, conv1 rows {rows}")
                     errs.append(float(d.max()))
                     sums.append(got[1])
                 s = all_sum(sums)[0]
@@ -2342,49 +2414,68 @@ def check_halo_kernels(torch, results: list) -> None:
                 what = "quant steps (tol 2.5), differing share " + f"{frac:.3g}" if quant \
                     else "of the output's scale (tol 2 bf16 ulps)"
                 log(f"[{name} {form} S={n}] local {tuple(xs[0].shape)}: max|d| vs plain "
-                    f"{worst:.4g} {what}; provided = separate, "
+                    f"{worst:.4g} {what}; provided = separate"
+                    f"{'' if quant else ' = the pass and GEMM launched apart'}, "
                     f"{'conv1 rows = unsharded kernel rows; ' if form == 'conv1' else ''}"
                     f"summed moments vs unsharded {rel:.3g} relative (tol 1e-5)")
                 if rel > 1e-5:
                     raise AssertionError(f"{name} {form} S={n}: summed moments {rel:.3g}")
-            # Times at the shard shape (conv1 and conv2 means), shard 0.
+            # Times at the shard shape, shard 0: each call three ways
+            # (split_time_ms), conv1 and conv2, the operand pass and the GEMM
+            # alone, and the library call.
             x0, hr0 = xs[0], halos[0]
-            ms = [cuda_time_ms(lambda: fn(x0, *args, **kw, halo="separate", halo_rows=hr0,
-                                          sums=True), 10) for _, args, kw in forms]
+            plan = resblock._conv_plan(b, hl, wb, (cb,), cb, "reflect", s8=quant)
+            split = {f"kernel {form}": split_time_ms(
+                lambda: fn(x0, *args, **kw, halo="separate", halo_rows=hr0, sums=True))
+                for form, args, kw in forms}
             pms = [cuda_time_ms(lambda: plain(x0, *args, **kw, halo="separate", halo_rows=hr0),
                                 1, 1) for _, args, kw in forms]
             slab = torch.cat([hr0[0], x0, hr0[1]], dim=1).contiguous()
             if quant:
-                kw1 = forms[0][2]
+                kw1, sc1 = forms[0][2], forms[0][1][1]
                 zq = resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0)
-                tpass = cuda_time_ms(
-                    lambda: resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0), 10)
+                kt = resblock._q_weights(kq, plan)
+                split["pass"] = split_time_ms(
+                    lambda: resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0))
+                split[f"GEMM N={plan.bn}"] = split_time_ms(
+                    lambda: resblock._q_gemm(zq, kt, sc1, plan))
                 cols = torch.empty((b, hl, wb, 9, cb), dtype=torch.int8, device=dev)
                 for tap in range(9):
                     dy, dx = divmod(tap, 3)
                     cols[:, :, :, tap] = zq[:, dy : dy + hl, dx : dx + wb]
                 cols = cols.reshape(b * hl * wb, 9 * cb)
                 wmat = kq.reshape(9 * cb, cb).t().contiguous().t()
-                lib = cuda_time_ms(lambda: torch._int_mm(cols, wmat), 10)
+                split["library"] = split_time_ms(lambda: torch._int_mm(cols, wmat))
                 lib_what = f"torch._int_mm over the slab's int8 im2col ({cols.numel() / 1e9:.2f} GB)"
-                del cols, zq
+                del cols, zq, kt
                 b_ms, b_by = bound(2 * b * hl * wb * 9 * cb * cb,
                                    2 * x0.numel() * 2 + 4 * b * wb * cb + 9 * cb * cb
                                    + b * cb * 4 * 3, PEAK_INT8)
             else:
-                tpass = cuda_time_ms(
-                    lambda: resblock._conv_pass(x0, halo="separate", halo_rows=hr0), 10)
+                zp0 = resblock._conv_pass(x0, halo="separate", halo_rows=hr0)
+                split["pass"] = split_time_ms(
+                    lambda: resblock._conv_pass(x0, halo="separate", halo_rows=hr0))
+                split[f"GEMM N={plan.bn}"] = split_time_ms(
+                    lambda: resblock._conv_gemm([zp0], [k], plan, True))
                 zp = F.pad(slab.permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
-                lib = cuda_time_ms(lambda: F.conv2d(zp, k.permute(3, 2, 0, 1)), 10)
+                split["library"] = split_time_ms(lambda: F.conv2d(zp, k.permute(3, 2, 0, 1)))
                 lib_what = "cuDNN conv of the W-padded slab"
-                del zp
+                del zp, zp0
                 b_ms, b_by = bound(2 * b * hl * wb * 9 * cb * cb,
                                    2 * x0.numel() * 2 + 4 * b * wb * cb + 9 * cb * cb * 2
                                    + b * cb * 8 * 2)
+            mean = {part: [sum(r[j] for r in rs) / len(rs) for j in range(3)]
+                    for part, rs in split.items()}
+            ms = [mean[f"kernel {form}"][2] for form, _, _ in forms]
+            lib = mean["library"][2]
             timing[n] = (sum(ms) / 2, sum(pms) / 2, b_ms, b_by, lib)
-            log(f"    S={n}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms (conv1 / conv2; the halo pass "
-                f"alone {tpass:.4f}), plain {pms[0]:.3f} / {pms[1]:.3f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {lib_what} {lib:.4f} ms")
+            splits.setdefault(name, {})[n] = split
+            log(f"    S={n}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms (conv1 / conv2, CUDA events; "
+                f"the halo pass alone {mean['pass'][2]:.4f}), plain {pms[0]:.3f} / {pms[1]:.3f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), {lib_what} {lib:.4f} ms")
+            for part, rs in split.items():
+                log(f"    S={n} {part}: device / host / event ms a call, {len(rs)} readings: "
+                    f"{split_text(rs)}")
         ms, pms, b_ms, b_by, lib = timing[SP_SHARDS[0]]
         results.append(dict(name=name, route="cuda", source="ircolor_tpu_torch/csrc/conv_fwd.cu",
                             replaces="ircolor_tpu/ops/pallas_resblock.py:"
@@ -2394,6 +2485,47 @@ def check_halo_kernels(torch, results: list) -> None:
         del x, xs, halos
         torch.cuda.empty_cache()
     LAUNCHES.update(before)
+    return splits
+
+
+def check_n64_bits(torch, x, k, forms) -> None:
+    """Row 2's GEMM at N = 64 against N = 128 on the same operands: the
+    unsharded block conv (``x``, conv1 and conv2), its halo form on shard
+    0 at S = 2 and 4 and the b2 band's conv (``x``'s first two images),
+    output and per-tile sums bit for bit (an output element's K order does
+    not depend on N); conv1's GEMM timed at both N (device ms a call, three
+    readings, ``split_time_ms``)."""
+    from ircolor_tpu_torch.kernels import resblock
+    from ircolor_tpu_torch.parallel.spatial import exchange_halo_rows, shard_h
+
+    w, c = x.shape[2], x.shape[3]
+    cases = [("unsharded", x, None), ("b2 band", x[:2], None)]
+    for n in SP_SHARDS:
+        xs = shard_h(x, [x.device] * n)
+        cases.append((f"S={n} shard 0", xs[0], exchange_halo_rows(xs, 1)[0]))
+    for label, xi, hr in cases:
+        halo = "reflect" if hr is None else "separate"
+        b = xi.shape[0]
+        for form, _, kw in forms:
+            zp = resblock._conv_pass(xi, **kw, halo=halo, halo_rows=hr)
+            plans = {bn: resblock._conv_plan(b, xi.shape[1], w, (c,), k.shape[-1], "reflect",
+                                             norm="mean" in kw, bn=bn) for bn in (64, 128)}
+            got = {bn: resblock._conv_gemm([zp], [k], plan, True) for bn, plan in plans.items()}
+            same = all(torch.equal(a, z) for a, z in zip(got[64], got[128]))
+            pick = resblock._conv_plan(b, xi.shape[1], w, (c,), k.shape[-1], "reflect").bn
+            times = ""
+            if form == "conv1":
+                dev = {bn: [r[0] for r in split_time_ms(
+                    lambda: resblock._conv_gemm([zp], [k], plan, True))]
+                    for bn, plan in plans.items()}
+                times = "; GEMM device ms N=64 " + " / ".join(f"{t:.4f}" for t in dev[64]) + \
+                    ", N=128 " + " / ".join(f"{t:.4f}" for t in dev[128]) + \
+                    f" ({plans[64].blocks} / {plans[128].blocks} output blocks)"
+            log(f"[conv3x3_reflect_fused N=64 vs N=128 {label} {form}] {tuple(xi.shape)}: output "
+                f"and tile sums bit-identical {same}; the plan runs N = {pick}{times}")
+            if not same:
+                raise AssertionError(f"row 2's GEMM at N = 64 differs from N = 128 ({label}, "
+                                     f"{form})")
 
 
 def seam_ratio(torch, pred_a, pred_b, n: int) -> float:
@@ -2424,6 +2556,28 @@ def seams_cut_fault(torch, infer, batch):
         tquant.pad2d_spatial = real
 
 
+def halo_row_fault(torch, infer, batch):
+    """A single wrong halo row for the seam check to find: in the first
+    bottleneck block's conv1, shard 1's top halo row (the first seam's)
+    replaced by that shard's own first row; every other halo row right."""
+    from ircolor_tpu_torch.kernels import resblock
+
+    real, calls = resblock.exchange_halo_rows, []
+
+    def once(xs, r, pad="reflect"):
+        halos = real(xs, r, pad)
+        if not calls:
+            halos[1] = (xs[1][:, :1].contiguous(), halos[1][1])
+        calls.append(len(xs))
+        return halos
+
+    resblock.exchange_halo_rows = once
+    try:
+        return infer(*batch)
+    finally:
+        resblock.exchange_halo_rows = real
+
+
 def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
                           shards: tuple = SP_SHARDS, tag: str = "",
                           noise_of: dict | None = None) -> tuple[dict, dict]:
@@ -2444,7 +2598,10 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
     Every spatial step's |d| to the unsharded step on the rows next to the
     seams is held against its |d| on the interior rows (``seam_ratio``),
     and the check must flag a seam fault injected into the int8 enc/dec
-    convs' halos at S = 2 (``seams_cut_fault``). A forward
+    convs' halos at S = 2 (``seams_cut_fault``); a single wrong halo row in
+    one bottleneck conv (``halo_row_fault``) is injected at S = 2 in both
+    cells, what flags it logged, and the float cell must flag it (the int8
+    cell's rounding noise hides it). A forward
     must launch the halo forms 18·S times (and, int8, the int8 conv at the
     6 enc/dec sites of each shard) and nothing else. Frames/s and peak
     memory beside the unsharded steps' (the default route with tails and
@@ -2583,6 +2740,22 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
                     f"limit {fault['mean_d'] > limit}")
                 if seam_f <= SEAM_RATIO_MAX:
                     raise AssertionError(f"{key}: the seam check missed an injected seam fault")
+                del pred_f
+            if n == SP_SHARDS[0] and f"{block}_halo" in per:
+                # One wrong halo row in one bottleneck conv, flagged where the
+                # cell's own checks above would reject it. The float cell must
+                # flag it; the int8 cell's rounding noise hides it (PERF.md §7).
+                pred_f, m_f = halo_row_fault(torch, infer, batches[0])
+                fault = route_delta(torch, pred_f, m_f, *ref)
+                seam_f = seam_ratio(torch, pred_f, ref[0], n)
+                budget = not within_budget(fault, uint8_bound=not quant) or (
+                    quant and fault["mean_d"] > limit)
+                log(f"    one wrong halo row (block 0 conv1, shard 1's top row its own first "
+                    f"row) against the unsharded step: {fault['text']}; seam/interior mean |d| "
+                    f"{seam_f:.4f}: the seam check flags it {seam_f > SEAM_RATIO_MAX}, the "
+                    f"budget {budget}")
+                if not quant and not (seam_f > SEAM_RATIO_MAX or budget):
+                    raise AssertionError(f"{key}: the checks missed a wrong halo row")
                 del pred_f
         del model, flat, runs, batches, outs, ref, default, noise
         torch.cuda.empty_cache()

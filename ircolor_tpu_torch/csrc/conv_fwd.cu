@@ -91,7 +91,10 @@
 //   input itself.
 // * GEMM: a block owns TH x TW = 8 x 32 output pixels (M = 256) of one
 //   image and BN = 128 output channels (N; 64 where Cout % 128 != 0, the
-//   segments' dz of 64): two consumer warpgroups of 4 rows (two m64
+//   segments' dz of 64, and in the forward's stats and store policies
+//   where the plan's wave rule picks it: a grid of a few hundred output
+//   blocks, whose last round of 132 would run short at N = 128): two
+//   consumer warpgroups of 4 rows (two m64
 //   sub-tiles, 2 rows each) and one producer warp, one thread of which
 //   issues the copies. The dgrad's policies and q-conv take a producer
 //   warpgroup in its place, which hands its registers to the consumers
@@ -165,6 +168,10 @@
 //   next block's first loads overlap this one's epilogue. Output blocks
 //   are (image, tile) major, the output-channel blocks of one tile next to
 //   each other, so A comes from L2 after its first read.
+// * The host: a bf16 conv is one C call (ircolor_conv_fwd: the passes,
+//   the tensor maps, the GEMM), and a GEMM instantiation's shared-memory
+//   attribute is set once a card. At the b4 halo shards the device works
+//   ~0.07 ms a conv, about what a call's Python and launches cost.
 // * The fold lines (the dgrad with reflect halos): a small kernel computes
 //   F[-1, -1..W], F[H, -1..W] (B, 2, W+2, Cin) and F[0..H-1, -1], F[0..H-1,
 //   W] (B, H, 2, Cin) in f32 from dy and the forward kernel as it is (its
@@ -177,6 +184,7 @@
 //   a column fold needs a stage of its own per chunk (one column of 32 is
 //   not zero) on the 32 of 80 tiles that hold column 1 or W-2 at the blocks
 //   (+13% of the GEMM's loads and wgmmas).
+#include <atomic>
 #include <type_traits>
 
 #include "tma.cuh"  // the operand pass, TMA, mbarrier and wgmma helpers
@@ -768,13 +776,24 @@ int make_q_weight_map(CUtensorMap* map, const void* k, int C, int Cout, int bn) 
   return make_map_4d(map, k, dims, strides, box, 1);
 }
 
+// The dynamic shared memory limit is an attribute of the function on each
+// card: set once an instantiation and card (one bit a card, the first 64),
+// not on every launch.
 template <int BN, int EPI, bool S2 = false>
 int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& ta1, const CUtensorMap& tb0,
                 const CUtensorMap& tb1, const FwdArgs& a, int grid, cudaStream_t stream) {
   auto kernel = conv_fwd_gemm_kernel<BN, EPI, S2>;
   constexpr int smem = Ring<BN, S2>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if ((set_on.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    set_on.fetch_or(bit, std::memory_order_relaxed);
+  }
   kernel<<<grid, threads_of(wide_producer(EPI)), smem, stream>>>(ta0, ta1, tb0, tb1, a);
   return (int)cudaGetLastError();
 }
@@ -846,6 +865,8 @@ int run_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
     }
   } else if (bn == 64) {
     switch (epi) {
+      case EPI_STATS: return launch_gemm<64, EPI_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
+      case EPI_STORE: return launch_gemm<64, EPI_STORE>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_DZ: return launch_gemm<64, EPI_DZ>(ta0, ta1, tb0, tb1, a, grid, stream);
       case EPI_MASK_STATS:
         return launch_gemm<64, EPI_MASK_STATS>(ta0, ta1, tb0, tb1, a, grid, stream);
@@ -959,6 +980,55 @@ __global__ void __launch_bounds__(96) dgrad_fold_kernel(const FoldArgs a) {
     }
 }
 
+// The operand pass of ircolor_conv_fwd_pass.
+int fwd_pass(const void* x, const void* mean, const void* inv, const void* top, const void* bot,
+             void* out, int B, int H, int W, int C, int pad, cudaStream_t stream) {
+  if (C % 8 || (pad != 0 && pad != 1) || (top == nullptr) != (bot == nullptr) ||
+      (top != nullptr && pad != 1))
+    return (int)cudaErrorInvalidValue;
+  PassArgs a = {};
+  a.z = static_cast<const __nv_bfloat16*>(x);
+  a.zm = static_cast<const float*>(mean);
+  a.zi = static_cast<const float*>(inv);
+  a.zp = static_cast<__nv_bfloat16*>(out);
+  a.top = static_cast<const __nv_bfloat16*>(top);
+  a.bot = static_cast<const __nv_bfloat16*>(bot);
+  a.ndy = 0;
+  a.nzp = (long long)B * (H + 2 * pad) * (W + 2 * pad) * (C / 8);
+  a.H = H;
+  a.W = W;
+  a.Cz = C;
+  a.zpad = pad;
+  return launch_operand_pass(a, stream);
+}
+
+// sums[b, j] = the sum over tiles t = 0, 1, ... of partial[b, t, j] (j <
+// n = 2 Cout: the per-tile Σy, Σy² of the stats policy), added one tile at
+// a time in that order: a repeat, and the plain version's loop, give the
+// same bits.
+__global__ void __launch_bounds__(256)
+    tile_sum_kernel(const float* __restrict__ partial, float* __restrict__ sums, int ntiles, int n) {
+  const int b = blockIdx.y, j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= n) return;
+  const float* p = partial + (size_t)b * ntiles * n + j;
+  float acc = p[0];
+#pragma unroll 8
+  for (int t = 1; t < ntiles; ++t) acc = __fadd_rn(acc, __ldg(p + (size_t)t * n));
+  sums[(size_t)b * n + j] = acc;
+}
+
+// The bf16 GEMM with the stats (partial non-null) or store policy.
+int fwd_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1, int C1,
+             void* out, void* partial, int B, int H, int W, int Cout, int zero, int bn, int grid,
+             cudaStream_t stream) {
+  if (bn != 128 && bn != 64) return (int)cudaErrorInvalidValue;
+  FwdArgs a = {};
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = static_cast<float*>(partial);
+  return run_gemm(x0, k0, C0, x1, k1, C1, a, B, H, W, Cout, zero, bn,
+                  partial != nullptr ? EPI_STATS : EPI_STORE, grid, stream);
+}
+
 }  // namespace
 }  // namespace ircolor
 
@@ -981,42 +1051,56 @@ int ircolor_conv_fwd_smem(int bn) {
 int ircolor_conv_fwd_pass(const void* x, const void* mean, const void* inv, const void* top,
                           const void* bot, void* out, int B, int H, int W, int C, int pad,
                           void* stream) {
-  using namespace ircolor;
-  if (C % 8 || (pad != 0 && pad != 1) || (top == nullptr) != (bot == nullptr) ||
-      (top != nullptr && pad != 1))
-    return (int)cudaErrorInvalidValue;
-  PassArgs a = {};
-  a.z = static_cast<const __nv_bfloat16*>(x);
-  a.zm = static_cast<const float*>(mean);
-  a.zi = static_cast<const float*>(inv);
-  a.zp = static_cast<__nv_bfloat16*>(out);
-  a.top = static_cast<const __nv_bfloat16*>(top);
-  a.bot = static_cast<const __nv_bfloat16*>(bot);
-  a.ndy = 0;
-  a.nzp = (long long)B * (H + 2 * pad) * (W + 2 * pad) * (C / 8);
-  a.H = H;
-  a.W = W;
-  a.Cz = C;
-  a.zpad = pad;
-  return launch_operand_pass(a, static_cast<cudaStream_t>(stream));
+  return ircolor::fwd_pass(x, mean, inv, top, bot, out, B, H, W, C, pad,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // out (B, H, W, Cout) bf16 and, with partial non-null, partial (B, ntiles,
 // 2, Cout) f32 (ntiles = ceil(H/TH) * ceil(W/TW)) of the conv of leg 0 (x0,
 // k0 (3, 3, C0, Cout)) and, with x1 non-null, leg 1 (x1, k1, C1). zero = 1:
 // the legs are (B, H, W, C) and read with zero halos; zero = 0: they are
-// padded, (B, H+2, W+2, C). C0, C1 % 64 == 0, Cout % 128 == 0. grid:
-// persistent blocks, each running every grid-th output block.
+// padded, (B, H+2, W+2, C). C0, C1 % 64 == 0, Cout % bn == 0, bn 128 or 64
+// output channels a block. grid: persistent blocks, each running every
+// grid-th output block.
 int ircolor_conv_fwd_gemm(const void* x0, const void* k0, int C0, const void* x1, const void* k1,
                           int C1, void* out, void* partial, int B, int H, int W, int Cout,
-                          int zero, int grid, void* stream) {
+                          int zero, int bn, int grid, void* stream) {
+  return ircolor::fwd_gemm(x0, k0, C0, x1, k1, C1, out, partial, B, H, W, Cout, zero, bn, grid,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 conv in one call, the launches of the two entries above in
+// order: with pass_pad 1 or 0, ircolor_conv_fwd_pass on each leg (x_i into
+// zp_i, (B, H+2, W+2, C_i); pad 1: x_i is (B, H, W, C_i), its rows -1 and H
+// from top / bot where non-null; 0: x_i is padded already; mean / inv
+// normalize where non-null), then ircolor_conv_fwd_gemm on the zp_i with
+// zero = 0; with pass_pad -1, the GEMM on the legs themselves. With sums
+// non-null (and partial), then sums (B, 2, Cout) f32 = partial summed over
+// its tiles in order.
+int ircolor_conv_fwd(const void* x0, const void* k0, int C0, const void* x1, const void* k1,
+                     int C1, const void* mean, const void* inv, const void* top, const void* bot,
+                     void* zp0, void* zp1, int pass_pad, void* out, void* partial, void* sums,
+                     int B, int H, int W, int Cout, int zero, int bn, int grid, void* stream) {
   using namespace ircolor;
-  FwdArgs a = {};
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.partial = static_cast<float*>(partial);
-  return run_gemm(x0, k0, C0, x1, k1, C1, a, B, H, W, Cout, zero, 128,
-                  partial != nullptr ? EPI_STATS : EPI_STORE, grid,
-                  static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pass_pad < -1 || pass_pad > 1 || (sums != nullptr && (partial == nullptr || B > 65535)) ||
+      (pass_pad >= 0 && (zero || zp0 == nullptr || (x1 != nullptr) != (zp1 != nullptr))))
+    return (int)cudaErrorInvalidValue;
+  if (pass_pad >= 0) {
+    const int ph = pass_pad ? H : H + 2, pw = pass_pad ? W : W + 2;
+    int err = fwd_pass(x0, mean, inv, top, bot, zp0, B, ph, pw, C0, pass_pad, st);
+    if (err == 0 && x1 != nullptr)
+      err = fwd_pass(x1, mean, inv, top, bot, zp1, B, ph, pw, C1, pass_pad, st);
+    if (err != 0) return err;
+    x0 = zp0;
+    x1 = zp1;
+  }
+  const int err = fwd_gemm(x0, k0, C0, x1, k1, C1, out, partial, B, H, W, Cout, zero, bn, grid, st);
+  if (err != 0 || sums == nullptr) return err;
+  const int ntiles = ((H + TH - 1) / TH) * ((W + TW - 1) / TW), n = 2 * Cout;
+  tile_sum_kernel<<<dim3((n + 255) / 256, B), 256, 0, st>>>(static_cast<const float*>(partial),
+                                                           static_cast<float*>(sums), ntiles, n);
+  return (int)cudaGetLastError();
 }
 
 // The int8 conv's operand pass: out (B, H+2, W+2, C) int8 = x (B, H, W,

@@ -106,7 +106,7 @@ def on_input_card(fn):
                 break
         else:
             raise TypeError(f"{fn.__name__}: no tensor argument")
-        if not t.is_cuda:
+        if not t.is_cuda or t.device.index == torch.cuda.current_device():
             return fn(*args, **kwargs)
         with torch.cuda.device(t.device):
             return fn(*args, **kwargs)
@@ -115,9 +115,12 @@ def on_input_card(fn):
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s card, for a launch on that card;
-    raises unless it is the current device (``on_input_card``)."""
-    if torch.cuda.current_device() != t.device.index:
+    """The current stream of ``t``'s card (its ``cudaStream_t``, as
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives it, without
+    making a ``Stream`` object), for a launch on that card; raises unless
+    it is the current device (``on_input_card``)."""
+    index = t.device.index
+    if torch.cuda.current_device() != index:
         raise RuntimeError(f"a launch on {t.device} with cuda:{torch.cuda.current_device()} "
                            "current: the launcher must run under on_input_card")
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -17,8 +17,9 @@ legs, zero or reflect halos, the IN stats of the f32 sum; ``_launch_bf16``
 also serves ``kernels/block.py`` and ``kernels/conv.py`` in the VALID
 mode). A bf16 conv is an operand pass where its halo or a normalize needs
 one (the reflect-padded input, or the previous IN + ReLU applied) and a
-TMA + ``wgmma`` GEMM that writes the raw output once with the per-(B, C)
-sums of the output for its instance norm. The int8 conv is the same GEMM
+TMA + ``wgmma`` GEMM that writes the raw output once with per-tile sums of
+the output for its instance norm, added over the tiles in order by a
+small kernel: one C call enqueues the three. The int8 conv is the same GEMM
 on s8 operands: its pass writes the quantized, reflect-padded input as
 int8 and its epilogue dequantizes. The block epilogue
 ``x + ((raw2 − m2)·i2).to(dtype)`` stays plain torch.
@@ -31,6 +32,7 @@ with TF32 off, or they are not the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,7 +63,8 @@ def _load_fwd():
             raise RuntimeError("csrc/conv_fwd.cu and _conv_plan disagree on the tile shape")
         for fn, args in (
             (lib.ircolor_conv_fwd_pass, [p] * 6 + [i] * 5 + [p]),
-            (lib.ircolor_conv_fwd_gemm, [p, p, i, p, p, i, p, p] + [i] * 6 + [p]),
+            (lib.ircolor_conv_fwd_gemm, [p, p, i, p, p, i, p, p] + [i] * 7 + [p]),
+            (lib.ircolor_conv_fwd, [p, p, i, p, p, i] + [p] * 6 + [i] + [p] * 3 + [i] * 7 + [p]),
             (lib.ircolor_conv_dgrad_pass, [p] * 7 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_fold, [p] * 4 + [i] * 5 + [p]),
             (lib.ircolor_conv_dgrad_gemm, [p, p, i] + [p] * 7 + [i] * 5 + [p]),
@@ -151,11 +154,16 @@ def _halo_slab(x, halo: str = "reflect", halo_rows=None):
     return x[:, _reflect_rows(x.shape[1])]
 
 
-def _stats_out(s1, s2, n: int, sums: bool):
-    """The IN statistics a block conv returns: the (B, 2, Cout) sums Σy,
-    Σy² (``sums``, for a caller that adds them across shards first) or
-    (mean, inv_std) over its n pixels."""
-    return (torch.stack([s1, s2], dim=1),) if sums else _moments(s1, s2, n)
+def _stats_out(s, n: int, sums: bool):
+    """The IN statistics a block conv returns from its (B, 2, Cout) sums
+    Σy, Σy²: those sums (``sums``, for a caller that adds them across
+    shards first) or (mean, inv_std) over its n pixels."""
+    return (s,) if sums else _moments(s[:, 0], s[:, 1], n)
+
+
+def _sums(y):
+    """The (B, 2, Cout) f32 sums Σy, Σy² of a (B, H, W, Cout) f32 output."""
+    return torch.stack([y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2))], dim=1)
 
 
 def conv3x3_reflect_fused_plain(x, kernel, mean=None, inv=None, *, halo="reflect",
@@ -167,8 +175,7 @@ def conv3x3_reflect_fused_plain(x, kernel, mean=None, inv=None, *, halo="reflect
     z = slab if mean is None else _normalize_relu(slab, mean, inv).to(x.dtype)
     zp = F.pad(z.float().permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
     y = F.conv2d(zp, kernel.to(x.dtype).float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
-    out = _stats_out(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), y.shape[1] * y.shape[2], sums)
-    return (y.to(x.dtype), *out)
+    return (y.to(x.dtype), *_stats_out(_sums(y), y.shape[1] * y.shape[2], sums))
 
 
 def conv3x3_reflect_fused(x, kernel, mean=None, inv=None, *, halo="reflect", halo_rows=None,
@@ -202,6 +209,14 @@ _CF_KC_S8 = 64
 # Persistent GEMM blocks: one wave of an H100's 132 SMs (fixed here, never
 # read from the card; the results do not depend on it).
 _CF_WAVE = 132
+# The bf16 forward conv runs N = 64 where its output blocks' rounds of a
+# wave cost at least this much less than at N = 128 (cost: rounds × N,
+# ``_conv_plan``). On an H100 a round of N = 64 blocks takes 0.56–0.59 of
+# an N = 128 round, not half (``PERF.md`` §6), so a pick 15% below
+# in this cost is still a gain on the card (the b4 halo shards: 25% and
+# 17% below, 12% and 4% faster); row 7's down2 launch at b32 (0.3%) keeps
+# N = 128.
+_N64_GAIN = 0.15
 
 
 class ConvPlan(NamedTuple):
@@ -246,20 +261,34 @@ class ConvPlan(NamedTuple):
     stride: int = 1
 
 
-def _conv_plan(b: int, h: int, w: int, legs, cout: int, halo: str, norm: bool = False,
+@functools.lru_cache(maxsize=256)
+def _conv_plan(b: int, h: int, w: int, legs: tuple, cout: int, halo: str, norm: bool = False,
                s8: bool = False, bn: int | None = None, stride: int = 1) -> ConvPlan:
-    """The plan of the forward conv of ``legs`` (input channels of each)
-    into an h × w × cout output: a function of the shapes alone. ``s8``:
+    """The plan of the forward conv of ``legs`` (a tuple of each leg's
+    input channels) into an h × w × cout output: a function of the shapes
+    alone, cached (a forward asks for the same few plans again). ``s8``:
     the int8 convs' (int8 stages of 64 channels). ``bn``: output channels
-    a block, by default 128 where cout % 128 == 0, else 64 (the int8 conv
-    picks its own, ``kernels/conv_int8.py:_plan``). ``stride`` 2: the int8
-    conv, reading its source through strided boxes (the halo as at stride
-    1)."""
+    a block; by default 64 where cout % 128 ≠ 0, and for bf16 where the
+    output blocks' rounds of the 132-block wave cost at least
+    ``_N64_GAIN`` less at N = 64 than at 128 (cost: ⌈blocks / 132⌉ · N,
+    the int8 conv's rule: a grid of a few hundred blocks, whose last round
+    runs short at N = 128), else 128 (the int8 block conv always: its
+    q-stats policy runs N = 128 only; the int8 conv picks its own,
+    ``kernels/conv_int8.py:_plan``; the dgrad passes its own). ``stride``
+    2: the int8 conv, reading its source through strided boxes (the halo
+    as at stride 1)."""
     ntr, ntc = -(-h // _CF_TH), -(-w // _CF_TW)
     pass_pad = 1 if halo == "reflect" else (0 if halo == "valid" and norm else None)
     kc = _CF_KC_S8 if s8 else _CF_KC
     if bn is None:
         bn = _BN if cout % _BN == 0 else 64
+        tiles = b * ntr * ntc
+
+        def cost(n: int) -> int:
+            return -(-tiles * (cout // n) // _CF_WAVE) * n
+
+        if bn == _BN and not s8 and cost(64) <= (1 - _N64_GAIN) * cost(_BN):
+            bn = 64
     ncob = -(-cout // bn)
     blocks = b * ntr * ntc * ncob
     b_box = (kc, bn, 1, 3) if s8 else (64, kc, 1, 3)
@@ -359,6 +388,16 @@ def _conv_acc_plain(srcs, kernels, plan: ConvPlan) -> torch.Tensor:
     return acc
 
 
+def _tile_sum_plain(partial: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``csrc/conv_fwd.cu``'s tile-sum kernel: the (B,
+    ntiles, 2, Cout) per-tile sums added over the tiles one at a time, in
+    order → (B, 2, Cout)."""
+    s = partial[:, 0].clone()
+    for t in range(1, partial.shape[1]):
+        s += partial[:, t]
+    return s
+
+
 def _tile_sums(t: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     """(B, ntiles, Cout) sums of an f32 (B, H, W, Cout) tensor over each
     TH × TW tile's pixels that exist."""
@@ -403,10 +442,54 @@ def _conv_gemm(srcs, kernels, plan: ConvPlan, stats: bool = True):
     err = _load_fwd().ircolor_conv_fwd_gemm(
         x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], _ptr(x1), _ptr(k1),
         0 if x1 is None else x1.shape[-1], out.data_ptr(), _ptr(partial), b, plan.h, plan.w,
-        plan.cout, plan.shift, plan.grid, stream_ptr(srcs[0]),
+        plan.cout, plan.shift, plan.bn, plan.grid, stream_ptr(srcs[0]),
     )
     build.check(err, "conv GEMM")
     return out, partial
+
+
+@on_input_card
+def _conv_fwd(legs, kernels, plan: ConvPlan, mean=None, inv=None, *, halo="reflect",
+              halo_rows=None, stats: bool = True):
+    """The bf16 conv's launches in one C call (``ircolor_conv_fwd``): the
+    operand pass on each leg where the plan has one, then the GEMM — those
+    of ``_conv_pass`` and ``_conv_gemm``, bit for bit — and with ``stats``
+    the tile-sum kernel (``_tile_sum_plain``). Returns (bf16 out, (B, 2,
+    Cout) Σy, Σy² or None); on CPU tensors, the plain versions."""
+    x0 = legs[0]
+    if x0.device.type == "cpu":
+        srcs = legs if plan.pass_pad is None else [
+            _conv_pass_plain(x, mean, inv, pad=plan.pass_pad, halo=halo, halo_rows=halo_rows)
+            for x in legs]
+        out, partial = _conv_gemm_plain(srcs, kernels, plan, stats)
+        return out, None if partial is None else _tile_sum_plain(partial)
+    top = bot = None
+    zps = [None, None]
+    if plan.pass_pad is not None:
+        if halo != "reflect":
+            x0, top, bot = _pass_halo_args(x0, halo, halo_rows)
+            legs = (x0,)
+        zps = [torch.empty((x.shape[0], plan.h + 2, plan.w + 2, x.shape[-1]), dtype=x.dtype,
+                           device=x.device) for x in legs] + [None]
+    ks = [k.to(torch.bfloat16).contiguous() for k in kernels]
+    if any(t.data_ptr() % 16 for t in (*legs, *ks)):
+        raise ValueError("conv: inputs and kernels must start on 16-byte boundaries")
+    b = x0.shape[0]
+    out = torch.empty((b, plan.h, plan.w, plan.cout), dtype=torch.bfloat16, device=x0.device)
+    partial = sums = None
+    if stats:
+        partial = torch.empty((b, plan.ntiles, 2, plan.cout), dtype=torch.float32,
+                              device=x0.device)
+        sums = torch.empty((b, 2, plan.cout), dtype=torch.float32, device=x0.device)
+    x1, k1 = (legs[1], ks[1]) if len(legs) == 2 else (None, None)
+    err = _load_fwd().ircolor_conv_fwd(
+        x0.data_ptr(), ks[0].data_ptr(), x0.shape[-1], _ptr(x1), _ptr(k1),
+        0 if x1 is None else x1.shape[-1], _ptr(mean), _ptr(inv), _ptr(top), _ptr(bot),
+        _ptr(zps[0]), _ptr(zps[1]), -1 if plan.pass_pad is None else plan.pass_pad,
+        out.data_ptr(), _ptr(partial), _ptr(sums), b, plan.h, plan.w, plan.cout, plan.shift,
+        plan.bn, plan.grid, stream_ptr(x0))
+    build.check(err, "conv")
+    return out, sums
 
 
 def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
@@ -414,7 +497,8 @@ def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
     """The bf16 conv (``csrc/conv_fwd.cu``) in ``halo`` mode over one or
     two input legs (``kernels[i]`` (3, 3, Cᵢ, Cout) for ``legs[i]``; the K
     loop runs leg 0's channels, then leg 1's, into one f32 accumulator):
-    the operand pass where the plan has one, then the GEMM. ``valid``: the
+    the operand pass where the plan has one, then the GEMM, enqueued by one
+    C call (``_conv_fwd``). ``valid``: the
     legs are pre-padded, the output is 2 smaller in H and W. ``provided`` /
     ``separate`` (one leg): the block conv's spatial halo forms, planned
     as ``reflect``. ``mean``/``inv`` (one leg, not with zero halos): the
@@ -446,18 +530,14 @@ def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
         require(mean, "mean", torch.float32, (b, x0.shape[-1]))
         require(inv, "inv", torch.float32, (b, x0.shape[-1]))
     spatial = halo in ("provided", "separate")
-    plan = _conv_plan(b, h, w, [x.shape[-1] for x in legs], cout,
+    plan = _conv_plan(b, h, w, tuple(x.shape[-1] for x in legs), cout,
                       "reflect" if spatial else halo, norm=mean is not None)
-    srcs = legs
-    if plan.pass_pad is not None:
-        srcs = [_conv_pass(x, mean, inv, pad=plan.pass_pad, halo=halo if spatial else "reflect",
-                           halo_rows=halo_rows) for x in legs]
-    out, partial = _conv_gemm(srcs, kernels, plan, stats or sums)
+    out, s = _conv_fwd(legs, kernels, plan, mean, inv, halo=halo if spatial else "reflect",
+                       halo_rows=halo_rows, stats=stats or sums)
     LAUNCHES[name] += 1
     if not (stats or sums):
         return out
-    s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
-    return (out, *_stats_out(s[:, 0], s[:, 1], h * w, sums))
+    return (out, *_stats_out(s, h * w, sums))
 
 
 def _check_sum_fused(inputs, kernels, pad: str, tile_h: int) -> None:
@@ -530,8 +610,7 @@ def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None
     q = _quantize_input(_halo_slab(x, halo, halo_rows), qscale, mean, inv)
     y = int_conv_exact(q[:, :, _reflect_rows(q.shape[2])], kq, "valid").float()
     y = y * sc[:, None, None, :]
-    out = _stats_out(y.sum(dim=(1, 2)), y.square().sum(dim=(1, 2)), y.shape[1] * y.shape[2], sums)
-    return (y.to(x.dtype), *out)
+    return (y.to(x.dtype), *_stats_out(_sums(y), y.shape[1] * y.shape[2], sums))
 
 
 # The int8 conv on the card: the operand pass writes the quantized,
@@ -660,7 +739,7 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo
     out, partial = _q_gemm(zq, _q_weights(kq, plan), sc, plan)
     LAUNCHES["conv3x3_reflect_fused_q" + ("" if halo == "reflect" else "_halo")] += 1
     s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
-    return (out, *_stats_out(s[:, 0], s[:, 1], h * w, sums))
+    return (out, *_stats_out(s, h * w, sums))
 
 
 # ------------------------------------------------------------ backward ----
@@ -757,7 +836,8 @@ class DgradPlan(NamedTuple):
 
 def _dgrad_plan(b: int, h: int, w: int, c: int, cout: int, pad: str) -> DgradPlan:
     """The dgrad's plan: a function of the shapes alone."""
-    return DgradPlan(_conv_plan(b, h, w, (c,), cout, "zero"), pad == "reflect")
+    return DgradPlan(_conv_plan(b, h, w, (c,), cout, "zero", bn=_BN if cout % _BN == 0 else 64),
+                     pad == "reflect")
 
 
 def _dgrad_kernel(kernel_fwd: torch.Tensor) -> torch.Tensor:

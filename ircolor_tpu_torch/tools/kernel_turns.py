@@ -7,6 +7,15 @@ rows' CUDA-event times and library calls as one JSON line, ``TURN {...}``.
     for r in build/parent . . build/parent; do
         python3 ircolor_tpu_torch/tools/kernel_turns.py $r; done
 
+The ``TURN`` line also holds phase 8a's device / host / event readings
+(``chip_smoke.split_time_ms``) by row, S and part, where the checkout's
+phase 8a returns them. With ``--halo``: phase 8a alone.
+
+With ``--host-profile``: instead, ``cProfile`` over 200 calls of row 2's
+halo form (conv1, ``sums=True``) at the b4 shard of S = 4, its functions by
+their own time: where the host's time a call goes (cProfile's own cost
+inflates every entry).
+
 With ``--spatial``: instead, phase 8b (spatial serving at 512×640, S = 2
 and 4, with its checks), its frames/s by run as the ``TURN`` line.
 
@@ -72,7 +81,7 @@ def compare_sass(root: Path, other: Path) -> None:
         print(f"[sass] {short}: {state} ({len(a[name])} / {len(b[name])} lines)")
 
 
-def turn(root: Path) -> None:
+def turn(root: Path, halo_only: bool = False) -> None:
     import torch
 
     build = _use(root)
@@ -84,18 +93,55 @@ def turn(root: Path) -> None:
     build.build_all()
     print(f"[turn {root}] build {time.perf_counter() - t0:.1f} s", flush=True)
     res: list = []
-    cs.check_kernels(torch, res)
-    cs.check_bwd_kernels(torch, res)
-    with torch.inference_mode():
-        g5, w5, xs5 = cs.slice5_setup(torch)
-        cs.check_slice5_kernels(torch, res, w5, xs5)
-        del g5, w5, xs5
-    torch.cuda.empty_cache()
-    cs.check_halo_kernels(torch, res)
+    if not halo_only:
+        cs.check_kernels(torch, res)
+        cs.check_bwd_kernels(torch, res)
+        with torch.inference_mode():
+            g5, w5, xs5 = cs.slice5_setup(torch)
+            cs.check_slice5_kernels(torch, res, w5, xs5)
+            del g5, w5, xs5
+        torch.cuda.empty_cache()
+    split = cs.check_halo_kernels(torch, res)
     print(f"[turn {root}] phases {time.perf_counter() - t0:.1f} s", flush=True)
     print("TURN " + json.dumps({"root": str(root), "ms": {r["name"]: r["ms"] for r in res},
-                                "library_ms": {r["name"]: r.get("library_ms") for r in res}}),
-          flush=True)
+                                "library_ms": {r["name"]: r.get("library_ms") for r in res},
+                                "split": split}), flush=True)
+
+
+def host_profile(root: Path, calls: int = 200) -> None:
+    import cProfile
+    import pstats
+
+    import torch
+
+    build = _use(root)
+    build.build_all()
+    sys.path.insert(0, str(root))
+    from ircolor_tpu_torch.kernels import resblock
+    from ircolor_tpu_torch.parallel.spatial import exchange_halo_rows, shard_h
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 128, 160, 256, device="cuda", generator=g).to(torch.bfloat16)
+    k = (torch.randn(3, 3, 256, 256, device="cuda", generator=g) * 0.05).to(torch.bfloat16)
+    xs = shard_h(x, [x.device] * 4)
+    hr = exchange_halo_rows(xs, 1)[0]
+
+    def call():
+        return resblock.conv3x3_reflect_fused(xs[0], k, halo="separate", halo_rows=hr, sums=True)
+
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(calls):
+        call()
+    prof.disable()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    print(f"[host profile {root}] {calls} calls, {host:.4f} ms a call under cProfile", flush=True)
+    pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(25)
 
 
 def spatial_turn(root: Path) -> None:
@@ -132,13 +178,18 @@ def main() -> int:
                     help="compare csrc/conv_fwd.cu's SASS against this checkout's instead")
     ap.add_argument("--spatial", action="store_true",
                     help="time phase 8b (spatial serving) instead of the kernel rows")
+    ap.add_argument("--halo", action="store_true", help="phase 8a's rows alone")
+    ap.add_argument("--host-profile", action="store_true",
+                    help="cProfile row 2's halo form's host path instead")
     args = ap.parse_args()
     if args.sass is not None:
         compare_sass(args.root.resolve(), args.sass.resolve())
     elif args.spatial:
         spatial_turn(args.root.resolve())
+    elif args.host_profile:
+        host_profile(args.root.resolve())
     else:
-        turn(args.root.resolve())
+        turn(args.root.resolve(), args.halo)
     return 0
 
 

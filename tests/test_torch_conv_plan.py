@@ -1,9 +1,11 @@
 """The bf16 forward conv's plan, operand pass and GEMM, on the CPU.
 
 ``csrc/conv_fwd.cu`` runs only on the card; what surrounds it is Python
-that these tests reach: the tiling of ``_conv_plan``, the operand pass's
-plain version, and a plain version of the GEMM that runs the kernel's K
-loop (leg → 64-channel chunk → dx buffer → dy) with its per-tile moments.
+that these tests reach: the tiling of ``_conv_plan`` and its pick of N (128
+or 64 output channels a block), the operand pass's plain version, and a
+plain version of the GEMM that runs the kernel's K loop (leg → 64-channel
+chunk → dx buffer → dy) with its per-tile moments; ``_conv_fwd``, the one
+C call that enqueues the pass and the GEMM, runs them on CPU tensors.
 The plain versions of the public functions are held against JAX in
 ``test_torch_kernels.py``, ``test_torch_sum_fused.py``,
 ``test_torch_pallas_block.py`` and ``test_torch_pallas_conv.py``.
@@ -31,6 +33,7 @@ def _bf16(rng, *shape, scale=1.0):
     (1, 128, 160, (256,), 256),       # the flagship bottleneck
     (3, 9, 70, (256, 128), 128),      # two legs, a partial column tile
     (1, 256, 320, (128,), 256),       # down2
+    (4, 32, 160, (256,), 256),        # a b4 halo shard at S = 4: N = 64
 ])
 def test_plan_covers_every_pixel_and_channel_once(b, h, w, legs, cout, halo, monkeypatch):
     def no_card(*a, **k):
@@ -50,12 +53,14 @@ def test_plan_covers_every_pixel_and_channel_once(b, h, w, legs, cout, halo, mon
     assert plan.grid == min(plan.blocks, resblock._CF_WAVE)
     for x, blk, bi, tile, r0, c0, co0 in resblock._conv_blocks(plan):
         assert 0 <= x < plan.grid and 0 <= blk < plan.blocks and r0 < h and c0 < w
-        cover[bi, r0 : r0 + TH, c0 : c0 + TW, co0 : co0 + resblock._BN] += 1
+        cover[bi, r0 : r0 + TH, c0 : c0 + TW, co0 : co0 + plan.bn] += 1
         rows[bi, tile] += 1
     assert (cover == 1).all()  # every pixel and output channel once
     # Each (image, tile) row of the partial is written by its ncob blocks,
     # every output channel once.
-    assert (rows == plan.ncob).all() and plan.ncob * resblock._BN == cout
+    assert (rows == plan.ncob).all() and plan.ncob * plan.bn == cout
+    if (b, h) == (4, 32):
+        assert plan.bn == 64
     assert plan.ntiles == -(-h // TH) * -(-w // TW)
     # The A box covers the tile and its halo, one 2·KC-byte row a pixel;
     # every tap's m64 starts on a swizzle atom (8 rows) and stays inside
@@ -94,8 +99,8 @@ def _via_plan(halo, legs, kernels, mean=None, inv=None, stats=True):
     the moments of the per-tile partials, summed in order."""
     b, hi, wi = legs[0].shape[:3]
     h, w = (hi - 2, wi - 2) if halo == "valid" else (hi, wi)
-    plan = resblock._conv_plan(b, h, w, [x.shape[-1] for x in legs], kernels[0].shape[-1], halo,
-                               norm=mean is not None)
+    plan = resblock._conv_plan(b, h, w, tuple(x.shape[-1] for x in legs), kernels[0].shape[-1],
+                               halo, norm=mean is not None)
     srcs = legs
     if plan.pass_pad is not None:
         srcs = [resblock._conv_pass(x, mean, inv, pad=plan.pass_pad) for x in legs]
@@ -161,3 +166,92 @@ def test_k_loop_f32_sums_match_the_f32_conv():
     s1 = partial[:, :, 0].sum(dim=1)
     assert _rel(s1, y.sum(dim=(1, 2))) <= 1e-5
     assert _rel(partial[:, :, 1].sum(dim=1), y.square().sum(dim=(1, 2))) <= 1e-5
+
+
+# (B, H, W, Cout) of the forward conv's launches on the product routes and
+# in phase 2c, and the N the plan gives them: N = 64 where the output
+# blocks' rounds of the 132-block wave cost at least 15% less than at 128.
+_N_PICKS = [
+    ((4, 32, 160, 256), 64),     # 2h: a b4 shard at S = 4 (160 → 320 blocks)
+    ((4, 64, 160, 256), 64),     # 2h: a b4 shard at S = 2 (320 → 640)
+    ((2, 128, 160, 256), 64),    # row 2 in the b2 band
+    ((4, 128, 160, 256), 128),   # row 2 unsharded at b4 (a tie)
+    ((32, 128, 160, 256), 128),  # row 2 at b32 serving, rows 9 and 10 (a tie)
+    ((8, 128, 160, 256), 128),   # row 2 in b8 training (a tie)
+    ((32, 256, 320, 256), 128),  # row 7's down2 launch at b32 (0.3% less at 64)
+    ((32, 256, 320, 128), 128),  # row 7's up1 launch (a tie)
+    ((5, 64, 160, 256), 128),    # 400 → 800 blocks: 4 → 7 rounds, 12.5% less: under the margin
+]
+
+
+@pytest.mark.parametrize("shape,bn", _N_PICKS)
+def test_plan_picks_n64_only_where_the_waves_cost_less(shape, bn):
+    b, h, w, cout = shape
+    for halo, legs in (("reflect", (256,)), ("zero", (128,)), ("valid", (256,))):
+        plan = resblock._conv_plan(b, h, w, legs, cout, halo)
+        assert plan.bn == bn and plan.ncob * plan.bn == cout, (shape, halo)
+        assert plan.b_box == (64, resblock._CF_KC, 1, 3)
+    # The int8 block conv's plans stay at N = 128 (its q-stats policy runs
+    # N = 128 only), and the dgrad's at its own pick.
+    assert resblock._conv_plan(b, h, w, (256,), cout, "reflect", s8=True).bn == 128
+    assert resblock._dgrad_plan(b, h, w, 256, cout, "reflect").conv.bn == 128
+
+
+def test_plan_is_cached_and_takes_legs_as_a_tuple():
+    plan = resblock._conv_plan(4, 32, 160, (256,), 256, "reflect")
+    assert resblock._conv_plan(4, 32, 160, (256,), 256, "reflect") is plan
+    with pytest.raises(TypeError):  # a list is not hashable: the cache refuses it
+        resblock._conv_plan(4, 32, 160, [256], 256, "reflect")
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("halo", ["separate", "provided"])
+def test_one_call_schedule_matches_the_plain_halo_form(halo, norm):
+    """``_conv_fwd`` (the pass and the GEMM of one C call) on CPU tensors,
+    at a halo shard's N = 64 plan: the output within 2 bf16 ulps and the
+    per-tile sums, summed, within 1e-5 of the plain halo form's ``sums``."""
+    rng = np.random.default_rng(5)
+    x = _bf16(rng, 2, 8, 40, 128)
+    rows = (_bf16(rng, 2, 1, 40, 128), _bf16(rng, 2, 1, 40, 128))
+    k = _bf16(rng, 3, 3, 128, 128, scale=0.05)
+    mean, inv = instance_norm_stats(x) if norm else (None, None)
+    plan = resblock._conv_plan(2, 8, 40, (128,), 128, "reflect", norm=norm)
+    assert plan.bn == 64
+    src, hr = (x, rows) if halo == "separate" else (torch.cat([rows[0], x, rows[1]], dim=1), None)
+    out, sums = resblock._conv_fwd((src,), (k,), plan, mean, inv, halo=halo, halo_rows=hr)
+    want = resblock.conv3x3_reflect_fused_plain(x, k, mean, inv, halo="separate",
+                                                halo_rows=rows, sums=True)
+    assert _rel(out, want[0]) <= 2 * 2.0**-8
+    assert sums.shape == (2, 2, 128) and _rel(sums, want[1]) <= 1e-5
+
+
+def test_tile_sum_adds_the_tiles_in_order():
+    """The tile-sum kernel's plain version: tile 0, + tile 1, + tile 2, …,
+    each one f32 addition (so a sum in another order may differ)."""
+    rng = np.random.default_rng(7)
+    partial = torch.from_numpy(rng.standard_normal((2, 5, 2, 8), dtype=np.float32) * 1e3)
+    want = partial[:, 0]
+    for t in range(1, 5):
+        want = want + partial[:, t]
+    assert torch.equal(resblock._tile_sum_plain(partial), want)
+    assert torch.equal(resblock._tile_sum_plain(partial[:, :1]), partial[:, 0])
+
+
+def test_sums_are_the_f32_output_sums():
+    """``sums=True`` returns (out, (B, 2, Cout) Σy, Σy²), the values of the
+    f32 output's sums as before the kernels returned them without a copy;
+    without it, the moments of those sums."""
+    rng = np.random.default_rng(6)
+    x = _bf16(rng, 2, 6, 20, 64)
+    rows = (_bf16(rng, 2, 1, 20, 64), _bf16(rng, 2, 1, 20, 64))
+    k = _bf16(rng, 3, 3, 64, 128, scale=0.05)
+    slab = torch.cat([rows[0], x, rows[1]], dim=1).float().permute(0, 3, 1, 2)
+    y = F.conv2d(F.pad(slab, (1, 1, 0, 0), mode="reflect"), k.float().permute(3, 2, 0, 1))
+    y = y.permute(0, 2, 3, 1)
+    out, s = resblock.conv3x3_reflect_fused(x, k, halo="separate", halo_rows=rows, sums=True)
+    assert torch.equal(out, y.to(torch.bfloat16)) and s.shape == (2, 2, 128)
+    assert torch.equal(s[:, 0], y.sum(dim=(1, 2)))
+    assert torch.equal(s[:, 1], y.square().sum(dim=(1, 2)))
+    _, m, i = resblock.conv3x3_reflect_fused(x, k, halo="separate", halo_rows=rows)
+    want_m, want_i = resblock._moments(s[:, 0], s[:, 1], 6 * 20)
+    assert torch.equal(m, want_m) and torch.equal(i, want_i)

@@ -894,6 +894,48 @@ def test_halo_forms_match_plain_and_unsharded_rows_on_card(cuda, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
+def test_halo_form_at_n64_matches_n128_and_plain_on_card(cuda, n):
+    """Row 2's halo form where the plan runs N = 64 (b4 shards of 64 / n
+    rows; unsharded, N = 128): the GEMM at N = 64 bit-identical to N = 128
+    on the same operands (output and per-tile sums); the one C call
+    bit-identical to the pass and the GEMM launched apart, its sums to
+    their tile partials added in order; within 2 bf16
+    ulps of the plain version, provided = separate, and conv1's rows
+    bit-identical to the unsharded (N = 128) kernel's."""
+    from ircolor_tpu_torch.parallel.spatial import exchange_halo_rows, shard_h
+
+    g = torch.Generator(device=cuda).manual_seed(41)
+    b, h, w, c = 4, 64, 40, 256
+    x = _bf16(g, b, h, w, c)
+    k = _bf16(g, 3, 3, c, c, scale=0.05)
+    m, i = instance_norm_stats(x)
+    assert resblock._conv_plan(b, h, w, (c,), c, "reflect").bn == 128
+    one = resblock.conv3x3_reflect_fused(x, k)
+    xs = shard_h(x, [cuda] * n)
+    for j, (xi, hr) in enumerate(zip(xs, exchange_halo_rows(xs, 1))):
+        for kw in ({}, dict(mean=m, inv=i)):
+            plan = resblock._conv_plan(b, h // n, w, (c,), c, "reflect", norm=bool(kw))
+            assert plan.bn == 64
+            zp = resblock._conv_pass(xi, **kw, halo="separate", halo_rows=hr)
+            got = resblock._conv_gemm([zp], [k], plan, True)
+            n128 = resblock._conv_gemm([zp], [k], resblock._conv_plan(
+                b, h // n, w, (c,), c, "reflect", norm=bool(kw), bn=128), True)
+            assert torch.equal(got[0], n128[0]) and torch.equal(got[1], n128[1])
+            out, s = resblock.conv3x3_reflect_fused(xi, k, **kw, halo="separate", halo_rows=hr,
+                                                    sums=True)
+            assert torch.equal(out, got[0]) and torch.equal(s, resblock._tile_sum_plain(got[1]))
+            slab = torch.cat([hr[0], xi, hr[1]], dim=1).contiguous()
+            prov = resblock.conv3x3_reflect_fused(slab, k, **kw, halo="provided", sums=True)
+            assert torch.equal(prov[0], out) and torch.equal(prov[1], s)
+            want = resblock.conv3x3_reflect_fused_plain(xi, k, **kw, halo="separate",
+                                                        halo_rows=hr)
+            assert _close_bf16(out, want[0])
+            if not kw:
+                assert torch.equal(out, one[0][:, j * (h // n) : (j + 1) * (h // n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
 def test_spatial_blocks_match_unsharded_on_card(cuda, n):
     """``resnet_block_pallas(_q)_spatial`` on n shards of one card against
     the unsharded kernel blocks: the float block within 2 bf16 ulps of the

@@ -96,7 +96,7 @@ def test_int8_plan_has_the_bf16_stage_bytes():
     """An int8 stage is 64 channels a 64-byte row: A's box has the bf16
     box's bytes (so its tap offsets are the bf16 ones), B's is 24 KB at N
     128, and the K loop runs C / 64 chunks."""
-    bf = resblock._conv_plan(2, 13, 37, (256,), 256, "reflect")
+    bf = resblock._conv_plan(2, 13, 37, (256,), 256, "reflect", bn=128)  # the int8 plan's N
     q8 = resblock._conv_plan(2, 13, 37, (256,), 256, "reflect", s8=True)
     assert q8.a_box == (KC, TW, TH + 2, 1) and KC * 1 == bf.a_box[0] * 2  # bytes a pixel row
     assert q8.chunks == (256 // KC,) and bf.chunks == (256 // resblock._CF_KC,)
