@@ -365,6 +365,26 @@ def check_kernels(torch, results: list) -> None:
         del got, want, again
         times.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw), 10))
         parts = q_parts(torch, x, kq, sc, kw)
+        # The route's one call (quantized on load) against the pass and GEMM
+        # launched apart, bit for bit, both timed.
+        plan = resblock._conv_plan(B, hb, wb, (cb,), cb, "reflect", s8=True)
+        kt = resblock.q_pack(kq)
+
+        def two_launches():  # the parent's path (its tile sums by torch)
+            return resblock._q_gemm(resblock._q_pass(x, **kw), kt, sc, plan)[1].sum(dim=1)
+
+        one = resblock._q_fused(x, kt, sc, plan, **kw)
+        out, part = resblock._q_gemm(resblock._q_pass(x, **kw), kt, sc, plan)
+        same = torch.equal(one[0], out) and torch.equal(one[1], resblock._tile_sum_plain(part))
+        del out, part
+        t_one = cuda_time_ms(lambda: resblock._q_fused(x, kt, sc, plan, **kw), 10)
+        t_two = cuda_time_ms(two_launches, 10)
+        parts += (f"\n    one call, quantized on load: {t_one:.4f} ms against the pass and GEMM "
+                  f"launched apart {t_two:.4f}; output and in-order sums bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"conv3x3_reflect_fused_q {label}: the one call differs from "
+                                 f"the two launches")
+        del one
         ptimes.append(cuda_time_ms(lambda: resblock.conv3x3_reflect_fused_q_plain(x, kq, sc, **kw), 2, 1))
         log(f"    kernel {times[-1]:.3f} ms  plain {ptimes[-1]:.3f} ms\n{parts}")
     # The library yardstick: torch._int_mm over an int8 im2col of conv1's
@@ -772,7 +792,8 @@ def kernel_key(name: str) -> str:
     csrc/conv_fwd.cu's GEMM instantiations, "gemm" / "gemm swap" for the
     wgrad's ("... s2": the int8 conv's stride-2 form), "fold" (the dgrad's
     fold lines), "pass" (the operand pass), "pass q8" (its int8 form),
-    "tile sum" (the bf16 conv's in-order sum of its tile partials) or
+    "tile sum" (the in-order sum of a conv's tile partials), "q fused"
+    (the int8 block conv that quantizes on the A load) or
     "head bf16 kK" / "head s8 kK" for
     csrc/head.cu's instantiations (K MMA K steps a staged unit; "multi":
     the one for C past 64 channels, several units a row)."""
@@ -782,6 +803,8 @@ def kernel_key(name: str) -> str:
     if found:
         multi = " multi" if found[3] == "1" else ""
         return f"head {'s8' if found[1] == '1' else 'bf16'} k{found[2]}{multi}"
+    if "conv_q_fused" in name:
+        return "q fused"
     if "operand_pass" in name:
         return "pass q8" if "ILb1E" in name else "pass"
     if "tile_sum" in name:
@@ -803,7 +826,7 @@ def ptxas_lines(source: str) -> dict:
     for line in build.build_logs.get(source, "").splitlines():
         if "Compiling entry function" in line:
             name = kernel_key(line)
-        elif name and ("registers" in line or "spill" in line):
+        elif name and ("registers" in line or "spill" in line or "Performance Loss" in line):
             out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
 
@@ -966,20 +989,20 @@ def check_head_build() -> None:
             raise AssertionError(f"the head ({key}) spills: {line}")
 
 
-def check_gemm_build(what: str, policies: tuple, bns: tuple = (128, 64)) -> None:
+def check_gemm_build(what: str, policies: tuple, bns: tuple = (128, 64),
+                     keys: tuple = ()) -> None:
     """Every instantiation of csrc/conv_fwd.cu's GEMM with one of
-    ``policies`` at the N of ``bns`` issues ``wgmma`` (HGMMA or IGMMA) and
-    spills nothing; their ptxas lines are printed."""
+    ``policies`` at the N of ``bns``, and every kernel of ``keys`` (by
+    ``kernel_key``), issues ``wgmma`` (HGMMA or IGMMA) and spills nothing;
+    their ptxas lines are printed."""
     ptx, hg = ptxas_lines("conv_fwd"), hgmma_by_kernel("conv_fwd")
-    for bn in bns:
-        for policy in policies:
-            key = f"gemm n{bn} {policy}"
-            line = ptx.get(key, "not built in this process")
-            log(f"[{what} GEMM {key}] {hg.get(key, 0)} wgmma instructions; ptxas {line}")
-            if not hg.get(key):
-                raise AssertionError(f"the {what} GEMM ({key}) issues no wgmma")
-            if key in ptx and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                raise AssertionError(f"the {what} GEMM ({key}) spills: {line}")
+    for key in [f"gemm n{bn} {policy}" for bn in bns for policy in policies] + list(keys):
+        line = ptx.get(key, "not built in this process")
+        log(f"[{what} GEMM {key}] {hg.get(key, 0)} wgmma instructions; ptxas {line}")
+        if not hg.get(key):
+            raise AssertionError(f"the {what} GEMM ({key}) issues no wgmma")
+        if key in ptx and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"the {what} GEMM ({key}) spills: {line}")
 
 
 def check_bwd_kernels(torch, results: list) -> None:
@@ -2330,17 +2353,22 @@ def check_halo_kernels(torch, results: list) -> None:
     normalize + ReLU on load, by the image's IN moments). On every shard
     the separate form against its plain version (row 1: ≤ 2.5 quant steps,
     ≤ 1e-3 differing; row 2: 2 bf16 ulps), the provided form (the same
-    slab) bit-identical to it, conv1's raw output bit-identical to the
-    same rows of the unsharded kernel's, and the sums added over the
-    shards within 1e-5 relative of the unsharded kernel's moments. Timed
-    at the shard shape of S = 2 (the row in the kernels line) and of S =
-    4, beside the bound, the plain version and the library call on the
-    halo slab (row 2: cuDNN of the W-padded slab; row 1: ``torch._int_mm``
-    over an int8 im2col of its quantized padded slab). Each timed call
-    (both forms, the operand pass and the GEMM alone, the library call)
-    is read three times three ways, device / host / event ms
-    (``split_time_ms``); the row's ``ms`` and ``library_ms`` are the event
-    readings' means. Returns the readings by row name, S and part."""
+    slab) and the pass and GEMM launched apart (row 1: the two-launch path
+    it ran before it quantized on load) bit-identical to it, its raw output
+    (conv1 and conv2) bit-identical to the same rows of the unsharded
+    kernel's, shard 1 with its own first row as its top halo row flagged
+    by that check, and the sums added over the shards within 1e-5 relative
+    of the unsharded kernel's moments; row 1's new kernel must build with
+    IGMMA and no spill, and a halo call launch it and no operand pass
+    (``torch.profiler``). Timed at the shard shape of S = 2 (the row in
+    the kernels line) and of S = 4, beside the bound, the plain version
+    and the library call on the halo slab (row 2: cuDNN of the W-padded
+    slab; row 1: ``torch._int_mm`` over an int8 im2col of its quantized
+    padded slab). Each timed call (both forms; row 1's two-launch path;
+    the operand pass and the GEMM alone; the library call) is read three
+    times three ways, device / host / event ms (``split_time_ms``); the
+    row's ``ms`` and ``library_ms`` are the event readings' means. Returns
+    the readings by row name, S and part."""
     import torch.nn.functional as F
 
     from ircolor_tpu_torch.kernels import LAUNCHES, resblock
@@ -2353,6 +2381,25 @@ def check_halo_kernels(torch, results: list) -> None:
     before = dict(LAUNCHES)
     splits: dict = {}
     hb, wb, cb = H // 4, W // 4, NGF * 4
+    check_gemm_build("int8 block conv", (), keys=("q fused",))
+
+    def two_launch(xi, hr, args, kw):
+        """The halo form's pass and GEMM launched apart, their tile sums
+        added in order: bf16 ``_conv_pass`` + ``_conv_gemm``; int8 the
+        two-launch path that 1h ran before it quantized on load."""
+        hl = xi.shape[1]
+        if len(args) == 1:
+            plan = resblock._conv_plan(xi.shape[0], hl, wb, (cb,), cb, "reflect",
+                                       norm="mean" in kw)
+            out, part = resblock._conv_gemm(
+                [resblock._conv_pass(xi, **kw, halo="separate", halo_rows=hr)], list(args),
+                plan, True)
+        else:
+            plan = resblock._conv_plan(xi.shape[0], hl, wb, (cb,), cb, "reflect", s8=True)
+            out, part = resblock._q_gemm(resblock._q_pass(xi, **kw, halo="separate",
+                                                          halo_rows=hr),
+                                         resblock._q_weights(args[0], plan), args[1], plan)
+        return out, resblock._tile_sum_plain(part)
     k = (torch.randn(3, 3, cb, cb, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
     kq, sw = quantize_weight_per_channel(k)
     for name, quant, b in (("conv3x3_reflect_fused_q_halo", True, B),
@@ -2392,19 +2439,24 @@ def check_halo_kernels(torch, results: list) -> None:
                         worst = max(worst, float(d.max()) / float(want[0].float().abs().max()))
                         ok = worst <= 2 * 2.0**-8
                     same = all(torch.equal(a, c) for a, c in zip(got, prov))
-                    rows = form != "conv1" or torch.equal(got[0], one[0][:, i * hl : (i + 1) * hl])
-                    if not quant:  # the one C call enqueues the two launches' work, bit for bit
-                        plan = resblock._conv_plan(b, hl, wb, (cb,), cb, "reflect",
-                                                   norm="mean" in kw)
-                        two = resblock._conv_gemm(
-                            [resblock._conv_pass(xi, **kw, halo="separate", halo_rows=hr)],
-                            list(args), plan, True)
-                        same = same and torch.equal(got[0], two[0]) and torch.equal(
-                            got[1], resblock._tile_sum_plain(two[1]))
+                    # The image's rows (conv2: its IN moments on every shard) and the
+                    # GEMM's per-pixel K order: the unsharded kernel's rows, bit for bit.
+                    rows = torch.equal(got[0], one[0][:, i * hl : (i + 1) * hl])
+                    # The one C call against the pass and GEMM launched apart (int8: the
+                    # parent's two-launch path), output and in-order sums bit for bit.
+                    two = two_launch(xi, hr, args, kw)
+                    same = same and torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+                    if i == 1:  # a single wrong halo row at the kernel: the rows check flags it
+                        bad = fn(xi, *args, **kw, halo="separate", sums=True,
+                                 halo_rows=(xi[:, :1].contiguous(), hr[1]))
+                        if torch.equal(bad[0], one[0][:, hl : 2 * hl]):
+                            raise AssertionError(f"{name} {form} S={n}: shard 1 with its own "
+                                                 f"first row as its top halo row is not flagged")
+                        del bad
                     if not (ok and same and rows):
                         raise AssertionError(f"{name} {form} S={n} shard {i}: plain ok {ok}, "
-                                             f"provided = separate (and, bf16, = the pass and "
-                                             f"GEMM launched apart) {same}, conv1 rows {rows}")
+                                             f"provided = separate = the pass and GEMM "
+                                             f"launched apart {same}, rows {rows}")
                     errs.append(float(d.max()))
                     sums.append(got[1])
                 s = all_sum(sums)[0]
@@ -2414,10 +2466,9 @@ def check_halo_kernels(torch, results: list) -> None:
                 what = "quant steps (tol 2.5), differing share " + f"{frac:.3g}" if quant \
                     else "of the output's scale (tol 2 bf16 ulps)"
                 log(f"[{name} {form} S={n}] local {tuple(xs[0].shape)}: max|d| vs plain "
-                    f"{worst:.4g} {what}; provided = separate"
-                    f"{'' if quant else ' = the pass and GEMM launched apart'}, "
-                    f"{'conv1 rows = unsharded kernel rows; ' if form == 'conv1' else ''}"
-                    f"summed moments vs unsharded {rel:.3g} relative (tol 1e-5)")
+                    f"{worst:.4g} {what}; provided = separate = the pass and GEMM launched "
+                    f"apart, rows = unsharded kernel rows, shard 1 with a wrong top halo row "
+                    f"flagged; summed moments vs unsharded {rel:.3g} relative (tol 1e-5)")
                 if rel > 1e-5:
                     raise AssertionError(f"{name} {form} S={n}: summed moments {rel:.3g}")
             # Times at the shard shape, shard 0: each call three ways
@@ -2433,8 +2484,19 @@ def check_halo_kernels(torch, results: list) -> None:
             slab = torch.cat([hr0[0], x0, hr0[1]], dim=1).contiguous()
             if quant:
                 kw1, sc1 = forms[0][2], forms[0][1][1]
+                names = kernels_launched(torch, lambda: fn(x0, kq, sc1, **kw1, halo="separate",
+                                                           halo_rows=hr0, sums=True))
+                log(f"    S={n}: one halo call launches {names} (torch.profiler)")
+                if any("operand_pass" in k for k in names) or not any(
+                        "conv_q_fused" in k for k in names):
+                    raise AssertionError(f"the int8 halo form launches {names}")
                 zq = resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0)
                 kt = resblock._q_weights(kq, plan)
+                split["two launches conv1"] = split_time_ms(  # the parent's path
+                    lambda: resblock._q_gemm(resblock._q_pass(x0, **kw1, halo="separate",
+                                                              halo_rows=hr0),
+                                             resblock._q_weights(kq, plan), sc1,
+                                             plan)[1].sum(dim=1))
                 split["pass"] = split_time_ms(
                     lambda: resblock._q_pass(x0, **kw1, halo="separate", halo_rows=hr0))
                 split[f"GEMM N={plan.bn}"] = split_time_ms(
@@ -2486,6 +2548,22 @@ def check_halo_kernels(torch, results: list) -> None:
         torch.cuda.empty_cache()
     LAUNCHES.update(before)
     return splits
+
+
+def kernels_launched(torch, fn) -> list:
+    """The CUDA kernels one call of ``fn`` launches, by ``torch.profiler``
+    (the names seen in either of two calls profiled apart: a window can miss
+    a launch's record), each name cut to 60 characters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen: set = set()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen |= {e.name[:60] for e in prof.events() if e.device_type.name == "CUDA"}
+    return sorted(seen)
 
 
 def check_n64_bits(torch, x, k, forms) -> None:

@@ -84,11 +84,12 @@
 // * Operand pass (tma.cuh, memory-bound): REFLECT writes the reflect-padded
 //   Zp (B, H+2, W+2, C) of x or of bf16(relu((x - mean)*inv)); VALID with
 //   mean/inv normalizes the padded input as it is; the dgrad writes dy; the
-//   int8 block conv writes the reflect-padded quantized Zp as int8 (its
-//   reflect index map is where a spatial shard's halo row would come in),
-//   and the int8 conv's reflect sites copy their quantized input into the
+//   int8 conv's reflect sites copy their quantized input into the
 //   reflect-padded Zp. ZERO and VALID raw need none: the GEMM reads the
-//   input itself.
+//   input itself; nor does the int8 block conv, whose kernel quantizes its
+//   input as it loads it (see "the int8 block conv, quantized on load"
+//   below; its int8 pass, writing the reflect-padded quantized Zp, and the
+//   q-stats GEMM stay as that kernel's bit-exact reference).
 // * GEMM: a block owns TH x TW = 8 x 32 output pixels (M = 256) of one
 //   image and BN = 128 output channels (N; 64 where Cout % 128 != 0, the
 //   segments' dz of 64, and in the forward's stats and store policies
@@ -169,8 +170,10 @@
 //   are (image, tile) major, the output-channel blocks of one tile next to
 //   each other, so A comes from L2 after its first read.
 // * The host: a bf16 conv is one C call (ircolor_conv_fwd: the passes,
-//   the tensor maps, the GEMM), and a GEMM instantiation's shared-memory
-//   attribute is set once a card. At the b4 halo shards the device works
+//   the tensor maps, the GEMM), so is the int8 block conv
+//   (ircolor_conv_q_fwd: its kernel, the tile sum), and a GEMM
+//   instantiation's shared-memory attribute is set once a card. At the b4
+//   halo shards the device works
 //   ~0.07 ms a conv, about what a call's Python and launches cost.
 // * The fold lines (the dgrad with reflect halos): a small kernel computes
 //   F[-1, -1..W], F[H, -1..W] (B, 2, W+2, Cin) and F[0..H-1, -1], F[0..H-1,
@@ -1029,6 +1032,482 @@ int fwd_gemm(const void* x0, const void* k0, int C0, const void* x1, const void*
                   partial != nullptr ? EPI_STATS : EPI_STORE, grid, stream);
 }
 
+// ------------------------------------ the int8 block conv, quantized on load ----
+//
+// The int8 block conv (the q-stats policy, N = 128) with no operand pass:
+// the kernel reads the bf16 input and writes A's s8 operand to shared memory
+// itself. A block's chunk k (64 input channels) needs the (TH + 2) x (TW +
+// 2) input pixels around its tile: rows r0 - 1 .. r0 + TH, columns c0 - 1
+// .. c0 + TW.
+// * Staging: one TMA box of them, bf16, 128-byte swizzled (43.5 KB: L2
+//   serves A once a chunk, as bf16), and at a shard's first and last tile
+//   rows the halo row -1 / H from top / bot through 1-row maps of their own
+//   into two 4.25 KB buffers. Producer thread 0 asks for the next chunk's
+//   box as soon as this one is quantized; it lands while the producers copy
+//   this chunk's three stages, which wait on the consumers.
+// * Quantize, once an element: the 8 producer warps take the chunk in
+//   16-channel units (unit u: pixel u / 4, channels 16 (u % 4) of the chunk;
+//   a thread keeps one channel group, so its 16 channels' parameters stay in
+//   registers), in the pass's single IEEE steps (tma.cuh) with the rounding
+//   on the FP32 pipe (rint_clamp), into an s8 tile of the (TH + 2) x (TW +
+//   2) pixels. Rows -1 and H come from the halo buffers or, with top / bot
+//   null, from rows 1 and H - 2 (ReflectionPad); columns -1 and W from
+//   columns 1 and W - 2; pixels past row H or column W, which feed only
+//   masked outputs, are zeros.
+// * Copy, a stage (chunk, dx) at a time: the tile's columns dx .. dx + TW -
+//   1 into the stage's A buffer, 64-byte swizzled as TMA writes it: the
+//   two-launch GEMM's A buffer, so the consumers' descriptors and wgmmas are
+//   its own. Producer thread 0 asks for the stage's B box by TMA (as the
+//   two-launch GEMM's producer does) once the slot is free; the stage's
+//   barrier completes on its bytes and one arrival a producer warp, after
+//   each thread's fence.proxy.async.
+// Three stages of 44 KB (the staging, the tile and the sums take the rest of
+// shared memory): the copy of stage s waits for stage s - 3 to be consumed,
+// and the next chunk's quantize runs while the consumers run this chunk's
+// three stages. 512 threads: setmaxnreg gives the two consumer warpgroups
+// 168 registers a thread (the q-stats epilogue's) and the two producer
+// warpgroups 88. The epilogue is the q-stats policy's, in its order, so out
+// and the per-tile sums are the two-launch path's bit for bit.
+// What bounds it: shared memory's bandwidth. A stage of the two-launch GEMM
+// moves ~188 KB through it (its wgmmas' reads 144, B's box 24, A's 20) in
+// ~1,900 cycles, ~100 bytes a cycle; the staging, the tile and the copies
+// add ~75 KB a stage, which the pass's HBM round trip no longer costs. The
+// forms measured on the way (PERF.md §6): the producers reading L2
+// themselves (A's 20 KB a stage alone) spilled or waited out their loads'
+// latency at the registers a producer thread gets; the consumers copying
+// their own A did not hide under the wgmmas. Built with IRCOLOR_QL_PROFILE
+// (the probe tools/q_halo_probe.py --fused), one thread of each role adds
+// the clock64 cycles of each of its phases to ql_profile.
+constexpr int QL_THREADS = 512;
+constexpr int QL_CONVERT = 256;                     // the producer threads: warps 8-15
+constexpr int QL_BOXW = TW + 2, QL_BOXH = TH + 2;   // a chunk's input pixels
+constexpr int QL_UNITS = QL_BOXW * QL_BOXH * (KC_S8 / 16);  // quantize units a chunk: 1360
+constexpr int QL_COPY = TW * QL_BOXH * (KC_S8 / 16);        // copy units a stage: 1280
+constexpr int QL_STG = 44 * 1024;                   // the staging box: 10 x 34 pixels x 128 B
+constexpr int QL_HALO = 5 * 1024;                   // a halo row: 34 x 128 B
+constexpr int QL_TILE = 22 * 1024;                  // the s8 tile: 340 x 64 B
+constexpr int QL_STAGE = A_BYTES + 2 * B_HALF;      // A 20 KB + B 24 KB
+constexpr int QL_STAGES = 3;
+constexpr int QL_RED = CONSUMERS * 4 * 128 * 2 * 4; // the sums' warp partials
+constexpr int QL_SMEM = QL_STG + 2 * QL_HALO + QL_TILE + QL_STAGES * QL_STAGE + QL_RED + 128 * 4 +
+                        (1 + 2 * QL_STAGES) * 8 + 1024;
+static_assert(QL_BOXH * QL_BOXW * 128 <= QL_STG && QL_BOXW * 128 <= QL_HALO &&
+                  QL_BOXH * QL_BOXW * 64 <= QL_TILE,
+              "the staging, halo and tile buffers hold a chunk");
+static_assert(QL_CONVERT == 2 * 128 && QL_COPY % QL_CONVERT == 0,
+              "two producer warpgroups, each thread in one channel group, 5 copy units a stage");
+static_assert(QL_STG % 1024 == 0 && QL_HALO % 1024 == 0 && QL_TILE % 1024 == 0 &&
+                  QL_STAGE % 1024 == 0,
+              "buffers on 1 KB swizzle atoms");
+static_assert(QL_SMEM <= 232448, "the quantize-on-load kernel fits a block's shared memory");
+
+#ifdef IRCOLOR_QL_PROFILE
+// Cycles by phase, summed over the blocks: producer thread 0 (0 staging
+// wait, 1 quantize, 2 tile barrier and the next load, 3 stage waits, 4
+// copies, 5 fences and arrivals, 6 end barrier), consumer 0 (7 stage waits,
+// 8 wgmma issue and wait, 9 epilogue); 10 unused; 11 chunks.
+__device__ unsigned long long ql_profile[12];
+#define QL_MARK(on, i)                                          \
+  do {                                                          \
+    if (on) {                                                   \
+      const long long now_ = clock64();                         \
+      atomicAdd(&ql_profile[i], (unsigned long long)(now_ - ql_t_)); \
+      ql_t_ = now_;                                             \
+    }                                                           \
+  } while (0)
+#define QL_CLOCK long long ql_t_ = clock64()
+#else
+#define QL_MARK(on, i) \
+  do {                 \
+  } while (0)
+#define QL_CLOCK
+#endif
+
+struct QLoadArgs {
+  int H, W, C, Cout;
+  int nchunk, ntc, ntiles, ncob, ntasks;
+  int halo;                  // 1: rows -1 and H from the halo maps; 0: reflected
+  const float* qscale;       // (B,) conv1's 127 / amax, or null
+  const float* zm;           // (B, C) conv2's IN mean and inv_std (with qscale null)
+  const float* zi;
+  float qfixed;              // conv2's 127 / 6
+  const float* sc;           // (B, Cout) the dequant scale
+  __nv_bfloat16* out;        // (B, H, W, Cout)
+  float* partial;            // (B, ntiles, 2, Cout)
+};
+
+// The int8 bits of max(lo, min(127, __float2int_rn(v))) in the low byte (on
+// the FP32 pipe; a warp's cvt.rni takes 8 cycles of a quarter SM): v clamped
+// first (integer bounds commute with rounding to an integer), then rounded to
+// nearest even by adding 1.5 * 2^23, whose ulp is 1, so the integer sits in
+// the sum's low mantissa bits, two's complement in its low byte. NAN_ZERO:
+// NaN gives 0, as cvt.rni does (conv2's relu already maps NaN to 0).
+template <bool NAN_ZERO>
+__device__ __forceinline__ uint32_t rint_clamp(float v, float lo) {
+  const uint32_t r = __float_as_uint(__fadd_rn(fminf(fmaxf(v, lo), 127.f), 12582912.f));
+  return NAN_ZERO && v != v ? 0u : r;
+}
+
+// Four low bytes into one word, the first lowest.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// 16 bf16 (two 16-byte words) quantized to 16 s8 as the pass quantizes them:
+// conv1 clamp(rint(x * qs), -127, 127); conv2 (NORM) min(rint(relu((x - zm)
+// * zi) * qfixed), 127).
+template <bool NORM>
+__device__ __forceinline__ uint4 quantize16(uint4 v0, uint4 v1, float qs, const float (&zm)[16],
+                                            const float (&zi)[16], float qfixed) {
+  const uint32_t zw[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  uint32_t q[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float x = k % 2 ? bf16_hi(zw[k / 2]) : bf16_lo(zw[k / 2]);
+    if constexpr (NORM) {
+      const float z = fmaxf(__fmul_rn(__fsub_rn(x, zm[k]), zi[k]), 0.f);
+      q[k] = rint_clamp<false>(__fmul_rn(z, qfixed), 0.f);  // z >= 0: min(.., 127) alone
+    } else {
+      q[k] = rint_clamp<true>(__fmul_rn(x, qs), -127.f);
+    }
+  }
+  return make_uint4(low_bytes(q[0], q[1], q[2], q[3]), low_bytes(q[4], q[5], q[6], q[7]),
+                    low_bytes(q[8], q[9], q[10], q[11]), low_bytes(q[12], q[13], q[14], q[15]));
+}
+
+__device__ __forceinline__ uint4 lds16(uint32_t at) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(at));
+  return v;
+}
+__device__ __forceinline__ void sts16(uint32_t at, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 16-byte chunk c of 64-byte row p (64-byte swizzle) or 128-byte row p
+// (128-byte swizzle) of a 1 KB-aligned buffer, as TMA lays them out.
+__device__ __forceinline__ uint32_t swz64(uint32_t buf, int p, int c) {
+  return buf + p * 64 + ((c ^ ((p >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ uint32_t swz128(uint32_t buf, int p, int c) {
+  return buf + p * 128 + ((c ^ (p & 7)) << 4);
+}
+
+// A task's image and tile origin.
+struct QTask {
+  int b, mt, r0, c0, co0;
+  __device__ __forceinline__ QTask(const QLoadArgs& a, int task) {
+    mt = task / a.ncob;
+    co0 = (task % a.ncob) * 128;
+    b = mt / a.ntiles;
+    const int tile = mt % a.ntiles;
+    r0 = (tile / a.ntc) * TH;
+    c0 = (tile % a.ntc) * TW;
+  }
+};
+
+// The staging loads of (task, chunk k): the box of x's rows into stg and,
+// with halo maps, the rows -1 / H at a shard's first / last tile row into
+// the two buffers after it; completion (all their bytes) on bar. maps: x's
+// rows, top, bot.
+__device__ __forceinline__ void q_load_chunk(const QLoadArgs& a, const CUtensorMap* const (&maps)[3],
+                                             uint32_t stg, uint32_t bar, int task, int k) {
+  const QTask q(a, task);
+  const bool top = a.halo && q.r0 == 0, bot = a.halo && q.r0 + TH >= a.H;
+  mbar_expect_tx(bar, QL_BOXH * QL_BOXW * 128 + (top + bot) * QL_BOXW * 128);
+  tma_load(stg, maps[0], bar, k * KC_S8, q.c0 - 1, q.r0 - 1, q.b);
+  if (top) tma_load(stg + QL_STG, maps[1], bar, k * KC_S8, q.c0 - 1, 0, q.b);
+  if (bot) tma_load(stg + QL_STG + QL_HALO, maps[2], bar, k * KC_S8, q.c0 - 1, 0, q.b);
+}
+
+// The producer warps' loop (conv_q_fused_kernel's shared-memory layout from
+// base): per chunk, wait for its staged box, quantize it into the s8 tile,
+// ask for the next chunk's box (thread 0), then per stage (dx) wait for the
+// slot, ask for its weight box (thread 0) and copy the tile's columns dx ..
+// dx + TW - 1 into its A buffer.
+template <bool NORM>
+__device__ __forceinline__ void q_produce(const QLoadArgs& a, const CUtensorMap* const (&maps)[3],
+                                          const CUtensorMap* tb, int t, uint32_t base) {
+  const uint32_t stg = base, htop = stg + QL_STG, hbot = htop + QL_HALO;
+  const uint32_t tile = hbot + QL_HALO, ring = tile + QL_TILE;
+  const uint32_t stg_full = ring + QL_STAGES * QL_STAGE + QL_RED + 128 * 4;
+  const uint32_t full0 = stg_full + 8, empty0 = full0 + 8 * QL_STAGES;
+  const int cq = t % 4, lane = t % 32;
+  [[maybe_unused]] const bool prof = t == 0;
+  QL_CLOCK;
+  int g = 0, gc = 0;
+  for (int task = blockIdx.x; task < a.ntasks; task += gridDim.x) {
+    const QTask q(a, task);
+    const float qs = NORM ? 0.f : __ldg(a.qscale + q.b);
+    for (int k = 0; k < a.nchunk; ++k, ++gc) {
+      float zm[16], zi[16];
+      if constexpr (NORM) {
+        const size_t ch = (size_t)q.b * a.C + k * KC_S8 + 16 * cq;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float m8[8], i8[8];
+          load8(a.zm + ch + 8 * e, m8);
+          load8(a.zi + ch + 8 * e, i8);
+#pragma unroll
+          for (int f = 0; f < 8; ++f) {
+            zm[8 * e + f] = m8[f];
+            zi[8 * e + f] = i8[f];
+          }
+        }
+      }
+      mbar_wait(stg_full, gc & 1);
+      QL_MARK(prof, 0);
+      // Quantize the staged pixels into the s8 tile.
+#pragma unroll 2
+      for (int u = t; u < QL_UNITS; u += QL_CONVERT) {
+        const int p = u / 4, i = p / QL_BOXW, j = p - i * QL_BOXW;
+        const int gr = q.r0 - 1 + i, gcl = q.c0 - 1 + j;
+        uint4 out = make_uint4(0u, 0u, 0u, 0u);
+        if (gr <= a.H && gcl <= a.W) {
+          // The source: box column jj (columns -1, W reflected), box row i
+          // or the halo buffer's one row (rows -1, H; reflected without).
+          const int jj = gcl < 0 ? 2 : (gcl == a.W ? a.W - q.c0 - 1 : j);
+          const bool edge = gr < 0 || gr == a.H;
+          const uint32_t buf = a.halo && edge ? (gr < 0 ? htop : hbot) : stg;
+          const int row = !edge ? i : a.halo ? 0 : gr < 0 ? 2 : a.H - q.r0 - 1;
+          const int sp = row * QL_BOXW + jj;
+          out = quantize16<NORM>(lds16(swz128(buf, sp, 2 * cq)),
+                                 lds16(swz128(buf, sp, 2 * cq + 1)), qs, zm, zi, a.qfixed);
+        }
+        sts16(swz64(tile, p, cq), out);
+      }
+      QL_MARK(prof, 1);
+      asm volatile("bar.sync 2, %0;\n" ::"n"(QL_CONVERT) : "memory");  // the tile is whole
+      if (t == 0) {  // the staging is free: the next chunk's box
+        if (k + 1 < a.nchunk) {
+          q_load_chunk(a, maps, stg, stg_full, task, k + 1);
+        } else if (task + (int)gridDim.x < a.ntasks) {
+          q_load_chunk(a, maps, stg, stg_full, task + gridDim.x, 0);
+        }
+      }
+      QL_MARK(prof, 2);
+      // The chunk's three stages: the tile's columns dx .. dx + TW - 1.
+      for (int dx = 0; dx < 3; ++dx, ++g) {
+        const int s = g % QL_STAGES;
+        const uint32_t st = ring + s * QL_STAGE, full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((g / QL_STAGES) & 1) ^ 1);
+        if (t == 0) {  // the stage's weight box
+          mbar_expect_tx(full, 2 * B_HALF);
+          tma_load(st + A_BYTES, tb, full, k * KC_S8, q.co0, dx, 0);
+        }
+        QL_MARK(prof, 3);
+        uint4 v[QL_COPY / QL_CONVERT];
+#pragma unroll
+        for (int m = 0; m < QL_COPY / QL_CONVERT; ++m) {
+          const int prow = (t + QL_CONVERT * m) / 4;
+          v[m] = lds16(swz64(tile, prow + (prow / TW) * 2 + dx, cq));
+        }
+#pragma unroll
+        for (int m = 0; m < QL_COPY / QL_CONVERT; ++m)
+          sts16(swz64(st, (t + QL_CONVERT * m) / 4, cq), v[m]);
+        QL_MARK(prof, 4);
+        fence_proxy_async();  // the stores, visible to the consumers' wgmmas
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full);
+        QL_MARK(prof, 5);
+      }
+      asm volatile("bar.sync 2, %0;\n" ::"n"(QL_CONVERT) : "memory");  // the tile is read
+      QL_MARK(prof, 6);
+#ifdef IRCOLOR_QL_PROFILE
+      if (prof) atomicAdd(&ql_profile[11], 1ull);
+#endif
+    }
+  }
+}
+
+__global__ void __launch_bounds__(QL_THREADS, 1)
+    conv_q_fused_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap ttop,
+                        const __grid_constant__ CUtensorMap tbot,
+                        const __grid_constant__ CUtensorMap tb, const QLoadArgs a) {
+  constexpr int BN = 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = base + QL_STG + 2 * QL_HALO + QL_TILE;  // q_produce's layout
+  const uint32_t red = ring + QL_STAGES * QL_STAGE, scp = red + QL_RED;
+  const uint32_t stg_full = scp + BN * 4, full0 = stg_full + 8, empty0 = full0 + 8 * QL_STAGES;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(stg_full, 1);
+    for (int s = 0; s < QL_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1 + QL_CONVERT / 32);  // B's TMA (expect_tx), a producer warp each
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg >= CONSUMERS) {
+    // The producers. Thread t's quantize units are t + 256 m, its copy units
+    // likewise: all in channel group t % 4.
+    setmaxnreg_dec<88>();
+    const int t = threadIdx.x - CONSUMERS * 128;
+    const CUtensorMap* const maps[3] = {&tx, &ttop, &tbot};
+    if (t == 0 && blockIdx.x < a.ntasks) q_load_chunk(a, maps, base, stg_full, blockIdx.x, 0);
+    if (a.zm != nullptr) {
+      q_produce<true>(a, maps, &tb, t, base);
+    } else {
+      q_produce<false>(a, maps, &tb, t, base);
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: output rows r0 + 4 wg + [0, 4) of each task, as
+  // two m64 sub-tiles of 2 rows; 128 output channels.
+  setmaxnreg_inc<168>();
+  const int warp = (threadIdx.x / 32) % 4;
+  [[maybe_unused]] const bool prof = threadIdx.x == 0;
+  float* redp = reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw)));
+  float* scv = reinterpret_cast<float*>(smem_raw + (scp - smem_u32(smem_raw)));
+  QL_CLOCK;
+  int g = 0;
+  for (int task = blockIdx.x; task < a.ntasks; task += gridDim.x) {
+    const QTask q(a, task);
+    if (threadIdx.x < BN) scv[threadIdx.x] = a.sc[(size_t)q.b * a.Cout + q.co0 + threadIdx.x];
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+    int acc[2][BN / 2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0;
+    const int nst = 3 * a.nchunk;
+    QL_MARK(prof, 9);
+    for (int j = 0; j < nst; ++j, ++g) {
+      const int s = g % QL_STAGES;
+      const uint32_t st = ring + s * QL_STAGE;
+      mbar_wait(full0 + 8 * s, (g / QL_STAGES) & 1);
+      QL_MARK(prof, 7);
+      wgmma_fence();
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {  // 32 bytes of each 64-byte row: k32 s8
+          const uint64_t db = smem_desc_k64(st + A_BYTES + dy * BN * KC_S8 + ks * 32);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int row = 4 * wg + 2 * t + dy;  // the tap's first buffer row
+            wgmma_s8_n128(acc[t], smem_desc_k64(st + row * TW * A_ROW + ks * 32), db);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before this one is done with its buffers
+      if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % QL_STAGES));
+      QL_MARK(prof, 8);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % QL_STAGES));  // the task's last stage
+    QL_MARK(prof, 8);
+    // The q-stats epilogue (conv_fwd_gemm_kernel's, in its order).
+    const int rw = q.r0 + 4 * wg + warp / 2, cw = q.c0 + 16 * (warp % 2) + lane / 4;
+    const int cl = 2 * (lane % 4);
+    const size_t obase = (((size_t)q.b * a.H + rw) * a.W + cw) * a.Cout + q.co0 + cl;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const float2 mm = *reinterpret_cast<const float2*>(scv + 8 * i + cl);
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rw + 2 * t, c = cw + 8 * h;
+          if (r >= a.H || c >= a.W) continue;
+          const size_t o = obase + ((size_t)2 * t * a.W + 8 * h) * a.Cout + 8 * i;
+          const float y0 = __fmul_rn(__int2float_rn(acc[t][4 * i + 2 * h]), mm.x);
+          const float y1 = __fmul_rn(__int2float_rn(acc[t][4 * i + 2 * h + 1]), mm.y);
+          s1[0] += y0;
+          s1[1] += y1;
+          s2[0] += y0 * y0;
+          s2[1] += y1 * y1;
+          *reinterpret_cast<uint32_t*>(a.out + o) = pack_bf16x2(y0, y1);
+        }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes of one column pair
+          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
+          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
+        }
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i + 2 * lane + e;
+          redp[((wg * 4 + warp) * BN + col) * 2] = s1[e];
+          redp[((wg * 4 + warp) * BN + col) * 2 + 1] = s2[e];
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // consumers only
+    if (threadIdx.x < BN) {
+      float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < CONSUMERS * 4; ++w) {  // warps in a fixed order
+        t1 += redp[(w * BN + threadIdx.x) * 2];
+        t2 += redp[(w * BN + threadIdx.x) * 2 + 1];
+      }
+      float* dst = a.partial + ((size_t)q.mt * 2) * a.Cout + q.co0 + threadIdx.x;
+      dst[0] = t1;
+      dst[a.Cout] = t2;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");  // red, scv free again
+  }
+}
+
+// The quantize-on-load launch: the tensor maps (x's rows, the halo rows,
+// the weights), the tiling, the shared-memory attribute once a card (as
+// launch_gemm), the kernel. x / top / bot: image strides x_img / t_img.
+int launch_q_fused(QLoadArgs a, const void* x, const void* top, const void* bot, long long x_img,
+                   long long t_img, const void* kt, int B, int grid, cudaStream_t stream) {
+  CUtensorMap tx, ttop, tbot, tb;
+  const cuuint64_t row = (cuuint64_t)a.W * a.C * 2;
+  const cuuint64_t dx[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)B};
+  const cuuint64_t sx[3] = {(cuuint64_t)a.C * 2, row, (cuuint64_t)x_img * 2};
+  const cuuint32_t bx[4] = {KC_S8, QL_BOXW, QL_BOXH, 1};
+  int err = make_map_4d(&tx, x, dx, sx, bx);
+  if (err == 0 && top != nullptr) {
+    const cuuint64_t dt[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W, 1, (cuuint64_t)B};
+    const cuuint64_t st[3] = {(cuuint64_t)a.C * 2, row, (cuuint64_t)t_img * 2};
+    const cuuint32_t bt[4] = {KC_S8, QL_BOXW, 1, 1};
+    err = make_map_4d(&ttop, top, dt, st, bt);
+    if (err == 0) err = make_map_4d(&tbot, bot, dt, st, bt);
+  } else {
+    ttop = tbot = tx;
+  }
+  if (err == 0) err = make_q_weight_map(&tb, kt, a.C, a.Cout, 128);
+  if (err != 0) return err;
+  a.halo = top != nullptr;
+  a.nchunk = a.C / KC_S8;
+  a.ntc = (a.W + TW - 1) / TW;
+  a.ntiles = ((a.H + TH - 1) / TH) * a.ntc;
+  a.ncob = a.Cout / 128;
+  const long long tasks = (long long)B * a.ntiles * a.ncob;
+  if (tasks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  a.ntasks = (int)tasks;
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if ((set_on.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
+    e = cudaFuncSetAttribute(conv_q_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QL_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    set_on.fetch_or(bit, std::memory_order_relaxed);
+  }
+  conv_q_fused_kernel<<<grid, QL_THREADS, QL_SMEM, stream>>>(tx, ttop, tbot, tb, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ircolor
 
@@ -1149,6 +1628,66 @@ int ircolor_conv_q_gemm(const void* zq, const void* kq, const void* sc, int C, v
   return run_gemm(zq, kq, C, nullptr, nullptr, 0, a, B, H, W, Cout, 0, 128, EPI_QSTATS, grid,
                   static_cast<cudaStream_t>(stream));
 }
+
+// The int8 block conv in one call, no operand pass: out (B, H, W, Cout)
+// bf16 and partial (B, ntiles, 2, Cout) f32 of y = f32(sum of the quantized,
+// padded input against kt (3, 3, Cout, C) int8, K-major) * sc[b, co], the
+// input quantized as ircolor_conv_q_pass quantizes it (conv1: qscale
+// non-null; conv2: mean, inv and qfixed) while the GEMM loads it, its rows
+// -1 and H from top / bot where non-null, else reflected, its columns
+// reflected; then sums (B, 2, Cout) = partial summed over its tiles in
+// order. x: the (B, H, W, C) bf16 rows, image i at x + i * x_img elements
+// (H W C, or (H + 2) W C for the interior of a slab); top / bot: one row an
+// image, image stride t_img. C % 64 == 0, Cout % 128 == 0, H, W >= 2; x,
+// top, bot, mean and inv 16-byte aligned.
+int ircolor_conv_q_fwd(const void* x, const void* top, const void* bot, long long x_img,
+                       long long t_img, const void* kt, const void* sc, const void* qscale,
+                       const void* mean, const void* inv, float qfixed, void* out, void* partial,
+                       void* sums, int B, int H, int W, int C, int Cout, int grid, void* stream) {
+  using namespace ircolor;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  const long long plane = (long long)H * W * C;
+  if (x == nullptr || kt == nullptr || sc == nullptr || out == nullptr || partial == nullptr ||
+      sums == nullptr || C <= 0 || C % KC_S8 || Cout <= 0 || Cout % 128 || H < 2 || W < 2 ||
+      B < 1 || B > 65535 || grid < 1 || (top == nullptr) != (bot == nullptr) ||
+      (qscale == nullptr) == (mean == nullptr) || (mean == nullptr) != (inv == nullptr) ||
+      x_img < plane || (top != nullptr && t_img < (long long)W * C) || misaligned(x) ||
+      misaligned(top) || misaligned(bot) || misaligned(mean) || misaligned(inv))
+    return (int)cudaErrorInvalidValue;
+  QLoadArgs a = {};
+  a.qscale = static_cast<const float*>(qscale);
+  a.zm = static_cast<const float*>(mean);
+  a.zi = static_cast<const float*>(inv);
+  a.qfixed = qfixed;
+  a.sc = static_cast<const float*>(sc);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Cout = Cout;
+  const int err = launch_q_fused(a, x, top, bot, x_img, t_img, kt, B, grid, st);
+  if (err != 0) return err;
+  const int ntiles = ((H + TH - 1) / TH) * ((W + TW - 1) / TW), n = 2 * Cout;
+  tile_sum_kernel<<<dim3((n + 255) / 256, B), 256, 0, st>>>(static_cast<const float*>(partial),
+                                                           static_cast<float*>(sums), ntiles, n);
+  return (int)cudaGetLastError();
+}
+
+#ifdef IRCOLOR_QL_PROFILE
+// The quantize-on-load kernel's phase cycles (ql_profile, 12 u64) into dst,
+// then zeroed.
+int ircolor_ql_profile(void* dst) {
+  using namespace ircolor;
+  cudaError_t e = cudaMemcpyFromSymbol(dst, ql_profile, sizeof(ql_profile));
+  if (e == cudaSuccess) {
+    const unsigned long long zero[12] = {};
+    e = cudaMemcpyToSymbol(ql_profile, zero, sizeof(zero));
+  }
+  return (int)e;
+}
+#endif
 
 // The int8 conv's reflect pass: out (B, H+2, W+2, C) int8 = xq (B, H, W, C)
 // int8 reflect-padded by one pixel, 16 channels a unit. C % 16 == 0.

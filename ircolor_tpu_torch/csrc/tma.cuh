@@ -39,7 +39,9 @@ constexpr long long WATCHDOG_CYCLES = 1ll << 35;  // ~18 s at 1.98 GHz
 // halo "separate"): rows -1 and H of Zp come from the 1-row tensors top /
 // bot (the neighbour shards' edge rows). The halo rows take the same
 // normalize or quantize as interior rows, and columns, corners included,
-// stay reflected within their row.
+// stay reflected within their row. (The int8 block conv runs no pass on
+// the card: conv_fwd.cu's conv_q_fused_kernel quantizes on its A load; this
+// int8 pass is the two-launch path it is held to.)
 struct PassArgs {
   const __nv_bfloat16* z;     // (B, H, W, Cz), or null (no Z part)
   const int8_t* zq;           // Q8: (B, H, W, Cz) int8 copied as it is, or null

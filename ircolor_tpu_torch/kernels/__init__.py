@@ -11,8 +11,9 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
   resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
     (both also in the spatial halo forms ``halo="separate"`` /
     ``"provided"``, counted apart as ``*_halo``; the card runs
-    ``"provided"`` as ``"separate"`` on the slab's rows;
-    ``resblock.resnet_block_pallas(_q)_spatial`` run them)
+    ``"provided"`` as ``"separate"`` on the slab's rows (the int8 form
+    reads them in place); ``resblock.resnet_block_pallas(_q)_spatial``
+    run them)
   resblock.conv3x3_dgrad_fused      ← pallas_resblock.conv3x3_dgrad_fused
   resblock.conv3x3_wgrad_fused      ← pallas_resblock.conv3x3_wgrad_fused
     (both also in the enc/dec segment modes: ``pad="zero"``, ``mask_p``,
@@ -35,7 +36,8 @@ adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
 ``conv3x3_reflect_fused``, ``conv3x3_sum_fused``, ``block.*`` and ``conv.*``
 run the bf16 conv of ``csrc/conv_fwd.cu`` in its reflect, zero and VALID
 halo modes; ``conv3x3_reflect_fused_q`` and ``conv_int8.conv3x3_int8`` run
-the same GEMM on s8 operands. ``conv3x3_sum_fused``, ``block.*``,
+the same GEMM on s8 operands (the int8 block conv in a form of its own
+that quantizes the input on its load, with no pass). ``conv3x3_sum_fused``, ``block.*``,
 ``conv.*`` and ``blur_downsample_pallas`` are, like the JAX functions, on
 no generator route: the JAX tools call them, and so does ``chip_smoke.py``.
 """

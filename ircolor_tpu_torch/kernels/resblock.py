@@ -21,7 +21,9 @@ TMA + ``wgmma`` GEMM that writes the raw output once with per-tile sums of
 the output for its instance norm, added over the tiles in order by a
 small kernel: one C call enqueues the three. The int8 conv is the same GEMM
 on s8 operands: its pass writes the quantized, reflect-padded input as
-int8 and its epilogue dequantizes. The block epilogue
+int8 and its epilogue dequantizes; the int8 block conv runs a form of it
+whose producers quantize the input as they load it (no pass), enqueued with
+the tile sum by one C call (``_q_fused``). The block epilogue
 ``x + ((raw2 − m2)·i2).to(dtype)`` stays plain torch.
 
 The plain versions compute in float32 (bf16 products are exact there; the
@@ -72,6 +74,8 @@ def _load_fwd():
             (lib.ircolor_conv_q_gemm, [p, p, p, i, p, p] + [i] * 5 + [p]),
             (lib.ircolor_conv_q8_pad, [p, p] + [i] * 4 + [p]),
             (lib.ircolor_conv_qconv_gemm, [p] * 6 + [i] * 12 + [p]),
+            (lib.ircolor_conv_q_fwd, [p] * 3 + [ctypes.c_longlong] * 2 + [p] * 5
+             + [ctypes.c_float] + [p] * 3 + [i] * 6 + [p]),
         ):
             fn.argtypes, fn.restype = args, i
         _lib_fwd = lib
@@ -603,9 +607,10 @@ def _quantize_input(x, qscale, mean, inv):
 
 
 def conv3x3_reflect_fused_q_plain(x, kq, sc, *, qscale=None, mean=None, inv=None,
-                                  halo="reflect", halo_rows=None, sums=False):
+                                  halo="reflect", halo_rows=None, sums=False, packed=None):
     """Plain version of ``conv3x3_reflect_fused_q``: the exact integer conv,
-    dequantized in float32."""
+    dequantized in float32 (``packed``, the card GEMM's repack of kq, is
+    not read)."""
     _check_halo(x, halo, halo_rows)
     q = _quantize_input(_halo_slab(x, halo, halo_rows), qscale, mean, inv)
     y = int_conv_exact(q[:, :, _reflect_rows(q.shape[2])], kq, "valid").float()
@@ -687,6 +692,124 @@ def _q_gemm(zq, kt, sc, plan: ConvPlan):
     return out, partial
 
 
+# The quantize-on-load form (``ircolor_conv_q_fwd``): its producer threads
+# (csrc/conv_fwd.cu QL_CONVERT), a chunk's (TH + 2) × (TW + 2) input pixels
+# and its 16-channel quantize units (QL_UNITS), a stage's copy units
+# (QL_COPY: TH + 2 rows × TW columns × 4).
+_QL_CONVERT = 256
+_QL_BOX = (_CF_TH + 2, _CF_TW + 2)
+_QL_UNITS = _QL_BOX[0] * _QL_BOX[1] * (_CF_KC_S8 // 16)
+_QL_COPY = _QL_BOX[0] * _CF_TW * (_CF_KC_S8 // 16)
+
+
+def _q_rows(x, halo: str, halo_rows, h: int):
+    """What the quantize-on-load kernel reads rows from: (rows (B, H, W, C),
+    top, bot (B, 1, W, C) or None: reflect) — the ``provided`` slab's
+    interior and edge rows as views of it, which the kernel reads through
+    pointer offsets and the slab's image stride, no copy."""
+    if halo == "provided":
+        return x[:, 1 : h + 1], x[:, :1], x[:, h + 1 :]
+    if halo == "separate":
+        return x, halo_rows[0], halo_rows[1]
+    return x, None, None
+
+
+def _q_load_walk():
+    """The producers' walks in the kernel's index arithmetic. Quantize:
+    ("q", thread t, unit u, tile pixel p = u // 4, channel group u % 4) for
+    u = t + 256·m over a chunk's units. Copy (each dx): ("c", t, unit v, A
+    buffer row prow = v // 4, channel group v % 4, tile pixel prow + 2·(prow
+    // TW)) for v = t + 256·m over a stage's units: the tile's columns dx …
+    dx + TW − 1 of each of its TH + 2 rows."""
+    for t in range(_QL_CONVERT):
+        for u in range(t, _QL_UNITS, _QL_CONVERT):
+            yield "q", t, u, u // 4, u % 4
+        for v in range(t, _QL_COPY, _QL_CONVERT):
+            prow = v // 4
+            yield "c", t, v, prow, v % 4, prow + 2 * (prow // _CF_TW)
+
+
+def _q_a_offset(dx: int, prow: int, cq: int) -> int:
+    """Byte offset in a stage's A buffer (dx: the stage's tap column) of
+    pixel row ``prow``, 16-channel group ``cq``: 64-byte rows, TMA's 64-byte
+    swizzle (the 16-byte chunk index XOR bits 1–2 of the row), as the GEMM's
+    descriptors read it; the s8 tile's pixels are laid out alike
+    (``swz64``)."""
+    return dx * (_CF_TH + 2) * _CF_TW * 64 + prow * 64 + ((cq ^ ((prow >> 1) & 3)) << 4)
+
+
+def _q_load_plain(x, b: int, r0: int, c0: int, ci0: int, qscale=None, mean=None, inv=None, *,
+                  halo="reflect", halo_rows=None, h: int | None = None) -> torch.Tensor:
+    """Plain version of what the quantize-on-load producers write for one
+    (image b, tile at r0, c0, chunk at ci0): the A buffers of the chunk's
+    three stages (dx), (3, TH + 2, TW, 64) int8, unswizzled. Box row i is input row r0 − 1 + i (−1
+    from top or row 1, H from bot or row H − 2, past H zeros), box column
+    j input column c0 − 1 + j (−1 as 1, W as W − 2, past W zeros),
+    quantized as ``_quantize_input``; buffer dx holds box columns dx …
+    dx + TW − 1."""
+    h = x.shape[1] - (2 if halo == "provided" else 0) if h is None else h
+    rows, top, bot = _q_rows(x, halo, halo_rows, h)
+    w, kc = rows.shape[2], _CF_KC_S8
+    zero = rows.new_zeros((w, kc))
+    box = []
+    for i in range(_QL_BOX[0]):
+        gr = r0 - 1 + i
+        if gr < 0:
+            r = (top[b, 0] if top is not None else rows[b, 1])[:, ci0 : ci0 + kc]
+        elif gr == h:
+            r = (bot[b, 0] if bot is not None else rows[b, h - 2])[:, ci0 : ci0 + kc]
+        else:
+            r = rows[b, gr, :, ci0 : ci0 + kc] if gr < h else zero
+        box.append(r)
+    gc = torch.arange(c0 - 1, c0 - 1 + _QL_BOX[1])
+    col = torch.where(gc < 0, 1, torch.where(gc == w, w - 2, gc)).clamp(max=w - 1)
+    z = torch.stack(box)[:, col][None]  # (1, TH + 2, TW + 2, 64)
+    q = _quantize_input(z, None if qscale is None else qscale[b : b + 1],
+                        None if mean is None else mean[b : b + 1, ci0 : ci0 + kc],
+                        None if inv is None else inv[b : b + 1, ci0 : ci0 + kc])[0]
+    gr = torch.arange(r0 - 1, r0 - 1 + _QL_BOX[0])
+    q = torch.where(((gr <= h)[:, None] & (gc <= w)[None, :])[..., None], q, 0.0)
+    return torch.stack([q[:, dx : dx + _CF_TW] for dx in range(3)]).to(torch.int8)
+
+
+@on_input_card
+def _q_fused(x, kt, sc, plan: ConvPlan, qscale=None, mean=None, inv=None, *, halo="reflect",
+             halo_rows=None):
+    """The int8 block conv in one C call (``ircolor_conv_q_fwd``): the GEMM
+    quantizes its input as its producer loads it (no operand pass, rows
+    −1 and H from the halo rows or reflected), then the in-order tile sum.
+    ``kt``: the K-major weights (``_q_weights``). Returns (bf16 out, (B, 2,
+    Cout) Σy, Σy²); on CPU tensors the plain versions of the pass, the
+    GEMM and the tile sum, whose bits it gives (``_q_load_plain`` holds the
+    producer's tiles to the pass's)."""
+    if x.device.type == "cpu":
+        zq = _q_pass_plain(x, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
+        out, partial = _conv_gemm_plain([zq], [kt.transpose(2, 3)], plan, sc=sc)
+        return out, _tile_sum_plain(partial)
+    rows, top, bot = _q_rows(x, halo, halo_rows, plan.h)
+    b, h, w, c = rows.shape
+    if halo == "provided":
+        require(x, "x", torch.bfloat16, (b, h + 2, w, c))
+        x_img = t_img = (h + 2) * w * c
+    else:
+        x_img, t_img = h * w * c, w * c
+        for t, name in ((top, "top"), (bot, "bot")):
+            if t is not None:
+                require(t, f"halo row {name}", x.dtype, (b, 1, w, c))
+    if any(t.data_ptr() % 16 for t in (rows, top, bot, mean, inv) if t is not None):
+        raise ValueError("conv3x3_reflect_fused_q: x, the halo rows, mean and inv must start "
+                         "on 16-byte boundaries")
+    out = torch.empty((b, h, w, plan.cout), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((b, plan.ntiles, 2, plan.cout), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, 2, plan.cout), dtype=torch.float32, device=x.device)
+    err = _load_fwd().ircolor_conv_q_fwd(
+        rows.data_ptr(), _ptr(top), _ptr(bot), x_img, t_img, kt.data_ptr(), sc.data_ptr(),
+        _ptr(qscale), _ptr(mean), _ptr(inv), _QFIXED, out.data_ptr(), partial.data_ptr(),
+        sums.data_ptr(), b, h, w, c, plan.cout, plan.grid, stream_ptr(x))
+    build.check(err, "int8 block conv")
+    return out, sums
+
+
 def _check_q_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
     """Raise unless the int8 conv's kernels take the shape."""
     if c % _CF_KC_S8 or cout % _BN or h < 2 or w < 2 or b > 65535:
@@ -697,18 +820,22 @@ def _check_q_shape(b: int, h: int, w: int, c: int, cout: int) -> None:
 
 
 def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo="reflect",
-                            halo_rows=None, sums=False):
+                            halo_rows=None, sums=False, packed=None):
     """int8 form: ``kq`` (3, 3, C, Cout) int8, ``sc`` (B, Cout) dequant
     scale, and exactly one of ``qscale`` (B,) = 127/amax (conv1: quantize
     the raw input) or ``mean``/``inv`` (conv2: normalize + ReLU, then the
     fixed 127/6 grid). ``halo``, ``halo_rows`` and ``sums`` as in
     ``conv3x3_reflect_fused`` (the halo rows quantized like the rest); the
     halo forms count apart, as ``conv3x3_reflect_fused_q_halo``.
+    ``packed``: ``kq`` repacked K-major by ``q_pack`` (a caller that runs
+    one kq on several shards repacks it once); by default repacked here.
 
-    On the card two launches of ``csrc/conv_fwd.cu``: the int8 operand pass,
-    then the GEMM on s8 operands with the q-stats epilogue; the output is
-    the plain version's bit for bit, the stats are the per-tile partials
-    summed here in a fixed order."""
+    On the card one C call of ``csrc/conv_fwd.cu`` (``_q_fused``): the s8
+    GEMM quantizes its input as it loads it and dequantizes in its q-stats
+    epilogue, then a small kernel adds the per-tile sums in order. The
+    output is the plain version's bit for bit, and the operand pass and
+    GEMM launched apart (``_q_pass``, ``_q_gemm``: the path before it, kept
+    as its reference on the card)."""
     if (mean is None) == (qscale is None):
         raise ValueError("need exactly one of qscale / (mean, inv)")
     if x.device.type == "cpu":
@@ -728,18 +855,28 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo
         require(inv, "inv", torch.float32, (b, c))
     if any(t.data_ptr() % 16 for t in (x, mean, inv) if t is not None):
         raise ValueError("conv3x3_reflect_fused_q: x, mean and inv must start on 16-byte "
-                         "boundaries (the operand pass reads them 16 bytes at a time)")
+                         "boundaries (the kernels read them 16 bytes at a time)")
     if kq.dtype != torch.int8:
         raise TypeError(f"kq: expected torch.int8, got {kq.dtype}")
     require(sc, "sc", torch.float32, (b, cout))
     if qscale is not None:
         require(qscale, "qscale", torch.float32, (b,))
+    if packed is None:
+        packed = q_pack(kq)
+    elif packed.device != x.device:
+        raise ValueError(f"packed: expected a tensor on {x.device}")
+    require(packed, "packed", torch.int8, (3, 3, cout, c))
     plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
-    zq = _q_pass(x, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
-    out, partial = _q_gemm(zq, _q_weights(kq, plan), sc, plan)
+    out, s = _q_fused(x, packed, sc, plan, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
     LAUNCHES["conv3x3_reflect_fused_q" + ("" if halo == "reflect" else "_halo")] += 1
-    s = partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
     return (out, *_stats_out(s, h * w, sums))
+
+
+def q_pack(kq: torch.Tensor) -> torch.Tensor:
+    """The block conv's int8 HWIO weights (3, 3, C, Cout) repacked K-major,
+    (3, 3, Cout, C), as its GEMM reads them (``_q_weights`` for C % 64 ==
+    0 and Cout % 128 == 0, which need no zero extension)."""
+    return kq.transpose(2, 3).contiguous()
 
 
 # ------------------------------------------------------------ backward ----
@@ -1393,10 +1530,16 @@ def resnet_block_pallas_q_spatial(xs, k1: torch.Tensor, k2: torch.Tensor) -> lis
                     for x in xs])
     sc1 = (amax[0] / 127.0)[:, None] * sw1[None, :]
     sc2 = ((_QCLIP / 127.0) * sw2[None, :]).expand(b, -1)
+    # Each kq on each device once, repacked K-major once (the card's GEMM
+    # reads it so) for every shard's call.
+    devs = {x.device for x in xs}
+    k1s, k2s = ({d: kq.to(d) for d in devs} for kq in (kq1, kq2))
+    p1s, p2s = ({d: q_pack(k[d]) if d.type == "cuda" else None for d in devs}
+                for k in (k1s, k2s))
     raw1, st1 = _spatial_conv(conv3x3_reflect_fused_q, xs, [
-        dict(kq=kq1.to(x.device), sc=sc1.to(x.device).contiguous(), qscale=127.0 / a)
-        for x, a in zip(xs, amax)])
+        dict(kq=k1s[x.device], packed=p1s[x.device], sc=sc1.to(x.device).contiguous(),
+             qscale=127.0 / a) for x, a in zip(xs, amax)])
     raw2, st2 = _spatial_conv(conv3x3_reflect_fused_q, raw1, [
-        dict(kq=kq2.to(x.device), sc=sc2.to(x.device).contiguous(), mean=m, inv=i)
-        for x, (m, i) in zip(xs, st1)])
+        dict(kq=k2s[x.device], packed=p2s[x.device], sc=sc2.to(x.device).contiguous(), mean=m,
+             inv=i) for x, (m, i) in zip(xs, st1)])
     return [_block_epilogue(x, r, *st) for x, r, st in zip(xs, raw2, st2)]

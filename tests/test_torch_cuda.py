@@ -893,6 +893,60 @@ def test_halo_forms_match_plain_and_unsharded_rows_on_card(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,n", [(2, 32, 64, 2), (2, 52, 40, 4), (1, 24, 37, 4)])
+def test_int8_halo_one_call_matches_the_two_launch_path_on_card(cuda, b, h, w, n):
+    """Row 1h's one C call, which quantizes its input on the A load: at
+    whole and partial tiles (13-row shards, W % 32 != 0; 6-row shards, odd
+    W), conv1 and conv2, ``separate`` and ``provided`` (the slab read in
+    place), output and in-order sums bit-identical to the operand pass and
+    GEMM launched apart; conv1's and conv2's rows to the unsharded
+    kernel's; shard 1 with its own first row as its top halo row differs
+    from them; the reflect form of the one call bit-identical to row 1's
+    two launches; a repeat bit-exact."""
+    from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+    from ircolor_tpu_torch.parallel.spatial import exchange_halo_rows, shard_h
+
+    g = torch.Generator(device=cuda).manual_seed(37)
+    c = 128
+    x = _bf16(g, b, h, w, c, scale=2.0)
+    kq, sw = quantize_weight_per_channel(_bf16(g, 3, 3, c, c, scale=0.05))
+    amax = x.float().abs().amax(dim=(1, 2, 3))
+    m, i = instance_norm_stats(x)
+    forms = ((((amax / 127.0)[:, None] * sw[None, :]).contiguous(),
+              dict(qscale=(127.0 / amax).contiguous())),
+             (((_QCLIP / 127.0) * sw[None, :]).expand(b, -1).contiguous(), dict(mean=m, inv=i)))
+    xs = shard_h(x, [cuda] * n)
+    halos = exchange_halo_rows(xs, 1)
+    hl = h // n
+    for sc, kw in forms:
+        one = resblock.conv3x3_reflect_fused_q(x, kq, sc, **kw)
+        plan = resblock._conv_plan(b, h, w, (c,), c, "reflect", s8=True)
+        fused = resblock._q_fused(x, resblock.q_pack(kq), sc, plan, **kw)
+        assert torch.equal(fused[0], one[0])
+        for k, (xi, hr) in enumerate(zip(xs, halos)):
+            plan = resblock._conv_plan(b, hl, w, (c,), c, "reflect", s8=True)
+            got = resblock.conv3x3_reflect_fused_q(xi, kq, sc, **kw, halo="separate",
+                                                   halo_rows=hr, sums=True)
+            slab = torch.cat([hr[0], xi, hr[1]], dim=1).contiguous()
+            prov = resblock.conv3x3_reflect_fused_q(slab, kq, sc, **kw, halo="provided",
+                                                    sums=True)
+            out2, part2 = resblock._q_gemm(resblock._q_pass(xi, **kw, halo="separate",
+                                                            halo_rows=hr),
+                                           resblock._q_weights(kq, plan), sc, plan)
+            assert torch.equal(got[0], out2) and torch.equal(got[0], prov[0])
+            assert torch.equal(got[1], resblock._tile_sum_plain(part2))
+            assert torch.equal(got[1], prov[1])
+            assert torch.equal(got[0], one[0][:, k * hl : (k + 1) * hl])
+            again = resblock.conv3x3_reflect_fused_q(xi, kq, sc, **kw, halo="separate",
+                                                     halo_rows=hr, sums=True)
+            assert all(torch.equal(p, q) for p, q in zip(got, again))
+            if k == 1:
+                bad = resblock.conv3x3_reflect_fused_q(
+                    xi, kq, sc, **kw, halo="separate", halo_rows=(xi[:, :1].contiguous(), hr[1]))
+                assert not torch.equal(bad[0], one[0][:, hl : 2 * hl])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_halo_form_at_n64_matches_n128_and_plain_on_card(cuda, n):
     """Row 2's halo form where the plan runs N = 64 (b4 shards of 64 / n

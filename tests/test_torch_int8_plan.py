@@ -1,9 +1,12 @@
 """The int8 block conv's plan, operand pass, weight repack and GEMM, on the CPU.
 
-On the card ``conv3x3_reflect_fused_q`` is two launches of
-``csrc/conv_fwd.cu``: the operand pass in its int8 form (the quantized,
-reflect-padded input) and the forward conv's GEMM on s8 operands with the
-q-stats epilogue. What surrounds them is Python that these tests reach: the
+On the card ``conv3x3_reflect_fused_q`` is one C call of
+``csrc/conv_fwd.cu`` whose GEMM quantizes its input on the A load
+(``tests/test_torch_q_halo_plan.py``); its reference there, and its path
+before, is two launches: the operand pass in its int8 form (the
+quantized, reflect-padded input) and the forward conv's GEMM on s8 operands
+with the q-stats epilogue, bit for bit the same. What surrounds those is
+Python that these tests reach: the
 plan (``_conv_plan(..., s8=True)``), the pass's plain version, the K-major
 weight repack and the box the GEMM reads from it, and the plain version of
 the GEMM, which the bf16 conv shares: exact sums in the kernel's K order. The plain version
