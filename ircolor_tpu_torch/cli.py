@@ -1,10 +1,14 @@
-"""Command-line entry point: ``python -m ircolor_tpu_torch train|test
+"""Command-line entry point: ``python -m ircolor_tpu_torch train|test|export
 [--flag ...]`` (``ircolor_tpu/cli.py``). Every ``Config`` field is a flag, as
 in the JAX package, plus ``--config path.json`` and ``--device {cuda,cpu}``
 (default ``cuda``: without a card the run stops; ``--device cpu`` is the one
 way onto the CPU). ``test --sp-devices N`` runs spatial test mode over N
 H-shards (``eval.runner.spatial_generator``: all on the CPU with ``--device
-cpu``, else spread over the visible cards). ``export`` is not ported yet."""
+cpu``, else spread over the visible cards). ``export`` writes the serving
+step (``--test-g-weights`` baked in, uint8 out) as a ``torch.export``
+artifact to ``--export-out`` (``export.aot.run_export``): portable (aten
+ops only) by default, with the CUDA kernels inside under
+``--export-keep-pallas`` (``cuda`` only)."""
 
 from __future__ import annotations
 
@@ -75,7 +79,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     for name, desc in (("train", "Train on KAIST pairs"),
                        ("test", "Run inference + metrics + exports"),
-                       ("export", "Write a serving artifact (not ported yet)")):
+                       ("export", "Write a torch.export serving artifact")):
         p = sub.add_parser(name, help=desc)
         p.add_argument("--config", default=None, help="JSON config file")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -92,11 +96,11 @@ def main(argv: Sequence[str] | None = None) -> int:
 
         train_kaist(cfg, device=args.device)
         return 0
-    if cfg.mode != "test":
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} is not ported yet (ROADMAP.md, Queue 1); "
-            "use the JAX package: python -m ircolor_tpu " + cfg.mode
-        )
+    if cfg.mode == "export":
+        from ircolor_tpu_torch.export.aot import run_export
+
+        run_export(cfg, device=args.device)
+        return 0
     from ircolor_tpu_torch.eval.runner import run_test
 
     run_test(cfg, device=args.device)

@@ -19,6 +19,10 @@ The caller passes the trees as nested dicts of numpy arrays (for example
   discriminator conv0..conv{n}, conv_out → model.0, 2, 5, 8, …, last;
       norm{k}/bn → model.{3k}
   VGG conv1_1 … conv3_3 → features.0, 2, 5, 7, 10, 12, 14
+
+``flax_from_state_dict`` is the inverse for the generator's params: the
+tree that the JAX package's ``.msgpack`` exports hold (``compat/msgpack.py``
+reads and writes them).
 """
 
 from __future__ import annotations
@@ -96,9 +100,7 @@ def state_dict_from_flax(
             sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
             if "bias" in entry:
                 sd[f"{name}.bias"] = _tensor(entry["bias"])
-    padded = pad_type in ("reflect", "replicate")
-    conv1 = 1 if padded else 0
-    conv2 = conv1 + 3 + int(bool(use_dropout)) + int(padded)
+    conv1, conv2 = _block_indices(pad_type, use_dropout)
     for key, entry in params.items():
         if key.startswith("resblock_"):
             i = int(key.split("_")[1])
@@ -108,6 +110,54 @@ def state_dict_from_flax(
             for name, idx in (("norm1", conv1 + 1), ("norm2", conv2 + 1)):
                 _put_bn(sd, f"resblocks.{i}.conv_block.{idx}", entry, stats, name)
     return sd
+
+
+def _block_indices(pad_type: str, use_dropout: bool) -> tuple[int, int]:
+    """conv_block indices of a resnet block's two convs (the reference's
+    ``build_conv_block``: a pad module before each conv for reflect and
+    replicate padding, dropout after the first ReLU)."""
+    padded = pad_type in ("reflect", "replicate")
+    conv1 = 1 if padded else 0
+    return conv1, conv1 + 3 + int(bool(use_dropout)) + int(padded)
+
+
+def flax_from_state_dict(
+    sd: Mapping[str, torch.Tensor], *, pad_type: str = "reflect", use_dropout: bool = False
+) -> dict[str, Any]:
+    """The inverse of ``state_dict_from_flax`` for the params: port
+    generator state_dict entries → the JAX generator's param tree (nested
+    dicts of float32 numpy arrays, HWIO kernels). Batch-norm running
+    statistics and the blur filters are not params and are left out, as the
+    JAX package's ``.msgpack`` export leaves its ``batch_stats`` out."""
+    arrays = {k: v.detach().float().cpu().numpy() for k, v in sd.items() if v.is_floating_point()}
+
+    def conv(prefix: str) -> dict | None:
+        if f"{prefix}.weight" not in arrays:
+            return None
+        entry = {"kernel": np.ascontiguousarray(arrays[f"{prefix}.weight"].transpose(2, 3, 1, 0))}
+        if f"{prefix}.bias" in arrays:
+            entry["bias"] = arrays[f"{prefix}.bias"]
+        return entry
+
+    def bn(prefix: str) -> dict | None:
+        if f"{prefix}.weight" not in arrays:  # instance norm and "none" hold no params
+            return None
+        return {"bn": {"scale": arrays[f"{prefix}.weight"], "bias": arrays[f"{prefix}.bias"]}}
+
+    params: dict[str, Any] = {}
+    named = [(src, conv(dst)) for src, dst in _DIRECT.items()]
+    named += [(src, bn(dst)) for src, dst in _NORMS.items()]
+    named += [(name, conv(name)) for name in ("up1_up", "up2_up")]
+    conv1, conv2 = _block_indices(pad_type, use_dropout)
+    for i in sorted({int(k.split(".")[1]) for k in arrays if k.startswith("resblocks.")}):
+        block = {name: entry for name, entry in (
+            ("conv1", conv(f"resblocks.{i}.conv_block.{conv1}")),
+            ("conv2", conv(f"resblocks.{i}.conv_block.{conv2}")),
+            ("norm1", bn(f"resblocks.{i}.conv_block.{conv1 + 1}")),
+            ("norm2", bn(f"resblocks.{i}.conv_block.{conv2 + 1}"))) if entry is not None}
+        named.append((f"resblock_{i}", block))
+    params.update((name, entry) for name, entry in named if entry is not None)
+    return params
 
 
 def discriminator_state_dict_from_flax(

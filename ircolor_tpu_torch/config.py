@@ -1,8 +1,9 @@
 """Central configuration — the JAX package's ``Config`` with every field name
-and default kept, so ``configs/*.json`` and the CLI flags mean the same thing
-in both packages (``ircolor_tpu/config.py``).
+and default kept (but ``export_out``'s: a ``torch.export`` artifact, ``.pt2``),
+so ``configs/*.json`` and the CLI flags mean the same thing in both packages
+(``ircolor_tpu/config.py``).
 
-Fields that select JAX-only machinery (meshes, AOT export, XLA precision,
+Fields that select JAX-only machinery (meshes, XLA precision,
 lane-packing, the Pallas gates) are kept for that reason; the port reads
 the kernel gates exactly as the JAX generator does and rejects, at the use
 site, the modes it has not ported yet (``ROADMAP.md``).
@@ -125,8 +126,8 @@ class Config:
     quant_int8: bool | None = None
     quant_fixed_u2: bool = False
     quant_head: bool = False
-    export_out: str = "netG_serving.stablehlo"
-    export_platforms: str | None = None
+    export_out: str = "netG_serving.pt2"
+    export_platforms: str | None = None  # "cuda" or "cpu" (None: --device)
     export_keep_pallas: bool = False
     d_concat: bool = True
     log_every: int = 50

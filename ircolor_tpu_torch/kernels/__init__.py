@@ -6,6 +6,9 @@ the same module; a CUDA tensor launches the kernel (built from ``csrc/`` at
 first use) or raises — no fallback, no silent move to the CPU — on the
 tensor's own card and its current stream (``on_input_card``). The wrapper
 adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
+Inside a ``torch.export`` trace the serving wrappers call their
+``torch.library`` op instead (``library.py``, ``exported_op``), whose CUDA
+kernel is the wrapper again.
 
   resblock.conv3x3_reflect_fused    ← pallas_resblock.conv3x3_reflect_fused
   resblock.conv3x3_reflect_fused_q  ← pallas_resblock.conv3x3_reflect_fused_q
@@ -70,6 +73,18 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_norm_in_stats": 0,
     "conv3x3_sum_fused": 0,
 }
+
+
+def exported_op(name: str):
+    """The ``torch.library`` op ``ircolor::name`` if a ``torch.export``
+    trace is running, else None: a serving wrapper calls the op in a trace
+    (its FakeTensors have no storage to launch on) and dispatches on its
+    input's device itself in eager, with no op dispatch in between."""
+    if not torch.compiler.is_exporting():
+        return None
+    from ircolor_tpu_torch.kernels import library
+
+    return library.op(name)
 
 
 def reset_launches() -> None:

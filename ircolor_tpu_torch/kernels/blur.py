@@ -14,7 +14,14 @@ import ctypes
 
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
+from ircolor_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    exported_op,
+    on_input_card,
+    require,
+    stream_ptr,
+)
 from ircolor_tpu_torch.ops.blurpool import blur_downsample
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 
@@ -85,7 +92,10 @@ def blur_downsample_pallas(x):
 @on_input_card
 def norm_relu_blur_down_pallas(x, mean, inv):
     """(B, H, W, C) raw conv output + per-(B, C) IN ``(mean, inv_std)`` →
-    blur-pool of ``relu((x − mean)·inv)``, (B, H/2, W/2, C)."""
+    blur-pool of ``relu((x − mean)·inv)``, (B, H/2, W/2, C); in an export
+    trace the op ``ircolor::norm_relu_blur_down``."""
+    if (traced := exported_op("norm_relu_blur_down")) is not None:
+        return traced(x, mean, inv)
     if x.device.type == "cpu":
         return norm_relu_blur_down_plain(x, mean, inv)
     b, h, w, c = x.shape

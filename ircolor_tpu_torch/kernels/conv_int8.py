@@ -37,12 +37,21 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
+from ircolor_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    exported_op,
+    on_input_card,
+    require,
+    stream_ptr,
+)
 
 _PADS = ("zero", "reflect", "valid")
 _STRIDES = (1, 2)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _CQ = 16  # Cin and Cout granule: a 16-byte TMA row stride, 8-channel epilogue groups
+# The padded float64 input that ``int_conv_exact`` copies at once.
+_EXACT_CHUNK_BYTES = 1 << 30
 
 
 def _rb():
@@ -66,24 +75,31 @@ def int_conv_exact(q: torch.Tensor, kq: torch.Tensor, pad: str, stride: int = 1)
     ``kq`` (square, odd size k) at ``stride``, over ``q`` padded by (k−1)/2
     pixels of ``pad`` (``"zero"``, ``"reflect"``; ``"valid"``: none), as
     float64: one matrix product per tap, exact for integer sums below 2^53
-    whatever the summation order. One image at a time, so the float64
-    copies stay small at serving batch sizes."""
-    b, h, w, _ = q.shape
+    whatever the summation order. A chunk of images at a time, as many as
+    keep their padded float64 copy within ``_EXACT_CHUNK_BYTES``, so the
+    copies stay bounded at serving batch sizes and an exported graph
+    (where it stands in for the int8 conv's op, ``kernels/library.py``)
+    holds a few chunks, not an image each; no in-place update, which an
+    exported graph's decomposition refuses."""
+    b, h, w, c = q.shape
     k = kq.shape[0]
     r = 0 if pad == "valid" else (k - 1) // 2
     mode = "reflect" if pad == "reflect" else "constant"
     ho, wo = (h + 2 * r - k) // stride + 1, (w + 2 * r - k) // stride + 1
     kd = kq.double()
-    out = torch.zeros((b, ho, wo, kq.shape[-1]), dtype=torch.float64, device=q.device)
-    for i in range(b):
-        qp = F.pad(q[i : i + 1].double().permute(0, 3, 1, 2), (r, r, r, r), mode=mode)
-        qp = qp[0].permute(1, 2, 0)
+    n = max(1, _EXACT_CHUNK_BYTES // ((h + 2 * r) * (w + 2 * r) * c * 8))
+    chunks = []
+    for i in range(0, b, n):
+        qp = F.pad(q[i : i + n].double().permute(0, 3, 1, 2), (r, r, r, r), mode=mode)
+        qp = qp.permute(0, 2, 3, 1)
+        acc = None
         for dy in range(k):
             for dx in range(k):
-                tap = qp[dy : dy + stride * (ho - 1) + 1 : stride,
-                         dx : dx + stride * (wo - 1) + 1 : stride]
-                out[i] += tap @ kd[dy, dx]
-    return out
+                tap = qp[:, dy : dy + stride * (ho - 1) + 1 : stride,
+                         dx : dx + stride * (wo - 1) + 1 : stride] @ kd[dy, dx]
+                acc = tap if acc is None else acc + tap
+        chunks.append(acc)
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
 
 
 def _epilogue(acc, sc, bias, addend, out_dtype):
@@ -192,11 +208,14 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", stride=1, bias=None, addend=None,
     ``stride`` (1 | 2), one pixel of ``pad`` (``"zero"`` | ``"reflect"``)
     padding or none (``"valid"``: ``xq`` comes padded); dequantized by
     ``sc`` (B, Cout) float32, then ``+ addend`` (B, Ho, Wo, Cout) float32
-    and ``+ bias`` (Cout,) float32 where given, in ``out_dtype``."""
+    and ``+ bias`` (Cout,) float32 where given, in ``out_dtype``. In an
+    export trace the op ``ircolor::conv3x3_int8``."""
     if pad not in _PADS:
         raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
     if stride not in _STRIDES:
         raise ValueError(f"stride must be one of {_STRIDES}, got {stride!r}")
+    if (traced := exported_op("conv3x3_int8")) is not None:
+        return traced(xq, wq, sc, pad, stride, bias, addend, out_dtype)
     if xq.device.type == "cpu":
         return conv3x3_int8_plain(xq, wq, sc, pad=pad, stride=stride, bias=bias, addend=addend,
                                   out_dtype=out_dtype)

@@ -17,7 +17,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
+from ircolor_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    exported_op,
+    on_input_card,
+    require,
+    stream_ptr,
+)
 from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
@@ -180,7 +187,10 @@ def conv7x7_head_pallas(x, mean, inv, kernel, *, quant: bool = False):
     + (7, 7, C, Cout) weights → ``conv7×7_reflect3(relu((x−mean)·inv))``,
     (B, H, W, Cout). No bias, no tanh. ``quant=True``: the int8 form
     (weights quantized here per output channel, the input on the fixed
-    127/6 grid in the kernel)."""
+    127/6 grid in the kernel). In an export trace the op
+    ``ircolor::conv7x7_head``."""
+    if (traced := exported_op("conv7x7_head")) is not None:
+        return traced(x, mean, inv, kernel, quant)
     if x.device.type == "cpu":
         plain = conv7x7_head_q_plain if quant else conv7x7_head_plain
         return plain(x, mean, inv, kernel)

@@ -20,7 +20,14 @@ import ctypes
 
 import torch
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
+from ircolor_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    exported_op,
+    on_input_card,
+    require,
+    stream_ptr,
+)
 from ircolor_tpu_torch.ops.norm import instance_norm
 
 # The JAX kernel's budget: 12 double-buffered plane-equivalents (16 with a
@@ -117,16 +124,22 @@ def _launch(mode: str, x: torch.Tensor, r: torch.Tensor | None) -> torch.Tensor:
 
 def run_in(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     """IN (+ ReLU) of NHWC ``x`` (bf16 or f32; a shape ``pallas_fits``
-    admits), in one kernel launch; the plain version for a CPU tensor."""
+    admits), in one kernel launch; the plain version for a CPU tensor; in
+    an export trace the op ``ircolor::run_in``."""
     _check_fits(x, False)
+    if (traced := exported_op("run_in")) is not None:
+        return traced(x, relu)
     if x.device.type == "cpu":
         return fused_instance_norm_plain(x, relu)
     return _launch("relu" if relu else "plain", x, None)
 
 
 def run_in_res(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``IN(x) + r`` in one kernel launch (a ResnetBlock's second half)."""
+    """``IN(x) + r`` in one kernel launch (a ResnetBlock's second half); in
+    an export trace the op ``ircolor::run_in_res``."""
     _check_fits(x, True)
+    if (traced := exported_op("run_in_res")) is not None:
+        return traced(x, r)
     if x.device.type == "cpu":
         return fused_instance_norm_residual_plain(x, r)
     return _launch("residual", x, r)

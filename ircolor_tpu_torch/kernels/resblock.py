@@ -40,7 +40,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ircolor_tpu_torch.kernels import LAUNCHES, build, on_input_card, require, stream_ptr
+from ircolor_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    exported_op,
+    on_input_card,
+    require,
+    stream_ptr,
+)
 from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per_channel
@@ -189,7 +196,11 @@ def conv3x3_reflect_fused(x, kernel, mean=None, inv=None, *, halo="reflect", hal
     inv_std of it), or (raw output, (B, 2, Cout) Σy, Σy²) with ``sums``.
     With ``mean``/``inv`` the input (halo rows included) is normalized and
     ReLU'd on load (rounded to x's dtype). The halo forms count apart, as
-    ``conv3x3_reflect_fused_halo``."""
+    ``conv3x3_reflect_fused_halo``. In an export trace the reflect form is
+    the op ``ircolor::conv3x3_reflect_fused`` (``library.py``)."""
+    traced = exported_op("conv3x3_reflect_fused") if halo == "reflect" and not sums else None
+    if traced is not None:
+        return traced(x, kernel, mean, inv)
     if x.device.type == "cpu":
         return conv3x3_reflect_fused_plain(x, kernel, mean, inv, halo=halo, halo_rows=halo_rows,
                                            sums=sums)
@@ -835,9 +846,13 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo
     epilogue, then a small kernel adds the per-tile sums in order. The
     output is the plain version's bit for bit, and the operand pass and
     GEMM launched apart (``_q_pass``, ``_q_gemm``: the path before it, kept
-    as its reference on the card)."""
+    as its reference on the card). In an export trace the reflect form is
+    the op ``ircolor::conv3x3_reflect_fused_q`` (``library.py``)."""
     if (mean is None) == (qscale is None):
         raise ValueError("need exactly one of qscale / (mean, inv)")
+    traced = exported_op("conv3x3_reflect_fused_q") if halo == "reflect" and not sums else None
+    if traced is not None:
+        return traced(x, kq, sc, qscale, mean, inv)
     if x.device.type == "cpu":
         return conv3x3_reflect_fused_q_plain(x, kq, sc, qscale=qscale, mean=mean, inv=inv,
                                              halo=halo, halo_rows=halo_rows, sums=sums)

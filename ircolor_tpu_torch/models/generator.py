@@ -354,6 +354,8 @@ class ResnetUNetGenerator(nn.Module):
         use_bias = use_bias_for_norm(norm)
         self.ngf = ngf
         self.n_blocks = n_blocks
+        self.padding_type = padding_type
+        self.use_dropout = use_dropout
         self.norm = norm
         self.no_antialias = no_antialias
         self.no_antialias_up = no_antialias_up

@@ -7,7 +7,8 @@ weights and zero biases from a ``torch.Generator`` seeded with ``cfg.seed``
 loading is permissive like the reference: a ``{'state_dict': ...}`` wrapper
 is unwrapped, missing keys keep their init, extra or mis-shaped keys are
 ignored, with a warning either way; batch-norm running statistics load
-with the weights (the module serves in eval mode, on them).
+with the weights (the module serves in eval mode, on them). The JAX
+package's ``.msgpack`` exports (params only) load the same way.
 """
 
 from __future__ import annotations
@@ -148,15 +149,14 @@ class IRColorizationModel:
         self.module = module.to(self.device).eval()
 
     def load_weights(self, path: str) -> None:
-        """A ``.pth`` / ``.pt`` generator state dict; a flax ``.msgpack``
-        file raises (not ported yet)."""
+        """A ``.pth`` / ``.pt`` generator state dict, or else the JAX
+        package's ``.msgpack`` export of the params (``train.checkpoint.
+        load_netg_state``); non-strict either way."""
+        from ircolor_tpu_torch.train.checkpoint import load_netg_state
+
         if not os.path.isfile(path):
             raise FileNotFoundError(path)
-        if path.endswith(".msgpack"):
-            raise NotImplementedError(
-                f".msgpack generator weights are not ported yet (ROADMAP.md, Queue 1 item 2): {path}")
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        load_state_permissive(self.module, state)
+        load_state_permissive(self.module, load_netg_state(path, self.module))
         self.module.to(self.device)
 
     @torch.inference_mode()

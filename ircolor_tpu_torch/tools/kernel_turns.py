@@ -19,6 +19,13 @@ inflates every entry).
 With ``--spatial``: instead, phase 8b (spatial serving at 512×640, S = 2
 and 4, with its checks), its frames/s by run as the ``TURN`` line.
 
+With ``--serve``: instead, phase 3's b32 serving frames/s (int8 and
+float, 3 batches each) and b1 latencies (int8 configuration (a) and float,
+64 frames each: mean and median ms), each with its launch counts checked,
+as the ``TURN`` line; where the checkout's wrappers ask
+``kernels.exported_op`` whether an export trace runs (the one line they run
+in eager for it), also its host µs a call over 10^6 calls.
+
 With ``--sass OTHER``: instead, every ``csrc/conv_fwd.cu`` kernel's SASS
 (``cuobjdump -sass``, addresses and encodings stripped) against the same
 kernel's in the checkout OTHER, one line a kernel: identical, the count
@@ -171,6 +178,38 @@ def spatial_turn(root: Path) -> None:
     print("TURN " + json.dumps({"root": str(root), "frames_per_s": fps}), flush=True)
 
 
+def serve_turn(root: Path) -> None:
+    """Phase 3's b32 frames/s and b1 latencies from ROOT's ``chip_smoke.py``."""
+    import numpy as np
+    import torch
+
+    build = _use(root)
+    sys.path.insert(0, str(root))
+    cs = importlib.import_module("chip_smoke")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    tails_head = {"norm_relu_blur_down": 2, "conv7x7_head": 1}
+    counts: dict = {}
+    t0 = time.perf_counter()
+    out = {
+        "int8_fps": cs.serve(torch, np, "int8", {}, True,
+                             {"conv3x3_reflect_fused_q": 18, **tails_head}, counts),
+        "float_fps": cs.serve(torch, np, "float", {"quant_int8": False}, False,
+                              {"conv3x3_reflect_fused": 18, **tails_head}, counts),
+        "b1_int8_ms": cs.latency_b1(torch, np, "int8 (a)", True, {"conv3x3_int8": 24}, counts),
+        "b1_float_ms": cs.latency_b1(torch, np, "float", False, {}, counts),
+    }
+    print(f"[turn {root}] phase 3 {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = importlib.import_module("ircolor_tpu_torch.kernels")
+    if hasattr(kernels, "exported_op"):
+        t0 = time.perf_counter()
+        for _ in range(10**6):
+            kernels.exported_op("conv3x3_int8")
+        out["exported_op_us"] = time.perf_counter() - t0  # seconds over 10^6 calls = µs a call
+    print("TURN " + json.dumps({"root": str(root), **out}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", type=Path, help="the checkout whose kernels this turn runs")
@@ -179,6 +218,8 @@ def main() -> int:
     ap.add_argument("--spatial", action="store_true",
                     help="time phase 8b (spatial serving) instead of the kernel rows")
     ap.add_argument("--halo", action="store_true", help="phase 8a's rows alone")
+    ap.add_argument("--serve", action="store_true",
+                    help="phase 3's b32 frames/s and b1 latencies instead")
     ap.add_argument("--host-profile", action="store_true",
                     help="cProfile row 2's halo form's host path instead")
     args = ap.parse_args()
@@ -186,6 +227,8 @@ def main() -> int:
         compare_sass(args.root.resolve(), args.sass.resolve())
     elif args.spatial:
         spatial_turn(args.root.resolve())
+    elif args.serve:
+        serve_turn(args.root.resolve())
     elif args.host_profile:
         host_profile(args.root.resolve())
     else:

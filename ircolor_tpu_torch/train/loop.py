@@ -4,17 +4,24 @@ loop, validation, checkpoints.
 The reference recipe: scan the KAIST pairs once, seed-42 train/val split
 (``val_ratio``), Adam for G and D with the linear LR decay, D-then-G
 updates per batch, a loss line every ``log_every`` steps (and at step 1),
-validation L1 per epoch, ``netG_epoch_{k:03d}.pth`` every ``save_every``
-epochs and at the end, ``netG_best.pth`` on a val-L1 improvement (decided
-before the full-state save, so a resume restores the right best), and the
-next epoch's LR printed at each epoch's end. ``--resume`` continues from the
-newest full state.
+validation L1 per epoch, ``netG_epoch_{k:03d}.{msgpack,pth}`` every
+``save_every`` epochs and at the end, ``netG_best.{msgpack,pth}`` on a
+val-L1 improvement (decided before the full-state save, so a resume
+restores the right best), and the next epoch's LR printed at each epoch's
+end. ``--resume`` continues from the newest full state; ``init_G_weights``
+may be a ``.pth`` or a ``.msgpack`` export.
+
+``profile_dir``: a ``torch.profiler`` trace of the first epoch's first
+``min(5, steps)`` steps, written to ``<profile_dir>/trace.json`` (also when
+a step raises). ``debug_nans`` (the JAX ``jax_debug_nans``): G's and D's
+forwards check every op's output and raise ``FloatingPointError`` at the
+first that is not finite (``_NanGuard``), and the backward runs under
+``torch.autograd.detect_anomaly(check_nan=True)``.
 
 Every generator variant of ``Config`` trains (``norm``, ``no_antialias``,
 ``no_antialias_up``, ``remat``). Single device only; ``dp_devices``/
-``sp_devices`` > 1 raise NotImplementedError (``reject_unported``), as do
-``profile_dir``, ``debug_nans`` and ``.msgpack`` initial weights
-(ROADMAP.md, Queue 1).
+``sp_devices`` > 1 raise NotImplementedError (``reject_unported``,
+ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ircolor_tpu_torch.config import Config
 from ircolor_tpu_torch.data.kaist import KAISTPairDataset, scan_kaist_pairs, split_train_val
@@ -38,14 +46,16 @@ from ircolor_tpu_torch.models.wrapper import (
 )
 from ircolor_tpu_torch.train.checkpoint import (
     latest_checkpoint,
+    load_netg_state,
     restore_full_state,
     save_full_state,
-    save_netg_pth,
+    save_netg_export,
 )
 from ircolor_tpu_torch.train.schedule import linear_decay_factor
 from ircolor_tpu_torch.train.state import create_train_state
 from ircolor_tpu_torch.train.step import METRIC_KEYS, make_train_step, make_val_sum_step
 from ircolor_tpu_torch.utils.logging import JsonlLogger, get_logger
+from ircolor_tpu_torch.utils.timing import ProfilerTrace, synchronize
 
 log = get_logger(__name__)
 
@@ -67,14 +77,64 @@ def _check_loss_sanity(m: dict[str, float], cfg: Config, epoch: int, step: int) 
         )
 
 
-def _reject_unported(cfg: Config) -> None:
-    reject_unported(cfg, train=True)
-    if cfg.profile_dir is not None:
-        raise NotImplementedError("profile_dir is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.debug_nans:
-        raise NotImplementedError("debug_nans is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.init_G_weights is not None and not cfg.init_G_weights.endswith((".pth", ".pt")):
-        raise NotImplementedError(".msgpack initial weights are not ported yet (ROADMAP.md, Queue 1)")
+# Allocations whose contents are not yet written: not checked for NaNs.
+_UNWRITTEN = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
+              torch.Tensor.new_empty_strided}
+
+
+class _NonFiniteCheck(TorchFunctionMode):
+    """Checks the floating outputs of every torch op that runs inside it."""
+
+    def __init__(self, guard: "_NanGuard", net: str):
+        super().__init__()
+        self.guard, self.net, self.owner = guard, net, ""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        for a in (*args, *kwargs.values()):
+            self.owner = self.guard.owners.get(id(a), self.owner)
+        if func not in _UNWRITTEN:
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and not bool(torch.isfinite(t).all())):
+                    raise FloatingPointError(
+                        f"debug_nans: non-finite output of {getattr(func, '__name__', func)} in "
+                        f"{self.net} module {self.owner or '(its input)'!r} at {self.guard.where}")
+        return out
+
+
+class _NanGuard:
+    """``debug_nans`` for G and D: a forward pre-hook on each enters a
+    ``_NonFiniteCheck`` and a forward hook leaves it, so that the first op
+    of their forwards whose output is not finite raises
+    ``FloatingPointError`` naming the module, by qualified name, whose
+    parameter that forward read last: the port's layers apply their
+    weights functionally (``conv_nhwc(layer, x)``), so the layer a value
+    comes from is the one whose weights were just read. ``where`` says the
+    epoch and step."""
+
+    def __init__(self, nets: dict[str, torch.nn.Module]):
+        self.where = ""
+        self.owners = {id(p): name.rpartition(".")[0] for net in nets.values()
+                       for name, p in net.named_parameters()}
+        self.handles = []
+        for label, net in nets.items():
+            checks: list = []
+
+            def enter(module, args, label=label, checks=checks):
+                checks.append(_NonFiniteCheck(self, label))
+                checks[-1].__enter__()
+
+            def leave(module, args, out, checks=checks):
+                checks.pop().__exit__(None, None, None)
+
+            self.handles += [net.register_forward_pre_hook(enter),
+                             net.register_forward_hook(leave, always_call=True)]
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
 
 
 def _to_device(batch: dict[str, np.ndarray], dev: torch.device) -> dict[str, torch.Tensor]:
@@ -91,7 +151,7 @@ def train_kaist(
     """Run the training recipe on ``device`` (the card by default); returns a
     summary (best val L1, final-epoch mean losses, steps, throughput, state).
     ``max_steps_per_epoch`` truncates epochs for tests and smoke runs."""
-    _reject_unported(cfg)
+    reject_unported(cfg, train=True)
     dev = resolve_device(device)
     own_jsonl = jsonl is None
     jsonl = jsonl or JsonlLogger(cfg.jsonl_log)
@@ -127,8 +187,7 @@ def train_kaist(
     state = create_train_state(cfg, steps_per_epoch, dev)
     if cfg.init_G_weights is not None and os.path.isfile(cfg.init_G_weights):
         log.info("Initializing generator from: %s", cfg.init_G_weights)
-        load_state_permissive(state.g, torch.load(cfg.init_G_weights, map_location=dev,
-                                                  weights_only=True))
+        load_state_permissive(state.g, load_netg_state(cfg.init_G_weights, state.g))
 
     vgg = None
     if cfg.lambda_perc != 0.0:
@@ -174,30 +233,58 @@ def train_kaist(
             count += c
         return float(total) / max(float(count), 1.0)
 
+    def run_epoch(epoch: int) -> list[torch.Tensor]:
+        """The epoch's training steps; returns their packed metrics. The
+        first epoch's first ``min(5, steps)`` steps are traced under
+        ``profile_dir``; under ``debug_nans`` the steps run guarded."""
+        nonlocal state
+        epoch_metrics: list[torch.Tensor] = []
+        trace = None
+        if cfg.profile_dir is not None and epoch == start_epoch:
+            trace = ProfilerTrace(cfg.profile_dir)
+            trace.start()
+        guard = _NanGuard({"G": state.g, "D": state.d}) if cfg.debug_nans else None
+        try:
+            for i, batch in enumerate(train_loader, start=1):
+                if i > steps_per_epoch:
+                    break
+                if guard is None:
+                    state, metrics = train_step(state, _to_device(batch, dev))
+                else:
+                    guard.where = f"epoch {epoch} step {i}"
+                    with torch.autograd.detect_anomaly(check_nan=True):
+                        state, metrics = train_step(state, _to_device(batch, dev))
+                if trace is not None and trace.running and i >= min(5, steps_per_epoch):
+                    synchronize(dev)
+                    log.info("Profiler trace (first %d steps) written to %s", i, trace.stop())
+                epoch_metrics.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
+                if i % cfg.log_every == 0 or i == 1:
+                    m = dict(zip(METRIC_KEYS, epoch_metrics[-1].tolist()))
+                    _check_loss_sanity(m, cfg, epoch, i)
+                    log.info(
+                        "Epoch [%d/%d] Step [%d/%d] D: %.4f | G: %.4f "
+                        "(GAN %.4f + L1 %.4f + Perc %.4f + TV %.6f + SSIM %.4f)",
+                        epoch, cfg.epochs, i, steps_per_epoch,
+                        m["loss_D"], m["loss_G"], m["loss_G_GAN"], m["loss_G_L1"],
+                        m["loss_G_perc"], m["loss_G_TV"], m["loss_G_SSIM"],
+                    )
+        finally:
+            # A step that raises (the loss sanity check, debug_nans) still
+            # ends the trace and the guard.
+            if trace is not None:
+                trace.stop()
+            if guard is not None:
+                guard.remove()
+        return epoch_metrics
+
     summary: dict[str, Any] = {}
     steps_total = 0
     t_train0 = time.perf_counter()
     for epoch in range(start_epoch, cfg.epochs + 1):
-        epoch_metrics: list[torch.Tensor] = []
         train_loader.set_epoch(epoch)
         t0 = time.perf_counter()
-        for i, batch in enumerate(train_loader, start=1):
-            if i > steps_per_epoch:
-                break
-            state, metrics = train_step(state, _to_device(batch, dev))
-            epoch_metrics.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
-            if i % cfg.log_every == 0 or i == 1:
-                m = dict(zip(METRIC_KEYS, epoch_metrics[-1].tolist()))
-                _check_loss_sanity(m, cfg, epoch, i)
-                log.info(
-                    "Epoch [%d/%d] Step [%d/%d] D: %.4f | G: %.4f "
-                    "(GAN %.4f + L1 %.4f + Perc %.4f + TV %.6f + SSIM %.4f)",
-                    epoch, cfg.epochs, i, steps_per_epoch,
-                    m["loss_D"], m["loss_G"], m["loss_G_GAN"], m["loss_G_L1"],
-                    m["loss_G_perc"], m["loss_G_TV"], m["loss_G_SSIM"],
-                )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        epoch_metrics = run_epoch(epoch)
+        synchronize(dev)
         dt = time.perf_counter() - t0
         steps_done = len(epoch_metrics)
         steps_total += steps_done
@@ -224,10 +311,11 @@ def train_kaist(
         if epoch % cfg.save_every == 0 or epoch == cfg.epochs:
             save_full_state(state_dir, epoch, state,
                             {"epoch": epoch, "best_val_l1": best_val_l1, "val_l1": val_l1})
-            written = save_netg_pth(state.g, os.path.join(cfg.save_dir, f"netG_epoch_{epoch:03d}"))
-            log.info("Saved generator checkpoint to %s", written)
+            written = save_netg_export(state.g,
+                                       os.path.join(cfg.save_dir, f"netG_epoch_{epoch:03d}"))
+            log.info("Saved generator checkpoint to %s", written[0])
         if is_best:
-            save_netg_pth(state.g, best_stem)
+            save_netg_export(state.g, best_stem)
             log.info("New best model saved to %s (val L1=%.4f)", best_stem, best_val_l1)
 
         next_lr = cfg.lr_G * linear_decay_factor(epoch + 1, cfg.lr_decay_start_epoch, cfg.epochs)

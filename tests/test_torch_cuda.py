@@ -1068,3 +1068,39 @@ def test_spatial_generator_across_cards_matches_one_card(cuda, n, quant):
     with torch.cuda.device(0), pytest.raises(RuntimeError, match="on_input_card"):
         resblock._conv_pass.__wrapped__(xs)
     assert resblock._conv_pass(xs).device == xs.device
+
+
+@pytest.mark.cuda
+def test_int8_export_artifact_launches_the_kernels_on_card(cuda, tmp_path):
+    """A gate-open bf16 int8 ``keep_pallas`` artifact (64×64 b2, ngf 32,
+    ``quant_head`` + ``quant_fixed_u2``: the int8 block convs, the down2
+    tail, the int8 up2 conv's two legs and the int8 head), saved and
+    loaded: bit-identical to the eager step, and one call launches what
+    the eager forward launches."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.export import aot
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    cfg = Config(img_size=64, ngf=32, n_blocks=1, compute_dtype="bf16", quant_int8=True,
+                 quant_head=True, quant_fixed_u2=True)
+    model = IRColorizationModel(cfg, cuda)
+    path = str(tmp_path / "g.pt2")
+    aot.save_exported(path, aot.export_inference(model.module, 64, 64, batch_size=2,
+                                                 keep_pallas=True))
+    served = aot.load_exported(path)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ir = torch.rand(2, 64, 64, 1, device=cuda, generator=g) * 2 - 1
+    with torch.inference_mode():
+        before = dict(LAUNCHES)
+        want, _ = make_infer_fn(model.module)(ir, torch.zeros(2, 64, 64, 3, device=cuda))
+        eager = {k: v - before[k] for k, v in LAUNCHES.items()}
+        before = dict(LAUNCHES)
+        got = served(ir)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in LAUNCHES.items()}
+    assert launched == eager
+    assert {k: v for k, v in launched.items() if v} == {
+        "conv3x3_reflect_fused_q": 2, "norm_relu_blur_down": 1, "conv3x3_int8": 2,
+        "conv7x7_head_q": 1}
+    assert torch.equal(got, want)

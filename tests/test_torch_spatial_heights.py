@@ -1,5 +1,6 @@
-"""Spatial test mode at every height the JAX package runs, and the named
-error of ``.msgpack`` generator weights, on the CPU.
+"""Spatial test mode at every height the JAX package runs, and
+``.msgpack`` generator weights (a file that loads, a damaged one that
+raises a named error), on the CPU.
 
 JAX asks only that the image height divide by the H-shard count
 (``ircolor_tpu/eval/runner.py:227-232``): its stride-2 stages may leave a
@@ -142,13 +143,18 @@ def test_run_test_spatial_at_a_height_of_unequal_stage_shards(kaist_tree, tmp_pa
 
 
 def test_msgpack_generator_weights_raise_a_named_error(tmp_path):
-    """``IRColorizationModel.load_weights`` on a ``.msgpack`` file raises
-    ``NotImplementedError`` naming the queue item that ports the format,
-    before it reads the file."""
+    """``IRColorizationModel.load_weights`` reads ``.msgpack`` files (the JAX
+    package's generator exports): the same file as before, a tree with no
+    generator params, loads (every weight keeps its init); the file cut
+    short raises a ``ValueError`` that names the format."""
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 
     path = tmp_path / "netG_best.msgpack"
     path.write_bytes(b"\x81\xa6params\x80")
     m = IRColorizationModel(Config(img_size=32, ngf=8, n_blocks=1), "cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
+    before = {k: v.clone() for k, v in m.module.state_dict().items()}
+    m.load_weights(str(path))
+    assert all(torch.equal(v, before[k]) for k, v in m.module.state_dict().items())
+    path.write_bytes(b"\x81\xa6params")
+    with pytest.raises(ValueError, match="msgpack: truncated"):
         m.load_weights(str(path))
