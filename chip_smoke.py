@@ -171,6 +171,26 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    that cannot import the port, held to phase 4's budget against the
    eager step with the four kernel gates off.
 
+10. Data parallelism on this one card, at the flagship: (a) test mode
+   over a data mesh of two entries on cuda:0 (``dp_devices=2``: chunks of
+   16), int8 and float b32, against the unsharded b32 step on the same
+   weights and batches (phase 4's budget; bit-identical or not, said), 2 ×
+   (18 / 2 / 1) launches a batch by the wrappers' counts and, for every
+   port kernel, twice the unsharded step's by ``torch.profiler``, frames/s
+   beside the unsharded step in turns; (b) two training ranks spawned on
+   cuda:0 over gloo, ``dp_mode="shard_map"`` and then the default
+   ``"gspmd"``, global b8 (b4 a rank), 4 steps a mode on fixed synthetic
+   batches: the parameters bit-identical across the ranks after every
+   step, against one process's b8 step from the same weights the first
+   step's losses that D' does not enter (2^-10 relative; gspmd against
+   shard_map too), G's and D's conv weight gradients (1e-2 relative L2)
+   and their Adam update (lr/4 on ≥ 99%), the rest read out, 18 / 18 / 18
+   launches of rows 2, 5, 6 a step on each rank in both modes, step time,
+   the all-reduce's share and peak memory a rank beside the one-process
+   step; (c) a one-rank NCCL group through the
+   same launcher and its all-reduce. Two ranks on one card are no
+   multi-card speed-up.
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -188,10 +208,22 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-FLAGSHIP = REPO / "configs" / "flagship_512x640.json"
-B, H, W, NGF = 32, 512, 640, 64
-TRAIN_B = 8
-SEED = 0
+# The flagship's config, shapes, seed, synthetic frames and serving budget,
+# shared with tools/dp_probe.py (a checkout's package; alone, this fails).
+from ircolor_tpu_torch.tools.flagship import (  # noqa: E402
+    B,
+    FLAGSHIP,
+    H,
+    NGF,
+    SEED,
+    TRAIN_B,
+    W,
+    route_delta,
+    serving_config,
+    synthetic_batches,
+    within_budget,
+)
+
 # Dense H100 SXM peaks (NVIDIA's data sheet) for the bound column.
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 
@@ -1648,44 +1680,6 @@ def slice5_compositions(torch, g, w, xs) -> None:
     torch.cuda.empty_cache()
 
 
-# The synthetic batches already made, by (batch, plane): their generator
-# and the batches so far. Every phase that asks for the first n batches of a
-# shape reads the same frames, made once.
-_SYNTHETIC: dict = {}
-
-
-def synthetic_batches(np, n: int, b: int, hw: tuple = (H, W)):
-    """IR-like frames (smooth gradients + a warm blob, a little sensor
-    noise) with the RGB a fixed colormap of the IR, as uint16 / uint8 — the
-    pattern of ``ircolor_tpu/data/synthetic.py``, made here with numpy: the
-    first ``n`` batches of ``b`` frames of the stream seeded with ``SEED``
-    for this shape (made once, then kept)."""
-    rng, out = _SYNTHETIC.setdefault((b, hw), (np.random.RandomState(SEED), []))
-    h, w = hw
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    while len(out) < n:
-        ir = np.empty((b, h, w, 1), np.uint16)
-        gt = np.empty((b, h, w, 3), np.uint8)
-        for j in range(b):
-            phase = rng.uniform(0, 2 * np.pi)
-            f = 0.5 + 0.4 * np.sin(xx / w * 4 * np.pi + phase) * np.cos(yy / h * 2 * np.pi)
-            cx, cy = rng.randint(0, w), rng.randint(0, h)
-            f = f + 0.5 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * (h / 4) ** 2))
-            f = np.clip(f + rng.normal(0, 0.01, f.shape), 0, 1).astype(np.float32)
-            ir[j, :, :, 0] = np.rint(f * 65535)
-            rgb = np.stack([np.clip(1.5 * f - 0.2, 0, 1), np.clip(1 - np.abs(f - 0.5) * 2, 0, 1),
-                            np.clip(0.9 - f, 0, 1)], axis=2)
-            gt[j] = np.rint(rgb * 255)
-        out.append((ir, gt))
-    return out[:n]
-
-
-def serving_config(**overrides):
-    from ircolor_tpu_torch.config import Config
-
-    return Config.from_json(FLAGSHIP.read_text()).replace(mode="test", seed=SEED, **overrides)
-
-
 def calibrate_batch_norms(torch, module, run, label: str):
     """Set every batch norm's running statistics to those of its input in
     one ``run()`` (eval mode; each norm sees inputs that the norms before
@@ -1744,7 +1738,7 @@ def serve(torch, np, label: str, overrides: dict, quant: bool, per_forward: dict
     infer = make_infer_fn(model.module)
     batches = [
         (torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
-        for ir, gt in synthetic_batches(np, n_batches, batch, hw)
+        for ir, gt in synthetic_batches(n_batches, batch, hw)
     ]
     if cfg.norm == "batch":  # the warm-up also calibrates the batch norms
         calibrate_batch_norms(torch, model.module, lambda: infer(*batches[0]), f"serve {label}")
@@ -1802,7 +1796,7 @@ def latency_b1(torch, np, label: str, quant: bool, per_forward: dict, results_co
         raise AssertionError(f"{FLAGSHIP.name} at batch 1 no longer resolves to int8={quant}")
     model = IRColorizationModel(cfg, "cuda")
     infer = make_infer_fn(model.module)
-    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, B1_FRAMES)[0])
+    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(1, B1_FRAMES)[0])
     frames = [(ir[j : j + 1], gt[j : j + 1]) for j in range(B1_FRAMES)]
     for f in frames[:B1_WARMUP]:
         infer(*f)
@@ -1891,7 +1885,7 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
     cfg = serving_config(test_batch_size=batch, **overrides)
     model = IRColorizationModel(cfg, "cuda")
     infer = make_infer_fn(model.module)
-    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, batch, hw)[0])
+    ir, gt = (torch.from_numpy(a).cuda() for a in synthetic_batches(1, batch, hw)[0])
     before = dict(LAUNCHES)
     if cfg.norm == "batch":
         calibrate_batch_norms(torch, model.module, lambda: infer(ir, gt), f"kernel route {label}")
@@ -1915,7 +1909,7 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
         if LAUNCHES != mid:
             raise AssertionError("the plain route launched a kernel")
     LAUNCHES.update(before)
-    delta = route_delta(torch, pred_k, m_k, pred_p, m_p)
+    delta = route_delta(pred_k, m_k, pred_p, m_p)
     log(f"[kernel vs plain route, {label}, b{batch}] kernels run {ran}; "
         f"repeat bit-identical: {repeat}; {delta['text']}")
     expect_launches(f"kernel route {label}", ran, per_forward, 1)
@@ -1926,33 +1920,6 @@ def kernel_vs_plain_route(torch, np, label: str, overrides: dict, batch: int,
         raise AssertionError(f"{label}: kernel route disagrees with the plain route")
     del model, pred_k, pred_p
     torch.cuda.empty_cache()
-
-
-def route_delta(torch, pred_a, m_a, pred_b, m_b) -> dict:
-    """How far two serving steps' uint8 predictions and per-image metrics
-    lie apart."""
-    d = (pred_a.int() - pred_b.int()).abs()
-    out = dict(max_d=int(d.max()), mean_d=float(d.float().mean()),
-               hist=[float((d <= j).float().mean()) for j in (0, 1, 2, 4)],
-               dpsnr=float((m_a["psnr"] - m_b["psnr"]).abs().max()),
-               dssim=float((m_a["ssim"] - m_b["ssim"]).abs().max()))
-    out["text"] = (f"uint8 max|d|={out['max_d']} mean|d|={out['mean_d']:.4f}; share with "
-                   f"|d|<=0/1/2/4: {', '.join(f'{h:.4f}' for h in out['hist'])}; "
-                   f"|dPSNR|={out['dpsnr']:.5f} dB |dSSIM|={out['dssim']:.6f}")
-    return out
-
-
-def within_budget(delta: dict, uint8_bound: bool = True) -> bool:
-    """The repository's int8 serving budget on the metrics (0.02 dB PSNR,
-    0.002 SSIM per image), and on the uint8 image a mean difference of at
-    most 2 levels with 95% of values within 4. Each kernel alone matches
-    its plain version bit for bit or to one bf16 ulp (phase 2); between two
-    routes the conv statistics, summed in another order, move the next
-    conv's normalize (and, for int8, its rounding) by an ulp here and
-    there, and 9 blocks of a random-weight network compound that, while
-    the bf16 output grid makes one ulp of the prediction 1-2 uint8 levels."""
-    return (delta["dpsnr"] <= 0.02 and delta["dssim"] <= 0.002
-            and (not uint8_bound or (delta["mean_d"] <= 2.0 and delta["hist"][3] >= 0.95)))
 
 
 def _train_setup(torch, np, n_batches: int = 4, hw: tuple = (H, W), **overrides):
@@ -1970,7 +1937,7 @@ def _train_setup(torch, np, n_batches: int = 4, hw: tuple = (H, W), **overrides)
     state = create_train_state(cfg, steps_per_epoch=1000, device="cuda")
     vgg = load_vgg16(None, SEED, torch.bfloat16).cuda()
     batches = [{"ir": torch.from_numpy(ir).cuda(), "rgb": torch.from_numpy(gt).cuda()}
-               for ir, gt in synthetic_batches(np, n_batches, TRAIN_B, hw)]
+               for ir, gt in synthetic_batches(n_batches, TRAIN_B, hw)]
     return cfg, state, vgg, make_train_step(cfg, vgg), batches
 
 
@@ -2767,7 +2734,7 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
             runs.append((f"sp{n}", make_infer_fn(g), per, n))
         n_batches = 2 if batch >= 32 else 6
         batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
-                   for ir, gt in synthetic_batches(np, n_batches, batch, hw)]
+                   for ir, gt in synthetic_batches(n_batches, batch, hw)]
         ref, default = None, None
         for name, infer, per, n in runs:
             pred, m = infer(*batches[0])  # warm-up; the output compared below
@@ -2792,19 +2759,19 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
                 default = (pred, m)
                 continue
             (pred_p, m_p), ran = swapped(infer, rows12, *batches[0])
-            plain = route_delta(torch, pred, m, pred_p, m_p)
+            plain = route_delta(pred, m, pred_p, m_p)
             if ref is None:
                 ref, noise = (pred, m), noise_of[cell] if noise_of else plain
                 noise_by_cell[cell] = noise
                 if default is not None:
                     log(f"    the default route (tails and head on) against this one: "
-                        f"{route_delta(torch, *default, *ref)['text']}")
+                        f"{route_delta(*default, *ref)['text']}")
                 log(f"    this route against rows 1 and 2 on their plain versions (its "
                     f"rounding noise): {plain['text']}"
                     + (f"; the noise taken from phase 8b: {noise['mean_d']:.4f}"
                        if noise_of else ""))
                 continue
-            delta = route_delta(torch, pred, m, *ref)
+            delta = route_delta(pred, m, *ref)
             seam = seam_ratio(torch, pred, ref[0], n)
             exact = True
             if quant:  # the int8 conv's kernel equals its plain version bit for bit
@@ -2833,7 +2800,7 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
             del pred_p
             if quant and n == SP_SHARDS[0]:
                 pred_f, m_f = seams_cut_fault(torch, infer, batches[0])
-                fault = route_delta(torch, pred_f, m_f, *ref)
+                fault = route_delta(pred_f, m_f, *ref)
                 seam_f = seam_ratio(torch, pred_f, ref[0], n)
                 log(f"    a seam fault (the int8 enc/dec convs' halos zero at the seams) "
                     f"against the unsharded step: {fault['text']}; seam/interior mean |d| "
@@ -2848,7 +2815,7 @@ def spatial_serving_phase(torch, np, counts: dict, hw: tuple = (H, W),
                 # cell's own checks above would reject it. The float cell must
                 # flag it; the int8 cell's rounding noise hides it (PERF.md §7).
                 pred_f, m_f = halo_row_fault(torch, infer, batches[0])
-                fault = route_delta(torch, pred_f, m_f, *ref)
+                fault = route_delta(pred_f, m_f, *ref)
                 seam_f = seam_ratio(torch, pred_f, ref[0], n)
                 budget = not within_budget(fault, uint8_bound=not quant) or (
                     quant and fault["mean_d"] > limit)
@@ -2902,7 +2869,7 @@ def export_phase(torch, np, per_forward: dict, counts: dict) -> None:
     (REPO / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="export_", dir=REPO / "build"))
     batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
-               for ir, gt in synthetic_batches(np, 3, B)]
+               for ir, gt in synthetic_batches(3, B)]
     irs = [_decoded_ir(torch, ir) for ir, _ in batches]
     for label, quant in (("int8", True), ("float", False)):
         model = IRColorizationModel(serving_config(quant_int8=quant), "cuda")
@@ -2957,7 +2924,7 @@ def export_phase(torch, np, per_forward: dict, counts: dict) -> None:
             raise AssertionError(f"portable {label}: ircolor ops {aot.kernel_calls(program)}")
         path = tmp / f"portable_{label}.pt2"
         aot.save_exported(str(path), blob)
-        ir_u16, gt_u8 = (torch.from_numpy(a).cuda() for a in synthetic_batches(np, 1, b)[0])
+        ir_u16, gt_u8 = (torch.from_numpy(a).cuda() for a in synthetic_batches(1, b)[0])
         torch.save(_decoded_ir(torch, ir_u16).cpu(), tmp / "ir.pt")
         code = ("import sys, time; sys.modules['ircolor_tpu_torch'] = None\n"
                 "import torch\n"
@@ -2975,7 +2942,7 @@ def export_phase(torch, np, per_forward: dict, counts: dict) -> None:
         got = torch.load(tmp / "out.pt").cuda()
         want, _ = make_infer_fn(aot.without_kernels(model.module))(ir_u16, gt_u8)
         gt01 = gt_u8.float() / 255.0
-        delta = route_delta(torch, got, batched_metrics(got.float() / 255.0, gt01),
+        delta = route_delta(got, batched_metrics(got.float() / 255.0, gt01),
                             want, batched_metrics(want.float() / 255.0, gt01))
         log(f"[export portable {label}] {H}x{W} b{b}: export {export_s:.2f} s, "
             f"{len(blob) / 1e6:.2f} MB, {len(program.graph.nodes)} graph nodes, no ircolor op; "
@@ -2986,6 +2953,224 @@ def export_phase(torch, np, per_forward: dict, counts: dict) -> None:
         del model, program, got, want
         torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Phase 10: data parallelism on this one card. Two ranks share it: the
+# test mode's two chunks run one after the other on one replica, and the
+# two training ranks (two processes) meet over gloo, which copies through
+# the host (NCCL refuses two ranks on one card). No multi-card speed-up is
+# measured here.
+DP_RANKS = 2
+DP_TRAIN_STEPS = 4  # the first held against the one-process step, 3 timed
+
+
+def port_kernel_counts(torch, fn, windows: int = 2) -> dict:
+    """Launches of each of the port's kernels (``ircolor`` in the name) in
+    one call of ``fn``, by ``torch.profiler``: the most of ``windows``
+    windows (a window can miss a launch's record, never add one)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    best: Counter = Counter()
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = Counter(e.name[:60] for e in prof.events()
+                       if e.device_type.name == "CUDA" and "ircolor" in e.name)
+        best = Counter({k: max(best[k], seen[k]) for k in best.keys() | seen.keys()})
+    return dict(best)
+
+
+def dp_serving_phase(torch, np, per_forward: dict, counts: dict) -> None:
+    """Phase 10a: ``make_infer_fn`` over a data mesh of ``DP_RANKS`` entries
+    on cuda:0 (``dp_devices=2``: two chunks of 16 a batch of 32), int8 and
+    float, against the unsharded b32 step on the same weights and batches:
+    within phase 4's budget (bit-identical or not, said); the wrappers'
+    launches 2 × (18 / 2 / 1) a batch over 3 batches, and every port
+    kernel's launches by ``torch.profiler`` twice the unsharded step's;
+    frames/s beside the unsharded step in turns (one, dp, dp, one)."""
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+    from ircolor_tpu_torch.parallel.mesh import make_data_mesh
+
+    mesh = make_data_mesh(DP_RANKS, device="cuda:0")
+    for label, overrides, quant in (("int8", {}, True), ("float", {"quant_int8": False}, False)):
+        cfg = serving_config(dp_devices=DP_RANKS, **overrides)
+        if (cfg.resolved_hw, cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != ((H, W), B, quant):
+            raise AssertionError(f"dp {label}: config no longer resolves to {H}x{W} b{B}")
+        model = IRColorizationModel(cfg, "cuda")
+        steps = {"one": make_infer_fn(model.module), "dp": make_infer_fn(model.module, mesh)}
+        batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+                   for ir, gt in synthetic_batches(3, B)]
+        for f in steps.values():  # warm-up: cuDNN algorithm picks at b32 and b16
+            f(*batches[0])
+        torch.cuda.synchronize()
+        (p1, m1), (pd, md) = steps["one"](*batches[0]), steps["dp"](*batches[0])
+        delta = route_delta(pd, md, p1, m1)
+        same = bool(torch.equal(pd, p1)) and all(torch.equal(md[k], m1[k]) for k in md)
+        log(f"[dp serve {label}] 2 chunks of {B // DP_RANKS} vs unsharded b{B}: {delta['text']}; "
+            f"bit-identical: {same}")
+        if not within_budget(delta):
+            raise AssertionError(f"dp serve {label}: outside the serving budget: {delta['text']}")
+
+        reset_launches()
+        outs = [steps["dp"](ir, gt) for ir, gt in batches]
+        torch.cuda.synchronize()
+        counts[f"dp {label}"] = dict(LAUNCHES)
+        expect_launches(f"dp serve {label}", counts[f"dp {label}"],
+                        {k: DP_RANKS * v for k, v in per_forward[label].items()}, len(batches))
+        check_outputs(torch, f"dp serve {label}", outs, B)
+        prof = {w: port_kernel_counts(torch, lambda: steps[w](*batches[0])) for w in steps}
+        log(f"[dp serve {label}] the port's kernels a batch by torch.profiler: dp {prof['dp']}; "
+            f"unsharded {prof['one']}")
+        if not prof["one"] or prof["dp"] != {k: DP_RANKS * v for k, v in prof["one"].items()}:
+            raise AssertionError(f"dp serve {label}: profiler launches {prof['dp']} are not "
+                                 f"{DP_RANKS} x the unsharded step's {prof['one']}")
+
+        fps: dict = {"one": [], "dp": []}
+        for which in ("one", "dp", "dp", "one"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for ir, gt in batches:
+                steps[which](ir, gt)
+            torch.cuda.synchronize()
+            fps[which].append(len(batches) * B / (time.perf_counter() - t0))
+        log(f"[dp serve {label}] frames/s at b{B} (turns one, dp, dp, one): dp "
+            + " / ".join(f"{v:.2f}" for v in fps["dp"]) + ", unsharded "
+            + " / ".join(f"{v:.2f}" for v in fps["one"]))
+        del model, steps, batches, outs
+        torch.cuda.empty_cache()
+
+
+def dp_train_phase(torch, np, counts: dict) -> None:
+    """Phase 10b: ``DP_RANKS`` training ranks spawned on cuda:0 over gloo
+    (``parallel.launch.spawn``, ``tools.dp_steps.run_rank_each``), the
+    flagship in train mode with ``dp_mode="shard_map"``, global b8 (b4 a
+    rank), ``DP_TRAIN_STEPS`` steps on fixed synthetic batches, against the
+    same steps of one process at b8 from the same weights: the parameters
+    and buffers bit-identical across the ranks after every step; of the
+    first step, the losses D' does not enter within 2^-10 relative, G's and
+    D's conv weights' gradients within 1e-2 relative L2 and their Adam
+    update within lr/4 on all but 1% of entries, the biases read out; 18 /
+    18 / 18 launches of rows 2, 5 and 6 a step on each rank; a failed rank
+    fails the phase. The same ranks then run the same steps under the
+    default ``dp_mode`` ("gspmd"): the same launches, bit-identical
+    replicas, and the losses D' does not enter within 2^-10 relative of
+    shard_map's (bit-identical or not, said). Then 10c: a one-rank NCCL
+    group through the same launcher, whose all-reduce must return."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.parallel.launch import spawn
+    from ircolor_tpu_torch.tools.dp_steps import (
+        ROUTING,
+        collective_probe,
+        one_process_steps,
+        run_rank_each,
+    )
+    from ircolor_tpu_torch.train.state import train_config
+    from ircolor_tpu_torch.train.step import METRIC_KEYS
+
+    cfg = Config.from_json(FLAGSHIP.read_text()).replace(
+        mode="train", seed=SEED, dp_devices=DP_RANKS, dp_mode="shard_map")
+    if (cfg.resolved_hw, cfg.batch_size, cfg.compute_dtype) != ((H, W), TRAIN_B, "bf16"):
+        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to b{TRAIN_B} bf16 training")
+    batches = [{"ir": ir, "rgb": gt} for ir, gt in synthetic_batches(DP_TRAIN_STEPS, TRAIN_B)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    modes = (cfg, cfg.replace(dp_mode=Config().dp_mode))
+    per_rank = spawn(run_rank_each, [torch.device("cuda", 0)] * DP_RANKS,
+                     ([(c, batches) for c in modes],), timeout_s=600)
+    ranks, default_ranks = ([r[i] for r in per_rank] for i in range(len(modes)))
+    log(f"[dp train] {DP_RANKS} ranks on cuda:0 over gloo: spawned, trained "
+        f"({' then '.join(c.dp_mode for c in modes)}) and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    one = one_process_steps(cfg.replace(dp_devices=1), torch.device("cuda", 0), batches)
+    torch.cuda.empty_cache()
+
+    expect_launches("dp train one process (forwards = steps)", one["launches"], TRAIN_PER_STEP,
+                    DP_TRAIN_STEPS)
+    for mode, outs in ((modes[0].dp_mode, ranks), (modes[1].dp_mode, default_ranks)):
+        for r, out in enumerate(outs):
+            counts[f"dp train {mode} rank {r}"] = out["launches"]
+            expect_launches(f"dp train {mode} rank {r} (forwards = steps)", out["launches"],
+                            TRAIN_PER_STEP, DP_TRAIN_STEPS)
+            if out["equal"] != [True] * DP_TRAIN_STEPS:
+                raise AssertionError(f"dp train {mode}: replicas differ after the steps "
+                                     f"{out['equal']}")
+            if out["routing"] != {f: getattr(train_config(cfg), f) for f in ROUTING}:
+                raise AssertionError(f"dp train {mode} rank {r}: routing {out['routing']}")
+        log(f"[dp train] {mode}: parameters and buffers bit-identical across the ranks after "
+            f"each of the {DP_TRAIN_STEPS} steps; routing {outs[0]['routing']}")
+    # Against one process at b8 the ranks run b4 shapes and sum in another
+    # order, in bf16. Held: the step-1 losses that D' does not enter within
+    # a quarter of a bf16 ulp (2^-10) relative; G's conv weights' gradients
+    # within phase 6's 1e-2 relative L2 and their Adam update within lr/4 on
+    # >= 99% of entries, and D's likewise. Read out only: loss_G_GAN and
+    # loss_G, which read D' (D after its Adam step, whose rounding-level
+    # entries may step either way), and every bias (those ahead of an
+    # instance norm get no gradient in exact arithmetic).
+    for i in range(DP_TRAIN_STEPS):
+        got, want = ranks[0]["losses"][i], one["losses"][i]
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in METRIC_KEYS}
+        log(f"[dp train] step {i + 1} losses, dp vs one process (relative): "
+            + ", ".join(f"{k} {got[k]:.6f}/{want[k]:.6f} ({rel[k]:.2e})" for k in METRIC_KEYS))
+        bad = [k for k in METRIC_KEYS if k not in ("loss_G", "loss_G_GAN")
+               and abs(got[k] - want[k]) > 2.0**-10 * abs(want[k]) + 1e-7]
+        if i == 0 and bad:
+            raise AssertionError(f"dp train: step 1 losses {bad} outside 2^-10 relative")
+    # The two modes run the same step on the same weights: step 1's losses
+    # that D' does not enter are held as against one process; every step's
+    # losses are read out, bit-identical or not.
+    same = default_ranks[0]["losses"] == ranks[0]["losses"]
+    got, want = default_ranks[0]["losses"][0], ranks[0]["losses"][0]
+    worst = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in METRIC_KEYS if k not in ("loss_G", "loss_G_GAN"))
+    log(f"[dp train] {modes[1].dp_mode} vs {modes[0].dp_mode}: losses of all {DP_TRAIN_STEPS} "
+        f"steps bit-identical: {same}; step 1's D'-free losses at most {worst:.2e} relative apart")
+    if worst > 2.0**-10:
+        raise AssertionError(f"dp train: {modes[1].dp_mode}'s losses leave shard_map's by {worst}")
+    lr = cfg.lr_G
+    grads = one["first"]["grads"]
+    held = {"g.": [0.0, 0.0, 0], "d.": [0.0, 0.0, 0]}  # worst grad rel L2, worst off share, leaves
+    for key, want in grads.items():
+        if want is None or not key.endswith(".weight"):
+            continue
+        got = ranks[0]["first"]["grads"][key]
+        rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        d_one = one["first"]["params"][key] - one["before"][key]
+        d_dp = ranks[0]["first"]["params"][key] - one["before"][key]
+        off = float((np.abs(d_dp - d_one) > 0.25 * lr).mean())
+        worst = held[key[:2]]
+        worst[0], worst[1], worst[2] = max(worst[0], rel), max(worst[1], off), worst[2] + 1
+        if rel > 1e-2 or off > 0.01:
+            raise AssertionError(f"dp train: step 1 of {key}: gradient {rel:.2e} relative L2, "
+                                 f"update off by > lr/4 on {off:.4f} of it")
+    for tag, name in (("g.", "G"), ("d.", "D")):
+        log(f"[dp train] step 1 vs one process, {name}, {held[tag][2]} conv weights: gradient "
+            f"at most {held[tag][0]:.2e} relative L2, Adam update more than lr/4 apart on at "
+            f"most {held[tag][1]:.5f} of a leaf")
+
+    timed = slice(1, DP_TRAIN_STEPS)
+    one_ms = float(np.mean(one["step_ms"][timed]))
+    for r, out in enumerate(ranks):
+        step_ms = float(np.mean(out["step_ms"][timed]))
+        comm_ms = float(np.mean(out["comm_ms"][timed]))
+        log(f"[dp train] rank {r}: {step_ms:.1f} ms a step ({TRAIN_B * 1e3 / step_ms:.2f} global "
+            f"frames/s), all-reduce {comm_ms:.1f} ms ({comm_ms / step_ms:.3f} of it), peak "
+            f"memory {out['peak_gib']:.2f} GiB")
+    log(f"[dp train] one process b{TRAIN_B}: {one_ms:.1f} ms a step "
+        f"({TRAIN_B * 1e3 / one_ms:.2f} frames/s), peak memory {one['peak_gib']:.2f} GiB")
+
+    t0 = time.perf_counter()
+    (probe,) = spawn(collective_probe, [torch.device("cuda", 0)], timeout_s=300)
+    log(f"[dp nccl] one rank on cuda:0: backend {probe['backend']}, world {probe['world']}, "
+        f"all-reduce {probe['sum']} (every entry equal: {probe['same']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if probe != {"backend": "nccl", "world": 1, "sum": 1.0, "same": True}:
+        raise AssertionError(f"dp nccl: {probe}")
 
 
 def main() -> int:
@@ -3160,6 +3345,10 @@ def main() -> int:
     phase_done("phase 8c")
     export_phase(torch, np, {"int8": int8_default, "float": float_default}, counts)
     phase_done("phase 9")
+    dp_serving_phase(torch, np, {"int8": int8_default, "float": float_default}, counts)
+    phase_done("phase 10a")
+    dp_train_phase(torch, np, counts)
+    phase_done("phases 10b, 10c")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held

@@ -4,7 +4,11 @@ in the JAX package, plus ``--config path.json`` and ``--device {cuda,cpu}``
 (default ``cuda``: without a card the run stops; ``--device cpu`` is the one
 way onto the CPU). ``test --sp-devices N`` runs spatial test mode over N
 H-shards (``eval.runner.spatial_generator``: all on the CPU with ``--device
-cpu``, else spread over the visible cards). ``export`` writes the serving
+cpu``, else spread over the visible cards). ``--dp-devices N`` runs data
+parallelism: ``train`` over N ranks, one process each (``train.loop``),
+``test`` over N chunks of each batch (``eval.runner.make_infer_fn``), on
+the CPU with ``--device cpu``, else on the first N cards (``train`` with
+0, the default: every card, fit to the batch). ``export`` writes the serving
 step (``--test-g-weights`` baked in, uint8 out) as a ``torch.export``
 artifact to ``--export-out`` (``export.aot.run_export``): portable (aten
 ops only) by default, with the CUDA kernels inside under

@@ -94,7 +94,7 @@ class Config:
     compute_dtype: str = "f32"          # "f32" parity path | "bf16" serving
     conv_precision: str = "highest"     # f32: highest = TF32 off; high, default allow it
     batch_transport: str = "int"        # uint16/uint8 transport | "float"
-    dp_devices: int = 0                 # >1: not ported (ROADMAP Queue 1)
+    dp_devices: int = 0                 # data-parallel ranks; 0: every card, fit to the batch
     sp_devices: int = 1                 # >1: test mode on a 1-D H mesh; training not ported
     sp_w_devices: int = 1               # >1 (2-D H×W tiling): not ported (ROADMAP Queue 1)
     dp_mode: str = "gspmd"

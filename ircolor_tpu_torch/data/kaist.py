@@ -9,7 +9,8 @@
   (``random.Random(42).shuffle``, ``val = max(1, int(N·val_ratio))``).
 * ``KAISTPairDataset``: decoded pairs with the paired horizontal flip
   (p = 0.5) drawn from ``(seed, epoch, index)``, as float arrays in [−1, 1]
-  (``__getitem__``) or the integer transport (``int_item``).
+  (``__getitem__``), the integer transport (``int_item``) or the uint8
+  frames the native batch assembler takes (``raw_item``).
 
 cv2 is imported inside the functions that read files.
 """
@@ -136,6 +137,18 @@ class KAISTPairDataset:
         rgb_u = cv2.cvtColor(rgb_u, cv2.COLOR_BGR2RGB)
         rgb_u = cv2.resize(rgb_u, (w, h), interpolation=cv2.INTER_AREA)
         return ir_u, rgb_u
+
+    def raw_item(self, idx: int):
+        """``(ir (H, W, 1), rgb (H, W, 3), flip)``: the resized uint8 frames
+        and the flip still to apply, for the native batch assembler
+        (``data.native``), which normalizes, flips and stacks. None for a
+        frame that is not 8-bit, and for an IR frame of 0s and 1s only, which
+        the reference does not divide by 255 (the assembler always does):
+        their batches take the exact float path."""
+        ir_u, rgb_u = self._read_pair(idx)
+        if ir_u.dtype != np.uint8 or ir_u.max() <= 1:
+            return None
+        return ir_u[:, :, None], rgb_u, self._flip(idx)
 
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         """``{'ir': (H, W, 1), 'rgb': (H, W, 3)}`` float32 in [−1, 1]."""

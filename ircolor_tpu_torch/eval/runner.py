@@ -12,10 +12,12 @@ step is queued, writes the mirrored predictions, collages,
 ``metrics_test.csv`` with its "# Summary" block and the Top-K folder.
 
 Every generator variant of ``Config`` serves (``norm``, ``no_antialias``,
-``no_antialias_up``; batch norm on its running statistics), on one device.
-Data-parallel test mode (``dp_devices`` > 1) and 2-D H×W tiling are not
-ported yet, and ``reject_unported`` rejects them; the generator's spatial
-forward rejects the variants under ``sp_devices`` > 1.
+``no_antialias_up``; batch norm on its running statistics), on one device
+or data-parallel (``dp_devices`` > 1, ``make_infer_fn``'s ``dp_mesh``: each
+device serves whole images of the batch; exclusive with ``sp_devices``, as
+in JAX). 2-D H×W tiling is not ported yet, and ``reject_unported`` rejects
+it; the generator's spatial forward rejects the variants under
+``sp_devices`` > 1.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ircolor_tpu_torch.eval.metrics import batched_metrics, quantize_to_uint8_01
 from ircolor_tpu_torch.export.collage import make_comparison_collage, save_comparison_image
 from ircolor_tpu_torch.export.topk import save_best_k_outputs, write_metrics_csv
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel, reject_unported
+from ircolor_tpu_torch.parallel.mesh import make_data_mesh
 from ircolor_tpu_torch.parallel.spatial import (
     check_stage_heights,
     gather_h,
@@ -81,7 +84,7 @@ def spatial_generator(cfg: Config, module: torch.nn.Module,
     return spatial
 
 
-def make_infer_fn(module: torch.nn.Module):
+def make_infer_fn(module: torch.nn.Module, dp_mesh: list[torch.device] | None = None):
     """One serving step on NHWC tensors already on the module's device:
     ``(ir, gt01) → (uint8 RGB prediction, {mae, mse, psnr, ssim})``.
 
@@ -91,8 +94,39 @@ def make_infer_fn(module: torch.nn.Module):
     JAX step's does. With the module's ``spatial_mesh`` set
     (``spatial_generator``) the decoded batch is sharded over the mesh and
     the prediction gathered onto shard 0's device before the uint8 step and
-    the metrics (SSIM's window crosses the seams)."""
+    the metrics (SSIM's window crosses the seams).
+
+    ``dp_mesh`` (data-parallel test mode, JAX's ``dp_mesh``; a list of
+    devices, ``parallel.mesh.make_data_mesh``): the batch is split into
+    equal contiguous chunks, one a mesh entry, each run through the whole
+    step (decode, generator, uint8, metrics) on a replica of the module on
+    that entry's device (one replica a distinct device), routed by the
+    gates at the chunk's batch; the outputs are concatenated in order on
+    the first entry's device. The batch must divide by the mesh size."""
     mesh = getattr(module, "spatial_mesh", None)
+    if dp_mesh is not None:
+        home = next(module.parameters()).device
+        replicas: dict[torch.device, torch.nn.Module] = {}
+        for dev in dp_mesh:
+            if dev not in replicas:
+                replicas[dev] = module if dev == home else copy.deepcopy(module).to(dev)
+        steps = {dev: make_infer_fn(m) for dev, m in replicas.items()}
+
+        @torch.inference_mode()
+        def infer_dp(ir: torch.Tensor, gt01: torch.Tensor):
+            n = len(dp_mesh)
+            if ir.shape[0] % n:
+                raise ValueError(f"batch {ir.shape[0]} must divide by the {n}-device data mesh")
+            # Every chunk's copy is queued before any chunk's step: a copy
+            # off the first device waits for the work already queued there.
+            chunks = [(x.to(dev), g.to(dev))
+                      for dev, x, g in zip(dp_mesh, ir.chunk(n), gt01.chunk(n))]
+            outs = [steps[dev](x, g) for dev, (x, g) in zip(dp_mesh, chunks)]
+            first = dp_mesh[0]
+            pred = torch.cat([p.to(first) for p, _ in outs])
+            return pred, {k: torch.cat([m[k].to(first) for _, m in outs]) for k in outs[0][1]}
+
+        return infer_dp
 
     @torch.inference_mode()
     def infer(ir: torch.Tensor, gt01: torch.Tensor):
@@ -146,6 +180,20 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict[str,
     one unless ``device="cpu"``); returns the summary dict (also logged and
     saved)."""
     reject_unported(cfg)
+    bsz = cfg.resolved_test_batch_size
+    dp_mesh = None
+    if cfg.dp_devices > 1:
+        if cfg.sp_devices > 1:
+            raise ValueError(
+                "test mode: dp_devices and sp_devices are mutually exclusive "
+                "(batch-parallel vs image-spatial sharding; pick one)"
+            )
+        dp_mesh = make_data_mesh(cfg.dp_devices, device=device)
+        if bsz % len(dp_mesh):
+            raise ValueError(
+                f"test_batch_size {bsz} must divide by dp_devices {len(dp_mesh)} "
+                "(each device infers batch/dp_devices whole images)"
+            )
     os.makedirs(cfg.output_dir, exist_ok=True)
     if not cfg.test_roots:
         raise ValueError("cfg.test_roots is empty. Please set cfg.test_roots to KAIST set paths.")
@@ -163,9 +211,10 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict[str,
             "generator is randomly initialized, results will be meaningless."
         )
     size_hw = cfg.resolved_hw
-    bsz = cfg.resolved_test_batch_size
     module = model.module if cfg.sp_devices <= 1 else spatial_generator(cfg, model.module, device)
-    infer = make_infer_fn(module)
+    if dp_mesh is not None:
+        log.info("[TEST] Data parallel: batch %d over %s", bsz, [str(d) for d in dp_mesh])
+    infer = make_infer_fn(module, dp_mesh)
 
     metrics_list: list[dict[str, Any]] = []
     sums = {k: 0.0 for k in _MKEYS}

@@ -25,6 +25,7 @@ import contextlib
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
@@ -52,6 +53,23 @@ def norm_nhwc(x: torch.Tensor) -> torch.Tensor:
     return instance_norm(x)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of the process group; its gradient likewise
+    (every rank's loss reads the summed value)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
 class BatchNorm(nn.Module):
     """Batch norm of NHWC tensors with ``nn.BatchNorm2d``'s state (``weight``,
     ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``: the
@@ -64,9 +82,13 @@ class BatchNorm(nn.Module):
     output is float32 whatever the input's dtype, as flax promotes a bf16
     input against its float32 parameters. Under ``frozen_running_stats``
     (a checkpointed block's recompute) the statistics are not updated
-    again."""
+    again. With ``sync`` (data parallelism over a process group) the
+    training statistics are the global batch's: the per-channel sums, sums
+    of squares and counts are all-reduced, and their gradients too, as
+    ``SyncBatchNorm`` does."""
 
     update_stats = True
+    sync = False
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -79,9 +101,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
-        if self.training:
+        if self.training and self.sync:
+            c = x32.shape[-1]
+            sums = torch.cat([x32.sum(dim=(0, 1, 2)), x32.square().sum(dim=(0, 1, 2)),
+                              x32.new_full((1,), x32.numel() // c)])
+            sums = _AllReduceSum.apply(sums)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean.square(), min=0.0)
+        elif self.training:
             mean = x32.mean(dim=(0, 1, 2))
             var = torch.clamp(x32.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0)
+        if self.training:
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

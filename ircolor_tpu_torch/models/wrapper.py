@@ -46,10 +46,11 @@ def resolve_precision(cfg: Config) -> bool | None:
 def reject_unported(cfg: Config, *, train: bool = False) -> None:
     """Raise on what the port does not run: ``ValueError`` for the config
     the JAX runner refuses (a W mesh axis without an H one), else
-    ``NotImplementedError`` for the modes not ported yet: data parallelism,
-    2-D H×W spatial tiling and spatial training (``train``). Spatial test
-    mode on a 1-D H mesh (``sp_devices > 1``) runs; the generator's spatial
-    forward refuses the variants it does not run (``_check_spatial``)."""
+    ``NotImplementedError`` for the modes not ported yet: 2-D H×W spatial
+    tiling and spatial training (``train``). Data parallelism
+    (``dp_devices``) and spatial test mode on a 1-D H mesh (``sp_devices >
+    1``) run; the generator's spatial forward refuses the variants it does
+    not run (``_check_spatial``)."""
     if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
         raise ValueError(
             f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "
@@ -57,8 +58,7 @@ def reject_unported(cfg: Config, *, train: bool = False) -> None:
             "total devices tiled (sp_devices/sp_w_devices)×sp_w_devices); "
             "set --sp-devices as well"
         )
-    for name, on in (("dp_devices > 1", cfg.dp_devices > 1),
-                     ("sp_w_devices > 1 (2-D H×W spatial tiling)", cfg.sp_w_devices > 1),
+    for name, on in (("sp_w_devices > 1 (2-D H×W spatial tiling)", cfg.sp_w_devices > 1),
                      ("spatial training (sp_devices > 1)", train and cfg.sp_devices > 1)):
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, Queue 1)")

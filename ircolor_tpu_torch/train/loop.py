@@ -19,19 +19,27 @@ first that is not finite (``_NanGuard``), and the backward runs under
 ``torch.autograd.detect_anomaly(check_nan=True)``.
 
 Every generator variant of ``Config`` trains (``norm``, ``no_antialias``,
-``no_antialias_up``, ``remat``). Single device only; ``dp_devices``/
-``sp_devices`` > 1 raise NotImplementedError (``reject_unported``,
-ROADMAP.md, Queue 1).
+``no_antialias_up``, ``remat``), on one device or data-parallel over
+``dp_devices`` ranks (``train_kaist``: one process a rank, each with its
+slice of every global batch from a rank-sharded loader; the step of
+``train.step_shardmap``, whose all-reduces keep the replicas equal; the
+validation padded to each rank's share of the batch and summed over the
+ranks, so that every rank takes the same best-checkpoint decision; rank 0
+logs and writes the checkpoints while the others wait at a barrier; a
+resume on every rank). Spatial training (``sp_devices`` > 1) raises
+NotImplementedError (``reject_unported``, ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
 from ircolor_tpu_torch.config import Config
@@ -44,6 +52,14 @@ from ircolor_tpu_torch.models.wrapper import (
     reject_unported,
     resolve_device,
 )
+from ircolor_tpu_torch.parallel.launch import spawn
+from ircolor_tpu_torch.parallel.mesh import (
+    initialize_multihost,
+    make_train_mesh,
+    shard_batch,
+    warmup_mesh_collectives,
+    world,
+)
 from ircolor_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     load_netg_state,
@@ -54,6 +70,12 @@ from ircolor_tpu_torch.train.checkpoint import (
 from ircolor_tpu_torch.train.schedule import linear_decay_factor
 from ircolor_tpu_torch.train.state import create_train_state
 from ircolor_tpu_torch.train.step import METRIC_KEYS, make_train_step, make_val_sum_step
+from ircolor_tpu_torch.train.step_shardmap import (
+    broadcast_replicas,
+    make_train_step_shardmap,
+    make_val_sum_step_shardmap,
+    replicas_equal,
+)
 from ircolor_tpu_torch.utils.logging import JsonlLogger, get_logger
 from ircolor_tpu_torch.utils.timing import ProfilerTrace, synchronize
 
@@ -137,8 +159,8 @@ class _NanGuard:
             h.remove()
 
 
-def _to_device(batch: dict[str, np.ndarray], dev: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+# The summary entries every rank must agree on (the wall-clock ones differ).
+_AGREED = ("best_val_l1", "final_epoch_losses", "epochs_run", "steps_total")
 
 
 def train_kaist(
@@ -150,13 +172,59 @@ def train_kaist(
 ) -> dict[str, Any]:
     """Run the training recipe on ``device`` (the card by default); returns a
     summary (best val L1, final-epoch mean losses, steps, throughput, state).
-    ``max_steps_per_epoch`` truncates epochs for tests and smoke runs."""
+    ``max_steps_per_epoch`` truncates epochs for tests and smoke runs.
+
+    Data parallelism: in a process group already up, or one a launcher's
+    environment describes (``parallel.mesh.initialize_multihost``), this
+    process trains as its rank. Else, where ``make_train_mesh`` gives more
+    than one rank (``dp_devices``; 0: every card, fit to the batch), one
+    process a rank is spawned (``parallel.launch``) and rank 0's summary is
+    returned without ``state`` (the checkpoints hold it), after checking that
+    every rank's agrees."""
     reject_unported(cfg, train=True)
-    dev = resolve_device(device)
+    if not dist.is_initialized():
+        env_dev = initialize_multihost(device=device)
+        if env_dev is not None:
+            device = env_dev
+        else:
+            devices = make_train_mesh(cfg.dp_devices, cfg.sp_devices, cfg.batch_size, device)
+            if len(devices) > 1:
+                summaries = spawn(_train_rank, devices, (cfg, max_steps_per_epoch))
+                for r, s in enumerate(summaries[1:], start=1):
+                    if any(s[k] != summaries[0][k] for k in _AGREED):
+                        raise RuntimeError(f"rank {r}'s summary differs from rank 0's: "
+                                           f"{[(k, s[k], summaries[0][k]) for k in _AGREED]}")
+                return summaries[0]
+            device = devices[0]
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank:
+        logging.disable(logging.INFO)  # rank 0 logs
+    try:
+        return _train(cfg, resolve_device(device), max_steps_per_epoch,
+                      jsonl if rank == 0 else JsonlLogger(None))
+    finally:
+        if rank:
+            logging.disable(logging.NOTSET)
+
+
+def _train_rank(rank: int, device: torch.device, cfg: Config,
+                max_steps_per_epoch: int | None) -> dict[str, Any]:
+    """A spawned rank's training; its summary without the state."""
+    summary = train_kaist(cfg, device=device, max_steps_per_epoch=max_steps_per_epoch)
+    return {k: v for k, v in summary.items() if k != "state"}
+
+
+def _train(cfg: Config, dev: torch.device, max_steps_per_epoch: int | None,
+           jsonl: JsonlLogger | None) -> dict[str, Any]:
+    """The recipe on this rank (the only one without a process group)."""
+    rank, n_ranks = world()
     own_jsonl = jsonl is None
     jsonl = jsonl or JsonlLogger(cfg.jsonl_log)
     h, w = cfg.resolved_hw
-    log.info("[TRAIN] Device: %s", dev)
+    if cfg.dp_mode not in ("gspmd", "shard_map"):
+        raise ValueError(f"dp_mode must be 'gspmd' or 'shard_map', got {cfg.dp_mode!r}")
+    log.info("[TRAIN] Device: %s%s", dev, f" (rank 0 of {n_ranks}, {cfg.dp_mode})"
+             if n_ranks > 1 else "")
     log.info("KAIST root (V000, V001, ...): %s", cfg.train_roots[0] if cfg.train_roots else "")
 
     all_ir, all_rgb = scan_kaist_pairs(list(cfg.train_roots))
@@ -175,15 +243,20 @@ def train_kaist(
     )
     train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
                                num_workers=cfg.num_workers, seed=cfg.seed,
+                               shard_index=rank, shard_count=n_ranks,
                                transport=cfg.batch_transport)
     val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False, drop_last=False,
-                             num_workers=cfg.num_workers, transport=cfg.batch_transport)
+                             num_workers=cfg.num_workers, shard_index=rank,
+                             shard_count=n_ranks, transport=cfg.batch_transport)
     steps_per_epoch = len(train_loader)
     if max_steps_per_epoch is not None:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
     if steps_per_epoch == 0:
         raise RuntimeError("Not enough pairs for a single training batch")
 
+    # The ranks meet once before the state's init and the first step, whose
+    # time may differ by rank.
+    warmup_mesh_collectives(dev)
     state = create_train_state(cfg, steps_per_epoch, dev)
     if cfg.init_G_weights is not None and os.path.isfile(cfg.init_G_weights):
         log.info("Initializing generator from: %s", cfg.init_G_weights)
@@ -195,8 +268,12 @@ def train_kaist(
         if cfg.vgg16_weights is None:
             log.warning("WARNING: no pretrained VGG-16 weights supplied (cfg.vgg16_weights); "
                         "perceptual loss uses a deterministic random tower.")
-    train_step = make_train_step(cfg, vgg)
-    val_step = make_val_sum_step(state.g)
+    if n_ranks > 1:
+        train_step = make_train_step_shardmap(cfg, vgg)
+        val_step = make_val_sum_step_shardmap(state.g)
+    else:
+        train_step = make_train_step(cfg, vgg)
+        val_step = make_val_sum_step(state.g)
 
     state_dir = cfg.orbax_dir or os.path.join(cfg.save_dir, "state")
     start_epoch = 1
@@ -211,16 +288,21 @@ def train_kaist(
             if start_epoch > cfg.epochs:
                 log.warning("Resume checkpoint is at epoch %d but cfg.epochs=%d — nothing "
                             "left to train (raise --epochs to continue).", last, cfg.epochs)
+    if n_ranks > 1:  # the replicas start equal whatever was loaded
+        broadcast_replicas(state.g, state.d)
 
     os.makedirs(cfg.save_dir, exist_ok=True)
     best_stem = os.path.join(cfg.save_dir, "netG_best")
 
     def run_validation() -> float:
         # A short final batch is zero-padded to the full batch and masked,
-        # so every validation batch takes the same kernel routes.
+        # so every validation batch takes the same kernel routes. With
+        # several ranks each pads its slice (0 rows too) to its share of
+        # the batch, and every rank sums the same totals, so all reach the
+        # same val L1 and best-checkpoint decision.
         total = torch.zeros((), device=dev)
         count = torch.zeros((), device=dev)
-        full = val_loader.batch_size
+        full = val_loader.batch_size // n_ranks
         for batch in val_loader:
             bsz = batch["ir"].shape[0]
             mask = np.zeros((full,), np.float32)
@@ -228,7 +310,7 @@ def train_kaist(
             if bsz < full:
                 batch = {k: np.concatenate([v, np.zeros((full - bsz, *v.shape[1:]), v.dtype)])
                          for k, v in batch.items()}
-            s, c = val_step(_to_device(batch, dev), torch.from_numpy(mask).to(dev))
+            s, c = val_step(shard_batch(batch, dev), torch.from_numpy(mask).to(dev))
             total += s
             count += c
         return float(total) / max(float(count), 1.0)
@@ -240,7 +322,7 @@ def train_kaist(
         nonlocal state
         epoch_metrics: list[torch.Tensor] = []
         trace = None
-        if cfg.profile_dir is not None and epoch == start_epoch:
+        if cfg.profile_dir is not None and epoch == start_epoch and rank == 0:
             trace = ProfilerTrace(cfg.profile_dir)
             trace.start()
         guard = _NanGuard({"G": state.g, "D": state.d}) if cfg.debug_nans else None
@@ -249,11 +331,11 @@ def train_kaist(
                 if i > steps_per_epoch:
                     break
                 if guard is None:
-                    state, metrics = train_step(state, _to_device(batch, dev))
+                    state, metrics = train_step(state, shard_batch(batch, dev))
                 else:
                     guard.where = f"epoch {epoch} step {i}"
                     with torch.autograd.detect_anomaly(check_nan=True):
-                        state, metrics = train_step(state, _to_device(batch, dev))
+                        state, metrics = train_step(state, shard_batch(batch, dev))
                 if trace is not None and trace.running and i >= min(5, steps_per_epoch):
                     synchronize(dev)
                     log.info("Profiler trace (first %d steps) written to %s", i, trace.stop())
@@ -308,15 +390,21 @@ def train_kaist(
         is_best = val_l1 < best_val_l1
         if is_best:
             best_val_l1 = val_l1
-        if epoch % cfg.save_every == 0 or epoch == cfg.epochs:
-            save_full_state(state_dir, epoch, state,
-                            {"epoch": epoch, "best_val_l1": best_val_l1, "val_l1": val_l1})
-            written = save_netg_export(state.g,
-                                       os.path.join(cfg.save_dir, f"netG_epoch_{epoch:03d}"))
-            log.info("Saved generator checkpoint to %s", written[0])
-        if is_best:
-            save_netg_export(state.g, best_stem)
-            log.info("New best model saved to %s (val L1=%.4f)", best_stem, best_val_l1)
+        do_save = epoch % cfg.save_every == 0 or epoch == cfg.epochs
+        if n_ranks > 1 and (do_save or is_best) and not replicas_equal(state.g, state.d):
+            raise RuntimeError(f"epoch {epoch}: the ranks' parameters differ")
+        if rank == 0:
+            if do_save:
+                save_full_state(state_dir, epoch, state,
+                                {"epoch": epoch, "best_val_l1": best_val_l1, "val_l1": val_l1})
+                written = save_netg_export(state.g,
+                                           os.path.join(cfg.save_dir, f"netG_epoch_{epoch:03d}"))
+                log.info("Saved generator checkpoint to %s", written[0])
+            if is_best:
+                save_netg_export(state.g, best_stem)
+                log.info("New best model saved to %s (val L1=%.4f)", best_stem, best_val_l1)
+        if n_ranks > 1:  # rank 0 writes while the others wait, in lockstep
+            dist.barrier()
 
         next_lr = cfg.lr_G * linear_decay_factor(epoch + 1, cfg.lr_decay_start_epoch, cfg.epochs)
         log.info("Current LR (G): %.6e", next_lr)

@@ -17,8 +17,10 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ircolor_tpu_torch.config import Config
+from ircolor_tpu_torch.models.common import BatchNorm
 from ircolor_tpu_torch.models.discriminator import NLayerDiscriminator
 from ircolor_tpu_torch.models.generator import ResnetUNetGenerator
 from ircolor_tpu_torch.models.wrapper import _DTYPES, generator_from_config, resolve_device
@@ -40,7 +42,14 @@ def train_config(cfg: Config) -> Config:
     """The JAX package's training flag forcing: int8 off (rounding has no
     gradient); the fused tails and head off unless their ``*_train`` flags
     are set; the fused blocks off without ``pallas_block_train``. The
-    parameters are the same either way."""
+    parameters are the same either way.
+
+    Data parallelism routes as one device does, under either ``dp_mode``:
+    every rank runs the kernels on its own slice. JAX turns them off on a
+    multi-device ``"gspmd"`` mesh because GSPMD cannot partition a
+    ``pallas_call``; the port's ranks hold whole kernels, so that gate has
+    no counterpart here and ``"gspmd"`` differs from ``"shard_map"`` only
+    in its batch norms (``models.common.BatchNorm.sync``)."""
     if cfg.resolved_quant_int8 or cfg.quant_int8 is None:
         cfg = cfg.replace(quant_int8=False)
     if cfg.pallas_norm_blur and not cfg.pallas_norm_blur_train:
@@ -65,9 +74,15 @@ def create_train_state(
 ) -> TrainState:
     """G and D initialized from ``torch.Generator(cfg.seed)`` (the reference
     scheme: N(0, init_gain) kernels, zero biases), moved to ``device`` (the
-    card by default; ``resolve_device``), with their optimizers.
-    Multi-device training raises NotImplementedError (``generator_from_config``)."""
+    card by default; ``resolve_device``), with their optimizers. In a
+    process group of more than one rank (data parallelism) rank 0's
+    parameters and buffers are broadcast to every rank, and the batch norms
+    (``dp_mode="gspmd"``; the shard_map step refuses them) take their
+    statistics over the global batch; the routing is ``train_config``'s, as
+    on one device. Spatial training raises NotImplementedError
+    (``generator_from_config``)."""
     dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
     cfg = train_config(cfg)
     g = generator_from_config(cfg, train=True)
     d = discriminator_from_config(cfg)
@@ -76,6 +91,13 @@ def create_train_state(
     d.init_weights(cfg.init_type, cfg.init_gain, gen)
     g.to(dev).train()
     d.to(dev).train()
+    if world > 1:
+        from ircolor_tpu_torch.train.step_shardmap import broadcast_replicas
+
+        broadcast_replicas(g, d)
+        for m in (*g.modules(), *d.modules()):
+            if isinstance(m, BatchNorm):
+                m.sync = True
     sched_g = make_lr_schedule(cfg.lr_G, steps_per_epoch, cfg.epochs, cfg.lr_decay_start_epoch)
     sched_d = make_lr_schedule(cfg.lr_D, steps_per_epoch, cfg.epochs, cfg.lr_decay_start_epoch)
     betas = (cfg.beta1, cfg.beta2)

@@ -88,12 +88,15 @@ def _adam_step(opt: torch.optim.Optimizer, lr: float) -> None:
 
 
 def make_train_step(
-    cfg: Config, vgg: VGG16Features | None, *, update_d: bool = True
+    cfg: Config, vgg: VGG16Features | None, *, update_d: bool = True,
+    reduce_grads: Callable[[torch.nn.Module], None] | None = None,
 ) -> Callable[[TrainState, dict[str, torch.Tensor]], tuple[TrainState, dict[str, torch.Tensor]]]:
     """``step(state, batch) → (state, metrics)`` with ``batch = {'ir', 'rgb'}``
     NHWC tensors on the state's device. ``vgg`` may be None when
     ``lambda_perc`` is 0. ``update_d=False`` skips the D phase (an ablation
-    knob; the reference always steps D)."""
+    knob; the reference always steps D). ``reduce_grads(net)``, where given,
+    runs after each backward, before that net's Adam step (the data-parallel
+    step's all-reduce, ``train.step_shardmap``)."""
 
     has_bn = cfg.norm == "batch"
 
@@ -121,6 +124,8 @@ def make_train_step(
                                       d(torch.cat([ir, fake_detached.float()], dim=-1)))
             state.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+            if reduce_grads is not None:
+                reduce_grads(d)
             _adam_step(state.opt_d, state.sched_d(state.step))
         else:
             loss_d = torch.zeros((), dtype=torch.float32, device=ir.device)
@@ -139,6 +144,8 @@ def make_train_step(
             total.backward()
         finally:
             d.requires_grad_(True)
+        if reduce_grads is not None:
+            reduce_grads(g)
         _adam_step(state.opt_g, state.sched_g(state.step))
         state.step += 1
         return state, {"loss_D": loss_d.detach(), **{k: v.detach() for k, v in metrics.items()}}

@@ -1104,3 +1104,128 @@ def test_int8_export_artifact_launches_the_kernels_on_card(cuda, tmp_path):
         "conv3x3_reflect_fused_q": 2, "norm_relu_blur_down": 1, "conv3x3_int8": 2,
         "conv7x7_head_q": 1}
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_data_parallel_test_mode_on_card(cuda, quant):
+    """``make_infer_fn`` over a data mesh of two entries on one card (two
+    chunks of 2, one replica) against the unsharded b4 step: each chunk
+    launches what the unsharded step launches on those 2 images (the gates
+    read the chunk's batch), and the outputs agree within the serving
+    budget (|dPSNR| ≤ 0.02 dB, |dSSIM| ≤ 0.002, uint8 mean |d| ≤ 2)."""
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+    from ircolor_tpu_torch.parallel.mesh import make_data_mesh
+
+    cfg = Config(img_size=64, ngf=32, n_blocks=1, compute_dtype="bf16", quant_int8=quant,
+                 dp_devices=2)
+    model = IRColorizationModel(cfg, cuda)
+    one = make_infer_fn(model.module)
+    dp = make_infer_fn(model.module, make_data_mesh(2, device="cuda:0"))
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ir = torch.randint(0, 65536, (4, 64, 64, 1), device=cuda, generator=g).to(torch.uint16)
+    gt = torch.randint(0, 256, (4, 64, 64, 3), device=cuda, generator=g).to(torch.uint8)
+    before = dict(LAUNCHES)
+    one(ir[:2], gt[:2])
+    half = {k: v - before[k] for k, v in LAUNCHES.items()}
+    before = dict(LAUNCHES)
+    pred, m = dp(ir, gt)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in LAUNCHES.items()} == {k: 2 * v for k, v in half.items()}
+    assert sum(half.values()) > 0
+    want_pred, want_m = one(ir, gt)
+    d = (pred.int() - want_pred.int()).abs().float()
+    assert float(d.mean()) <= 2.0
+    assert float((m["psnr"] - want_m["psnr"]).abs().max()) <= 0.02
+    assert float((m["ssim"] - want_m["ssim"]).abs().max()) <= 0.002
+
+
+@pytest.mark.cuda
+def test_data_parallel_training_ranks_on_card(cuda):
+    """Two ranks spawned on one card over gloo (global b4, 2 steps), bf16,
+    under ``dp_mode="shard_map"`` and the default ``"gspmd"``: the
+    parameters bit-identical across the ranks after each step, the block
+    conv, dgrad and wgrad kernels launched on each rank (2 each a step: one
+    block), the losses the same on both ranks and finite. Against one
+    process at b4, step 1's conv weight gradients of G and D: in f32 (no
+    kernel, no TF32: the reduction alone) within 1e-4 relative L2; in bf16,
+    a net's worst leaf within the worst distance of the one-process bf16
+    gradients of that net from the f32 ones. At this size bf16 itself is that coarse: on an H100 the
+    one-process bf16 gradients lie 1.3e-1 to 1.75e-1 from the f32 ones at
+    their worst leaf, and the two ranks' bf16 sums, taken in another
+    order, 5e-2 to 1.0e-1 from the process's (3 seeds, these smooth frames
+    and uniform noise), while in f32 the ranks read at most 1.6e-6 on these
+    frames. A sum where the mean belongs reads 1 either way."""
+    import math
+
+    import numpy as np
+
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.parallel.launch import spawn
+    from ircolor_tpu_torch.tools.dp_steps import one_process_steps, run_rank_each
+    from ircolor_tpu_torch.tools.flagship import synthetic_batches
+
+    cfg = Config(img_size=64, ngf=32, n_blocks=1, compute_dtype="bf16", batch_size=4,
+                 lambda_perc=0.0, dp_devices=2, dp_mode="shard_map", seed=3)
+    f32 = cfg.replace(compute_dtype="f32")
+    batches = [{"ir": ir, "rgb": gt} for ir, gt in synthetic_batches(2, 4, (64, 64))]
+    cases = [(cfg, batches), (cfg.replace(dp_mode=Config().dp_mode), batches), (f32, batches[:1])]
+    per_rank = spawn(run_rank_each, [torch.device("cuda", 0)] * 2, (cases,), timeout_s=300)
+    for outs in per_rank:
+        for out in outs[:2]:
+            assert out["equal"] == [True, True]
+            assert {k: v for k, v in out["launches"].items() if v} == {
+                "conv3x3_reflect_fused": 4, "conv3x3_dgrad_fused": 4, "conv3x3_wgrad_fused": 4}
+        assert outs[2]["equal"] == [True]
+    for i in range(3):
+        assert per_rank[0][i]["losses"] == per_rank[1][i]["losses"]
+        assert all(math.isfinite(v) for step in per_rank[0][i]["losses"] for v in step.values())
+
+    one = {c.compute_dtype: one_process_steps(c.replace(dp_devices=1), cuda, batches[:1])
+           for c in (cfg, f32)}
+
+    def rel(a, b, key):
+        want = b["first"]["grads"][key]
+        return float(np.linalg.norm(a["first"]["grads"][key] - want) / np.linalg.norm(want))
+
+    keys = [k for k, v in one["f32"]["first"]["grads"].items()
+            if k.endswith(".weight") and v is not None and np.linalg.norm(v) > 0]
+    assert any(k.startswith("g.") for k in keys) and any(k.startswith("d.") for k in keys)
+    for key in keys:
+        assert rel(per_rank[0][2], one["f32"], key) <= 1e-4, key
+    for net in ("g.", "d."):
+        got = max(rel(per_rank[0][0], one["bf16"], k) for k in keys if k.startswith(net))
+        floor = max(rel(one["bf16"], one["f32"], k) for k in keys if k.startswith(net))
+        assert got <= floor, (net, got, floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_data_parallel_test_mode_on_two_cards(cuda, quant):
+    """``make_infer_fn`` over the first two cards (a replica on each, the
+    second chunk copied there and its output back) against the unsharded
+    b4 step on cuda:0, within the serving budget. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from ircolor_tpu_torch.config import Config
+    from ircolor_tpu_torch.eval.runner import make_infer_fn
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+    from ircolor_tpu_torch.parallel.mesh import make_data_mesh
+
+    cfg = Config(img_size=64, ngf=32, n_blocks=1, compute_dtype="bf16", quant_int8=quant,
+                 dp_devices=2)
+    model = IRColorizationModel(cfg, "cuda:0")
+    mesh = make_data_mesh(2)
+    assert mesh == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    g = torch.Generator(device="cuda:0").manual_seed(7)
+    ir = torch.randint(0, 65536, (4, 64, 64, 1), device="cuda:0", generator=g).to(torch.uint16)
+    gt = torch.randint(0, 256, (4, 64, 64, 3), device="cuda:0", generator=g).to(torch.uint8)
+    pred, m = make_infer_fn(model.module, mesh)(ir, gt)
+    want_pred, want_m = make_infer_fn(model.module)(ir, gt)
+    assert pred.device == want_pred.device and pred.shape == want_pred.shape
+    d = (pred.int() - want_pred.int()).abs().float()
+    assert float(d.mean()) <= 2.0
+    assert float((m["psnr"] - want_m["psnr"]).abs().max()) <= 0.02
+    assert float((m["ssim"] - want_m["ssim"]).abs().max()) <= 0.002

@@ -160,14 +160,13 @@ def test_weights_cross_both_ways(tmp_path):
 
 
 def test_unported_modes_raise():
-    """Only the multi-device modes beyond spatial test mode are left
-    unported (data parallelism, 2-D H×W tiling, spatial training); the
+    """Only the multi-device modes beyond spatial test mode and data
+    parallelism are left unported (2-D H×W tiling, spatial training); the
     variants the JAX ``Config`` reaches build (``tests/test_torch_variants.py``
     holds them against JAX), and an unknown norm raises as in JAX."""
     from ircolor_tpu_torch.train.state import create_train_state
 
-    with pytest.raises(NotImplementedError, match="dp_devices"):
-        IRColorizationModel(Config(dp_devices=2), "cpu")
+    assert IRColorizationModel(Config(ngf=8, n_blocks=1, dp_devices=2), "cpu").module
     with pytest.raises(NotImplementedError, match="sp_w_devices"):
         IRColorizationModel(Config(sp_devices=2, sp_w_devices=2), "cpu")
     with pytest.raises(NotImplementedError, match="spatial training"):

@@ -105,12 +105,12 @@ def test_cli_test_mode_writes_artifacts(kaist_tree, tmp_path):
 
 @pytest.mark.parametrize(
     "mode,extra",
-    [("train", ["--device", "cpu", "--dp-devices", "2"])],
+    [("train", ["--device", "cpu", "--sp-devices", "2"])],
     ids=["train"],
 )
 def test_cli_unported_modes_raise(mode, extra):
-    """Training on more than one device (``export`` is ported:
-    tests/test_torch_export.py)."""
+    """Spatial training (``export`` is ported: tests/test_torch_export.py;
+    data-parallel training: tests/test_torch_dp_run.py)."""
     from ircolor_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="not ported"):

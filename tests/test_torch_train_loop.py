@@ -50,13 +50,13 @@ def test_kaist_data_matches_jax(kaist_tree):
     assert tkaist.split_train_val(len(ir), 0.1) == jkaist.split_train_val(len(ir), 0.1)
     tds = tkaist.KAISTPairDataset(ir, rgb, size_hw=(32, 40), augment=True, seed=3)
     jds = jkaist.KAISTPairDataset(ir, rgb, size_hw=(32, 40), augment=True, seed=3)
-    for transport in ("int", "float"):
+    # The C++ float assembler (use_native) rounds its normalize differently
+    # from the numpy path by an ulp: each side takes the same path.
+    for transport, use_native in (("int", True), ("float", False), ("float", True)):
         tl = BatchLoader(tds, 4, shuffle=True, drop_last=True, num_workers=2, seed=3,
-                         transport=transport)
-        # use_native=False: the JAX package's C++ float assembler (not
-        # ported) rounds its normalize differently by an ulp.
+                         transport=transport, use_native=use_native)
         jl = JBatchLoader(jds, 4, shuffle=True, drop_last=True, num_workers=2, seed=3,
-                          transport=transport, use_native=False)
+                          transport=transport, use_native=use_native)
         tl.set_epoch(2)
         jl.set_epoch(2)
         got, want = list(tl), list(jl)

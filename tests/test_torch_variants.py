@@ -419,15 +419,16 @@ def test_int8_variant_routes_match_jax_bf16(variant, strides, perturb, monkeypat
 
 def test_variant_configs_build_serve_and_train_on_cpu():
     """Through the entry points: ``reject_unported`` refuses only the
-    multi-device modes beyond spatial test mode (the spatial forward
-    refuses the variants under it: ``test_torch_spatial.py``); batch norm,
-    no norm, no_antialias(_up) and remat build, serve (eval, running
-    statistics) and take a train step with finite losses."""
+    multi-device modes beyond spatial test mode and data parallelism (the
+    spatial forward refuses the variants under it:
+    ``test_torch_spatial.py``); batch norm, no norm, no_antialias(_up) and
+    remat build, serve (eval, running statistics) and take a train step
+    with finite losses."""
     for ok in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
-               dict(no_antialias_up=True), dict(remat=True), dict(sp_devices=2)):
+               dict(no_antialias_up=True), dict(remat=True), dict(sp_devices=2),
+               dict(dp_devices=2)):
         reject_unported(Config(**ok))
-    for bad, exc in ((dict(dp_devices=2), NotImplementedError),
-                     (dict(sp_devices=2, sp_w_devices=2), NotImplementedError),
+    for bad, exc in ((dict(sp_devices=2, sp_w_devices=2), NotImplementedError),
                      (dict(sp_w_devices=2), ValueError)):
         with pytest.raises(exc):
             reject_unported(Config(**bad))
