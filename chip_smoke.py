@@ -191,6 +191,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    same launcher and its all-reduce. Two ranks on one card are no
    multi-card speed-up.
 
+11. Spatial training (``sp_devices`` S, every H-shard on cuda:0) at the
+   flagship, bf16 b8, S = 2 and 4: one step (the warm-up) and 3 timed a
+   cell, beside the unsharded step with the same routing (every fused
+   kernel off, as under sp) and phase 5's kernel step; the first step held
+   against the unsharded one (the losses D' does not enter within 2^-10
+   relative, G's and D's conv weight gradients within 1e-2 relative L2,
+   their Adam update within lr/4 on ≥ 99%: phase 10b's bounds); no kernel
+   launched (JAX's spatial step runs no Pallas kernel); step ms, frames/s
+   and peak memory. Then an f32 cell at b2, S = 2, to the CPU parity
+   bounds (losses 1e-5 relative, live leaves' gradients 1e-4 relative L2,
+   the Adam update within lr/4 on ≥ 99%), its G phase against the
+   unsharded G phase on its own D'. Shards on one card are no multi-card
+   speed-up.
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2006,6 +2020,7 @@ def train_step_phase(torch, np, label: str = "train", per_step: dict | None = No
         _check_loss_sanity(vals, cfg, 1, i + 1)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     PEAK_GIB[label] = peak_gb
+    STEP_MS[label] = 1e3 * dt / n
     log(f"[{label}] {hw[0]}x{hw[1]} b{TRAIN_B} bf16: {n * TRAIN_B / dt:.2f} frames/s "
         f"({1e3 * dt / n:.1f} ms per step), peak memory {peak_gb:.2f} GiB; last losses "
         + ", ".join(f"{k}={float(metrics[-1][k]):.4f}" for k in METRIC_KEYS))
@@ -2019,6 +2034,7 @@ def train_step_phase(torch, np, label: str = "train", per_step: dict | None = No
 TRAIN_PER_STEP = {"conv3x3_reflect_fused": 18, "conv3x3_dgrad_fused": 18,
                   "conv3x3_wgrad_fused": 18}
 PEAK_GIB: dict = {}  # peak device memory of each training phase, by label
+STEP_MS: dict = {}  # ms a step of each training phase, by label
 
 
 def g_grads(torch, cfg, state, vgg, batch, params):
@@ -3173,6 +3189,133 @@ def dp_train_phase(torch, np, counts: dict) -> None:
         raise AssertionError(f"dp nccl: {probe}")
 
 
+SP_TRAIN_S = (2, 4)  # phase 11's shard counts, every shard on cuda:0
+
+
+def _live(np, grads: dict, tag: str) -> list:
+    """The leaves of one net whose gradient is above 1e-5 of its largest
+    (``tests/test_torch_train_step.py``'s rule: the conv biases ahead of an
+    instance norm are left out)."""
+    norms = {k: float(np.linalg.norm(v)) for k, v in grads.items()
+             if k.startswith(tag) and v is not None}
+    floor = 1e-5 * max(norms.values())
+    return [k for k, n in norms.items() if n > floor]
+
+
+def sp_train_phase(torch, np, counts: dict, smi: str) -> None:
+    """Phase 11: spatial training (``sp_devices`` S, every shard on cuda:0)
+    at the flagship, bf16 b8, S = 2 and 4: each cell one step (also the
+    warm-up) and 3 timed steps, beside the unsharded step with the same
+    routing (every fused kernel off, as ``train_config`` turns them off
+    under sp) and phase 5's kernel step; no kernel launched. Held against
+    the unsharded step's first step with phase 10b's bounds: the losses D'
+    does not enter within 2^-10 relative, G's and D's conv weight gradients
+    within 1e-2 relative L2, their Adam update within lr/4 on ≥ 99% of each
+    leaf, or, on a leaf where the unsharded bf16 step's own update is more
+    than 1% away from the unsharded float32 step's (inc's 7×7 conv,
+    bf16's noisiest gradient), on no more of it than that.
+
+    Then an f32 cell at b2, S = 2, to the CPU parity bounds: the losses
+    within 1e-5 relative (the G phase against the unsharded G phase on the
+    sharded step's own D'), the Adam update within lr/4 on ≥ 99%, and every
+    live leaf's gradient within 1e-4 relative L2, or within twice the
+    distance that a one-ulp nudge of the input moves the unsharded step's
+    gradient of that leaf: at this size a last-bit change of the forward
+    (a reordered sum, a nudged input; sharding does both) flips the
+    ReLUs and pool windows at their kinks and moves the gradients by
+    ~1e-4, with cuDNN or PyTorch's own convs alike."""
+    from ircolor_tpu_torch.tools.sp_probe import flagship_train_config, leaf_distance, train_cell
+    from ircolor_tpu_torch.train.step import METRIC_KEYS
+
+    base = flagship_train_config()
+    if (base.resolved_hw, base.batch_size, base.compute_dtype) != ((H, W), TRAIN_B, "bf16"):
+        raise AssertionError(f"{FLAGSHIP.name} no longer resolves to b{TRAIN_B} bf16 training")
+    batches = [{"ir": ir, "rgb": gt} for ir, gt in synthetic_batches(4, TRAIN_B)]
+    lr = base.lr_G
+    d_free = [k for k in METRIC_KEYS if k not in ("loss_G", "loss_G_GAN")]
+    one = train_cell(base, batches, 4)
+    ref32 = train_cell(base.replace(compute_dtype="f32"), batches, 1)
+    counts["sp train unsharded"] = one["launches"]
+    log(f"[sp train] {smi}: unsharded b{TRAIN_B} bf16, kernels off: {one['ms']:.1f} ms a step "
+        f"({TRAIN_B * 1e3 / one['ms']:.2f} frames/s), peak memory "
+        f"{one['peak_gib']['cuda:0']:.2f} GiB; phase 5's kernel step {STEP_MS['train']:.1f} ms, "
+        f"peak {PEAK_GIB['train']:.2f} GiB")
+    weights = [k for k in one["grads"] if k.endswith(".weight") and one["grads"][k] is not None]
+    own_off = {k: leaf_distance(one, ref32, k, lr)[1] for k in weights}
+    noisy = {k: v for k, v in own_off.items() if v > 0.01}
+    log("[sp train] the unsharded bf16 step's Adam update more than lr/4 from the unsharded f32 "
+        f"step's on more than 1% of a leaf: {noisy or 'none'}")
+    for n in SP_TRAIN_S:
+        cell = train_cell(base.replace(sp_devices=n), batches, 4)
+        counts[f"sp train sp{n}"] = cell["launches"]
+        rel = {k: abs(cell["losses"][k] - one["losses"][k]) / max(abs(one["losses"][k]), 1e-30)
+               for k in METRIC_KEYS}
+        log(f"[sp train] S = {n}: step 1 losses vs unsharded (relative): "
+            + ", ".join(f"{k} {cell['losses'][k]:.6f}/{one['losses'][k]:.6f} ({rel[k]:.2e})"
+                        for k in METRIC_KEYS))
+        bad = [k for k in d_free if rel[k] > 2.0**-10]
+        for tag, name in (("g.", "G"), ("d.", "D")):
+            keys = [k for k in weights if k.startswith(tag)]
+            dist = {k: leaf_distance(cell, one, k, lr) for k in keys}
+            bad += [(k, r, o) for k, (r, o) in dist.items()
+                    if r > 1e-2 or o > max(0.01, noisy.get(k, 0.0))]
+            log(f"[sp train] S = {n}, step 1, {name}, {len(keys)} conv weights: gradient at most "
+                f"{max(r for r, _ in dist.values()):.2e} relative L2 (bound 1e-2), Adam update "
+                f"more than lr/4 apart on at most {max(o for _, o in dist.values()):.5f} of a "
+                "leaf (bound 0.01, or the bf16 step's own share where larger): "
+                + ", ".join(f"{k} {o:.4f} (own {noisy[k]:.4f})" for k, (_, o) in dist.items()
+                            if k in noisy))
+        ran = {k: v for k, v in cell["launches"].items() if v}
+        if bad or ran:
+            raise AssertionError(f"sp train S = {n}: outside the bounds {bad}; kernels run {ran}")
+        log(f"[sp train] {smi}: S = {n} on cuda:0, b{TRAIN_B} bf16: {cell['ms']:.1f} ms a step "
+            f"({TRAIN_B * 1e3 / cell['ms']:.2f} frames/s; unsharded {one['ms']:.1f} ms), peak "
+            f"memory {cell['peak_gib']['cuda:0']:.2f} GiB (unsharded "
+            f"{one['peak_gib']['cuda:0']:.2f}); no kernel launched (every launch count 0); last "
+            "losses " + ", ".join(f"{k}={v:.4f}" for k, v in cell["last"].items()))
+    if any(one["launches"].values()):
+        raise AssertionError(f"sp train unsharded (kernels off) launched {one['launches']}")
+
+    # The f32 cell on float batches (decoded as the step decodes them), so
+    # that the nudge is one ulp of the input the generator reads.
+    f32 = base.replace(compute_dtype="f32", batch_size=2)
+    ir, gt = batches[0]["ir"][:2], batches[0]["rgb"][:2]
+    b2 = {"ir": (ir.astype(np.float32) / np.float32(65535.0) * np.float32(2.0)
+                 - np.float32(1.0)).astype(np.float32),
+          "rgb": (gt.astype(np.float32) / np.float32(255.0) * np.float32(2.0)
+                  - np.float32(1.0)).astype(np.float32)}
+    nudged = {**b2, "ir": np.nextafter(b2["ir"], np.float32(np.inf))}
+    one32 = train_cell(f32, [b2], 1)
+    sp32 = train_cell(f32.replace(sp_devices=2), [b2], 1)
+    g_ref = train_cell(f32, [b2], 1, d_params=sp32["params"], update_d=False)
+    d_nudge = train_cell(f32, [nudged], 1)
+    g_nudge = train_cell(f32, [nudged], 1, d_params=sp32["params"], update_d=False)
+    want = {"loss_D": one32["losses"]["loss_D"],
+            **{k: g_ref["losses"][k] for k in METRIC_KEYS if k != "loss_D"}}
+    rel = {k: abs(sp32["losses"][k] - want[k]) / max(abs(want[k]), 1e-30) for k in METRIC_KEYS}
+    log("[sp train] f32 b2 S = 2: step 1 losses vs unsharded (G phase on the same D'; "
+        "relative): " + ", ".join(f"{k} {rel[k]:.2e}" for k in METRIC_KEYS))
+    bad = [k for k in METRIC_KEYS if abs(sp32["losses"][k] - want[k]) > 1e-5 * abs(want[k]) + 1e-7]
+    for tag, ref, nudge, name in (("d.", one32, d_nudge, "D"), ("g.", g_ref, g_nudge, "G")):
+        keys = _live(np, ref["grads"], tag)
+        dist = {k: leaf_distance(sp32, ref, k, lr) for k in keys}
+        floor = {k: leaf_distance(nudge, ref, k, lr)[0] for k in keys}
+        bad += [(k, r, o, floor[k]) for k, (r, o) in dist.items()
+                if r > max(1e-4, 2 * floor[k]) or o > 0.01]
+        log(f"[sp train] f32 b2 S = 2, {name}, {len(keys)} live leaves: gradient at most "
+            f"{max(r for r, _ in dist.values()):.2e} relative L2, Adam update more than lr/4 "
+            f"apart on at most {max(o for _, o in dist.values()):.5f} of a leaf (bound 0.01); "
+            "leaves past 1e-4 (relative L2 / the one-ulp nudge's): "
+            + (", ".join(f"{k} {r:.2e}/{floor[k]:.2e}" for k, (r, _) in dist.items() if r > 1e-4)
+               or "none"))
+    for label, c in (("sp train f32 sp2", sp32), ("sp train f32 unsharded", one32)):
+        counts[label] = c["launches"]
+        if any(c["launches"].values()):
+            bad.append((label, {k: v for k, v in c["launches"].items() if v}))
+    if bad:
+        raise AssertionError(f"sp train f32: outside the bounds: {bad}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3349,6 +3492,8 @@ def main() -> int:
     phase_done("phase 10a")
     dp_train_phase(torch, np, counts)
     phase_done("phases 10b, 10c")
+    sp_train_phase(torch, np, counts, smi)
+    phase_done("phase 11")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held

@@ -4,7 +4,11 @@ in the JAX package, plus ``--config path.json`` and ``--device {cuda,cpu}``
 (default ``cuda``: without a card the run stops; ``--device cpu`` is the one
 way onto the CPU). ``test --sp-devices N`` runs spatial test mode over N
 H-shards (``eval.runner.spatial_generator``: all on the CPU with ``--device
-cpu``, else spread over the visible cards). ``--dp-devices N`` runs data
+cpu``, else spread over the visible cards); ``train --sp-devices S`` trains
+on S H-shards of every image (JAX's GSPMD step on a ``('data', 'sp')``
+mesh, every fused kernel off: ``train.loop``), all on the CPU with
+``--device cpu``, else on cards 0..S-1 (with ``--dp-devices N`` too, rank
+r on cards r·S..r·S+S-1). ``--dp-devices N`` runs data
 parallelism: ``train`` over N ranks, one process each (``train.loop``),
 ``test`` over N chunks of each batch (``eval.runner.make_infer_fn``), on
 the CPU with ``--device cpu``, else on the first N cards (``train`` with
@@ -81,8 +85,10 @@ def main(argv: Sequence[str] | None = None) -> int:
         description="LWIR→RGB colorization on PyTorch + CUDA.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for name, desc in (("train", "Train on KAIST pairs"),
-                       ("test", "Run inference + metrics + exports"),
+    for name, desc in (("train", "Train on KAIST pairs (--dp-devices N: over N ranks; "
+                                 "--sp-devices S: over S H-shards of each image)"),
+                       ("test", "Run inference + metrics + exports (--sp-devices S: over "
+                                "S H-shards; --dp-devices N: N chunks a batch)"),
                        ("export", "Write a torch.export serving artifact")):
         p = sub.add_parser(name, help=desc)
         p.add_argument("--config", default=None, help="JSON config file")

@@ -95,7 +95,7 @@ class Config:
     conv_precision: str = "highest"     # f32: highest = TF32 off; high, default allow it
     batch_transport: str = "int"        # uint16/uint8 transport | "float"
     dp_devices: int = 0                 # data-parallel ranks; 0: every card, fit to the batch
-    sp_devices: int = 1                 # >1: test mode on a 1-D H mesh; training not ported
+    sp_devices: int = 1                 # >1: test mode and training on a 1-D H mesh
     sp_w_devices: int = 1               # >1 (2-D H×W tiling): not ported (ROADMAP Queue 1)
     dp_mode: str = "gspmd"
     resume: bool = False

@@ -4,7 +4,8 @@ torchvision's ``vgg16().features[:16]`` (convs at 0, 2, 5, 7, 10, 12, 14;
 two 2×2 max pools), frozen, with the same parameter names, so a torchvision
 ``vgg16`` state_dict loads directly (``load_vgg16_pth``). Inputs are NHWC
 images in [−1, 1], mapped to [0, 1] and ImageNet-normalized in their own
-dtype; the convs run in the compute dtype.
+dtype; the convs run in the compute dtype. Spatial training runs it on
+H-shards (``forward_spatial``).
 
 Without a weights file the tower is a deterministic random one: flax's
 ``Conv`` default init (lecun-normal, a normal of variance 1/fan_in truncated
@@ -22,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
+from ircolor_tpu_torch.parallel.spatial import sharded, window_slabs
 
 # (name, out_channels); None entries are 2×2 stride-2 max pools.
 VGG16_PLAN: tuple[tuple[str, int | None], ...] = (
@@ -65,7 +67,10 @@ class VGG16Features(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC [−1, 1] → relu3_3 features, NHWC, compute dtype."""
+        """NHWC [−1, 1] → relu3_3 features, NHWC, compute dtype; a list of
+        H-shards goes to ``forward_spatial``."""
+        if sharded(x):
+            return self.forward_spatial(x)
         mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
         h = to_nchw(((x + 1.0) / 2.0 - mean) / std)
@@ -78,6 +83,36 @@ class VGG16Features(nn.Module):
             else:
                 h = torch.relu(h)
         return to_nhwc(h)
+
+
+    def forward_spatial(self, xs: list) -> list:
+        """The forward on the H-shards ``xs`` of the images (spatial
+        training): each 3×3 conv on its shard's slab with one zero-padded
+        halo row above and below, each 2×2 floor-mode pool on the rows whose
+        window starts in the shard (``parallel.spatial.window_slabs``: a
+        window that straddles two shards belongs to the upper one, which
+        reads the lower one's first row; a shard may keep none). Returns
+        the relu3_3 features' shards."""
+        h = []
+        for x in xs:
+            mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+            std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+            h.append(((x + 1.0) / 2.0 - mean) / std)
+        for layer in self.features:
+            if isinstance(layer, nn.Conv2d):
+                slabs = window_slabs([t.to(self.dtype) for t in h], 3, 1, 1)
+                h = [t.new_zeros((t.shape[0], 0, t.shape[2], layer.out_channels), dtype=self.dtype)
+                     if slab is None else
+                     to_nhwc(F.conv2d(to_nchw(slab), layer.weight.to(slab.device, self.dtype),
+                                      layer.bias.to(slab.device, self.dtype), padding=(0, 1)))
+                     for t, slab in zip(h, slabs)]
+            elif isinstance(layer, nn.MaxPool2d):
+                h = [t.new_zeros((t.shape[0], 0, t.shape[2] // 2, t.shape[3]))
+                     if slab is None else to_nhwc(F.max_pool2d(to_nchw(slab), 2, 2))
+                     for t, slab in zip(h, window_slabs(h, 2, 2, 0))]
+            else:
+                h = [torch.relu(t) for t in h]
+        return h
 
 
 def load_vgg16_pth(path: str) -> dict[str, torch.Tensor]:

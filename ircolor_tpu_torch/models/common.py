@@ -16,7 +16,9 @@
 * ``norm_nhwc_spatial``, ``conv_nhwc_spatial``, ``quant_conv_nhwc_spatial``,
   ``concat_conv3x3_spatial``: the same on an image held as a list of
   H-shards (``parallel/spatial.py``), each shard's conv over its rows and
-  their halo (stride 1), the instance norm by the global statistics.
+  their halo (stride 1), the instance norm by the global statistics;
+  ``conv_nhwc_window_spatial`` at any kernel, stride and zero padding, on
+  shards that may be unequal or empty (the discriminator, the VGG tower).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ircolor_tpu_torch.ops.norm import (
 )
 from ircolor_tpu_torch.ops.padding import pad2d_spatial
 from ircolor_tpu_torch.ops.quant import conv2d_int8, conv2d_int8_fixed, conv2d_int8_spatial
+from ircolor_tpu_torch.parallel.spatial import window_slabs
 
 NORM_TYPES = ("instance", "batch", "none")
 
@@ -226,6 +229,27 @@ def conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *, pad: int,
         dev = slab.device
         bias = None if conv.bias is None else conv.bias.to(dev, dtype)
         out.append(to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias)))
+    return out
+
+
+def conv_nhwc_window_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype) -> list[torch.Tensor]:
+    """``conv_nhwc`` at the conv's own kernel, stride and zero padding (any
+    of them: the discriminator's 4×4 convs at strides 2 and 1, the VGG
+    tower's 3×3) on the image whose H-shards are ``xs``: each shard's
+    output rows by ``parallel.spatial.window_heights``' owner rule, from its
+    slab of input rows (``window_slabs``); a shard that keeps no output row
+    gets an empty one. The shards may be unequal or empty."""
+    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    w_out = (xs[0].shape[2] + 2 * conv.padding[1] - conv.kernel_size[1]) // conv.stride[1] + 1
+    out = []
+    for x, slab in zip(xs, window_slabs([x.to(dtype) for x in xs], k, s, p)):
+        if slab is None:
+            out.append(x.new_zeros((x.shape[0], 0, w_out, conv.out_channels), dtype=dtype))
+            continue
+        dev = slab.device
+        bias = None if conv.bias is None else conv.bias.to(dev, dtype)
+        out.append(to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias,
+                                    stride=conv.stride, padding=(0, conv.padding[1]))))
     return out
 
 

@@ -13,7 +13,8 @@ default), ``batch`` (``models.common.BatchNorm`` at ``model.3``, ``.6``,
 ``.9``, convs without bias) or ``none``. Activations are NHWC like the
 generator's; the ``nn.Sequential`` gives the parameters the reference
 state_dict names, and ``forward`` applies its members itself in the
-compute dtype (plain cuDNN convs on the card).
+compute dtype (plain cuDNN convs on the card). Spatial training runs it
+on H-shards (``forward_spatial``), as GSPMD partitions the JAX one.
 """
 
 from __future__ import annotations
@@ -25,10 +26,13 @@ import torch.nn.functional as F
 from ircolor_tpu_torch.models.common import (
     apply_norm,
     conv_nhwc,
+    conv_nhwc_window_spatial,
     init_module_,
     make_norm,
+    norm_nhwc_spatial,
     use_bias_for_norm,
 )
+from ircolor_tpu_torch.parallel.spatial import sharded
 
 
 class NLayerDiscriminator(nn.Module):
@@ -68,7 +72,10 @@ class NLayerDiscriminator(nn.Module):
         init_module_(self, init_type, gain, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, input_nc) → (B, H', W', 1) patch scores, compute dtype."""
+        """(B, H, W, input_nc) → (B, H', W', 1) patch scores, compute dtype;
+        a list of H-shards goes to ``forward_spatial``."""
+        if sharded(x):
+            return self.forward_spatial(x)
         h = x
         for layer in self.model:
             if isinstance(layer, nn.Conv2d):
@@ -77,4 +84,26 @@ class NLayerDiscriminator(nn.Module):
                 h = F.leaky_relu(h, 0.2)
             else:
                 h = apply_norm(layer, h)
+        return h
+
+    def forward_spatial(self, xs: list) -> list:
+        """The forward on the H-shards ``xs`` of the input (spatial
+        training): each conv on its shards' slabs of input rows
+        (``models.common.conv_nhwc_window_spatial``: one halo row above and
+        below at stride 2, one above and two below at stride 1, zero rows
+        past the image's edges), the instance norms by the whole image's
+        statistics (``norm_nhwc_spatial``). Returns the score map's shards,
+        which may be empty: the stride-1 convs each take a row off the
+        image. Batch norm is not ported under ``sp_devices`` (ROADMAP.md)."""
+        h = list(xs)
+        for layer in self.model:
+            if isinstance(layer, nn.Conv2d):
+                h = conv_nhwc_window_spatial(layer, h, self.dtype)
+            elif isinstance(layer, nn.LeakyReLU):
+                h = [F.leaky_relu(t, 0.2) for t in h]
+            elif isinstance(layer, nn.InstanceNorm2d):
+                h = norm_nhwc_spatial(h)
+            elif not isinstance(layer, nn.Identity):
+                raise NotImplementedError(f"the discriminator's {type(layer).__name__} under "
+                                          "sp_devices > 1 is not ported yet (ROADMAP.md, Queue 1)")
         return h

@@ -69,11 +69,14 @@ where the bottleneck's shards are equal and the JAX per-shard gate holds
 (the shard's rows ``local_h``, and ``_SP_BAND_MIN_AREA`` in the b2–7
 band): the halo forms of the block convs
 (``resnet_block_pallas(_q)_spatial``); unequal shards keep them off, as
-JAX's ``local_h = 0`` does where the rows do not divide. Inference only, with
-the norm-blur tails and the head off (``check_spatial_compat``); the
-variants (batch or no norm, ``no_antialias``, ``no_antialias_up``, other
-pads, dropout, ``use_pallas``) raise ``NotImplementedError`` under it
-(``ROADMAP.md``).
+JAX's ``local_h = 0`` does where the rows do not divide. The norm-blur
+tails and the head stay off (``check_spatial_compat``). Spatial training
+(``sp_devices`` > 1 in ``train``) runs the same forward in ``.train()``
+with every fused kernel off, as JAX's does (``train.state.train_config``);
+autograd of the shard ops is its backward, and ``remat`` recomputes each
+block over its shards. The variants (batch or no norm, ``no_antialias``,
+``no_antialias_up``, other pads, dropout, ``use_pallas``) raise
+``NotImplementedError`` under it (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -599,14 +602,11 @@ class ResnetUNetGenerator(nn.Module):
 
     # --- spatial test mode ---------------------------------------------------
 
-    def _check_spatial(self, xs: list) -> None:
-        """What the spatial forward runs: inference, the 1-D mesh's shard
-        count, the default model (the variants are not ported under it)."""
-        check_spatial_compat(self, self.spatial_mesh)
-        if self.training:
-            raise NotImplementedError("spatial training is not ported yet (ROADMAP.md, Queue 1)")
-        if len(xs) != len(self.spatial_mesh):
-            raise ValueError(f"{len(xs)} shards for a mesh of {len(self.spatial_mesh)} devices")
+    def check_spatial_variants(self) -> None:
+        """Raise ``NotImplementedError`` for the variants the spatial forward
+        does not run (ROADMAP.md, Queue 1), and in training ``ValueError``
+        for the fused kernels, whose halo forms have no backward: JAX's
+        spatial training turns them all off (``train.state.train_config``)."""
         block = self.resblocks[0] if len(self.resblocks) else None
         variants = {
             f"norm={self.norm!r}": self.norm != "instance",
@@ -621,6 +621,20 @@ class ResnetUNetGenerator(nn.Module):
         if bad:
             raise NotImplementedError(f"{', '.join(bad)} under sp_devices > 1 is not ported yet "
                                       "(ROADMAP.md, Queue 1)")
+        fused = {"pallas_block": any(b.pallas_block for b in self.resblocks),
+                 "pallas_encdec_bwd": self.pallas_encdec_bwd}
+        on = [k for k, v in fused.items() if v]
+        if self.training and on:
+            raise ValueError(f"spatial training runs no fused kernel, as in JAX: {', '.join(on)} "
+                             "must be off (train.state.train_config turns them off)")
+
+    def _check_spatial(self, xs: list) -> None:
+        """What the spatial forward runs: the 1-D mesh's shard count, equal
+        input shards, the default model (``check_spatial_variants``)."""
+        check_spatial_compat(self, self.spatial_mesh)
+        if len(xs) != len(self.spatial_mesh):
+            raise ValueError(f"{len(xs)} shards for a mesh of {len(self.spatial_mesh)} devices")
+        self.check_spatial_variants()
         h = xs[0].shape[1]
         if any(x.shape[1] != h for x in xs):
             raise ValueError("the spatial forward takes equal H-shards (parallel.spatial.shard_h)")
@@ -649,9 +663,10 @@ class ResnetUNetGenerator(nn.Module):
         return ys
 
     def _forward_spatial(self, xs: list) -> list:
-        """The inference forward over the H-shards ``xs`` (module docstring):
-        the plain route's ops and the fused blocks, shard by shard, with
-        their halos and cross-shard reductions."""
+        """The forward over the H-shards ``xs`` (module docstring): the plain
+        route's ops and, in inference, the fused blocks, shard by shard,
+        with their halos and cross-shard reductions; autograd of the shard
+        ops is the training backward."""
         self._check_spatial(xs)
         dt = self.dtype
         b, w = xs[0].shape[0], xs[0].shape[2]
@@ -665,7 +680,11 @@ class ResnetUNetGenerator(nn.Module):
         x2 = self._down_spatial(self.down2, x1, quant_convs)
         h = x2
         for block in self.resblocks:
-            h = block.forward_spatial(h)
+            if self.remat and torch.is_grad_enabled():  # as ``_blocks``
+                h = list(checkpoint(lambda *shards, b=block: tuple(b.forward_spatial(list(shards))),
+                                    *h, use_reentrant=False))
+            else:
+                h = block.forward_spatial(h)
         y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(h, x1), x1, dt, dec_quant)
         y = self._norm_relu_spatial(y)
         y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(y, x0), x0, dt, dec_quant)

@@ -43,14 +43,14 @@ def resolve_precision(cfg: Config) -> bool | None:
     return _PRECISIONS[cfg.conv_precision]
 
 
-def reject_unported(cfg: Config, *, train: bool = False) -> None:
+def reject_unported(cfg: Config) -> None:
     """Raise on what the port does not run: ``ValueError`` for the config
     the JAX runner refuses (a W mesh axis without an H one), else
-    ``NotImplementedError`` for the modes not ported yet: 2-D H×W spatial
-    tiling and spatial training (``train``). Data parallelism
-    (``dp_devices``) and spatial test mode on a 1-D H mesh (``sp_devices >
-    1``) run; the generator's spatial forward refuses the variants it does
-    not run (``_check_spatial``)."""
+    ``NotImplementedError`` for the mode not ported yet: 2-D H×W spatial
+    tiling. Data parallelism (``dp_devices``) and the 1-D H mesh
+    (``sp_devices > 1``) in test mode and in training run; the
+    generator's spatial forward refuses the variants it does not run
+    (``check_spatial_variants``)."""
     if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
         raise ValueError(
             f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "
@@ -58,21 +58,20 @@ def reject_unported(cfg: Config, *, train: bool = False) -> None:
             "total devices tiled (sp_devices/sp_w_devices)×sp_w_devices); "
             "set --sp-devices as well"
         )
-    for name, on in (("sp_w_devices > 1 (2-D H×W spatial tiling)", cfg.sp_w_devices > 1),
-                     ("spatial training (sp_devices > 1)", train and cfg.sp_devices > 1)):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, Queue 1)")
+    if cfg.sp_w_devices > 1:
+        raise NotImplementedError("sp_w_devices > 1 (2-D H×W spatial tiling) is not ported yet "
+                                  "(ROADMAP.md, Queue 1)")
 
 
-def generator_from_config(cfg: Config, *, train: bool = False) -> ResnetUNetGenerator:
+def generator_from_config(cfg: Config) -> ResnetUNetGenerator:
     """Build the generator per cfg (the JAX wrapper's: reflect padding, no
     dropout; ``norm``, ``no_antialias``, ``no_antialias_up`` and ``remat``
-    from the config), for training where ``train``. On the f32 path
+    from the config). On the f32 path
     ``conv_precision`` sets TF32 for convolutions and matmuls
     (``resolve_precision``): off for ``highest`` (the default: the JAX f32
     parity path runs HIGHEST-precision convs), on for ``high`` and
     ``default``."""
-    reject_unported(cfg, train=train)
+    reject_unported(cfg)
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
     tf32 = resolve_precision(cfg)

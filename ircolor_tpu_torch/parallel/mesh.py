@@ -10,13 +10,17 @@ devices, rank i on entry i.
 * ``make_data_mesh`` / ``make_train_mesh``: the ranks' devices for a config:
   every rank on the one device named (``"cpu"``, ``"cuda:i"``), else (no
   device, or ``"cuda"``) rank i on card i, over the count the rule gives.
+  Spatial training (``sp_devices`` S > 1) makes JAX's ``('data', 'sp')``
+  mesh (``train_data_extent``): a rank holds S H-shards, on the named
+  device S times or on cards r·S … r·S + S − 1 (``rank_shard_devices``).
 * ``backend_for``: NCCL where every rank has a card of its own, else gloo
   (on the CPU, or ranks sharing a card: NCCL refuses two ranks on one).
 * ``initialize_multihost``: the process group from explicit arguments or
   from ``RANK`` / ``WORLD_SIZE`` (``MASTER_ADDR`` / ``MASTER_PORT``), with a
   timeout, so that a lost rank fails instead of hanging.
 * ``warmup_mesh_collectives``: one tiny all-reduce right after init.
-* ``shard_batch``: a rank's slice of the batch onto its device.
+* ``shard_batch``: a rank's slice of the batch onto its device, or cut on
+  H onto its shard devices.
 """
 
 from __future__ import annotations
@@ -82,13 +86,58 @@ def make_data_mesh(n_devices: int = 0, batch_size: int | None = None,
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def train_data_extent(dp_devices: int, sp_devices: int, n_visible: int,
+                      batch_size: int | None = None) -> int:
+    """The 'data' extent of JAX's ``('data', 'sp')`` train mesh
+    (``make_train_mesh``): ``dp_devices`` where it is > 0, else the visible
+    devices over ``sp_devices``, shrunk to the largest count that divides
+    the batch; at least 1. Raises where ``extent × sp_devices`` devices
+    are not visible."""
+    if dp_devices > 0:
+        dp = dp_devices
+    else:
+        dp = n_visible // sp_devices
+        if batch_size is not None:
+            while dp > 1 and batch_size % dp != 0:
+                dp -= 1
+    dp = max(dp, 1)
+    if dp * sp_devices > n_visible:
+        raise ValueError(f"need {dp}×{sp_devices} devices for the (data, sp) train mesh, "
+                         f"have {n_visible}")
+    return dp
+
+
+def rank_shard_devices(sp_devices: int, device: str | torch.device | None = None,
+                       rank: int = 0) -> list[torch.device]:
+    """The ``sp_devices`` devices of data rank ``rank``'s H-shards: the one
+    device named (``"cpu"``, ``"cuda:i"``) ``sp_devices`` times, else cards
+    ``rank·S`` … ``rank·S + S − 1`` (raises where they are not visible)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu" or dev.index is not None:
+        return [dev] * sp_devices
+    first = rank * sp_devices
+    if first + sp_devices > torch.cuda.device_count():
+        raise ValueError(f"need cards {first}..{first + sp_devices - 1} for rank {rank}'s "
+                         f"H-shards, have {torch.cuda.device_count()}")
+    return [torch.device("cuda", first + i) for i in range(sp_devices)]
+
+
 def make_train_mesh(dp_devices: int = 0, sp_devices: int = 1, batch_size: int | None = None,
-                    device: str | torch.device | None = None) -> list[torch.device]:
-    """The training ranks' devices (``make_data_mesh``). A ``('data', 'sp')``
-    mesh (spatial training) is not ported."""
-    if sp_devices > 1:
-        raise NotImplementedError("spatial training is not ported yet (ROADMAP.md, Queue 1)")
-    return make_data_mesh(dp_devices, batch_size, device)
+                    device: str | torch.device | None = None) -> list:
+    """The training ranks' devices (``make_data_mesh``); with ``sp_devices``
+    > 1 the ``('data', 'sp')`` mesh: a list, a data rank each, of that
+    rank's ``rank_shard_devices``. The data extent is JAX's
+    (``train_data_extent``) over the visible cards, or ``max(dp_devices,
+    1)`` ranks where ``device`` names one device, which every shard of
+    every rank then shares."""
+    if sp_devices <= 1:
+        return make_data_mesh(dp_devices, batch_size, device)
+    dev = resolve_device(device)
+    if dev.type == "cpu" or dev.index is not None:
+        dp = max(dp_devices, 1)
+    else:
+        dp = train_data_extent(dp_devices, sp_devices, torch.cuda.device_count(), batch_size)
+    return [rank_shard_devices(sp_devices, device, r) for r in range(dp)]
 
 
 def backend_for(devices: Sequence[torch.device]) -> str:
@@ -157,10 +206,30 @@ def warmup_mesh_collectives(device: torch.device) -> None:
         raise RuntimeError(f"warm-up all-reduce gave {float(x)}, expected {n}")
 
 
-def shard_batch(batch: Mapping[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """This rank's batch (the loader yields its slice) on its device: to a
-    card from pinned memory without blocking the host."""
+def _to(v: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array on ``device``: to a card from pinned memory without
+    blocking the host."""
     if device.type != "cuda":
-        return {k: torch.from_numpy(v) for k, v in batch.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+        return torch.from_numpy(np.ascontiguousarray(v))
+    return torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+
+
+def shard_batch(batch: Mapping[str, np.ndarray], device) -> dict:
+    """This rank's batch (the loader yields its slice) on its device. With
+    a list of devices (a rank's H-shard devices, spatial training) NHWC
+    arrays are cut on H as well, shard i (the rows after shard i − 1's, H
+    divided equally) on device i, and other arrays (the val mask) stay
+    whole on the first: JAX's ``P('data', 'sp')`` and ``P('data')``."""
+    if not isinstance(device, (list, tuple)):
+        return {k: _to(v, device) for k, v in batch.items()}
+    mesh = [torch.device(d) for d in device]
+    out = {}
+    for k, v in batch.items():
+        if v.ndim != 4:
+            out[k] = _to(v, mesh[0])
+            continue
+        if v.shape[1] % len(mesh):
+            raise ValueError(f"height {v.shape[1]} must divide by the H-shard count {len(mesh)}")
+        rows = v.shape[1] // len(mesh)
+        out[k] = [_to(v[:, i * rows:(i + 1) * rows], d) for i, d in enumerate(mesh)]
+    return out

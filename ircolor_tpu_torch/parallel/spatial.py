@@ -1,5 +1,5 @@
-"""Spatial (image-axis) sharding of test mode over a 1-D H mesh
-(``ircolor_tpu/parallel/spatial.py``).
+"""Spatial (image-axis) sharding of test mode and training over a 1-D H
+mesh (``ircolor_tpu/parallel/spatial.py``).
 
 The JAX package shards the image rows of one batch over a ``('sp',)`` mesh
 of chips driven by one controller process: GSPMD partitions the plain
@@ -19,11 +19,19 @@ global rows follow from the heights of the shards before it
   that hold them, and at the global edges the image's own padding
   (reflect, zero or replicate) from the rows it mirrors or repeats;
 * ``all_sum`` / ``all_max``: the instance-norm sums and the int8 per-sample
-  amax, reduced in shard order on shard 0's device and sent back.
+  amax, reduced in shard order on shard 0's device and sent back;
+* ``window_heights`` / ``window_slabs``: the owner rule and the input rows
+  of any window op at any stride (spatial training's discriminator convs,
+  VGG convs and pools, the SSIM window, TV's row differences): shards may
+  be unequal or empty, halos asymmetric, zero rows past the image's edges;
+* ``on_shards``, ``global_sum``, ``global_mean``: per-shard ops and the
+  losses' means over the whole image's count.
 
 A device may repeat in the mesh: on one card every shard lives there and a
 halo row is a copy on that card; on the CPU, as the tests run it, every
-shard is a CPU tensor. Only the 1-D H mesh is ported; 2-D H×W tiling
+shard is a CPU tensor. Every op keeps its autograd graph (slices, copies,
+sums), so training backpropagates through the shards and each parameter
+gathers every shard's gradient. Only the 1-D H mesh is ported; 2-D H×W tiling
 (``sp_w_devices > 1``), which runs no kernel in the JAX package, is not
 (ROADMAP.md).
 """
@@ -168,17 +176,19 @@ def exchange_halo_rows(shards: Sequence[torch.Tensor], r: int, pad: str = "refle
     """Each shard's ``r`` rows above and below it as ``[(top, bot), ...]``,
     (B, r, W, C) contiguous tensors on the shard's device: the image's rows
     from whichever shards hold them (the neighbours', or past a neighbour
-    of fewer than ``r`` rows), and past the image's top and bottom its
+    of fewer rows, or of none), and past the image's top and bottom its
     ``pad`` (``PADS``) padding made from the rows it mirrors or repeats.
-    Shards of any heights of at least one row; reflect needs an image of
-    more than ``r`` rows. With ``r`` 1 and reflect: the JAX package's
-    ``_exchange_halo_rows`` (``pallas_resblock.py:1554``)."""
+    Shards of any heights, empty ones too (their halo is the rows around
+    the point where they sit); reflect needs an image of more than ``r``
+    rows. With ``r`` 1 and reflect: the JAX package's
+    ``_exchange_halo_rows`` (``pallas_resblock.py:1554``). Halos of other
+    shapes (asymmetric, strided): ``window_slabs``."""
     if pad not in PADS:
         raise ValueError(f"pad must be one of {PADS}, got {pad!r}")
     h = sum(s.shape[1] for s in shards)
-    if min(s.shape[1] for s in shards) < 1 or (pad == "reflect" and h <= r):
-        raise ValueError(f"a {r}-row {pad} halo needs shards of at least one row and, for "
-                         f"reflect, an image of more than {r} rows (shard rows "
+    if h < 1 or (pad == "reflect" and h <= r):
+        raise ValueError(f"a {r}-row {pad} halo needs an image of at least one row and, for "
+                         f"reflect, of more than {r} rows (shard rows "
                          f"{[s.shape[1] for s in shards]})")
     out = []
     for x, start in zip(shards, row_starts(shards)):
@@ -186,6 +196,49 @@ def exchange_halo_rows(shards: Sequence[torch.Tensor], r: int, pad: str = "refle
         out.append((_halo(shards, start - r, start, h, pad, x),
                     _halo(shards, end, end + r, h, pad, x)))
     return out
+
+
+def window_heights(heights: Sequence[int], k: int, stride: int, pad: int) -> list[int]:
+    """The shard heights of the output of a ``k``-row window at ``stride``
+    over shards of ``heights`` rows, ``pad`` rows of padding above and
+    below the image (a conv's, a pool's): the owner rule of
+    ``stride2_heights`` — shard i keeps the output rows r whose row
+    ``stride·r`` of the unpadded image is among its rows. An output row may
+    read rows of the next shards (the halo); a shard may keep none (a
+    stride-1 4×4 conv takes a row off the image, and an odd row cannot
+    start a 2×2 pool's window)."""
+    n_out = (sum(heights) + 2 * pad - k) // stride + 1
+    out, start = [], 0
+    for h in heights:
+        lo, hi = -(-start // stride), min(-(-(start + h) // stride), n_out)
+        out.append(max(hi - lo, 0))
+        start += h
+    if sum(out) != max(n_out, 0):
+        raise ValueError(f"a {k}-row window at stride {stride}, pad {pad} over shard rows "
+                         f"{list(heights)} has output rows no shard owns")
+    return out
+
+
+def window_slabs(shards: Sequence[torch.Tensor], k: int, stride: int, pad: int,
+                 pad_type: str = "zero") -> list[torch.Tensor | None]:
+    """For each shard, the input rows its output rows of a ``k``-row window
+    at ``stride`` read (``window_heights``' owner rule), as one (B, rows,
+    W, C) slab on its device: its own rows, the halo rows of the shards
+    that hold them (above and below, of any count, from past empty or short
+    neighbours) and ``pad_type`` rows past the image's edges. None where
+    the shard keeps no output row. Applied with no padding in H (and the
+    op's own in W) at ``stride``, a slab gives exactly the shard's output
+    rows."""
+    h = sum(s.shape[1] for s in shards)
+    slabs, o0 = [], 0
+    for x, n in zip(shards, window_heights([s.shape[1] for s in shards], k, stride, pad)):
+        if n == 0:
+            slabs.append(None)
+        else:
+            lo = stride * o0 - pad
+            slabs.append(_halo(shards, lo, stride * (o0 + n - 1) - pad + k, h, pad_type, x))
+        o0 += n
+    return slabs
 
 
 def halo_slabs(shards: Sequence[torch.Tensor], r: int, pad: str = "reflect"):
@@ -211,6 +264,41 @@ def all_sum(ts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
 def all_max(ts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """``all_sum`` with the elementwise maximum."""
     return _reduce(ts, torch.maximum)
+
+
+def sharded(x) -> bool:
+    """Whether ``x`` is an image held as a list of H-shards."""
+    return isinstance(x, (list, tuple))
+
+
+def on_shards(fn, *xs):
+    """``fn`` applied shard by shard to images held as lists of H-shards,
+    or once to whole tensors."""
+    if sharded(xs[0]):
+        return [fn(*parts) for parts in zip(*xs)]
+    return fn(*xs)
+
+
+def first_shard(x) -> torch.Tensor:
+    """Shard 0 of a sharded image, else the tensor itself."""
+    return x[0] if sharded(x) else x
+
+
+def global_sum(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The shards' tensors summed in shard order, on shard 0's device."""
+    acc = ts[0]
+    for t in ts[1:]:
+        acc = acc + t.to(acc.device)
+    return acc
+
+
+def global_mean(x) -> torch.Tensor:
+    """The mean of every element of the image: of a sharded one the shards'
+    sums added in shard order over the whole image's count (an empty shard
+    adds nothing), on shard 0's device; of a tensor ``x.mean()``."""
+    if not sharded(x):
+        return x.mean()
+    return global_sum([s.sum() for s in x]) / sum(s.numel() for s in x)
 
 
 def check_spatial_compat(module, mesh: Sequence) -> None:

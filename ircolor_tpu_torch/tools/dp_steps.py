@@ -11,7 +11,9 @@ tests (``tests/test_torch_dp_step.py``), the card tests and
 Each rank builds the train state from ``cfg.seed`` (or loads ``weights``),
 takes its contiguous slice of every global batch and runs one step a
 batch, checking after each that the ranks' parameters and buffers are
-equal bit for bit. TF32 is off, as for the plain float32 references.
+equal bit for bit. Under ``sp_devices`` S > 1 (data × spatial) a rank's
+slice is cut into S H-shards, all on its device. TF32 is off, as for the
+plain float32 references.
 """
 
 from __future__ import annotations
@@ -94,9 +96,10 @@ def run_rank(rank: int, device: torch.device, cfg: Config, batches: list[dict[st
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
+    place = state.g.spatial_mesh or device
     for i, batch in enumerate(batches):
         per = batch["ir"].shape[0] // n
-        mine = shard_batch({k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}, device)
+        mine = shard_batch({k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}, place)
         comm.clear()
         synchronize(device)
         t0 = time.perf_counter()
@@ -137,8 +140,9 @@ def one_process_steps(cfg: Config, device: torch.device, batches: list[dict[str,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
+    place = state.g.spatial_mesh or device
     for i, batch in enumerate(batches):
-        whole = shard_batch(batch, device)
+        whole = shard_batch(batch, place)
         synchronize(device)
         t0 = time.perf_counter()
         state, metrics = step(state, whole)

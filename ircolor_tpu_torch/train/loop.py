@@ -26,8 +26,12 @@ slice of every global batch from a rank-sharded loader; the step of
 validation padded to each rank's share of the batch and summed over the
 ranks, so that every rank takes the same best-checkpoint decision; rank 0
 logs and writes the checkpoints while the others wait at a barrier; a
-resume on every rank). Spatial training (``sp_devices`` > 1) raises
-NotImplementedError (``reject_unported``, ROADMAP.md, Queue 1).
+resume on every rank). Spatial training (``sp_devices`` S > 1, JAX's
+GSPMD step on a ``('data', 'sp')`` mesh; ``dp_mode="gspmd"`` only, as in
+JAX): each rank holds S H-shards (``parallel.mesh.make_train_mesh``), cuts
+every batch of its slice on H (``shard_batch``), and runs the train and val
+steps on the shards with every fused kernel off (``train.state.
+train_config``); checkpoints and ``--resume`` are those of one device.
 """
 
 from __future__ import annotations
@@ -56,10 +60,12 @@ from ircolor_tpu_torch.parallel.launch import spawn
 from ircolor_tpu_torch.parallel.mesh import (
     initialize_multihost,
     make_train_mesh,
+    rank_shard_devices,
     shard_batch,
     warmup_mesh_collectives,
     world,
 )
+from ircolor_tpu_torch.parallel.spatial import check_stage_heights
 from ircolor_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     load_netg_state,
@@ -169,10 +175,13 @@ def train_kaist(
     device: str | torch.device | None = None,
     max_steps_per_epoch: int | None = None,
     jsonl: JsonlLogger | None = None,
+    spatial_mesh: list | None = None,
 ) -> dict[str, Any]:
     """Run the training recipe on ``device`` (the card by default); returns a
     summary (best val L1, final-epoch mean losses, steps, throughput, state).
     ``max_steps_per_epoch`` truncates epochs for tests and smoke runs.
+    ``spatial_mesh``: this rank's H-shard devices under ``sp_devices`` > 1
+    (default: ``make_train_mesh``'s first rank's).
 
     Data parallelism: in a process group already up, or one a launcher's
     environment describes (``parallel.mesh.initialize_multihost``), this
@@ -180,51 +189,77 @@ def train_kaist(
     than one rank (``dp_devices``; 0: every card, fit to the batch), one
     process a rank is spawned (``parallel.launch``) and rank 0's summary is
     returned without ``state`` (the checkpoints hold it), after checking that
-    every rank's agrees."""
-    reject_unported(cfg, train=True)
+    every rank's agrees. Under a launcher's environment with ``sp_devices``
+    > 1 a rank's shards share its device."""
+    reject_unported(cfg)
+    if cfg.sp_devices > 1 and cfg.dp_mode != "gspmd":
+        raise ValueError("spatially-sharded training (--sp-devices > 1) requires "
+                         "dp_mode='gspmd' — the shard_map step partitions the batch axis only")
+    sp = cfg.sp_devices > 1
     if not dist.is_initialized():
         env_dev = initialize_multihost(device=device)
         if env_dev is not None:
             device = env_dev
         else:
-            devices = make_train_mesh(cfg.dp_devices, cfg.sp_devices, cfg.batch_size, device)
+            mesh = make_train_mesh(cfg.dp_devices, cfg.sp_devices, cfg.batch_size, device)
+            devices = [m[0] for m in mesh] if sp else mesh
             if len(devices) > 1:
-                summaries = spawn(_train_rank, devices, (cfg, max_steps_per_epoch))
+                summaries = spawn(_train_rank, devices,
+                                  (cfg, max_steps_per_epoch, *([mesh] if sp else [])))
                 for r, s in enumerate(summaries[1:], start=1):
                     if any(s[k] != summaries[0][k] for k in _AGREED):
                         raise RuntimeError(f"rank {r}'s summary differs from rank 0's: "
                                            f"{[(k, s[k], summaries[0][k]) for k in _AGREED]}")
                 return summaries[0]
             device = devices[0]
+            if sp and spatial_mesh is None:
+                spatial_mesh = mesh[0]
     rank = dist.get_rank() if dist.is_initialized() else 0
+    if sp and spatial_mesh is None:  # a launcher's rank: its device S times
+        spatial_mesh = rank_shard_devices(cfg.sp_devices, device, rank)
     if rank:
         logging.disable(logging.INFO)  # rank 0 logs
     try:
         return _train(cfg, resolve_device(device), max_steps_per_epoch,
-                      jsonl if rank == 0 else JsonlLogger(None))
+                      jsonl if rank == 0 else JsonlLogger(None),
+                      [torch.device(d) for d in spatial_mesh] if sp else None)
     finally:
         if rank:
             logging.disable(logging.NOTSET)
 
 
 def _train_rank(rank: int, device: torch.device, cfg: Config,
-                max_steps_per_epoch: int | None) -> dict[str, Any]:
-    """A spawned rank's training; its summary without the state."""
-    summary = train_kaist(cfg, device=device, max_steps_per_epoch=max_steps_per_epoch)
+                max_steps_per_epoch: int | None, mesh: list | None = None) -> dict[str, Any]:
+    """A spawned rank's training (``mesh``: every rank's H-shard devices,
+    under ``sp_devices`` > 1); its summary without the state."""
+    summary = train_kaist(cfg, device=device, max_steps_per_epoch=max_steps_per_epoch,
+                          spatial_mesh=None if mesh is None else mesh[rank])
     return {k: v for k, v in summary.items() if k != "state"}
 
 
 def _train(cfg: Config, dev: torch.device, max_steps_per_epoch: int | None,
-           jsonl: JsonlLogger | None) -> dict[str, Any]:
-    """The recipe on this rank (the only one without a process group)."""
+           jsonl: JsonlLogger | None, sp_mesh: list[torch.device] | None) -> dict[str, Any]:
+    """The recipe on this rank (the only one without a process group);
+    ``sp_mesh``: its H-shard devices (spatial training), whose first holds
+    the state."""
     rank, n_ranks = world()
     own_jsonl = jsonl is None
     jsonl = jsonl or JsonlLogger(cfg.jsonl_log)
     h, w = cfg.resolved_hw
     if cfg.dp_mode not in ("gspmd", "shard_map"):
         raise ValueError(f"dp_mode must be 'gspmd' or 'shard_map', got {cfg.dp_mode!r}")
-    log.info("[TRAIN] Device: %s%s", dev, f" (rank 0 of {n_ranks}, {cfg.dp_mode})"
-             if n_ranks > 1 else "")
+    if sp_mesh is not None:
+        dev = sp_mesh[0]
+        try:
+            check_stage_heights(h, len(sp_mesh), 2)
+        except ValueError as exc:
+            raise ValueError(f"img height {h} with sp_devices={len(sp_mesh)}: {exc}") from None
+    # Where a batch goes: this rank's device, or cut on H over its shards'.
+    place = dev if sp_mesh is None else sp_mesh
+    log.info("[TRAIN] Device: %s%s%s", dev, f" (rank 0 of {n_ranks}, {cfg.dp_mode})"
+             if n_ranks > 1 else "",
+             "" if sp_mesh is None else
+             f", H over {len(sp_mesh)} shards on {[str(d) for d in sp_mesh]}")
     log.info("KAIST root (V000, V001, ...): %s", cfg.train_roots[0] if cfg.train_roots else "")
 
     all_ir, all_rgb = scan_kaist_pairs(list(cfg.train_roots))
@@ -257,7 +292,7 @@ def _train(cfg: Config, dev: torch.device, max_steps_per_epoch: int | None,
     # The ranks meet once before the state's init and the first step, whose
     # time may differ by rank.
     warmup_mesh_collectives(dev)
-    state = create_train_state(cfg, steps_per_epoch, dev)
+    state = create_train_state(cfg, steps_per_epoch, dev, spatial_mesh=sp_mesh)
     if cfg.init_G_weights is not None and os.path.isfile(cfg.init_G_weights):
         log.info("Initializing generator from: %s", cfg.init_G_weights)
         load_state_permissive(state.g, load_netg_state(cfg.init_G_weights, state.g))
@@ -310,7 +345,7 @@ def _train(cfg: Config, dev: torch.device, max_steps_per_epoch: int | None,
             if bsz < full:
                 batch = {k: np.concatenate([v, np.zeros((full - bsz, *v.shape[1:]), v.dtype)])
                          for k, v in batch.items()}
-            s, c = val_step(shard_batch(batch, dev), torch.from_numpy(mask).to(dev))
+            s, c = val_step(shard_batch(batch, place), torch.from_numpy(mask).to(dev))
             total += s
             count += c
         return float(total) / max(float(count), 1.0)
@@ -331,11 +366,11 @@ def _train(cfg: Config, dev: torch.device, max_steps_per_epoch: int | None,
                 if i > steps_per_epoch:
                     break
                 if guard is None:
-                    state, metrics = train_step(state, shard_batch(batch, dev))
+                    state, metrics = train_step(state, shard_batch(batch, place))
                 else:
                     guard.where = f"epoch {epoch} step {i}"
                     with torch.autograd.detect_anomaly(check_nan=True):
-                        state, metrics = train_step(state, shard_batch(batch, dev))
+                        state, metrics = train_step(state, shard_batch(batch, place))
                 if trace is not None and trace.running and i >= min(5, steps_per_epoch):
                     synchronize(dev)
                     log.info("Profiler trace (first %d steps) written to %s", i, trace.stop())

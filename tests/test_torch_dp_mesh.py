@@ -79,8 +79,8 @@ def test_world_size_rule_over_processes_matches_jax(monkeypatch):
 def test_mesh_devices_and_backend_rule():
     assert make_data_mesh(3, device="cpu") == [_CPU] * 3
     assert make_data_mesh(0, batch_size=6, device="cpu") == [_CPU]
-    with pytest.raises(NotImplementedError, match="spatial training"):
-        make_train_mesh(2, 2, device="cpu")
+    # Spatial training's ('data', 'sp') mesh: a list of shard devices a rank.
+    assert make_train_mesh(2, 2, device="cpu") == [[_CPU] * 2] * 2
     if not torch.cuda.is_available():
         for dev in (None, "cuda"):
             with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -160,17 +160,27 @@ def test_weights_cross_both_ways(tmp_path):
 
 
 def test_unported_modes_raise():
-    """Only the multi-device modes beyond spatial test mode and data
-    parallelism are left unported (2-D H×W tiling, spatial training); the
-    variants the JAX ``Config`` reaches build (``tests/test_torch_variants.py``
-    holds them against JAX), and an unknown norm raises as in JAX."""
+    """Only 2-D H×W tiling is left unported among the multi-device modes
+    (spatial test mode and training, data parallelism run), and the
+    variants under ``sp_devices`` in training; the variants the JAX
+    ``Config`` reaches build (``tests/test_torch_variants.py`` holds them
+    against JAX), and an unknown norm raises as in JAX."""
     from ircolor_tpu_torch.train.state import create_train_state
 
     assert IRColorizationModel(Config(ngf=8, n_blocks=1, dp_devices=2), "cpu").module
     with pytest.raises(NotImplementedError, match="sp_w_devices"):
         IRColorizationModel(Config(sp_devices=2, sp_w_devices=2), "cpu")
-    with pytest.raises(NotImplementedError, match="spatial training"):
-        create_train_state(Config(sp_devices=2), steps_per_epoch=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="sp_w_devices"):
+        create_train_state(Config(sp_devices=2, sp_w_devices=2), steps_per_epoch=1, device="cpu")
+    state = create_train_state(Config(sp_devices=2, ngf=8, n_blocks=1), steps_per_epoch=1,
+                               device="cpu")  # spatial training builds, its kernels off
+    assert state.g.spatial_mesh == [torch.device("cpu")] * 2 and state.g.training
+    assert not (state.g.resblocks[0].pallas_block or state.g.pallas_norm_blur
+                or state.g.pallas_head or state.g.pallas_encdec_bwd)
+    for variant in (dict(norm="batch"), dict(no_antialias=True), dict(use_pallas=True)):
+        with pytest.raises(NotImplementedError, match="sp_devices > 1"):
+            create_train_state(Config(sp_devices=2, ngf=8, n_blocks=1, **variant),
+                               steps_per_epoch=1, device="cpu")
     assert IRColorizationModel(Config(ngf=8, n_blocks=1, sp_devices=2), "cpu").module
     with pytest.raises(NotImplementedError, match="Normalization type"):
         tgen.ResnetUNetGenerator(norm="group")

@@ -105,12 +105,13 @@ def test_cli_test_mode_writes_artifacts(kaist_tree, tmp_path):
 
 @pytest.mark.parametrize(
     "mode,extra",
-    [("train", ["--device", "cpu", "--sp-devices", "2"])],
+    [("train", ["--device", "cpu", "--sp-devices", "2", "--sp-w-devices", "2"])],
     ids=["train"],
 )
 def test_cli_unported_modes_raise(mode, extra):
-    """Spatial training (``export`` is ported: tests/test_torch_export.py;
-    data-parallel training: tests/test_torch_dp_run.py)."""
+    """2-D H×W tiling (``export`` is ported: tests/test_torch_export.py;
+    data-parallel training: tests/test_torch_dp_run.py; spatial training:
+    tests/test_torch_sp_train_loop.py)."""
     from ircolor_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="not ported"):

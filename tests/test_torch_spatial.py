@@ -397,8 +397,9 @@ def test_run_test_spatial_matches_one_device(kaist_tree, tmp_path, monkeypatch):
 
 def test_spatial_mode_refuses_what_is_not_ported(tmp_path):
     """A mesh on cards that are not there, a height the shards cannot
-    split, the variants under the mesh and spatial training raise; the
-    runner's rebuild turns the tails and the head off."""
+    split, the variants under the mesh and a training forward with a fused
+    kernel on raise (with them off it trains); the runner's rebuild turns
+    the tails and the head off."""
     from ircolor_tpu_torch.eval.runner import spatial_generator
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 
@@ -421,9 +422,16 @@ def test_spatial_mode_refuses_what_is_not_ported(tmp_path):
         setattr(bad, attr, value)
         with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP"):
             bad(xs)
+    # In training the forward runs with the fused kernels off (as
+    # train.state.train_config leaves them) and keeps its graph; the block
+    # kernels' halo forms have no backward, so they raise.
     g.train()
-    with pytest.raises(NotImplementedError, match="spatial training"):
+    with pytest.raises(ValueError, match="no fused kernel"):
         g(xs)
+    for block in g.resblocks:
+        block.pallas_block = False
+    ys = g(xs)
+    assert [y.shape for y in ys] == [(1, 16, 32, 3)] * 2 and all(y.requires_grad for y in ys)
     g.eval().pallas_head = True
     with pytest.raises(ValueError, match="pallas_head"):
         g(xs)

@@ -53,6 +53,7 @@ from ircolor_tpu_torch.models.discriminator import NLayerDiscriminator
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel, reject_unported
 from ircolor_tpu_torch.ops import quant as tquant
 from ircolor_tpu_torch.train.checkpoint import save_netg_pth
+from ircolor_tpu_torch.train.loop import train_kaist
 from ircolor_tpu_torch.train.state import create_train_state
 from ircolor_tpu_torch.train.step import METRIC_KEYS, make_train_step
 from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
@@ -418,9 +419,9 @@ def test_int8_variant_routes_match_jax_bf16(variant, strides, perturb, monkeypat
 
 
 def test_variant_configs_build_serve_and_train_on_cpu():
-    """Through the entry points: ``reject_unported`` refuses only the
-    multi-device modes beyond spatial test mode and data parallelism (the
-    spatial forward refuses the variants under it:
+    """Through the entry points: ``reject_unported`` refuses only 2-D H×W
+    tiling among the multi-device modes (the spatial forward refuses the
+    variants under it, in test mode and in training:
     ``test_torch_spatial.py``); batch norm, no norm, no_antialias(_up) and
     remat build, serve (eval, running statistics) and take a train step
     with finite losses."""
@@ -432,8 +433,15 @@ def test_variant_configs_build_serve_and_train_on_cpu():
                      (dict(sp_w_devices=2), ValueError)):
         with pytest.raises(exc):
             reject_unported(Config(**bad))
-    with pytest.raises(NotImplementedError, match="spatial training"):
-        reject_unported(Config(sp_devices=2), train=True)
+    # Spatial training runs (tests/test_torch_sp_train_*.py); under it the
+    # variants stay refused, as does the shard_map mode (the loop's check).
+    for bad in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
+                dict(no_antialias_up=True)):
+        with pytest.raises(NotImplementedError, match="sp_devices > 1"):
+            create_train_state(Config(sp_devices=2, img_size=32, ngf=8, n_blocks=1, **bad),
+                               steps_per_epoch=1, device="cpu")
+    with pytest.raises(ValueError, match="gspmd"):
+        train_kaist(Config(sp_devices=2, dp_mode="shard_map"), device="cpu")
     x = torch.rand((1, 32, 32, 1), generator=torch.Generator().manual_seed(0)) * 2 - 1
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     for kw in (dict(norm="batch", no_antialias=True, no_antialias_up=True, remat=True),
