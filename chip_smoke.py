@@ -205,6 +205,30 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    unsharded G phase on its own D'. Shards on one card are no multi-card
    speed-up.
 
+12. The model variants on shards (every H-shard on cuda:0). (a) Row 11h,
+   kernel 11's shard form (a stats and an apply launch a shard, Chan's
+   merge between), on the shards of the 256² bottleneck 16×64×64×256 at
+   S = 2 and 4, bf16 IN + ReLU / + r and f32 IN + ReLU, against its plain
+   version and kernel 11 on the gathered plane (1 bf16 ulp, f32 1e-5
+   relative, a bit-exact repeat), with device ms, its byte bound and
+   ``F.instance_norm``'s time. (b) Serving b32 at S = 2 under batch norm +
+   no_antialias + no_antialias_up, int8 and float, against the unsharded
+   step of the same weights (batch norms calibrated) and batches: phase
+   8b's rule (the metric budget; int8 mean |d| within 1.5× phase 8b's int8
+   noise, its int8 conv on the plain version bit-identical; float the
+   uint8 budget; the seam ratio), a single wrong halo row injected in the
+   first block's conv1 (float: must be flagged), the int8 conv at 22·S
+   stride-1 and 2·S stride-2 launches a forward, frames/s and peak memory.
+   (c) ``use_pallas`` float at 256² b16, S = 2, against the unsharded
+   ``use_pallas`` step (the serving budget): 11h 9·S + 9·S a forward.
+   (d) Spatial training of the (b) variant at 512×640 b8, S = 2, against
+   the unsharded kernels-off step (phase 11's bounds; running statistics
+   within 1e-3 relative). (e) ``use_pallas`` training at 256² b8, S = 2,
+   against the unsharded ``use_pallas`` step (phase 11's bounds): 11h
+   forward and its backward, 9·S + 9·S a step. In both a gradient or a
+   statistic may also lie within twice what a last-bit change of the
+   unsharded forward moves it (``sp_variant_train_phase``).
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -1847,7 +1871,7 @@ class plain_kernels:
     only where the enc/dec segments call them (``kernels/encdec.py``)."""
 
     FORWARD = ("conv3x3_reflect_fused", "conv3x3_reflect_fused_q", "norm_relu_blur_down_pallas",
-               "conv7x7_head_pallas", "conv3x3_int8", "run_in", "run_in_res")
+               "conv7x7_head_pallas", "conv3x3_int8", "run_in", "run_in_res", "run_in_spatial")
 
     def __init__(self, names=FORWARD):
         from ircolor_tpu_torch.kernels import blur, conv_int8, encdec, head, resblock
@@ -1866,6 +1890,8 @@ class plain_kernels:
             "conv3x3_int8": (quant, None, conv_int8.conv3x3_int8_plain),
             "run_in": (tin, None, tin.fused_instance_norm_plain),
             "run_in_res": (tin, None, tin.fused_instance_norm_residual_plain),
+            "run_in_spatial": (tin, "_run_in_spatial", functools.partial(
+                tin._run_in_spatial, plain=True)),
             "segment_dgrad": (encdec, "conv3x3_dgrad_fused", resblock.conv3x3_dgrad_fused_plain),
             "segment_wgrad": (encdec, "conv3x3_wgrad_fused", resblock.conv3x3_wgrad_fused_plain),
         }
@@ -3316,6 +3342,374 @@ def sp_train_phase(torch, np, counts: dict, smi: str) -> None:
         raise AssertionError(f"sp train f32: outside the bounds: {bad}")
 
 
+# Phase 12: the variants on shards, every shard on cuda:0.
+SP12_S = 2
+SP12_VARIANT = {"norm": "batch", "no_antialias": True, "no_antialias_up": True}
+K11H_PLANE = (16, 64, 64, 4 * NGF)  # the 256² bottleneck at the test batch of 16
+HW256, B256 = (256, 256), 16
+
+
+def check_instance_norm_halo(torch, results: list) -> None:
+    """Phase 12a: row 11h on the H-shards of ``K11H_PLANE`` at S = 2 and 4
+    (16×32×64×256, 16×16×64×256): bf16 IN + ReLU and IN + r, f32 IN + ReLU
+    (the f32 residual form does not fit the gate there), each within one
+    bf16 ulp (f32: 1e-5 relative to max(|value|, 1)) of its plain version
+    and of kernel 11 on the gathered plane, and bit-exact on repeat. Times
+    over 4 input sets (L2 cold): the call over every shard, its plain
+    version, and ``F.instance_norm`` (+ ReLU / + r) on the plane. The row's
+    figures are S = 2's (phase 12c's shards)."""
+    import torch.nn.functional as F
+
+    from ircolor_tpu_torch.kernels import LAUNCHES
+    from ircolor_tpu_torch.kernels import instance_norm as tin
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    before = dict(LAUNCHES)
+    n = 1
+    for d in K11H_PLANE:
+        n *= d
+
+    def randn(scale=1.0, shift=0.0):
+        return torch.randn(*K11H_PLANE, device="cuda", generator=gen) * scale + shift
+
+    xs32 = [randn(3.0, 1.0) for _ in range(4)]
+    rs = [randn() for _ in range(4)]
+    for s in (2, 4):
+        def cut(t):
+            return [p.contiguous() for p in t.split(K11H_PLANE[1] // s, dim=1)]
+
+        forms = (
+            ("fused_instance_norm_halo", "bf16 IN + ReLU", ":117", torch.bfloat16, False,
+             lambda xs, r: tin.run_in_spatial(xs, True),
+             lambda xs, r: tin.run_in_spatial_plain(xs, True),
+             lambda x, r: tin.run_in(x, True),
+             lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 2),
+            ("fused_instance_norm_residual_halo", "bf16 IN + r", ":133", torch.bfloat16, True,
+             lambda xs, r: tin.run_in_spatial(xs, residuals=r),
+             lambda xs, r: tin.run_in_spatial_plain(xs, residuals=r),
+             tin.run_in_res,
+             lambda x, r: F.instance_norm(x.permute(0, 3, 1, 2)) + r.permute(0, 3, 1, 2),
+             3 * n * 2),
+            ("fused_instance_norm_halo", "f32 IN + ReLU", ":117", torch.float32, False,
+             lambda xs, r: tin.run_in_spatial(xs, True),
+             lambda xs, r: tin.run_in_spatial_plain(xs, True),
+             lambda x, r: tin.run_in(x, True),
+             lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 4),
+        )
+        for name, label, line, dt, res, kern, plain, k11, lib, nbytes in forms:
+            wholes = [(x.to(dt), r.to(dt)) for x, r in zip(xs32, rs)]
+            sets = [(cut(x), cut(r) if res else None) for x, r in wholes]
+            got = torch.cat(kern(*sets[0]), 1)
+            want = torch.cat(plain(*sets[0]), 1)
+            one = k11(*wholes[0])
+            repeat = bool(torch.equal(got, torch.cat(kern(*sets[0]), 1)))
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.bfloat16:
+                dev_p, dev_1 = bf16_ulps(torch, got, want), bf16_ulps(torch, got, one)
+                ok, unit = dev_p <= 1 and dev_1 <= 1, "bf16 ulps (tol 1)"
+            else:
+                dev_p = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+                dev_1 = float(((got - one).abs() / one.abs().clamp(min=1.0)).max())
+                ok, unit = dev_p <= 1e-5 and dev_1 <= 1e-5, "max rel (tol 1e-5)"
+            ms = rotating_time_ms(torch, kern, sets, 40)
+            pms = rotating_time_ms(torch, plain, sets, 8)
+            k11_ms = rotating_time_ms(torch, k11, wholes, 40)
+            lms = rotating_time_ms(torch, lib, wholes, 20)
+            b_ms, b_by = bound(8 * n, nbytes, PEAK_F32)
+            log(f"[{name} S={s} {label} {tuple(sets[0][0][0].shape)} x {s}] vs plain "
+                f"{dev_p:.3g}, vs kernel 11 on the plane {dev_1:.3g} {unit}; max|d|={err:.4g}; "
+                f"repeat bit-exact {repeat}\n    11h {ms:.4f} ms (all shards: {s} stats + {s} "
+                f"apply launches)  plain {pms:.4f} ms  kernel 11 on the plane {k11_ms:.4f} ms  "
+                f"F.instance_norm {lms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            if not (ok and repeat):
+                raise AssertionError(f"{name} S={s} {label} disagrees with its plain version or "
+                                     "kernel 11")
+            if s == SP12_S and dt == torch.bfloat16:
+                log(f"    11h device / host / event ms a call (S={s}, {label}): "
+                    + split_text(split_time_ms(lambda: kern(*sets[0]))))
+                results.append(dict(
+                    name=name, route="cuda", source="ircolor_tpu_torch/csrc/instance_norm.cu",
+                    replaces=f"ircolor_tpu/ops/pallas_kernels.py{line}", max_abs_err=err, ms=ms,
+                    plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
+            del wholes, sets, got, want, one
+    del xs32, rs
+    torch.cuda.empty_cache()
+    LAUNCHES.update(before)
+
+
+def variant_halo_row_fault(torch, g, infer, batch):
+    """A single wrong halo row on the unfused blocks' route (batch norm):
+    in the first block's conv1, shard 1's top halo row (the first seam's)
+    replaced by that shard's own first row; every other halo row right."""
+    from ircolor_tpu_torch.parallel import spatial
+
+    blk = g.resblocks[0]
+    real_ex, real_conv, done = spatial.exchange_halo_rows, blk._conv_spatial, []
+
+    def wrong(xs, r, pad="reflect"):
+        halos = real_ex(xs, r, pad)
+        halos[1] = (xs[1][:, :r].contiguous(), halos[1][1])
+        return halos
+
+    def conv(layer, xs):
+        if done:
+            return real_conv(layer, xs)
+        done.append(1)
+        spatial.exchange_halo_rows = wrong
+        try:
+            return real_conv(layer, xs)
+        finally:
+            spatial.exchange_halo_rows = real_ex
+
+    blk._conv_spatial = conv
+    try:
+        return infer(*batch)
+    finally:
+        del blk._conv_spatial
+
+
+def _timed_serving(torch, infer, batches, key: str, per: dict, counts: dict, b: int, hw):
+    """One warm-up (returned), then ``batches`` timed: launches held to
+    ``per`` a forward, outputs checked; frames/s and peak GiB."""
+    from ircolor_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    pred, m = infer(*batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [infer(ir, gt) for ir, gt in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts[key] = dict(LAUNCHES)
+    expect_launches(key, counts[key], per, len(batches))
+    check_outputs(torch, key, outs, b, hw)
+    fps, peak = len(batches) * b / dt, torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{key}] {fps:.2f} frames/s ({len(batches)} batches of {b} at {hw[0]}x{hw[1]}, "
+        f"{1e3 * dt / len(batches):.2f} ms a batch), peak memory {peak:.2f} GiB")
+    return (pred, m), fps, peak
+
+
+def s2_pad_cost(torch, s: int) -> None:
+    """The W-pad copy of the stride-2 int8 conv on shards (``ops/quant.py``:
+    each shard's int8 slab zero-padded by a column a side before the VALID
+    launch) at the b32 down1 and down2 slabs of S = ``s``, timed beside the
+    stride-2 conv's launch on the padded slab."""
+    from ircolor_tpu_torch.kernels.conv_int8 import conv3x3_int8
+    from ircolor_tpu_torch.ops.padding import _pad_w
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for site, h, w, c, cout in (("down1", H, W, NGF, 2 * NGF),
+                                ("down2", H // 2, W // 2, 2 * NGF, 4 * NGF)):
+        rows = h // s + 1  # a shard's rows and its halo row above
+        xq = torch.randint(-127, 128, (B, rows, w, c), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (3, 3, c, cout), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        sc = torch.rand(B, cout, device="cuda", generator=gen) * 1e-3
+        slab = _pad_w(xq, 1, "zero")
+        pad_ms = cuda_time_ms(lambda: _pad_w(xq, 1, "zero"), 20)
+        conv_ms = cuda_time_ms(lambda: conv3x3_int8(slab, wq, sc, pad="valid", stride=2), 20)
+        log(f"[stride-2 int8 conv on shards, {site} S={s}] the W-pad copy of the "
+            f"{tuple(xq.shape)} int8 slab {pad_ms:.4f} ms ({2 * xq.numel() / 1e6:.1f} MB moved) "
+            f"beside the stride-2 launch on it {conv_ms:.4f} ms")
+        del xq, slab
+
+
+def sp_variant_serving_phase(torch, np, counts: dict, noise_by_cell: dict) -> None:
+    """Phase 12b and 12c (the script's docstring)."""
+    from ircolor_tpu_torch.eval.runner import make_infer_fn, spatial_generator
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    s = SP12_S
+    summary = []
+    limit = SP_INT8_NOISE_K * noise_by_cell["int8"]["mean_d"]
+    for cell, quant in (("int8", True), ("float", False)):
+        label = f"batch no_aa+up {cell}"
+        cfg = serving_config(**SP12_VARIANT, **({} if quant else dict(quant_int8=False)))
+        if (cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != (B, quant):
+            raise AssertionError(f"spatial {label}: config no longer resolves to b{B} int8={quant}")
+        model = IRColorizationModel(cfg, "cuda")
+        batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+                   for ir, gt in synthetic_batches(2, B)]
+        one = make_infer_fn(model.module)
+        calibrate_batch_norms(torch, model.module, lambda: one(*batches[0]), f"spatial {label}")
+        g = spatial_generator(cfg.replace(sp_devices=s), model.module, "cuda:0")
+        sp = make_infer_fn(g)
+        per = {"conv3x3_int8": 22, "conv3x3_int8_s2": 2} if quant else {}
+        ref, fps1, peak1 = _timed_serving(torch, one, batches, f"spatial {label} unsharded", per,
+                                          counts, B, (H, W))
+        got, fps_s, peak_s = _timed_serving(torch, sp, batches, f"spatial {label} sp{s}",
+                                            {k: v * s for k, v in per.items()}, counts, B, (H, W))
+        delta = route_delta(*got, *ref)
+        seam = seam_ratio(torch, got[0], ref[0], s)
+        exact = True
+        if quant:  # the int8 conv's kernel equals its plain version bit for bit
+            with plain_kernels(("conv3x3_int8",)):
+                pred_i = sp(*batches[0])[0]
+            exact = bool(torch.equal(pred_i, got[0])) and bool(torch.equal(sp(*batches[0])[0],
+                                                                           got[0]))
+        ok = (within_budget(delta, uint8_bound=not quant) and seam <= SEAM_RATIO_MAX
+              and (not quant or delta["mean_d"] <= limit) and exact)
+        fault_p, fault_m = variant_halo_row_fault(torch, g, sp, batches[0])
+        fault = route_delta(fault_p, fault_m, *ref)
+        seam_f = seam_ratio(torch, fault_p, ref[0], s)
+        budget = not within_budget(fault, uint8_bound=not quant) or (
+            quant and fault["mean_d"] > limit)
+        log(f"    sp{s} against the unsharded step: {delta['text']}; seam/interior mean |d| "
+            f"{seam:.4f} (tol {SEAM_RATIO_MAX})"
+            + (f"; uint8 mean |d| tol {SP_INT8_NOISE_K} x phase 8b's int8 noise "
+               f"{noise_by_cell['int8']['mean_d']:.4f} = {limit:.4f}; the int8 conv on its plain "
+               f"version, and a repeat: bit-identical {exact} (tol 0)" if quant else "")
+            + f"\n    one wrong halo row (block 0 conv1, shard 1's top row its own first row): "
+            f"{fault['text']}; seam/interior mean |d| {seam_f:.4f}: the seam check flags it "
+            f"{seam_f > SEAM_RATIO_MAX}, the budget {budget}")
+        if not ok:
+            raise AssertionError(f"spatial {label}: outside phase 8b's bounds")
+        if not quant and not (seam_f > SEAM_RATIO_MAX or budget):
+            raise AssertionError(f"spatial {label}: the checks missed a wrong halo row")
+        summary.append(f"{label} unsharded {fps1:.2f} frames/s {peak1:.2f} GiB, sp{s} "
+                       f"{fps_s:.2f} frames/s {peak_s:.2f} GiB")
+        del model, g, one, sp, batches, ref, got, fault_p
+        torch.cuda.empty_cache()
+        if quant:
+            s2_pad_cost(torch, s)
+
+    # 12c: use_pallas float at 256² b16: kernel 11 (9 + 9) and the down1
+    # tail unsharded; on shards the tails are off and 11h runs 9·S + 9·S.
+    cfg = serving_config(img_height=HW256[0], img_width=HW256[1], quant_int8=False,
+                         use_pallas=True)
+    if cfg.resolved_test_batch_size != B256:
+        raise AssertionError(f"256x256 use_pallas: config no longer resolves to b{B256}")
+    model = IRColorizationModel(cfg, "cuda")
+    batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+               for ir, gt in synthetic_batches(6, B256, HW256)]
+    one = make_infer_fn(model.module)
+    sp = make_infer_fn(spatial_generator(cfg.replace(sp_devices=s), model.module, "cuda:0"))
+    k11 = {"fused_instance_norm": 9, "fused_instance_norm_residual": 9, "norm_relu_blur_down": 1}
+    k11h = {"fused_instance_norm_halo": 9 * s, "fused_instance_norm_residual_halo": 9 * s}
+    label = "256x256 float use_pallas"
+    ref, fps1, peak1 = _timed_serving(torch, one, batches, f"spatial {label} unsharded", k11,
+                                      counts, B256, HW256)
+    got, fps_s, peak_s = _timed_serving(torch, sp, batches, f"spatial {label} sp{s}", k11h,
+                                        counts, B256, HW256)
+    delta = route_delta(*got, *ref)
+    seam = seam_ratio(torch, got[0], ref[0], s)
+    with plain_kernels():
+        plain = route_delta(*sp(*batches[0]), *got)
+    log(f"    sp{s} against the unsharded use_pallas step: {delta['text']}; seam/interior mean "
+        f"|d| {seam:.4f} (tol {SEAM_RATIO_MAX})\n    against its own route with 11h on its "
+        f"plain version: {plain['text']}")
+    if not (within_budget(delta) and within_budget(plain) and seam <= SEAM_RATIO_MAX):
+        raise AssertionError(f"spatial {label}: outside the serving budget or the seam bound")
+    summary.append(f"{label} unsharded {fps1:.2f} frames/s {peak1:.2f} GiB, sp{s} "
+                   f"{fps_s:.2f} frames/s {peak_s:.2f} GiB")
+    del model, one, sp, batches, ref, got
+    torch.cuda.empty_cache()
+    log("[sp variants serve] " + "; ".join(summary))
+
+
+def sp_variant_train_phase(torch, np, counts: dict, smi: str) -> None:
+    """Phase 12d and 12e (the script's docstring): each sharded cell's first
+    step against the unsharded step's with phase 11's bounds (the losses D'
+    does not enter within 2^-10 relative; G's and D's conv weight gradients
+    within 1e-2 relative L2; their Adam update within lr/4 on ≥ 99%, or on
+    a leaf where the unsharded bf16 step's own update lies more than 1%
+    from the unsharded f32 step's, on no more than that share); 12d also
+    every running statistic within 1e-3 relative (the mean vector by its
+    L2 norm). As phase 11 does for f32 leaves, a gradient (and a running
+    statistic) may also lie within twice the distance that a last-bit
+    change of the unsharded forward moves it: 12e's kernel 11 on its plain
+    version (the same IN in another sum order, which is what 11h changes),
+    12d's IR input one transport level up (no kernel on that route). The
+    hinge losses' kinks on D's small score maps carry such changes into D's
+    gradients (on an H100 at 256² b8, 1.06-1.52e-2 on D's convs, against a
+    floor of 0.92-1.32e-2)."""
+    from ircolor_tpu_torch.tools.sp_probe import flagship_train_config, leaf_distance, train_cell
+    from ircolor_tpu_torch.train.step import METRIC_KEYS
+
+    s = SP12_S
+    d_free = [k for k in METRIC_KEYS if k not in ("loss_G", "loss_G_GAN")]
+    cells = (
+        ("batch no_aa+up", flagship_train_config(**SP12_VARIANT), (H, W), {}, {}),
+        ("256x256 use_pallas",
+         flagship_train_config(img_height=HW256[0], img_width=HW256[1], use_pallas=True), HW256,
+         {"fused_instance_norm": 9, "fused_instance_norm_residual": 9},
+         {"fused_instance_norm_halo": 9 * s, "fused_instance_norm_residual_halo": 9 * s}),
+    )
+    steps = 3
+
+    def stat_distance(got, want, k):
+        a, w = got["buffers"][k], want["buffers"][k]
+        if k.endswith("running_mean"):
+            return float(np.linalg.norm(a - w) / max(np.linalg.norm(w), 1e-30))
+        return float((np.abs(a - w) / np.maximum(np.abs(w), 1e-30)).max())
+
+    for label, cfg, hw, per1, per_s in cells:
+        if (cfg.resolved_hw, cfg.batch_size) != (hw, TRAIN_B):
+            raise AssertionError(f"sp train {label}: config no longer resolves to {hw} b{TRAIN_B}")
+        batches = [{"ir": ir, "rgb": gt} for ir, gt in synthetic_batches(steps, TRAIN_B, hw)]
+        one = train_cell(cfg, batches, steps)
+        ref32 = train_cell(cfg.replace(compute_dtype="f32"), batches, 1)
+        if per1:
+            with plain_kernels(("run_in", "run_in_res")):
+                alt = train_cell(cfg, batches, 1)
+            what = "kernel 11 on its plain version"
+        else:
+            nudged = {**batches[0], "ir": np.minimum(batches[0]["ir"].astype(np.int64) + 1,
+                                                     65535).astype(batches[0]["ir"].dtype)}
+            alt = train_cell(cfg, [nudged], 1)
+            what = "the IR one transport level up"
+        cell = train_cell(cfg.replace(sp_devices=s), batches, steps)
+        lr = cfg.lr_G
+        bad = []
+        for key, got, per in ((f"sp train {label} unsharded", one, per1),
+                              (f"sp train {label} sp{s}", cell, per_s)):
+            counts[key] = got["launches"]
+            want = {k: v * steps for k, v in per.items()}
+            if {k: v for k, v in got["launches"].items() if v} != want:
+                bad.append((key, got["launches"], want))
+        rel = {k: abs(cell["losses"][k] - one["losses"][k]) / max(abs(one["losses"][k]), 1e-30)
+               for k in METRIC_KEYS}
+        bad += [k for k in d_free if rel[k] > 2.0**-10]
+        weights = [k for k in one["grads"] if k.endswith(".weight") and one["grads"][k] is not None]
+        noisy = {k: o for k in weights if (o := leaf_distance(one, ref32, k, lr)[1]) > 0.01}
+        for tag, name in (("g.", "G"), ("d.", "D")):
+            keys = [k for k in weights if k.startswith(tag)]
+            dist = {k: leaf_distance(cell, one, k, lr) for k in keys}
+            floor = {k: leaf_distance(alt, one, k, lr)[0] for k in keys}
+            bad += [(k, r, o, floor[k]) for k, (r, o) in dist.items()
+                    if r > max(1e-2, 2 * floor[k]) or o > max(0.01, noisy.get(k, 0.0))]
+            log(f"[sp train {label}] S = {s}, step 1, {name}, {len(keys)} conv weights: gradient "
+                f"at most {max(r for r, _ in dist.values()):.2e} relative L2 (bound 1e-2, or twice "
+                f"{what}'s distance: past 1e-2 "
+                + (", ".join(f"{k} {r:.2e}/{floor[k]:.2e}" for k, (r, _) in dist.items()
+                             if r > 1e-2) or "none")
+                + f"), Adam update more than lr/4 apart on at most "
+                f"{max(o for _, o in dist.values()):.5f} of a leaf (bound 0.01, or the bf16 step's "
+                "own share where larger: "
+                + (", ".join(f"{k} {noisy[k]:.4f}" for k in keys if k in noisy) or "none") + ")")
+        stats = [k for k in one["buffers"] if k.endswith(("running_mean", "running_var"))]
+        worst = (0.0, None, 0.0)
+        for k in stats:
+            r, f = stat_distance(cell, one, k), stat_distance(alt, one, k)
+            worst = max(worst, (r, k, f), key=lambda t: t[0])
+            if r > max(1e-3, 2 * f):
+                bad.append((k, r, f))
+        log(f"[sp train {label}] {smi}: step 1 losses vs unsharded (relative): "
+            + ", ".join(f"{k} {rel[k]:.2e}" for k in METRIC_KEYS)
+            + (f"; {len(stats)} running statistics within {worst[0]:.2e} relative ({worst[1]}; "
+               f"bound 1e-3, or twice {what}'s distance, there {worst[2]:.2e})" if stats else "")
+            + f"\n    S = {s} on cuda:0: {cell['ms']:.1f} ms a step ({TRAIN_B * 1e3 / cell['ms']:.2f} "
+            f"frames/s), peak {cell['peak_gib']['cuda:0']:.2f} GiB; unsharded {one['ms']:.1f} ms "
+            f"({TRAIN_B * 1e3 / one['ms']:.2f} frames/s), peak {one['peak_gib']['cuda:0']:.2f} "
+            f"GiB; launches over {steps} steps: sharded "
+            f"{ {k: v for k, v in cell['launches'].items() if v} }, unsharded "
+            f"{ {k: v for k, v in one['launches'].items() if v} }")
+        if bad:
+            raise AssertionError(f"sp train {label}: outside the bounds {bad}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3494,6 +3888,12 @@ def main() -> int:
     phase_done("phases 10b, 10c")
     sp_train_phase(torch, np, counts, smi)
     phase_done("phase 11")
+    check_instance_norm_halo(torch, results)
+    phase_done("phase 12a")
+    sp_variant_serving_phase(torch, np, counts, sp_noise)
+    phase_done("phase 12b, 12c")
+    sp_variant_train_phase(torch, np, counts, smi)
+    phase_done("phase 12d, 12e")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held
@@ -3521,6 +3921,8 @@ def main() -> int:
                 "conv3x3_reflect_fused_halo": "spatial float sp2",
                 "fused_instance_norm": "256x256 float use_pallas",
                 "fused_instance_norm_residual": "256x256 float use_pallas",
+                "fused_instance_norm_halo": f"spatial 256x256 float use_pallas sp{SP12_S}",
+                "fused_instance_norm_residual_halo": f"spatial 256x256 float use_pallas sp{SP12_S}",
                 "conv3x3_dgrad_fused_seg": "train encdec",
                 "conv3x3_wgrad_fused_seg": "train encdec",
                 **{name: "slice 5" for name in slice5}}

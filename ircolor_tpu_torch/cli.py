@@ -8,7 +8,8 @@ cpu``, else spread over the visible cards); ``train --sp-devices S`` trains
 on S H-shards of every image (JAX's GSPMD step on a ``('data', 'sp')``
 mesh, every fused kernel off: ``train.loop``), all on the CPU with
 ``--device cpu``, else on cards 0..S-1 (with ``--dp-devices N`` too, rank
-r on cards r·S..r·S+S-1). ``--dp-devices N`` runs data
+r on cards r·S..r·S+S-1). Both spatial modes take every model variant
+(``--norm``, ``--no-antialias``, ``--no-antialias-up``, ``--use-pallas``). ``--dp-devices N`` runs data
 parallelism: ``train`` over N ranks, one process each (``train.loop``),
 ``test`` over N chunks of each batch (``eval.runner.make_infer_fn``), on
 the CPU with ``--device cpu``, else on the first N cards (``train`` with

@@ -6,7 +6,10 @@ so ``configs/*.json`` and the CLI flags mean the same thing in both packages
 Fields that select JAX-only machinery (meshes, XLA precision,
 lane-packing, the Pallas gates) are kept for that reason; the port reads
 the kernel gates exactly as the JAX generator does and rejects, at the use
-site, the modes it has not ported yet (``ROADMAP.md``).
+site, the one mode it has not ported yet, 2-D H×W tiling (``ROADMAP.md``).
+Every model variant (``norm``, ``no_antialias``, ``no_antialias_up``,
+``use_pallas``) runs on one device, over data-parallel ranks and over the
+1-D H mesh (``sp_devices``), in test mode and in training.
 """
 
 from __future__ import annotations

@@ -12,12 +12,12 @@ step is queued, writes the mirrored predictions, collages,
 ``metrics_test.csv`` with its "# Summary" block and the Top-K folder.
 
 Every generator variant of ``Config`` serves (``norm``, ``no_antialias``,
-``no_antialias_up``; batch norm on its running statistics), on one device
-or data-parallel (``dp_devices`` > 1, ``make_infer_fn``'s ``dp_mesh``: each
-device serves whole images of the batch; exclusive with ``sp_devices``, as
-in JAX). 2-D H×W tiling is not ported yet, and ``reject_unported`` rejects
-it; the generator's spatial forward rejects the variants under
-``sp_devices`` > 1.
+``no_antialias_up``, ``use_pallas``; batch norm on its running statistics),
+on one device, data-parallel (``dp_devices`` > 1, ``make_infer_fn``'s
+``dp_mesh``: each device serves whole images of the batch; exclusive with
+``sp_devices``, as in JAX) or over the 1-D H mesh (``sp_devices`` > 1: the
+generator's spatial forward runs every variant on shards). 2-D H×W tiling
+is not ported yet, and ``reject_unported`` rejects it.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ def spatial_generator(cfg: Config, module: torch.nn.Module,
     ``runner.py:186-260``, its 1-D H mesh): a copy of ``module`` with the
     norm-blur tails and the head off (they reflect at the image's edges)
     and ``spatial_mesh`` set, so the fused blocks run their halo forms per
-    shard. The mesh: every shard on ``device`` where it names one
+    shard; every variant of the module runs on the shards (``use_pallas``
+    stays on: row 11h). The mesh: every shard on ``device`` where it names one
     (``"cpu"``, or ``"cuda:i"``), else (None or ``"cuda"``) the shards
     spread over the visible cards (raises where there are fewer). H must
     divide by the shard count, as in JAX, and the bottleneck (after the two

@@ -31,6 +31,9 @@ kernel is the wrapper again.
     (stride 1 or 2; the stride-2 form, the no_antialias down convs, counted
     apart as ``conv3x3_int8_s2``)
   instance_norm.run_in / run_in_res ← pallas_kernels._run_in / _run_in_res
+    (also on H-shards, ``run_in_spatial``: a stats and an apply launch a
+    shard, counted once a shard as ``*_halo``; what the JAX package's
+    GSPMD runs on the gathered plane)
   block.conv3x3_stats / conv3x3_norm_in_stats ← pallas_block.conv3x3_stats /
     conv3x3_norm_in_stats
   conv.conv3x3_valid_pallas(_v2)    ← pallas_conv.conv3x3_valid_pallas(_v2)
@@ -67,6 +70,8 @@ LAUNCHES: dict[str, int] = {
     "conv3x3_wgrad_fused_seg": 0,
     "fused_instance_norm": 0,
     "fused_instance_norm_residual": 0,
+    "fused_instance_norm_halo": 0,
+    "fused_instance_norm_residual_halo": 0,
     "blur_downsample": 0,
     "conv3x3_valid": 0,
     "conv3x3_stats": 0,

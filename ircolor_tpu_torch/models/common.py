@@ -13,12 +13,15 @@
   ``conv(a, K[:, :Ca]) + conv(b, K[:, Ca:])`` without materializing the
   concat, exactly as ``ConcatConv3x3`` adds its two terms; float, or int8
   with dynamic or fixed activation scales.
-* ``norm_nhwc_spatial``, ``conv_nhwc_spatial``, ``quant_conv_nhwc_spatial``,
-  ``concat_conv3x3_spatial``: the same on an image held as a list of
-  H-shards (``parallel/spatial.py``), each shard's conv over its rows and
-  their halo (stride 1), the instance norm by the global statistics;
+* ``norm_nhwc_spatial``, ``apply_norm_spatial`` (``BatchNorm.forward_spatial``
+  too), ``conv_nhwc_spatial``, ``quant_conv_nhwc_spatial``,
+  ``concat_conv3x3_spatial``, ``conv_transpose_spatial``: the same on an
+  image held as a list of H-shards (``parallel/spatial.py``), each shard's
+  conv over its rows and their halo (stride 1; the int8 conv at stride 2
+  too), the instance and batch norms by the global statistics;
   ``conv_nhwc_window_spatial`` at any kernel, stride and zero padding, on
-  shards that may be unequal or empty (the discriminator, the VGG tower).
+  shards that may be unequal or empty (the discriminator, the VGG tower,
+  the no_antialias down convs).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ircolor_tpu_torch.ops.norm import (
 )
 from ircolor_tpu_torch.ops.padding import pad2d_spatial
 from ircolor_tpu_torch.ops.quant import conv2d_int8, conv2d_int8_fixed, conv2d_int8_spatial
-from ircolor_tpu_torch.parallel.spatial import window_slabs
+from ircolor_tpu_torch.parallel.spatial import all_sum, exchange_halo_rows, window_slabs
 
 NORM_TYPES = ("instance", "batch", "none")
 
@@ -88,7 +91,14 @@ class BatchNorm(nn.Module):
     again. With ``sync`` (data parallelism over a process group) the
     training statistics are the global batch's: the per-channel sums, sums
     of squares and counts are all-reduced, and their gradients too, as
-    ``SyncBatchNorm`` does."""
+    ``SyncBatchNorm`` does.
+
+    ``forward_spatial`` is the same on an image held as a list of H-shards
+    (spatial training and test mode): the per-channel f32 sums, sums of
+    squares and counts of every shard added in shard order
+    (``parallel.spatial.all_sum``; an empty shard adds nothing), with
+    ``sync`` then all-reduced across the ranks, so the statistics are the
+    whole batch's; the running statistics move once a forward."""
 
     update_stats = True
     sync = False
@@ -115,15 +125,40 @@ class BatchNorm(nn.Module):
             mean = x32.mean(dim=(0, 1, 2))
             var = torch.clamp(x32.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0)
         if self.training:
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                    self.num_batches_tracked += 1
+            self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
+
+    def forward_spatial(self, xs) -> list[torch.Tensor]:
+        """``forward`` of the image whose H-shards are ``xs`` (class
+        docstring), one float32 shard each."""
+        x32 = [x.float() for x in xs]
+        if self.training:
+            c = x32[0].shape[-1]
+            sums = all_sum([torch.cat([x.sum(dim=(0, 1, 2)), x.square().sum(dim=(0, 1, 2)),
+                                       x.new_full((1,), x.numel() // c)]) for x in x32])[0]
+            if self.sync:
+                sums = _AllReduceSum.apply(sums)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean.square(), min=0.0)
+            self._update(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = []
+        for x in x32:
+            dev = x.device
+            out.append((x - mean.to(dev)) * scale.to(dev) + self.bias.to(dev))
+        return out
 
 
 @contextlib.contextmanager
@@ -160,6 +195,19 @@ def apply_norm(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if isinstance(layer, nn.InstanceNorm2d):
         return norm_nhwc(x)
     return layer(x)
+
+
+def apply_norm_spatial(layer: nn.Module, xs) -> list[torch.Tensor]:
+    """``apply_norm`` on the image whose H-shards are ``xs``: instance norm
+    by the global statistics, batch norm by the whole batch's
+    (``BatchNorm.forward_spatial``), none as it is."""
+    if isinstance(layer, nn.InstanceNorm2d):
+        return norm_nhwc_spatial(xs)
+    if isinstance(layer, BatchNorm):
+        return layer.forward_spatial(xs)
+    if isinstance(layer, nn.Identity):
+        return list(xs)
+    raise NotImplementedError(f"no shard form of {type(layer).__name__}")
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -255,17 +303,39 @@ def conv_nhwc_window_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype) -> list[to
 
 def quant_conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *,
                             pad: str = "zero") -> list[torch.Tensor]:
-    """``quant_conv_nhwc`` (stride 1) on the image whose H-shards are
-    ``xs`` (``ops.quant.conv2d_int8_spatial``)."""
-    return conv2d_int8_spatial(xs, _hwio(conv), pad=pad, bias=conv.bias, out_dtype=dtype)
+    """``quant_conv_nhwc`` at the conv's stride (1, or 2 with zero padding)
+    on the image whose H-shards are ``xs`` (``ops.quant.conv2d_int8_spatial``)."""
+    return conv2d_int8_spatial(xs, _hwio(conv), pad=pad, stride=conv.stride[0], bias=conv.bias,
+                               out_dtype=dtype)
+
+
+def conv_transpose_spatial(layer: nn.ConvTranspose2d, xs, dtype: torch.dtype) -> list[torch.Tensor]:
+    """The generator's ``no_antialias_up`` ConvTranspose (3×3, stride 2,
+    pad 1, output_padding 1) in ``dtype`` on the image whose H-shards are
+    ``xs``: input row i feeds output rows 2i − 1 … 2i + 1, so a shard of
+    input rows [a, b) makes output rows [2a, 2b) from its rows and the one
+    row below it (a zero row past the image, where output_padding's last
+    row reads nothing). Shard i's output is 2·its rows."""
+    out = []
+    for x, (_, bot) in zip(xs, exchange_halo_rows([x.to(dtype) for x in xs], 1, "zero")):
+        dev = x.device
+        bias = None if layer.bias is None else layer.bias.to(dev, dtype)
+        slab = torch.cat([x.to(dtype), bot], dim=1)
+        y = F.conv_transpose2d(to_nchw(slab), layer.weight.to(dev, dtype), bias, stride=2,
+                               padding=1, output_padding=1)
+        out.append(to_nhwc(y[:, :, : 2 * x.shape[1]]))
+    return out
 
 
 def concat_conv3x3_spatial(conv: nn.Conv2d, as_, bs, dtype: torch.dtype,
                            quant: str | None = None) -> list[torch.Tensor]:
     """``concat_conv3x3`` on the images whose H-shards are ``as_`` and
-    ``bs``, float or on the dynamic int8 route (the fixed-scale route runs
-    only where the fused kernels took int8 off the decoder, which they
-    never do under spatial sharding)."""
+    ``bs``, float or on the dynamic int8 route. The raise for the other
+    routes is a guard: the fixed-scale route runs only where the fused
+    tails or head took int8 off the decoder, and under spatial sharding
+    both are always off (``check_spatial_compat``), so an int8 generator's
+    ``quant_convs`` holds and its route is always ``"dynamic"``, whatever
+    the variant."""
     ca = as_[0].shape[-1]
     if quant == "dynamic":
         k = _hwio(conv)

@@ -25,11 +25,11 @@ import torch.nn.functional as F
 
 from ircolor_tpu_torch.models.common import (
     apply_norm,
+    apply_norm_spatial,
     conv_nhwc,
     conv_nhwc_window_spatial,
     init_module_,
     make_norm,
-    norm_nhwc_spatial,
     use_bias_for_norm,
 )
 from ircolor_tpu_torch.parallel.spatial import sharded
@@ -91,19 +91,17 @@ class NLayerDiscriminator(nn.Module):
         training): each conv on its shards' slabs of input rows
         (``models.common.conv_nhwc_window_spatial``: one halo row above and
         below at stride 2, one above and two below at stride 1, zero rows
-        past the image's edges), the instance norms by the whole image's
-        statistics (``norm_nhwc_spatial``). Returns the score map's shards,
-        which may be empty: the stride-1 convs each take a row off the
-        image. Batch norm is not ported under ``sp_devices`` (ROADMAP.md)."""
+        past the image's edges), each norm by the whole image's statistics
+        (``apply_norm_spatial``: instance norm per image, batch norm over
+        the batch's every shard, its running statistics moved once; an
+        empty shard adds nothing). Returns the score map's shards, which
+        may be empty: the stride-1 convs each take a row off the image."""
         h = list(xs)
         for layer in self.model:
             if isinstance(layer, nn.Conv2d):
                 h = conv_nhwc_window_spatial(layer, h, self.dtype)
             elif isinstance(layer, nn.LeakyReLU):
                 h = [F.leaky_relu(t, 0.2) for t in h]
-            elif isinstance(layer, nn.InstanceNorm2d):
-                h = norm_nhwc_spatial(h)
-            elif not isinstance(layer, nn.Identity):
-                raise NotImplementedError(f"the discriminator's {type(layer).__name__} under "
-                                          "sp_devices > 1 is not ported yet (ROADMAP.md, Queue 1)")
+            else:
+                h = apply_norm_spatial(layer, h)
         return h

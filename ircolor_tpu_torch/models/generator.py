@@ -74,9 +74,20 @@ tails and the head stay off (``check_spatial_compat``). Spatial training
 (``sp_devices`` > 1 in ``train``) runs the same forward in ``.train()``
 with every fused kernel off, as JAX's does (``train.state.train_config``);
 autograd of the shard ops is its backward, and ``remat`` recomputes each
-block over its shards. The variants (batch or no norm, ``no_antialias``,
-``no_antialias_up``, other pads, dropout, ``use_pallas``) raise
-``NotImplementedError`` under it (``ROADMAP.md``).
+block over its shards.
+
+Every variant runs on shards, as JAX's GSPMD runs the unchanged model
+function: batch norm by the whole batch's statistics across the shards
+(``BatchNorm.forward_spatial``; eval: the running statistics), no norm,
+``no_antialias`` (the stride-2 down convs by the same owner rule as the
+blur-pool, float through ``conv_nhwc_window_spatial``, int8 through the
+stride-2 int8 conv on each shard's slab), ``no_antialias_up`` (the
+ConvTranspose on each shard with one halo row below, then cut as the
+skip's shards), the blocks' replicate and zero pads (their halos),
+dropout (the mask drawn in the whole activation's shape, each shard its
+rows) and ``use_pallas`` (every instance norm through row 11h, kernel
+11's shard form, where ``pallas_fits`` admits the global shape). The fused
+halo blocks keep JAX's gate: instance norm, reflect pads, no dropout.
 """
 
 from __future__ import annotations
@@ -91,7 +102,7 @@ from torch.utils.checkpoint import checkpoint
 from ircolor_tpu_torch.kernels.blur import norm_blur_supported, norm_relu_blur_down
 from ircolor_tpu_torch.kernels.encdec import conv_in_relu_fused, seg_tile_h
 from ircolor_tpu_torch.kernels.head import head_supported, outc_head, outc_head_q
-from ircolor_tpu_torch.kernels.instance_norm import instance_norm_auto
+from ircolor_tpu_torch.kernels.instance_norm import instance_norm_auto, instance_norm_auto_spatial
 from ircolor_tpu_torch.kernels.resblock import (
     resnet_block_pallas,
     resnet_block_pallas_q,
@@ -100,15 +111,17 @@ from ircolor_tpu_torch.kernels.resblock import (
 )
 from ircolor_tpu_torch.models.common import (
     apply_norm,
+    apply_norm_spatial,
     concat_conv3x3,
     concat_conv3x3_spatial,
     conv_nhwc,
     conv_nhwc_spatial,
+    conv_nhwc_window_spatial,
+    conv_transpose_spatial,
     frozen_running_stats,
     init_module_,
     make_norm,
     norm_nhwc,
-    norm_nhwc_spatial,
     quant_conv_nhwc,
     quant_conv_nhwc_spatial,
     use_bias_for_norm,
@@ -123,7 +136,11 @@ from ircolor_tpu_torch.ops.filters import binomial_filter_2d
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
 from ircolor_tpu_torch.ops.padding import pad2d, reflect_pad2d
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners, bilinear_align_corners_spatial
-from ircolor_tpu_torch.parallel.spatial import check_spatial_compat, check_stage_heights
+from ircolor_tpu_torch.parallel.spatial import (
+    check_spatial_compat,
+    check_stage_heights,
+    reshard_rows,
+)
 
 
 def _fused_dtype_ok(dtype) -> bool:
@@ -171,6 +188,48 @@ class _Blur(nn.Module):
 
 
 _PRE_PADS = {"reflect": nn.ReflectionPad2d, "replicate": nn.ReplicationPad2d}
+_DROP = 0.5
+
+
+def dropout_keep(shape: tuple, device: torch.device,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """The block dropout's keep mask (``nn.Dropout(0.5)``: each value kept
+    with probability 1/2), a bool tensor of ``shape`` drawn on
+    ``generator``'s device (``device`` without one: its default generator)
+    and moved to ``device``."""
+    dev = device if generator is None else generator.device
+    return (torch.rand(shape, device=dev, generator=generator) >= _DROP).to(device)
+
+
+def remat_contexts(block: nn.Module):
+    """``checkpoint``'s ``context_fn`` for one block: no batch norm updates
+    its running statistics again in the recompute, and a block dropout
+    generator (``ResnetBlock.dropout_generator``) replays the draw of the
+    forward (``checkpoint`` replays only the devices' default
+    generators)."""
+    gen = getattr(block, "dropout_generator", None)
+    state = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if gen is not None:
+            state["before"] = gen.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        with frozen_running_stats(block):
+            if gen is None:
+                yield
+                return
+            after = gen.get_state()
+            gen.set_state(state["before"])
+            try:
+                yield
+            finally:
+                gen.set_state(after)
+
+    return forward(), recompute()
 
 
 class ResnetBlock(nn.Module):
@@ -179,7 +238,15 @@ class ResnetBlock(nn.Module):
     ``conv_block`` is the reference's ``build_conv_block`` Sequential: a pad
     module before each conv for reflect and replicate padding (zero pads
     inside the conv), dropout after the first ReLU, so the convs sit at 1
-    and 5 by default (0 and 3 for zero padding; one later with dropout)."""
+    and 5 by default (0 and 3 for zero padding; one later with dropout).
+
+    Dropout in training drops by ``dropout_keep``'s mask, drawn in the whole
+    activation's shape from ``dropout_generator`` (None: the device's
+    default generator), so the sharded block (each shard takes its rows of
+    the mask) and the unsharded one drop the same values from the same
+    generator state."""
+
+    dropout_generator: torch.Generator | None = None
 
     def __init__(
         self,
@@ -295,28 +362,52 @@ class ResnetBlock(nn.Module):
             # where its gate admits the plane.
             h = instance_norm_auto(self._conv(conv1, x), relu=True, use_pallas=True)
             return instance_norm_auto(self._conv(conv2, h), residual=x, use_pallas=True)
-        n1, n2 = self.conv_block[self._conv_idx[0] + 1], self.conv_block[self._conv_idx[1] + 1]
-        h = torch.relu(apply_norm(n1, self._conv(conv1, x)))
-        if self.use_dropout:
-            h = F.dropout(h, 0.5, self.training)
+        n1, n2 = self._norms
+        h = self._dropout([torch.relu(apply_norm(n1, self._conv(conv1, x)))])[0]
         return x + apply_norm(n2, self._conv(conv2, h))
+
+    @property
+    def _norms(self) -> tuple[nn.Module, nn.Module]:
+        return self.conv_block[self._conv_idx[0] + 1], self.conv_block[self._conv_idx[1] + 1]
+
+    def _dropout(self, hs: list) -> list:
+        """Dropout of the activation held as the H-shards ``hs`` (one shard:
+        the whole tensor) in training: one mask in the whole shape, each
+        shard its rows, the kept values × 2; the identity in eval."""
+        if not (self.use_dropout and self.training):
+            return hs
+        b, _, w, c = hs[0].shape
+        keep = dropout_keep((b, sum(h.shape[1] for h in hs), w, c), hs[0].device,
+                            self.dropout_generator)
+        out, start = [], 0
+        for h in hs:
+            k = keep[:, start : start + h.shape[1]].to(h.device)
+            out.append(h * k.to(h.dtype) * (1.0 / (1.0 - _DROP)))
+            start += h.shape[1]
+        return out
 
     def _conv_spatial(self, layer: nn.Conv2d, xs: list) -> list:
         if self.quant:
-            return quant_conv_nhwc_spatial(layer, xs, self.dtype, pad="reflect")
-        return conv_nhwc_spatial(layer, xs, self.dtype, pad=1, pad_type="reflect")
+            return quant_conv_nhwc_spatial(layer, xs, self.dtype, pad=self.padding_type)
+        return conv_nhwc_spatial(layer, xs, self.dtype, pad=1, pad_type=self.padding_type)
 
     def forward_spatial(self, xs: list) -> list:
-        """The block over the H-shards ``xs`` (instance norm, reflect pads,
-        no dropout: the generator checks): the fused halo route where the
-        per-shard gate holds on equal shards, else the plain ops with their
-        halos."""
+        """The block over the H-shards ``xs``: the fused halo route where
+        the JAX gate holds per shard on equal shards (instance norm,
+        reflect, no dropout), else ``forward``'s unfused route on shards:
+        its pads as halo rows, its norm across the shards (row 11h under
+        ``use_pallas``), dropout's rows of one mask."""
         if all(x.shape[1] == xs[0].shape[1] for x in xs) and self.fused(xs[0], len(xs)):
             k1, k2 = _hwio(self.conv1, self.dtype), _hwio(self.conv2, self.dtype)
             blk = resnet_block_pallas_q_spatial if self.quant else resnet_block_pallas_spatial
             return blk(xs, k1, k2)
-        h = [torch.relu(t) for t in norm_nhwc_spatial(self._conv_spatial(self.conv1, xs))]
-        return [x + y for x, y in zip(xs, norm_nhwc_spatial(self._conv_spatial(self.conv2, h)))]
+        if self.norm == "instance" and self.use_pallas and not self.use_dropout:
+            h = instance_norm_auto_spatial(self._conv_spatial(self.conv1, xs), relu=True)
+            return instance_norm_auto_spatial(self._conv_spatial(self.conv2, h), residuals=xs)
+        n1, n2 = self._norms
+        h = self._dropout([torch.relu(t) for t in
+                           apply_norm_spatial(n1, self._conv_spatial(self.conv1, xs))])
+        return [x + y for x, y in zip(xs, apply_norm_spatial(n2, self._conv_spatial(self.conv2, h)))]
 
 
 class ResnetUNetGenerator(nn.Module):
@@ -558,8 +649,7 @@ class ResnetUNetGenerator(nn.Module):
 
         for block in self.resblocks:
             h = checkpoint(block, h, use_reentrant=False,
-                           context_fn=lambda b=block: (contextlib.nullcontext(),
-                                                       frozen_running_stats(b)))
+                           context_fn=lambda b=block: remat_contexts(b))
         return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -603,24 +693,10 @@ class ResnetUNetGenerator(nn.Module):
     # --- spatial test mode ---------------------------------------------------
 
     def check_spatial_variants(self) -> None:
-        """Raise ``NotImplementedError`` for the variants the spatial forward
-        does not run (ROADMAP.md, Queue 1), and in training ``ValueError``
-        for the fused kernels, whose halo forms have no backward: JAX's
-        spatial training turns them all off (``train.state.train_config``)."""
-        block = self.resblocks[0] if len(self.resblocks) else None
-        variants = {
-            f"norm={self.norm!r}": self.norm != "instance",
-            "no_antialias": self.no_antialias,
-            "no_antialias_up": self.no_antialias_up,
-            "use_pallas": self.use_pallas,
-            "use_dropout": block is not None and block.use_dropout,
-            f"padding_type={getattr(block, 'padding_type', None)!r}":
-                block is not None and block.padding_type != "reflect",
-        }
-        bad = [k for k, on in variants.items() if on]
-        if bad:
-            raise NotImplementedError(f"{', '.join(bad)} under sp_devices > 1 is not ported yet "
-                                      "(ROADMAP.md, Queue 1)")
+        """In training, raise ``ValueError`` for the fused kernels, whose
+        halo forms have no backward: JAX's spatial training turns them all
+        off (``train.state.train_config``). Every model variant runs on
+        shards (module docstring)."""
         fused = {"pallas_block": any(b.pallas_block for b in self.resblocks),
                  "pallas_encdec_bwd": self.pallas_encdec_bwd}
         on = [k for k, v in fused.items() if v]
@@ -630,7 +706,9 @@ class ResnetUNetGenerator(nn.Module):
 
     def _check_spatial(self, xs: list) -> None:
         """What the spatial forward runs: the 1-D mesh's shard count, equal
-        input shards, the default model (``check_spatial_variants``)."""
+        input shards, no fused kernel in training (``check_spatial_variants``).
+        The stage rule is the blur-pool's for the stride-2 convs too: both
+        give shard i the output rows r with 2r among its rows."""
         check_spatial_compat(self, self.spatial_mesh)
         if len(xs) != len(self.spatial_mesh):
             raise ValueError(f"{len(xs)} shards for a mesh of {len(self.spatial_mesh)} devices")
@@ -640,24 +718,38 @@ class ResnetUNetGenerator(nn.Module):
             raise ValueError("the spatial forward takes equal H-shards (parallel.spatial.shard_h)")
         check_stage_heights(h * len(xs), len(xs), 2)  # down1, down2: a row a shard
 
-    def _norm_relu_spatial(self, ys: list) -> list:
-        return [torch.relu(y) for y in norm_nhwc_spatial(ys)]
+    def _norm_relu_spatial(self, ys: list, layer: nn.Module) -> list:
+        """``_norm_relu`` on shards: row 11h under ``use_pallas`` (instance
+        norm), else the stage's norm layer across the shards, then ReLU."""
+        if self.norm == "instance" and self.use_pallas:
+            return instance_norm_auto_spatial(ys, relu=True)
+        return [torch.relu(y) for y in apply_norm_spatial(layer, ys)]
 
     def _down_spatial(self, seq: nn.Sequential, xs: list, quant: bool) -> list:
+        conv = seq[0]
         if quant:
-            ys = quant_conv_nhwc_spatial(seq[0], xs, self.dtype)
+            ys = quant_conv_nhwc_spatial(conv, xs, self.dtype)
+        elif conv.stride[0] == 2:  # no_antialias
+            ys = conv_nhwc_window_spatial(conv, xs, self.dtype)
         else:
-            ys = conv_nhwc_spatial(seq[0], xs, self.dtype, pad=1, pad_type="zero")
-        return blur_downsample_spatial(self._norm_relu_spatial(ys))
+            ys = conv_nhwc_spatial(conv, xs, self.dtype, pad=1, pad_type="zero")
+        ys = self._norm_relu_spatial(ys, seq[1])
+        return ys if self.no_antialias else blur_downsample_spatial(ys)
 
-    def _up_spatial(self, ys: list, skips: list) -> list:
-        """``_up``'s AA upsample on shards, cut as the skip's shards: the
-        upsample gives the skip's rows where the planes match (every even
-        stage height), else its own, and the bilinear fix-up resizes across
-        the shards."""
+    def _up_spatial(self, layer: nn.Module, ys: list, skips: list) -> list:
+        """``_up`` on shards, cut as the skip's shards. The AA upsample gives
+        the skip's rows where the planes match (every even stage height),
+        else its own; the ConvTranspose gives 2·each shard's rows, re-cut to
+        the skip's where the planes match; elsewhere the bilinear fix-up
+        resizes across the shards."""
         sizes = [s.shape[1] for s in skips]
         rows_match = 2 * sum(y.shape[1] for y in ys) == sum(sizes)
-        ys = blur_upsample_aa_spatial(ys, out_heights=sizes if rows_match else None)
+        if self.no_antialias_up:
+            ys = conv_transpose_spatial(layer, ys, self.dtype)
+            if rows_match and ys[0].shape[2] == skips[0].shape[2]:
+                return reshard_rows(ys, sizes)
+        else:
+            ys = blur_upsample_aa_spatial(ys, out_heights=sizes if rows_match else None)
         if not rows_match or ys[0].shape[2] != skips[0].shape[2]:
             ys = bilinear_align_corners_spatial(ys, sizes, skips[0].shape[2])
         return ys
@@ -675,19 +767,22 @@ class ResnetUNetGenerator(nn.Module):
         dec_quant = "dynamic" if quant_convs else None
 
         x0 = self._norm_relu_spatial(conv_nhwc_spatial(self.inc[1], xs, dt, pad=3,
-                                                       pad_type="reflect"))
+                                                       pad_type="reflect"), self.inc[2])
         x1 = self._down_spatial(self.down1, x0, quant_convs)
         x2 = self._down_spatial(self.down2, x1, quant_convs)
         h = x2
         for block in self.resblocks:
             if self.remat and torch.is_grad_enabled():  # as ``_blocks``
                 h = list(checkpoint(lambda *shards, b=block: tuple(b.forward_spatial(list(shards))),
-                                    *h, use_reentrant=False))
+                                    *h, use_reentrant=False,
+                                    context_fn=lambda b=block: remat_contexts(b)))
             else:
                 h = block.forward_spatial(h)
-        y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(h, x1), x1, dt, dec_quant)
-        y = self._norm_relu_spatial(y)
-        y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(y, x0), x0, dt, dec_quant)
-        y = self._norm_relu_spatial(y)
+        y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(self.up1_up, h, x1), x1, dt,
+                                   dec_quant)
+        y = self._norm_relu_spatial(y, self.up1_conv[1])
+        y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(self.up2_up, y, x0), x0, dt,
+                                   dec_quant)
+        y = self._norm_relu_spatial(y, self.up2_conv[1])
         return [torch.tanh(o) for o in conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
                                                          pad_type="reflect")]

@@ -48,9 +48,8 @@ def reject_unported(cfg: Config) -> None:
     the JAX runner refuses (a W mesh axis without an H one), else
     ``NotImplementedError`` for the mode not ported yet: 2-D H×W spatial
     tiling. Data parallelism (``dp_devices``) and the 1-D H mesh
-    (``sp_devices > 1``) in test mode and in training run; the
-    generator's spatial forward refuses the variants it does not run
-    (``check_spatial_variants``)."""
+    (``sp_devices > 1``) in test mode and in training run, with every
+    model variant."""
     if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
         raise ValueError(
             f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "

@@ -24,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from ircolor_tpu_torch.kernels.conv_int8 import conv3x3_int8
-from ircolor_tpu_torch.ops.padding import pad2d_spatial
-from ircolor_tpu_torch.parallel.spatial import all_max
+from ircolor_tpu_torch.ops.padding import _pad_w, pad2d_spatial
+from ircolor_tpu_torch.parallel.spatial import all_max, window_slabs
 
 # Smallest amax: keeps an all-zero tensor from producing an inf scale.
 _AMAX_FLOOR = 1e-12
@@ -100,21 +100,34 @@ def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", str
                         bias=_float_or_none(bias), addend=addend, out_dtype=out_dtype or x.dtype)
 
 
-def conv2d_int8_spatial(xs, kernel, *, pad: str = "zero", bias=None, addends=None,
-                        out_dtype=None) -> list[torch.Tensor]:
-    """``conv2d_int8`` (stride 1) of the image whose H-shards are ``xs``,
-    one output shard each: quantized from the global amax, then each shard
-    padded by its int8 halo rows (``pad`` at the image's edges) and ``pad``
-    columns and convolved VALID. ``addends``: one float32 term per shard."""
+def conv2d_int8_spatial(xs, kernel, *, pad: str = "zero", stride: int = 1, bias=None,
+                        addends=None, out_dtype=None) -> list[torch.Tensor]:
+    """``conv2d_int8`` of the image whose H-shards are ``xs``, one output
+    shard each: quantized from the global amax, then each shard padded by
+    its int8 halo rows (``pad`` at the image's edges) and ``pad`` columns
+    and convolved VALID. At stride 2 (zero padding: the no_antialias down
+    convs) a shard keeps the output rows r whose input row 2r it holds
+    (``parallel.spatial.window_heights``) and reads the slab of input rows
+    they need (``window_slabs``: a halo row above where its first row is
+    even, below where its last row is), its columns zero-padded by a copy;
+    every shard must keep an output row (the generator's stage rule).
+    ``addends``: one float32 term per shard."""
     q = quantize_dynamic_spatial(xs)
     wq, sw = quantize_weight_per_channel(kernel)
-    slabs = pad2d_spatial([xq for xq, _ in q], 1, pad)
+    if stride == 1:
+        slabs = pad2d_spatial([xq for xq, _ in q], 1, pad)
+    elif pad == "zero":
+        slabs = [_pad_w(s, 1, "zero") for s in window_slabs([xq for xq, _ in q], 3, stride, 1)]
+    else:
+        raise NotImplementedError(f"the spatial int8 conv at stride {stride} takes zero "
+                                  f"padding, got {pad!r}")
     out = []
     for i, (slab, (_, sx)) in enumerate(zip(slabs, q)):
         dev = slab.device
         sc = (sx.reshape(-1, 1) * sw.to(dev)[None, :]).contiguous()
         b = None if bias is None else bias.to(dev)
-        out.append(conv3x3_int8(slab, wq.to(dev), sc, pad="valid", bias=_float_or_none(b),
+        out.append(conv3x3_int8(slab, wq.to(dev), sc, pad="valid", stride=stride,
+                                bias=_float_or_none(b),
                                 addend=None if addends is None else addends[i],
                                 out_dtype=out_dtype or xs[i].dtype))
     return out

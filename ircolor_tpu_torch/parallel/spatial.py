@@ -241,6 +241,21 @@ def window_slabs(shards: Sequence[torch.Tensor], k: int, stride: int, pad: int,
     return slabs
 
 
+def reshard_rows(shards: Sequence[torch.Tensor], heights: Sequence[int]) -> list[torch.Tensor]:
+    """The image whose H-shards are ``shards`` cut again into shards of
+    ``heights`` rows (summing to its rows, each at least one), shard i on
+    ``shards[i]``'s device: each from the shards that hold its rows."""
+    if sum(heights) != sum(s.shape[1] for s in shards) or min(heights) < 1:
+        raise ValueError(f"cannot cut shard rows {[s.shape[1] for s in shards]} into {list(heights)}")
+    if list(heights) == [s.shape[1] for s in shards]:
+        return list(shards)
+    out, start = [], 0
+    for x, n in zip(shards, heights):
+        out.append(gather_rows(shards, range(start, start + n), x.device))
+        start += n
+    return out
+
+
 def halo_slabs(shards: Sequence[torch.Tensor], r: int, pad: str = "reflect"):
     """Each shard with its ``r`` halo rows above and below: (B, h + 2r, W, C)."""
     return [torch.cat([top, x, bot], dim=1)

@@ -58,15 +58,19 @@ def setup(cfg: Config, device: torch.device, weights: dict | None = None,
 
 
 def snapshot(state: TrainState) -> dict[str, Any]:
-    """A copy of G's and D's parameters and gradients as numpy, by
+    """A copy of G's and D's parameters, gradients and float buffers (the
+    batch norms' running statistics, the blur filters) as numpy, by
     ``g.``/``d.`` name."""
-    params, grads = {}, {}
+    params, grads, buffers = {}, {}, {}
     for tag, net in (("g", state.g), ("d", state.d)):
         for name, p in net.named_parameters():
             params[f"{tag}.{name}"] = p.detach().float().cpu().numpy().copy()
             grads[f"{tag}.{name}"] = (None if p.grad is None
                                       else p.grad.float().cpu().numpy().copy())
-    return {"params": params, "grads": grads}
+        for name, t in net.named_buffers():
+            if t.is_floating_point():
+                buffers[f"{tag}.{name}"] = t.float().cpu().numpy().copy()
+    return {"params": params, "grads": grads, "buffers": buffers}
 
 
 ROUTING = ("pallas_block", "pallas_norm_blur", "pallas_head", "pallas_encdec_bwd")

@@ -63,8 +63,9 @@ def train_config(cfg: Config) -> Config:
     Spatial training (``sp_devices`` > 1) turns off ``pallas_block_train``,
     ``pallas_norm_blur``, ``pallas_head``, ``pallas_encdec_bwd`` and
     ``blur_matmul_bwd``, as ``ircolor_tpu/train/state.py:108-121`` does:
-    the kernels' halo forms have no backward, so JAX's spatial step runs no
-    Pallas kernel, and neither does the port's (logged)."""
+    the kernels' halo forms have no backward (logged). ``use_pallas``
+    stays on, as in JAX: its instance norms run row 11h on the shards,
+    whose backward is plain torch."""
     if cfg.sp_devices > 1:
         off = {f: False for f in SPATIAL_OFF if getattr(cfg, f)}
         if off:
@@ -105,8 +106,8 @@ def create_train_state(
     on one device. Spatial training (``sp_devices`` > 1): the generator
     holds ``spatial_mesh``, the S devices of this rank's H-shards (default
     ``parallel.mesh.rank_shard_devices``: ``device`` S times where it names
-    one, else cards 0..S-1), and the parameters live on its first; the
-    variants it does not run raise here."""
+    one, else cards 0..S-1), and the parameters live on its first; a
+    fused kernel left on raises here (``check_spatial_variants``)."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     cfg = train_config(cfg)

@@ -26,7 +26,9 @@ spatial forward, D and the VGG tower on their shards with halo rows, every
 loss as sums over the shards divided by the whole image's count. Autograd
 of the shard ops gives the backward; each parameter gathers every shard's
 gradient into its one ``.grad``, as GSPMD's replicated parameters do.
-Batch norm is refused under it (ROADMAP.md, Queue 1).
+Batch norm keeps the structure above on shards: each of its forwards
+normalizes by the whole batch's statistics across the shards (and, with
+``sync``, across the ranks) and moves the running statistics once.
 
 Losses are computed in float32 whatever the compute dtype, and a λ of 0
 skips its term: the term is never computed. Loss values come back as 0-d
@@ -150,9 +152,6 @@ def make_train_step(
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         g, d = state.g, state.d
         ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
-        if has_bn and sharded(ir):
-            raise NotImplementedError("norm='batch' under sp_devices > 1 is not ported yet "
-                                      "(ROADMAP.md, Queue 1)")
         if has_bn:
             with torch.no_grad():
                 fake_detached = g(ir)

@@ -604,6 +604,58 @@ def test_instance_norm_backward_through_kernel_on_card(cuda):
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heights,w,c", [
+    ((32, 32), 64, 256),       # the 256² bottleneck over 2 shards
+    ((16, 16, 16, 16), 64, 256),
+    ((5, 0, 9, 2), 7, 40),     # unequal, an empty shard, a short last slice
+    ((3, 8), 11, 12),          # C not a multiple of 8: one element a unit
+])
+def test_instance_norm_shard_form_matches_plain_on_card(cuda, heights, w, c, dtype):
+    """Row 11h (stats and apply launches a shard, Chan's merge between)
+    against its plain version and against kernel 11 on the gathered plane:
+    within one bf16 ulp / f32 1e-5 relative, a bit-exact repeat; one count
+    a non-empty shard, none for the empty one; its backward behind the
+    kernel forward equals the one behind the plain forward (the residual
+    form where the gate admits it: not the f32 bottleneck)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(2, sum(heights), w, c, device=cuda, generator=g) * 3 + 1).to(dtype)
+    r = torch.randn(*x.shape, device=cuda, generator=g).to(dtype)
+    xs = [t.contiguous() for t in x.split(list(heights), 1)]
+    rs = [t.contiguous() for t in r.split(list(heights), 1)]
+    before = dict(LAUNCHES)
+    live = sum(h > 0 for h in heights)
+    for relu in (False, True):
+        got = torch.cat(tin.run_in_spatial(xs, relu), 1)
+        assert _in_close(got, torch.cat(tin.run_in_spatial_plain(xs, relu), 1)), relu
+        assert _in_close(got, tin.run_in(x.contiguous(), relu)), relu
+        assert torch.equal(got, torch.cat(tin.run_in_spatial(xs, relu), 1))
+    res = tin.pallas_fits(x.shape, dtype, True)  # all but the f32 bottleneck
+    if res:
+        got = torch.cat(tin.run_in_spatial(xs, residuals=rs), 1)
+        assert _in_close(got, torch.cat(tin.run_in_spatial_plain(xs, residuals=rs), 1))
+    assert LAUNCHES["fused_instance_norm_halo"] - before["fused_instance_norm_halo"] == 4 * live
+    assert (LAUNCHES["fused_instance_norm_residual_halo"]
+            - before["fused_instance_norm_residual_halo"]) == live * res
+    cot = torch.randn(*x.shape, device=cuda, generator=g).to(dtype)
+    outs = {}
+    for route in ("kernel", "plain"):
+        saved = tin._run_in_spatial
+        if route == "plain":
+            tin._run_in_spatial = lambda a, b, c_: saved(a, b, c_, plain=True)
+        try:
+            leaves = [t.clone().requires_grad_() for t in (*xs, *(rs if res else ()))]
+            ys = (tin.fused_instance_norm_residual_spatial(leaves[:len(xs)], leaves[len(xs):])
+                  if res else tin.fused_instance_norm_spatial(leaves, True))
+            outs[route] = torch.autograd.grad(ys, leaves, list(cot.split(list(heights), 1)))
+        finally:
+            tin._run_in_spatial = saved
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        if b.numel():
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
 def _seg_inputs(g, b, h, w, c, cin):
     p, comp = _bf16(g, b, h, w, c), _bf16(g, b, h, w, c)
     z = _bf16(g, b, h, w, cin)

@@ -96,10 +96,39 @@ def test_discriminator_shard_form(heights):
         assert rows == [1, 1, 0, 0]
 
 
-def test_discriminator_refuses_batch_norm_on_shards():
-    d = NLayerDiscriminator(input_nc=4, ndf=8, norm="batch")
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        d([torch.zeros(1, 8, 16, 4)] * 2)
+@pytest.mark.parametrize("heights", [(8, 8, 8, 8), (13, 1, 0, 10)])
+def test_discriminator_refuses_batch_norm_on_shards(heights):
+    """D's batch norm on shards (no longer refused): in training the whole
+    batch's statistics across the shards (an empty shard adds nothing),
+    the output and the gradients within 1e-5 relative of the unsharded D,
+    the running statistics moved once to within 1e-6; in eval the running
+    statistics, shard by shard."""
+    ref = NLayerDiscriminator(input_nc=4, ndf=8, norm="batch")
+    ref.init_weights("normal", 0.02, torch.Generator().manual_seed(1))
+    x = _rand((2, sum(heights), 24, 4), 3)
+    nets = []
+    for sharded in (False, True):
+        d = NLayerDiscriminator(input_nc=4, ndf=8, norm="batch")
+        d.load_state_dict(ref.state_dict())
+        nets.append(d.train())
+    out = []
+    for d, sharded in zip(nets, (False, True)):
+        xv = x.clone().requires_grad_(True)
+        y = d(_split(xv, heights)) if sharded else d(xv)
+        y = torch.cat(y, dim=1) if sharded else y
+        grads = torch.autograd.grad((y * _rand(y.shape, 99)).sum(), [xv, *d.parameters()])
+        out.append((y.detach(), grads))
+    _assert_close(out, 1e-5)
+    (one, sp) = (dict(d.named_buffers()) for d in nets)
+    for k in one:
+        if k.endswith("num_batches_tracked"):
+            assert int(one[k]) == int(sp[k]) == 1, k
+        else:
+            torch.testing.assert_close(sp[k], one[k], rtol=1e-6, atol=1e-7)
+    with torch.no_grad():
+        want = nets[0].eval()(x)
+        got = torch.cat(nets[1].eval()(_split(x, heights)), dim=1)
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("heights", [(10, 10, 10, 10), (13, 1, 0, 10), (7, 7, 9, 9)])

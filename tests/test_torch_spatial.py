@@ -397,9 +397,10 @@ def test_run_test_spatial_matches_one_device(kaist_tree, tmp_path, monkeypatch):
 
 def test_spatial_mode_refuses_what_is_not_ported(tmp_path):
     """A mesh on cards that are not there, a height the shards cannot
-    split, the variants under the mesh and a training forward with a fused
-    kernel on raise (with them off it trains); the runner's rebuild turns
-    the tails and the head off."""
+    split and a training forward with a fused kernel on raise (with them
+    off it trains); the variants run under the mesh (each ``Config``
+    variant's rebuild serves its shards); the runner's rebuild turns the
+    tails and the head off."""
     from ircolor_tpu_torch.eval.runner import spatial_generator
     from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 
@@ -415,13 +416,16 @@ def test_spatial_mode_refuses_what_is_not_ported(tmp_path):
     g = spatial_generator(cfg, m.module, "cpu")
     assert g.spatial_mesh == _mesh(2) and not (g.pallas_norm_blur or g.pallas_head)
     assert m.module.spatial_mesh is None  # a copy: the unsharded module is unchanged
-    xs = spatial.shard_h(torch.zeros(1, 32, 32, 1), g.spatial_mesh)
-    for attr, value in (("norm", "batch"), ("no_antialias", True), ("no_antialias_up", True),
-                        ("use_pallas", True)):
-        bad = spatial_generator(cfg, m.module, "cpu")
-        setattr(bad, attr, value)
-        with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP"):
-            bad(xs)
+    xs = spatial.shard_h(torch.rand(1, 32, 32, 1, generator=torch.Generator().manual_seed(0)),
+                         g.spatial_mesh)
+    for variant in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
+                    dict(no_antialias_up=True), dict(use_pallas=True)):
+        vcfg = cfg.replace(**variant)
+        vg = spatial_generator(vcfg, IRColorizationModel(vcfg, "cpu").module, "cpu")
+        with torch.inference_mode():
+            ys = vg(xs)
+        assert [y.shape for y in ys] == [(1, 16, 32, 3)] * 2, variant
+        assert all(bool(torch.isfinite(y).all()) for y in ys), variant
     # In training the forward runs with the fused kernels off (as
     # train.state.train_config leaves them) and keeps its graph; the block
     # kernels' halo forms have no backward, so they raise.

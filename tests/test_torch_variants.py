@@ -23,7 +23,6 @@ API reach, against the JAX package on shared weights, on the CPU.
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import flax.linen as fnn
 import jax
@@ -184,21 +183,25 @@ def test_remat_gives_identical_outputs_and_gradients(norm):
 def test_dropout_train_mask_by_rate_and_scale(monkeypatch):
     """In training the block drops half of the post-ReLU activations and
     scales the rest by 2, as flax's ``nn.Dropout(0.5)`` does (its mask comes
-    from another RNG: held by rate and scale, not element by element)."""
+    from another RNG: held by rate and scale, not element by element); the
+    mask is drawn in the activation's shape from the block's generator."""
     seen = []
-    real = F.dropout
+    real = tgen.ResnetBlock._dropout
 
-    def recorded(h, p, training):
-        out = real(h, p, training)
-        seen.append((h, out, p, training))
+    def recorded(self, hs):
+        out = real(self, hs)
+        seen.append((hs[0], out[0], self.training))
         return out
 
-    monkeypatch.setattr(tgen.F, "dropout", recorded)
+    monkeypatch.setattr(tgen.ResnetBlock, "_dropout", recorded)
     blk = tgen.ResnetBlock(16, use_dropout=True).train()
     x = torch.randn(4, 16, 16, 16, generator=torch.Generator().manual_seed(0))
+    blk.dropout_generator = torch.Generator().manual_seed(7)
     blk(x)
-    (h, out, p, training), = seen
-    assert (p, training) == (0.5, True)
+    (h, out, training), = seen
+    assert training
+    assert torch.equal(out != 0, (h != 0) & tgen.dropout_keep(
+        h.shape, h.device, torch.Generator().manual_seed(7)))
     live = h > 0
     ratio = out[live] / h[live]
     kept = ratio != 0
@@ -420,11 +423,11 @@ def test_int8_variant_routes_match_jax_bf16(variant, strides, perturb, monkeypat
 
 def test_variant_configs_build_serve_and_train_on_cpu():
     """Through the entry points: ``reject_unported`` refuses only 2-D H×W
-    tiling among the multi-device modes (the spatial forward refuses the
-    variants under it, in test mode and in training:
-    ``test_torch_spatial.py``); batch norm, no norm, no_antialias(_up) and
-    remat build, serve (eval, running statistics) and take a train step
-    with finite losses."""
+    tiling among the multi-device modes; batch norm, no norm,
+    no_antialias(_up) and remat build, serve (eval, running statistics)
+    and take a train step with finite losses; spatial training builds
+    with each variant (``tests/test_torch_sp_variants*.py`` hold them
+    against JAX)."""
     for ok in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
                dict(no_antialias_up=True), dict(remat=True), dict(sp_devices=2),
                dict(dp_devices=2)):
@@ -433,13 +436,14 @@ def test_variant_configs_build_serve_and_train_on_cpu():
                      (dict(sp_w_devices=2), ValueError)):
         with pytest.raises(exc):
             reject_unported(Config(**bad))
-    # Spatial training runs (tests/test_torch_sp_train_*.py); under it the
-    # variants stay refused, as does the shard_map mode (the loop's check).
-    for bad in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
-                dict(no_antialias_up=True)):
-        with pytest.raises(NotImplementedError, match="sp_devices > 1"):
-            create_train_state(Config(sp_devices=2, img_size=32, ngf=8, n_blocks=1, **bad),
-                               steps_per_epoch=1, device="cpu")
+    # Spatial training builds with each variant; the shard_map mode stays
+    # refused under it (the loop's check).
+    for ok in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
+               dict(no_antialias_up=True), dict(use_pallas=True)):
+        g = create_train_state(Config(sp_devices=2, img_size=32, ngf=8, n_blocks=1, **ok),
+                               steps_per_epoch=1, device="cpu").g
+        assert len(g.spatial_mesh) == 2 and g.training
+        assert all(getattr(g, k) == v for k, v in ok.items()), ok
     with pytest.raises(ValueError, match="gspmd"):
         train_kaist(Config(sp_devices=2, dp_mode="shard_map"), device="cpu")
     x = torch.rand((1, 32, 32, 1), generator=torch.Generator().manual_seed(0)) * 2 - 1
