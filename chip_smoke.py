@@ -206,11 +206,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    speed-up.
 
 12. The model variants on shards (every H-shard on cuda:0). (a) Row 11h,
-   kernel 11's shard form (a stats and an apply launch a shard, Chan's
-   merge between), on the shards of the 256² bottleneck 16×64×64×256 at
-   S = 2 and 4, bf16 IN + ReLU / + r and f32 IN + ReLU, against its plain
-   version and kernel 11 on the gathered plane (1 bf16 ulp, f32 1e-5
-   relative, a bit-exact repeat), with device ms, its byte bound and
+   kernel 11's shard form, on the shards of the 256² bottleneck
+   16×64×64×256 at S = 2 and 4, in its two forms: the cluster form (one
+   launch a call, a cluster of S blocks an (image, channel slice), the
+   shards' statistics merged through distributed shared memory) and the
+   per-shard form (a stats and an apply launch a shard, the apply merging
+   the S partials itself); bf16 IN + ReLU / + r and f32 IN + ReLU against
+   its plain version and kernel 11 on the gathered plane (1 bf16 ulp, f32
+   1e-5 relative), the forms bit-identical, a bit-exact repeat, one kernel
+   a cluster call (``torch.profiler``), with each form's device / host /
+   event ms, its byte bound and
    ``F.instance_norm``'s time. (b) Serving b32 at S = 2 under batch norm +
    no_antialias + no_antialias_up, int8 and float, against the unsharded
    step of the same weights (batch norms calibrated) and batches: phase
@@ -220,12 +225,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    first block's conv1 (float: must be flagged), the int8 conv at 22·S
    stride-1 and 2·S stride-2 launches a forward, frames/s and peak memory.
    (c) ``use_pallas`` float at 256² b16, S = 2, against the unsharded
-   ``use_pallas`` step (the serving budget): 11h 9·S + 9·S a forward.
+   ``use_pallas`` step (the serving budget): 11h 9 + 9 a forward (a call
+   is one cluster launch).
    (d) Spatial training of the (b) variant at 512×640 b8, S = 2, against
    the unsharded kernels-off step (phase 11's bounds; running statistics
    within 1e-3 relative). (e) ``use_pallas`` training at 256² b8, S = 2,
    against the unsharded ``use_pallas`` step (phase 11's bounds): 11h
-   forward and its backward, 9·S + 9·S a step. In both a gradient or a
+   forward and its backward, 9 + 9 a step. In both a gradient or a
    statistic may also lie within twice what a last-bit change of the
    unsharded forward moves it (``sp_variant_train_phase``).
 
@@ -3351,13 +3357,19 @@ HW256, B256 = (256, 256), 16
 
 def check_instance_norm_halo(torch, results: list) -> None:
     """Phase 12a: row 11h on the H-shards of ``K11H_PLANE`` at S = 2 and 4
-    (16×32×64×256, 16×16×64×256): bf16 IN + ReLU and IN + r, f32 IN + ReLU
-    (the f32 residual form does not fit the gate there), each within one
-    bf16 ulp (f32: 1e-5 relative to max(|value|, 1)) of its plain version
-    and of kernel 11 on the gathered plane, and bit-exact on repeat. Times
-    over 4 input sets (L2 cold): the call over every shard, its plain
-    version, and ``F.instance_norm`` (+ ReLU / + r) on the plane. The row's
-    figures are S = 2's (phase 12c's shards)."""
+    (16×32×64×256, 16×16×64×256), in both forms: the cluster form (one
+    launch a call, the shards' statistics merged through distributed shared
+    memory) and the per-shard form (a stats and an apply launch a shard,
+    the merge in the apply). bf16 IN + ReLU and IN + r, f32 IN + ReLU (the
+    f32 residual form does not fit the gate there), each within one bf16
+    ulp (f32: 1e-5 relative to max(|value|, 1)) of its plain version and of
+    kernel 11 on the gathered plane; the two forms bit-identical; a
+    bit-exact repeat; one cluster call launches one kernel and nothing
+    else (``torch.profiler``). Times over 4 input sets (L2 cold): each
+    form's call over every shard, the plain version, kernel 11 on the
+    plane and ``F.instance_norm`` (+ ReLU / + r) on the plane; each form's
+    device / host / event ms a call by ``split_time_ms``. The row's
+    figures are S = 2's cluster form (phase 12c's shards)."""
     import torch.nn.functional as F
 
     from ircolor_tpu_torch.kernels import LAUNCHES
@@ -3372,6 +3384,9 @@ def check_instance_norm_halo(torch, results: list) -> None:
     def randn(scale=1.0, shift=0.0):
         return torch.randn(*K11H_PLANE, device="cuda", generator=gen) * scale + shift
 
+    def per_shard(relu):
+        return lambda xs, r: tin._run_in_spatial(xs, relu, r, per_shard=True)[0]
+
     xs32 = [randn(3.0, 1.0) for _ in range(4)]
     rs = [randn() for _ in range(4)]
     for s in (2, 4):
@@ -3380,29 +3395,36 @@ def check_instance_norm_halo(torch, results: list) -> None:
 
         forms = (
             ("fused_instance_norm_halo", "bf16 IN + ReLU", ":117", torch.bfloat16, False,
-             lambda xs, r: tin.run_in_spatial(xs, True),
+             lambda xs, r: tin.run_in_spatial(xs, True), per_shard(True),
              lambda xs, r: tin.run_in_spatial_plain(xs, True),
              lambda x, r: tin.run_in(x, True),
              lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 2),
             ("fused_instance_norm_residual_halo", "bf16 IN + r", ":133", torch.bfloat16, True,
-             lambda xs, r: tin.run_in_spatial(xs, residuals=r),
+             lambda xs, r: tin.run_in_spatial(xs, residuals=r), per_shard(False),
              lambda xs, r: tin.run_in_spatial_plain(xs, residuals=r),
              tin.run_in_res,
              lambda x, r: F.instance_norm(x.permute(0, 3, 1, 2)) + r.permute(0, 3, 1, 2),
              3 * n * 2),
             ("fused_instance_norm_halo", "f32 IN + ReLU", ":117", torch.float32, False,
-             lambda xs, r: tin.run_in_spatial(xs, True),
+             lambda xs, r: tin.run_in_spatial(xs, True), per_shard(True),
              lambda xs, r: tin.run_in_spatial_plain(xs, True),
              lambda x, r: tin.run_in(x, True),
              lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 4),
         )
-        for name, label, line, dt, res, kern, plain, k11, lib, nbytes in forms:
+        for name, label, line, dt, res, kern, kern_s, plain, k11, lib, nbytes in forms:
             wholes = [(x.to(dt), r.to(dt)) for x, r in zip(xs32, rs)]
             sets = [(cut(x), cut(r) if res else None) for x, r in wholes]
+            plan = tin.halo_plan(tuple(t.shape[1] for t in sets[0][0]), K11H_PLANE[2],
+                                 K11H_PLANE[3], dt, tuple(t.device for t in sets[0][0]))
+            if plan.form != "cluster":
+                raise AssertionError(f"11h S={s}: every shard on cuda:0 planned as {plan.form}")
             got = torch.cat(kern(*sets[0]), 1)
+            per = torch.cat(kern_s(*sets[0]), 1)
             want = torch.cat(plain(*sets[0]), 1)
             one = k11(*wholes[0])
-            repeat = bool(torch.equal(got, torch.cat(kern(*sets[0]), 1)))
+            repeat = bool(torch.equal(got, torch.cat(kern(*sets[0]), 1))
+                          and torch.equal(per, torch.cat(kern_s(*sets[0]), 1)))
+            same = bool(torch.equal(got, per))
             err = float((got.float() - want.float()).abs().max())
             if dt == torch.bfloat16:
                 dev_p, dev_1 = bf16_ulps(torch, got, want), bf16_ulps(torch, got, one)
@@ -3412,26 +3434,36 @@ def check_instance_norm_halo(torch, results: list) -> None:
                 dev_1 = float(((got - one).abs() / one.abs().clamp(min=1.0)).max())
                 ok, unit = dev_p <= 1e-5 and dev_1 <= 1e-5, "max rel (tol 1e-5)"
             ms = rotating_time_ms(torch, kern, sets, 40)
+            ms_s = rotating_time_ms(torch, kern_s, sets, 40)
             pms = rotating_time_ms(torch, plain, sets, 8)
             k11_ms = rotating_time_ms(torch, k11, wholes, 40)
             lms = rotating_time_ms(torch, lib, wholes, 20)
             b_ms, b_by = bound(8 * n, nbytes, PEAK_F32)
             log(f"[{name} S={s} {label} {tuple(sets[0][0][0].shape)} x {s}] vs plain "
                 f"{dev_p:.3g}, vs kernel 11 on the plane {dev_1:.3g} {unit}; max|d|={err:.4g}; "
-                f"repeat bit-exact {repeat}\n    11h {ms:.4f} ms (all shards: {s} stats + {s} "
+                f"per-shard form bit-identical {same}; repeat bit-exact {repeat}\n"
+                f"    11h cluster {ms:.4f} ms (1 launch: {s} CTAs a cluster, "
+                f"{plan.smem} B of shared memory a CTA)  per-shard {ms_s:.4f} ms ({s} stats + {s} "
                 f"apply launches)  plain {pms:.4f} ms  kernel 11 on the plane {k11_ms:.4f} ms  "
                 f"F.instance_norm {lms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-            if not (ok and repeat):
-                raise AssertionError(f"{name} S={s} {label} disagrees with its plain version or "
-                                     "kernel 11")
+            if not (ok and repeat and same):
+                raise AssertionError(f"{name} S={s} {label} disagrees with its plain version, "
+                                     "kernel 11 or its other form")
+            for form, fn in (("cluster", kern), ("per-shard", kern_s)):
+                log(f"    11h {form} device / host / event ms a call (S={s}, {label}): "
+                    + split_text(split_time_ms(lambda: fn(*sets[0]))))
+            if s == SP12_S and label == "bf16 IN + ReLU":
+                names = kernels_launched(torch, lambda: kern(*sets[0]))
+                log(f"    one cluster call launches {names or 'nothing recorded'} "
+                    "(torch.profiler)")
+                if len(names) > 1 or any("in_cluster_kernel" not in k for k in names):
+                    raise AssertionError(f"a cluster-form 11h call launches {names}")
             if s == SP12_S and dt == torch.bfloat16:
-                log(f"    11h device / host / event ms a call (S={s}, {label}): "
-                    + split_text(split_time_ms(lambda: kern(*sets[0]))))
                 results.append(dict(
                     name=name, route="cuda", source="ircolor_tpu_torch/csrc/instance_norm.cu",
                     replaces=f"ircolor_tpu/ops/pallas_kernels.py{line}", max_abs_err=err, ms=ms,
                     plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
-            del wholes, sets, got, want, one
+            del wholes, sets, got, per, want, one
     del xs32, rs
     torch.cuda.empty_cache()
     LAUNCHES.update(before)
@@ -3576,7 +3608,8 @@ def sp_variant_serving_phase(torch, np, counts: dict, noise_by_cell: dict) -> No
             s2_pad_cost(torch, s)
 
     # 12c: use_pallas float at 256² b16: kernel 11 (9 + 9) and the down1
-    # tail unsharded; on shards the tails are off and 11h runs 9·S + 9·S.
+    # tail unsharded; on shards the tails are off and 11h runs 9 + 9 (one
+    # cluster launch a call: every shard is on cuda:0).
     cfg = serving_config(img_height=HW256[0], img_width=HW256[1], quant_int8=False,
                          use_pallas=True)
     if cfg.resolved_test_batch_size != B256:
@@ -3587,7 +3620,7 @@ def sp_variant_serving_phase(torch, np, counts: dict, noise_by_cell: dict) -> No
     one = make_infer_fn(model.module)
     sp = make_infer_fn(spatial_generator(cfg.replace(sp_devices=s), model.module, "cuda:0"))
     k11 = {"fused_instance_norm": 9, "fused_instance_norm_residual": 9, "norm_relu_blur_down": 1}
-    k11h = {"fused_instance_norm_halo": 9 * s, "fused_instance_norm_residual_halo": 9 * s}
+    k11h = {"fused_instance_norm_halo": 9, "fused_instance_norm_residual_halo": 9}  # a cluster call
     label = "256x256 float use_pallas"
     ref, fps1, peak1 = _timed_serving(torch, one, batches, f"spatial {label} unsharded", k11,
                                       counts, B256, HW256)
@@ -3635,7 +3668,7 @@ def sp_variant_train_phase(torch, np, counts: dict, smi: str) -> None:
         ("256x256 use_pallas",
          flagship_train_config(img_height=HW256[0], img_width=HW256[1], use_pallas=True), HW256,
          {"fused_instance_norm": 9, "fused_instance_norm_residual": 9},
-         {"fused_instance_norm_halo": 9 * s, "fused_instance_norm_residual_halo": 9 * s}),
+         {"fused_instance_norm_halo": 9, "fused_instance_norm_residual_halo": 9}),
     )
     steps = 3
 

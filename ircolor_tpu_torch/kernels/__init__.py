@@ -31,9 +31,10 @@ kernel is the wrapper again.
     (stride 1 or 2; the stride-2 form, the no_antialias down convs, counted
     apart as ``conv3x3_int8_s2``)
   instance_norm.run_in / run_in_res ← pallas_kernels._run_in / _run_in_res
-    (also on H-shards, ``run_in_spatial``: a stats and an apply launch a
-    shard, counted once a shard as ``*_halo``; what the JAX package's
-    GSPMD runs on the gathered plane)
+    (also on H-shards, ``run_in_spatial``, counted apart as ``*_halo``:
+    on one card one cluster launch a call, else a stats and an apply
+    launch a shard, counted once a shard; what the JAX package's GSPMD
+    runs on the gathered plane)
   block.conv3x3_stats / conv3x3_norm_in_stats ← pallas_block.conv3x3_stats /
     conv3x3_norm_in_stats
   conv.conv3x3_valid_pallas(_v2)    ← pallas_conv.conv3x3_valid_pallas(_v2)

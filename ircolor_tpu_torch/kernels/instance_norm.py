@@ -19,19 +19,29 @@ the plane held as a list of H-shards (``parallel/spatial.py``), whose
 instance norm is the whole plane's. The JAX package's GSPMD gates kernel 11
 on the global shape and runs it on the gathered plane; here nothing is
 gathered. Each shard's (count, mean, centred sum of squares M2) per image
-and channel comes from one stats launch over its own rows; the host merges
-them in plain torch, in shard order on shard 0's device, by Chan's rule
-(mean = Σ nᵢ·meanᵢ / n, M2 = Σ M2ᵢ + Σ nᵢ·(meanᵢ − mean)², inv =
-rsqrt(M2 / n + 1e-5)), which keeps the centred two-pass accuracy without a
-third read of x; one apply launch a shard then normalizes (+ ReLU | + r)
-with one rounding. An empty shard gives n = 0 and adds nothing. The
-backward is the IN backward in plain torch with the two plane means (of g
-and of g·x̂) summed across the shards.
+and channel is kernel 11's passes 1 and 2 over its own rows; Chan's rule
+merges them in shard order (mean = Σ nᵢ·meanᵢ / n, M2 = Σ (M2ᵢ + nᵢ·(meanᵢ −
+mean)²), inv = 1 / sqrt(M2 / n + 1e-5)), which keeps the centred two-pass
+accuracy without a third read of x; pass 3 then normalizes each shard (+
+ReLU | + r) with one rounding. An empty shard gives n = 0 and adds nothing.
+``halo_plan`` picks the form from where the shards are: every shard on one
+card and S ≤ 8, the cluster form (one launch: a cluster of S blocks an
+(image, channel slice), the shards' statistics merged through distributed
+shared memory, nothing on the host between); any other CUDA layout, the
+per-shard form (a stats launch a shard, the S partials copied to each
+shard's card, an apply launch a shard that merges them itself); CPU
+shards, the plain versions. The kernels' merge is one ``__device__``
+function, and ``merge_shard_stats`` takes its steps in torch. The backward
+is the IN backward in plain torch with the two plane means (of g and of
+g·x̂) summed across the shards, from the forward's saved (mean, inv).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from dataclasses import dataclass
 
 import torch
 
@@ -62,10 +72,15 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ircolor_instance_norm.argtypes = [i, i, i, p, p, p, i, i, i, i, p]
         lib.ircolor_instance_norm.restype = i
-        lib.ircolor_instance_norm_stats.argtypes = [i, i, p, p, p, i, i, i, i, p]
+        lib.ircolor_instance_norm_stats.argtypes = [i, i, i, p, p, p, i, i, i, i, p]
         lib.ircolor_instance_norm_stats.restype = i
-        lib.ircolor_instance_norm_apply.argtypes = [i, i, i, p, p, p, p, p, i, i, i, i, p]
+        ints, ptrs = ctypes.POINTER(i), ctypes.POINTER(p)
+        lib.ircolor_instance_norm_apply.argtypes = [i, i, i, i, p, p, p, ints, i, p, p, p, i, i, i,
+                                                    i, p]
         lib.ircolor_instance_norm_apply.restype = i
+        lib.ircolor_instance_norm_cluster.argtypes = [i, i, i, i, i, ptrs, ptrs, ptrs, ints, p, p,
+                                                      i, i, i, i, p]
+        lib.ircolor_instance_norm_cluster.restype = i
         _lib = lib
     return _lib
 
@@ -93,9 +108,13 @@ def pallas_fits(shape: tuple, dtype: torch.dtype, with_residual: bool = False) -
     return _pick_cb(tuple(shape), dtype, with_residual) is not None
 
 
+def _check_fits_shape(shape: tuple, dtype: torch.dtype, with_residual: bool) -> None:
+    if not pallas_fits(shape, dtype, with_residual):
+        raise ValueError(f"shape {tuple(shape)} {dtype} does not fit the fused IN kernel's gate")
+
+
 def _check_fits(x: torch.Tensor, with_residual: bool) -> None:
-    if not pallas_fits(tuple(x.shape), x.dtype, with_residual):
-        raise ValueError(f"shape {tuple(x.shape)} {x.dtype} does not fit the fused IN kernel's gate")
+    _check_fits_shape(tuple(x.shape), x.dtype, with_residual)
 
 
 def _normalize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -244,6 +263,91 @@ def instance_norm_auto(
 
 # --- row 11h: the shard form ---------------------------------------------
 
+# The shard forms' limits (``csrc/instance_norm.cu``): the portable cluster
+# size (the cluster form's largest S), a block's dynamic shared memory, the
+# per-shard form's count table, a block's warps.
+CLUSTER_MAX = 8
+_MAX_SMEM = 232448
+_MAX_SHARDS = 256
+_NWARPS = 16
+_NO_CLUSTER = -1  # the cluster launch's code where no cluster fits the card
+
+
+def _shard_head_bytes(dtype: torch.dtype, slice_bytes: int) -> int:
+    """Shared memory ahead of a shard form block's staged plane: per-warp
+    partial sums, the shard's (mean, M2), the plane's (mean, inv)."""
+    return (_NWARPS + 4) * (slice_bytes // dtype.itemsize) * 4
+
+
+def _slice_bytes(heights: tuple, w: int, c: int, dtype: torch.dtype) -> int:
+    """A shard form block's channel slice: 64 bytes where C holds that many
+    and the tallest shard's 64-byte slice plane fits in shared memory with
+    the head (on the H100 at the 16×64×64×256 bottleneck, S = 2: 0.036 ms
+    a cluster launch against 0.048 at 32 bytes, ``tools/in_halo_probe.py``:
+    one CTA a SM in two full waves), else 32. Both forms take the same, so
+    their sums run in the same order."""
+    fits = _shard_head_bytes(dtype, 64) + max(heights) * w * 64 <= _MAX_SMEM
+    return 64 if fits and c * dtype.itemsize >= 64 else 32
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """How a row-11h call runs. ``form``: "cluster" (one launch), "per_shard"
+    (a stats and an apply launch a shard) or "plain"; ``cluster``: the
+    cluster size (S in the cluster form, else 0); ``starts`` / ``rows``:
+    each shard's first row and height in the plane; ``slice_bytes``: a
+    block's channel slice in both kernel forms (0 for "plain"); in the
+    cluster form ``staged``: each CTA's staged bytes (0: the CTA reads x
+    again), ``stage_cap``: the launch's staging bytes (the largest of
+    ``staged``), ``smem``: a CTA's dynamic shared memory (the head and the
+    stage)."""
+
+    form: str
+    cluster: int
+    starts: tuple
+    rows: tuple
+    slice_bytes: int = 0
+    staged: tuple = ()
+    stage_cap: int = 0
+    smem: int = 0
+
+
+def halo_form(devices, per_shard: bool = False) -> str:
+    """The form for shards on ``devices``: every one on the CPU → "plain";
+    every one on one card and at most ``CLUSTER_MAX`` → "cluster" (unless
+    ``per_shard``); any other CUDA layout → "per_shard"."""
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds != {"cuda"}:
+        raise ValueError(f"row 11h: shards on {sorted(kinds)}; every shard must be on the CPU, "
+                         "or every one on a card")
+    if not per_shard and len(devices) <= CLUSTER_MAX and len({d.index for d in devices}) == 1:
+        return "cluster"
+    return "per_shard"
+
+
+@functools.lru_cache(maxsize=256)
+def halo_plan(heights: tuple, w: int, c: int, dtype: torch.dtype, devices: tuple,
+              per_shard: bool = False) -> HaloPlan:
+    """The launch plan of a row-11h call on shards of ``heights`` rows of a
+    (B, ·, w, c) plane on ``devices``: the form, the cluster size, the
+    shard table's row starts and counts, the channel slice, and each
+    cluster CTA's staged bytes (its shard's slice plane, h·w·slice bytes,
+    where that fits in a block's shared memory with the head; else 0)."""
+    form = halo_form(devices, per_shard)
+    starts = tuple(itertools.accumulate((0, *heights[:-1])))
+    if form == "plain":
+        return HaloPlan(form, 0, starts, tuple(heights))
+    sb = _slice_bytes(heights, w, c, dtype)
+    if form == "per_shard":
+        return HaloPlan(form, 0, starts, tuple(heights), sb)
+    head = _shard_head_bytes(dtype, sb)
+    planes = [h * w * sb for h in heights]
+    staged = tuple(p if head + p <= _MAX_SMEM else 0 for p in planes)
+    return HaloPlan(form, len(heights), starts, tuple(heights), sb, staged, max(staged),
+                    head + max(staged))
+
 
 def _global_shape(xs) -> tuple:
     b, _, w, c = xs[0].shape
@@ -263,8 +367,8 @@ def shard_stats_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def shard_apply_plain(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor, relu: bool = False,
                       r: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of the apply launch: (x − mean)·inv, + ReLU or + r, one
-    cast to x's dtype."""
+    """Plain version of pass 3: (x − mean)·inv, + ReLU or + r, one cast to
+    x's dtype."""
     y = (x.float() - mean[:, None, None, :]) * inv[:, None, None, :]
     if relu:
         y = torch.relu(y)
@@ -275,21 +379,26 @@ def shard_apply_plain(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor, re
 
 def merge_shard_stats(parts: list, eps: float = _EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """Chan's merge of the shards' ``(n, mean, M2)`` in shard order on shard
-    0's device: the plane's (mean, inverse std), (B, C) float32."""
+    0's device, the plane's (mean, inverse std), (B, C) float32: the steps
+    of the kernels' ``merge_parts``, one IEEE rounding each, mean = (Σ
+    nᵢ·meanᵢ) / n, M2 = Σ (M2ᵢ + nᵢ·(meanᵢ − mean)²), inv = 1 / sqrt(M2 / n
+    + eps). An empty shard adds nothing. n divides as a tensor, so that a
+    card divides too (it multiplies by the reciprocal of a scalar); the
+    square root is taken in float64 and rounded once to float32, which is
+    the correctly rounded float32 root (``__fsqrt_rn``; the CPU's float32
+    ``torch.sqrt`` is off by an ulp on ~0.7% of inputs)."""
     dev = parts[0][1].device
-    n = sum(p[0] for p in parts)
-    mean = None
+    n = torch.full_like(parts[0][1].to(dev), float(sum(p[0] for p in parts)))
+    mean = torch.zeros_like(n)
     for ni, mi, _ in parts:
         if ni:
-            term = mi.to(dev) * float(ni)
-            mean = term if mean is None else mean + term
-    mean = mean / float(n)
-    m2 = None
+            mean = mean + mi.to(dev) * float(ni)
+    mean = mean / n
+    m2 = torch.zeros_like(n)
     for ni, mi, qi in parts:
         if ni:
-            term = qi.to(dev) + (mi.to(dev) - mean).square() * float(ni)
-            m2 = term if m2 is None else m2 + term
-    return mean, torch.rsqrt(m2 / float(n) + eps)
+            m2 = m2 + (qi.to(dev) + (mi.to(dev) - mean).square() * float(ni))
+    return mean, 1 / torch.sqrt((m2 / n + eps).double()).float()
 
 
 def _shard_dtype(x: torch.Tensor) -> None:
@@ -297,79 +406,151 @@ def _shard_dtype(x: torch.Tensor) -> None:
         raise TypeError(f"x: expected torch.bfloat16 or torch.float32, got {x.dtype}")
 
 
-def _vec(x: torch.Tensor, *ts) -> int:
-    return int(x.shape[-1] % (16 // x.itemsize) == 0
-               and all(t.data_ptr() % 16 == 0 for t in (x, *ts) if t is not None))
+def _vec_all(*groups) -> int:
+    """1 where C allows 16-byte units and every non-empty shard's x, r and
+    out is 16-byte aligned: one rule for both forms, so that their sums
+    run in the same order."""
+    x = groups[0][0]
+    if x.shape[-1] % (16 // x.itemsize):
+        return 0
+    return int(all(t.data_ptr() % 16 == 0 for g in groups if g is not None for t in g
+                   if t.numel()))
 
 
-@on_input_card
-def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    b, h, w, c = x.shape
-    _shard_dtype(x)
-    require(x, "x", x.dtype, (None, None, None, None))
+def _require_shards(xs, rs) -> None:
+    b, _, w, c = xs[0].shape
     if b > 65535:
         raise ValueError(f"fused IN kernel: batch {b} > 65535")
-    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    m2 = torch.empty_like(mean)
-    err = _load().ircolor_instance_norm_stats(
-        int(x.dtype == torch.float32), _vec(x), x.data_ptr(), mean.data_ptr(), m2.data_ptr(),
-        b, h, w, c, stream_ptr(x))
-    build.check(err, "fused_instance_norm shard stats")
-    return mean, m2
+    for i, x in enumerate(xs):
+        require(x, f"x[{i}]", xs[0].dtype, (b, None, w, c))
+        if rs is not None:
+            require(rs[i], f"r[{i}]", x.dtype, tuple(x.shape))
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
 @on_input_card
-def _launch_apply(mode: str, x: torch.Tensor, r: torch.Tensor | None, mean: torch.Tensor,
-                  inv: torch.Tensor) -> torch.Tensor:
+def _launch_cluster(mode: str, xs, rs, plan: HaloPlan):
+    """The cluster form: one launch over every shard (all on this card)."""
+    _require_shards(xs, rs)
+    b, _, w, c = xs[0].shape
+    outs = [torch.empty_like(x) for x in xs]
+    mean, inv = torch.empty((2, b, c), dtype=torch.float32, device=xs[0].device)
+    err = _load().ircolor_instance_norm_cluster(
+        int(xs[0].dtype == torch.float32), _MODES[mode], _vec_all(xs, rs, outs), plan.slice_bytes,
+        len(xs), _ptrs(xs), None if rs is None else _ptrs(rs), _ptrs(outs),
+        (ctypes.c_int * len(xs))(*plan.rows), mean.data_ptr(), inv.data_ptr(), b, w, c,
+        plan.stage_cap, stream_ptr(xs[0]))
+    if err == _NO_CLUSTER:
+        raise RuntimeError(f"row 11h: no cluster of {plan.cluster} blocks with {plan.smem} bytes "
+                           "of shared memory each fits the card")
+    build.check(err, "fused_instance_norm shard cluster")
+    return outs, mean, inv
+
+
+@on_input_card
+def _launch_stats(x: torch.Tensor, vec: int, slice_bytes: int) -> torch.Tensor:
+    """The per-shard form's stats launch: (2, B, C) float32, the shard's
+    mean and M2."""
     b, h, w, c = x.shape
-    require(x, "x", x.dtype, (None, None, None, None))
-    if r is not None:
-        require(r, "r", x.dtype, (b, h, w, c))
-    require(mean, "mean", torch.float32, (b, c))
-    require(inv, "inv", torch.float32, (b, c))
-    out = torch.empty_like(x)
+    part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    err = _load().ircolor_instance_norm_stats(
+        int(x.dtype == torch.float32), vec, slice_bytes, x.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), b, h, w, c, stream_ptr(x))
+    build.check(err, "fused_instance_norm shard stats")
+    return part
+
+
+@on_input_card
+def _launch_apply(mode: str, x: torch.Tensor, r, out: torch.Tensor, table: torch.Tensor, counts,
+                  vec: int, slice_bytes: int, save: bool):
+    """The per-shard form's apply launch: the merge of ``table`` ((S, 2, B,
+    C) on x's card) and pass 3 into ``out``; with ``save`` it also returns
+    the plane's (mean, inv)."""
+    b, h, w, c = x.shape
+    mean = inv = None
+    if save:
+        mean, inv = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     err = _load().ircolor_instance_norm_apply(
-        int(x.dtype == torch.float32), _MODES[mode], _vec(x, r, out), x.data_ptr(),
-        None if r is None else r.data_ptr(), mean.data_ptr(), inv.data_ptr(), out.data_ptr(),
-        b, h, w, c, stream_ptr(x))
+        int(x.dtype == torch.float32), _MODES[mode], vec, slice_bytes, x.data_ptr(),
+        None if r is None else r.data_ptr(), table.data_ptr(), counts, len(counts),
+        None if mean is None else mean.data_ptr(), None if inv is None else inv.data_ptr(),
+        out.data_ptr(), b, h, w, c, stream_ptr(x))
     build.check(err, "fused_instance_norm shard apply")
-    return out
+    return mean, inv
 
 
-def _run_in_spatial(xs, relu: bool, residuals, plain: bool = False):
-    """``run_in_spatial``'s shards and the plane's (mean, inv) on shard 0's
-    device; with ``plain`` every shard on the plain versions."""
-    _check_fits(torch.empty(_global_shape(xs), dtype=xs[0].dtype, device="meta"),
-                residuals is not None)
-    parts = []
+def _run_per_shard(mode: str, name: str, xs, rs, plan: HaloPlan):
+    """The per-shard form: a stats launch a non-empty shard, the S partials
+    copied to each shard's card, an apply launch a non-empty shard that
+    merges them itself (the first also writes the plane's (mean, inv))."""
+    if len(xs) > _MAX_SHARDS:
+        raise ValueError(f"row 11h: {len(xs)} shards > {_MAX_SHARDS}")
+    _require_shards(xs, rs)
+    b, _, w, c = xs[0].shape
+    outs = [torch.empty_like(x) for x in xs]
+    vec = _vec_all(xs, rs, outs)
+    parts = [_launch_stats(x, vec, plan.slice_bytes) if x.shape[1] else
+             torch.zeros((2, b, c), dtype=torch.float32, device=x.device) for x in xs]
+    counts = (ctypes.c_int * len(xs))(*[x.shape[1] * w for x in xs])
+    tables, mean, inv = {}, None, None
+    for i, x in enumerate(xs):
+        if not x.shape[1]:
+            continue
+        if x.device not in tables:
+            tables[x.device] = torch.stack([p.to(x.device) for p in parts])
+        m, v = _launch_apply(mode, x, None if rs is None else rs[i], outs[i], tables[x.device],
+                             counts, vec, plan.slice_bytes, mean is None)
+        if mean is None:
+            mean, inv = m, v
+        LAUNCHES[name] += 1
+    return outs, mean, inv
+
+
+def _run_plain_spatial(xs, relu: bool, residuals):
+    parts = [(x.shape[1] * x.shape[2], *shard_stats_plain(x)) for x in xs]
+    mean, inv = merge_shard_stats(parts)
+    out = [shard_apply_plain(x, mean.to(x.device), inv.to(x.device), relu,
+                             None if residuals is None else residuals[i])
+           for i, x in enumerate(xs)]
+    return out, mean, inv
+
+
+def _run_in_spatial(xs, relu: bool, residuals, plain: bool = False, per_shard: bool = False):
+    """``run_in_spatial``'s shards and the plane's (mean, inv); with
+    ``plain`` every shard on the plain versions; with ``per_shard`` the
+    per-shard form also where the cluster form would run (so that tests
+    and ``chip_smoke.py`` can hold the two forms against each other)."""
+    _check_fits_shape(_global_shape(xs), xs[0].dtype, residuals is not None)
     for x in xs:
         _shard_dtype(x)
-        n = x.shape[1] * x.shape[2]
-        if plain or n == 0 or x.device.type == "cpu":
-            parts.append((n, *shard_stats_plain(x)))
-        else:
-            parts.append((n, *_launch_stats(x)))
-    mean, inv = merge_shard_stats(parts)
+    if plain:
+        return _run_plain_spatial(xs, relu, residuals)
+    plan = halo_plan(tuple(x.shape[1] for x in xs), xs[0].shape[2], xs[0].shape[3], xs[0].dtype,
+                     tuple(x.device for x in xs), per_shard)
+    if plan.form == "plain":
+        return _run_plain_spatial(xs, relu, residuals)
     name = "fused_instance_norm_residual_halo" if residuals is not None else "fused_instance_norm_halo"
     mode = "residual" if residuals is not None else ("relu" if relu else "plain")
-    out = []
-    for i, x in enumerate(xs):
-        r = None if residuals is None else residuals[i]
-        m, v = mean.to(x.device), inv.to(x.device)
-        if plain or x.shape[1] == 0 or x.device.type == "cpu":
-            out.append(shard_apply_plain(x, m, v, relu, r))
-        else:
-            out.append(_launch_apply(mode, x, r, m, v))
-            LAUNCHES[name] += 1
-    return out, mean, inv
+    if plan.form == "per_shard":
+        return _run_per_shard(mode, name, xs, residuals, plan)
+    outs, mean, inv = _launch_cluster(mode, xs, residuals, plan)
+    LAUNCHES[name] += 1
+    return outs, mean, inv
 
 
 def run_in_spatial(xs, relu: bool = False, residuals=None) -> list[torch.Tensor]:
     """Row 11h: IN (+ ReLU, or + r) of the plane whose H-shards are ``xs``
     (bf16 or f32; a global shape ``pallas_fits`` admits), one output shard
-    each. A CUDA shard takes two launches (its stats, then its apply after
-    the merge) and adds one to ``fused_instance_norm(_residual)_halo``; a
-    CPU shard runs the plain versions; an empty shard neither."""
+    each, with no gather. Every shard on one card and S ≤ ``CLUSTER_MAX``:
+    the cluster form, one launch, +1 to
+    ``fused_instance_norm(_residual)_halo``; any other CUDA layout: the
+    per-shard form, a stats and an apply launch a non-empty shard, +1 a
+    non-empty shard; CPU shards: the plain versions. Both kernel forms and
+    the plain version merge the shards' statistics by the same steps
+    (``merge_shard_stats``)."""
     return _run_in_spatial(xs, relu, residuals)[0]
 
 

@@ -19,6 +19,12 @@ inflates every entry).
 With ``--spatial``: instead, phase 8b (spatial serving at 512×640, S = 2
 and 4, with its checks), its frames/s by run as the ``TURN`` line.
 
+With ``--sp-variants``: instead, phases 12b–12e (the model variants on
+shards: serving at S = 2 beside the unsharded step, then one spatial
+training cell each of 12d and 12e), their frames/s and ms a step by cell as
+the ``TURN`` line. Phase 8b does not run in a turn, so 12b's int8 bound
+(a multiple of 8b's noise) is not applied; the full script holds it.
+
 With ``--serve``: instead, phase 3's b32 serving frames/s (int8 and
 float, 3 batches each) and b1 latencies (int8 configuration (a) and float,
 64 frames each: mean and median ms), each with its launch counts checked,
@@ -178,6 +184,45 @@ def spatial_turn(root: Path) -> None:
     print("TURN " + json.dumps({"root": str(root), "frames_per_s": fps}), flush=True)
 
 
+def sp_variants_turn(root: Path) -> None:
+    """Phases 12b–12e from ROOT's ``chip_smoke.py``; frames/s and ms a step
+    read from the lines it logs."""
+    import numpy as np
+    import torch
+
+    build = _use(root)
+    sys.path.insert(0, str(root))
+    cs = importlib.import_module("chip_smoke")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    out, log, cell = {}, cs.log, {"label": None}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+
+    def reading(msg: str) -> None:
+        found = re.match(r"\[(spatial [^\]]+)\] ([0-9.]+) frames/s", msg)
+        if found:
+            out[found[1]] = float(found[2])
+        found = re.match(r"\[(sp train [^\]]+)\]", msg)
+        if found:
+            cell["label"] = found[1]
+        found = re.search(r"S = \d+ on cuda:0: ([0-9.]+) ms a step .*unsharded ([0-9.]+) ms", msg,
+                          re.S)
+        if found and cell["label"]:
+            out[f"{cell['label']} ms a step"] = float(found[1])
+            out[f"{cell['label']} unsharded ms a step"] = float(found[2])
+        log(msg)
+
+    cs.log = reading
+    t0 = time.perf_counter()
+    counts: dict = {}
+    cs.sp_variant_serving_phase(torch, np, counts, {"int8": {"mean_d": float("inf")}})
+    cs.sp_variant_train_phase(torch, np, counts, smi)
+    print(f"[turn {root}] phases 12b-12e {time.perf_counter() - t0:.1f} s", flush=True)
+    print("TURN " + json.dumps({"root": str(root), **out}), flush=True)
+
+
 def serve_turn(root: Path) -> None:
     """Phase 3's b32 frames/s and b1 latencies from ROOT's ``chip_smoke.py``."""
     import numpy as np
@@ -218,6 +263,8 @@ def main() -> int:
     ap.add_argument("--spatial", action="store_true",
                     help="time phase 8b (spatial serving) instead of the kernel rows")
     ap.add_argument("--halo", action="store_true", help="phase 8a's rows alone")
+    ap.add_argument("--sp-variants", action="store_true",
+                    help="time phases 12b-12e (the variants on shards) instead")
     ap.add_argument("--serve", action="store_true",
                     help="phase 3's b32 frames/s and b1 latencies instead")
     ap.add_argument("--host-profile", action="store_true",
@@ -227,6 +274,8 @@ def main() -> int:
         compare_sass(args.root.resolve(), args.sass.resolve())
     elif args.spatial:
         spatial_turn(args.root.resolve())
+    elif args.sp_variants:
+        sp_variants_turn(args.root.resolve())
     elif args.serve:
         serve_turn(args.root.resolve())
     elif args.host_profile:

@@ -609,35 +609,50 @@ def test_instance_norm_backward_through_kernel_on_card(cuda):
 @pytest.mark.parametrize("heights,w,c", [
     ((32, 32), 64, 256),       # the 256² bottleneck over 2 shards
     ((16, 16, 16, 16), 64, 256),
+    ((22, 21, 21), 64, 256),   # S = 3: a cluster that is no power of two
+    ((8,) * 8, 64, 256),       # S = 8: the largest cluster
     ((5, 0, 9, 2), 7, 40),     # unequal, an empty shard, a short last slice
     ((3, 8), 11, 12),          # C not a multiple of 8: one element a unit
+    ((60, 20), 128, 64),       # shard 0's slice plane over shared memory: read again
 ])
 def test_instance_norm_shard_form_matches_plain_on_card(cuda, heights, w, c, dtype):
-    """Row 11h (stats and apply launches a shard, Chan's merge between)
-    against its plain version and against kernel 11 on the gathered plane:
-    within one bf16 ulp / f32 1e-5 relative, a bit-exact repeat; one count
-    a non-empty shard, none for the empty one; its backward behind the
-    kernel forward equals the one behind the plain forward (the residual
-    form where the gate admits it: not the f32 bottleneck)."""
+    """Row 11h's cluster form (one launch a call) against its plain version
+    and against kernel 11 on the gathered plane: within one bf16 ulp / f32
+    1e-5 relative, a bit-exact repeat; the per-shard form (a stats and an
+    apply launch a non-empty shard, the merge in the apply) bit-identical
+    to it, the plane's saved (mean, inv) too; one count a cluster call and
+    one a non-empty shard's apply, none for the empty one; its backward
+    behind the kernel forward equals the one behind the plain forward (the
+    residual form where the gate admits it: not the f32 bottleneck)."""
     g = torch.Generator(device=cuda).manual_seed(11)
     x = (torch.randn(2, sum(heights), w, c, device=cuda, generator=g) * 3 + 1).to(dtype)
     r = torch.randn(*x.shape, device=cuda, generator=g).to(dtype)
     xs = [t.contiguous() for t in x.split(list(heights), 1)]
     rs = [t.contiguous() for t in r.split(list(heights), 1)]
+    plan = tin.halo_plan(tuple(heights), w, c, dtype, tuple(t.device for t in xs))
+    assert plan.form == "cluster" and plan.cluster == len(heights)
+    if heights == (60, 20):  # 240 KB and 80 KB slice planes: shard 0 unstaged
+        assert plan.staged == (0, 20 * w * 32)
     before = dict(LAUNCHES)
     live = sum(h > 0 for h in heights)
     for relu in (False, True):
-        got = torch.cat(tin.run_in_spatial(xs, relu), 1)
+        got, mean, inv = tin._run_in_spatial(xs, relu, None)
+        got = torch.cat(got, 1)
         assert _in_close(got, torch.cat(tin.run_in_spatial_plain(xs, relu), 1)), relu
         assert _in_close(got, tin.run_in(x.contiguous(), relu)), relu
         assert torch.equal(got, torch.cat(tin.run_in_spatial(xs, relu), 1))
+        per, pmean, pinv = tin._run_in_spatial(xs, relu, None, per_shard=True)
+        assert torch.equal(got, torch.cat(per, 1)), relu
+        assert torch.equal(mean, pmean) and torch.equal(inv, pinv)
     res = tin.pallas_fits(x.shape, dtype, True)  # all but the f32 bottleneck
     if res:
         got = torch.cat(tin.run_in_spatial(xs, residuals=rs), 1)
         assert _in_close(got, torch.cat(tin.run_in_spatial_plain(xs, residuals=rs), 1))
-    assert LAUNCHES["fused_instance_norm_halo"] - before["fused_instance_norm_halo"] == 4 * live
+        per = tin._run_in_spatial(xs, False, rs, per_shard=True)[0]
+        assert torch.equal(got, torch.cat(per, 1))
+    assert LAUNCHES["fused_instance_norm_halo"] - before["fused_instance_norm_halo"] == 4 + 2 * live
     assert (LAUNCHES["fused_instance_norm_residual_halo"]
-            - before["fused_instance_norm_residual_halo"]) == live * res
+            - before["fused_instance_norm_residual_halo"]) == (1 + live) * res
     cot = torch.randn(*x.shape, device=cuda, generator=g).to(dtype)
     outs = {}
     for route in ("kernel", "plain"):
@@ -654,6 +669,43 @@ def test_instance_norm_shard_form_matches_plain_on_card(cuda, heights, w, c, dty
     for a, b in zip(outs["kernel"], outs["plain"]):
         if b.numel():
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heights", [(32, 32), (16, 16, 16, 16), (5, 0, 40, 19)])
+def test_instance_norm_shard_form_across_cards(cuda, heights):
+    """Row 11h with shard i on cuda:i (a node with as many cards): the
+    per-shard form (a stats launch a shard on its card, the partials
+    copied to every card, an apply launch a non-empty shard that merges
+    them) bit-identical to the same form with every shard on cuda:0, and
+    to the cluster form there; each output on its shard's card; the
+    caller's current card unchanged."""
+    s = len(heights)
+    if torch.cuda.device_count() < s:
+        pytest.skip(f"needs {s} cards for shards on distinct cards")
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = (torch.randn(2, sum(heights), 64, 256, device=cuda, generator=g) * 3 + 1).to(torch.bfloat16)
+    r = torch.randn(*x.shape, device=cuda, generator=g).to(torch.bfloat16)
+    one = [t.contiguous() for t in x.split(list(heights), 1)]
+    rs1 = [t.contiguous() for t in r.split(list(heights), 1)]
+    cards = [t.to(f"cuda:{i}") for i, t in enumerate(one)]
+    rsc = [t.to(f"cuda:{i}") for i, t in enumerate(rs1)]
+    assert tin.halo_plan(tuple(heights), 64, 256, torch.bfloat16,
+                         tuple(t.device for t in cards)).form == "per_shard"
+    current = torch.cuda.current_device()
+    before = dict(LAUNCHES)
+    for relu, res in ((True, None), (False, "r")):
+        got = tin.run_in_spatial(cards, relu, rsc if res else None)
+        want = tin._run_in_spatial(one, relu, rs1 if res else None, per_shard=True)[0]
+        cluster = tin.run_in_spatial(one, relu, rs1 if res else None)
+        for i, (a, b, c_) in enumerate(zip(got, want, cluster)):
+            assert a.device == cards[i].device
+            assert torch.equal(a.cpu(), b.cpu()) and torch.equal(b, c_), (relu, i)
+    live = sum(h > 0 for h in heights)
+    assert LAUNCHES["fused_instance_norm_halo"] - before["fused_instance_norm_halo"] == 2 * live + 1
+    assert (LAUNCHES["fused_instance_norm_residual_halo"]
+            - before["fused_instance_norm_residual_halo"]) == 2 * live + 1
+    assert torch.cuda.current_device() == current
 
 
 def _seg_inputs(g, b, h, w, c, cin):
