@@ -235,6 +235,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    statistic may also lie within twice what a last-bit change of the
    unsharded forward moves it (``sp_variant_train_phase``).
 
+13. 2-D H×W tiling in test mode (every tile on cuda:0). (a) Row 11h's tile
+   form on ``K11H_PLANE`` cut into 2×2 and 4×2 tiles: the cluster form (one
+   launch a call, a cluster of Sh·Sw blocks, each rank its tile's rows,
+   columns and pointers) and the per-shard form, bf16 IN + ReLU / + r and
+   f32 IN + ReLU against its plain version and kernel 11 on the gathered
+   plane (1 bf16 ulp, f32 1e-5 relative), the forms bit-identical, a
+   bit-exact repeat, each form's ms, the cluster form's device / host /
+   event ms, kernel 11's and
+   ``F.instance_norm``'s; the 80×128 plane over 4×2 tiles (8 CTAs of
+   staged slices a cluster) launches and agrees. (b) Serving 512×640 b32
+   int8 and float on 2×2 tiles (the runner's rebuild: blocks, tails and
+   head off) against the unsharded step of the same routing, weights and
+   batches, beside the 1-D S = 4 step: phase 8b's rules (float the serving
+   budget; int8 mean |d| within 1.5× phase 8b's int8 noise and its int8
+   conv on the plain version bit-identical; the seam ratio over row and
+   column seams), a single wrong halo column in the first block's conv1
+   flagged in the float cell, the int8 conv at 24 sites a tile, frames/s.
+   (c) The same float checks at 512×648 on 2×4 tiles (41, 40, 41, 40
+   bottleneck columns), and ``use_pallas`` float at 256² b16 on 2×2 tiles
+   against the unsharded ``use_pallas`` step: 11h's tile form 9 + 9 a
+   forward (``*_tile``, one cluster launch a call).
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2586,13 +2608,13 @@ def kernels_launched(torch, fn) -> list:
     """The CUDA kernels one call of ``fn`` launches, by ``torch.profiler``
     (the names seen in either of two calls profiled apart: a window can
     miss a launch's record, and one that records no kernel at all, which
-    happens now and then deep into a run, is taken again, six windows at
+    happens now and then deep into a run, is taken again, ten windows at
     most), each name cut to 60 characters."""
     from torch.profiler import ProfilerActivity, profile
 
     seen: set = set()
     full = 0
-    for _ in range(6):
+    for _ in range(10):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -3478,8 +3500,8 @@ def variant_halo_row_fault(torch, g, infer, batch):
     blk = g.resblocks[0]
     real_ex, real_conv, done = spatial.exchange_halo_rows, blk._conv_spatial, []
 
-    def wrong(xs, r, pad="reflect"):
-        halos = real_ex(xs, r, pad)
+    def wrong(xs, r, pad="reflect", axis=1):
+        halos = real_ex(xs, r, pad, axis)
         halos[1] = (xs[1][:, :r].contiguous(), halos[1][1])
         return halos
 
@@ -3743,6 +3765,330 @@ def sp_variant_train_phase(torch, np, counts: dict, smi: str) -> None:
             raise AssertionError(f"sp train {label}: outside the bounds {bad}")
 
 
+SP13_GRIDS = ((2, 2), (4, 2))  # phase 13a's tile grids of K11H_PLANE, every tile on cuda:0
+SP13_GRID = (2, 2)  # phase 13b's and 13c's grid
+SP13_UNEQUAL = ((512, 648), (2, 4))  # 13c: W 648 over 4 tiles gives 41, 40, 41, 40 columns at /4
+
+
+def _grid_cut(t, sh: int, sw: int) -> list:
+    """``t`` as an Sh × Sw grid of equal contiguous tiles."""
+    return [[p.contiguous() for p in r.split(t.shape[2] // sw, 2)]
+            for r in t.split(t.shape[1] // sh, 1)]
+
+
+def _grid_join(torch, grid):
+    return torch.cat([torch.cat(row, 2) for row in grid], 1)
+
+
+def check_instance_norm_tiles(torch, results: list) -> None:
+    """Phase 13a: row 11h's tile form on ``K11H_PLANE`` cut into 2×2 and
+    4×2 tiles on cuda:0: the cluster form (one launch a call, a cluster of
+    Sh·Sw CTAs, each rank its tile's rows, columns and pointers) and the
+    per-shard form (a stats and an apply launch a tile). bf16 IN + ReLU and
+    IN + r, f32 IN + ReLU, each within one bf16 ulp (f32 1e-5 relative to
+    max(|value|, 1)) of its plain version and of kernel 11 on the gathered
+    plane; the forms bit-identical; a bit-exact repeat; the wrapper's count
+    over one call of each form (1 a cluster call, one a tile a per-shard
+    call), and on the 2×2 grid the CUDA kernels one cluster call launches
+    (``torch.profiler``: ``in_cluster_kernel`` alone). Times over 4 input
+    sets (L2 cold): each form's call, the plain version, kernel 11 on the
+    plane and ``F.instance_norm``; device / host / event ms a call of the
+    cluster form. Then the largest bottleneck plane the gate admits at C =
+    256 (80×128) over 4×2 tiles, 8 CTAs of its staged slice planes a
+    cluster: it launches (``cudaOccupancyMaxActiveClusters``) and agrees.
+    The row's figures are the 2×2 cluster form's (phase 13c's tiles)."""
+    import torch.nn.functional as F
+
+    from ircolor_tpu_torch.kernels import LAUNCHES
+    from ircolor_tpu_torch.kernels import instance_norm as tin
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    before = dict(LAUNCHES)
+    n = 1
+    for d in K11H_PLANE:
+        n *= d
+
+    def randn(shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale + shift
+
+    def per_shard(relu):
+        return lambda xs, r: tin._run_in_spatial(xs, relu, r, per_shard=True)[0]
+
+    def joined(fn):
+        return lambda *a: _grid_join(torch, fn(*a))
+
+    xs32 = [randn(K11H_PLANE, 3.0, 1.0) for _ in range(4)]
+    rs = [randn(K11H_PLANE) for _ in range(4)]
+    forms = (
+        ("fused_instance_norm_tile", "bf16 IN + ReLU", ":117", torch.bfloat16, False,
+         lambda xs, r: tin.run_in_spatial(xs, True), per_shard(True),
+         lambda xs, r: tin.run_in_spatial_plain(xs, True), lambda x, r: tin.run_in(x, True),
+         lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 2),
+        ("fused_instance_norm_residual_tile", "bf16 IN + r", ":133", torch.bfloat16, True,
+         lambda xs, r: tin.run_in_spatial(xs, residuals=r), per_shard(False),
+         lambda xs, r: tin.run_in_spatial_plain(xs, residuals=r), tin.run_in_res,
+         lambda x, r: F.instance_norm(x.permute(0, 3, 1, 2)) + r.permute(0, 3, 1, 2), 3 * n * 2),
+        ("fused_instance_norm_tile", "f32 IN + ReLU", ":117", torch.float32, False,
+         lambda xs, r: tin.run_in_spatial(xs, True), per_shard(True),
+         lambda xs, r: tin.run_in_spatial_plain(xs, True), lambda x, r: tin.run_in(x, True),
+         lambda x, r: torch.relu(F.instance_norm(x.permute(0, 3, 1, 2))), 2 * n * 4),
+    )
+    for sh, sw in SP13_GRIDS:
+        for name, label, line, dt, res, kern, kern_s, plain, k11, lib, nbytes in forms:
+            wholes = [(x.to(dt), r.to(dt)) for x, r in zip(xs32, rs)]
+            sets = [(_grid_cut(x, sh, sw), _grid_cut(r, sh, sw) if res else None)
+                    for x, r in wholes]
+            flat = [t for row in sets[0][0] for t in row]
+            plan = tin.tile_plan(tuple(t.shape[1] for t in flat), tuple(t.shape[2] for t in flat),
+                                 K11H_PLANE[3], dt, tuple(t.device for t in flat))
+            if plan.form != "cluster":
+                raise AssertionError(f"11h tiles {sh}x{sw}: every tile on cuda:0 planned as "
+                                     f"{plan.form}")
+            got = _grid_join(torch, kern(*sets[0]))
+            per = _grid_join(torch, kern_s(*sets[0]))
+            want = _grid_join(torch, plain(*sets[0]))
+            one = k11(*wholes[0])
+            repeat = bool(torch.equal(got, _grid_join(torch, kern(*sets[0])))
+                          and torch.equal(per, _grid_join(torch, kern_s(*sets[0]))))
+            same = bool(torch.equal(got, per))
+            counted = []  # the wrapper's count over one call of each form
+            for fn in (kern, kern_s):
+                c0 = LAUNCHES[name]
+                fn(*sets[0])
+                counted.append(LAUNCHES[name] - c0)
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.bfloat16:
+                dev_p, dev_1 = bf16_ulps(torch, got, want), bf16_ulps(torch, got, one)
+                ok, unit = dev_p <= 1 and dev_1 <= 1, "bf16 ulps (tol 1)"
+            else:
+                dev_p = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+                dev_1 = float(((got - one).abs() / one.abs().clamp(min=1.0)).max())
+                ok, unit = dev_p <= 1e-5 and dev_1 <= 1e-5, "max rel (tol 1e-5)"
+            ms = rotating_time_ms(torch, kern, sets, 40)
+            ms_s = rotating_time_ms(torch, kern_s, sets, 40)
+            pms = rotating_time_ms(torch, plain, sets, 8)
+            k11_ms = rotating_time_ms(torch, k11, wholes, 40)
+            lms = rotating_time_ms(torch, lib, wholes, 20)
+            b_ms, b_by = bound(8 * n, nbytes, PEAK_F32)
+            log(f"[{name} {sh}x{sw} {label} {tuple(flat[0].shape)} x {sh * sw}] vs plain "
+                f"{dev_p:.3g}, vs kernel 11 on the plane {dev_1:.3g} {unit}; max|d|={err:.4g}; "
+                f"per-shard form bit-identical {same}; repeat bit-exact {repeat}\n"
+                f"    11h tiles cluster {ms:.4f} ms (counted {counted[0]} a call; {sh * sw} CTAs "
+                f"a cluster, {plan.slice_bytes}-byte slices, {plan.smem} B of shared memory a CTA)"
+                f"  per-shard {ms_s:.4f} ms (counted {counted[1]} a call, one a tile's apply "
+                f"launch)  plain {pms:.4f} ms  kernel 11 on the plane {k11_ms:.4f} ms  "
+                f"F.instance_norm {lms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            if not (ok and repeat and same):
+                raise AssertionError(f"{name} {sh}x{sw} {label} disagrees with its plain version, "
+                                     "kernel 11 or its other form")
+            if counted != [1, sh * sw]:
+                raise AssertionError(f"{name} {sh}x{sw}: the cluster and per-shard forms count "
+                                     f"{counted} a call, not [1, {sh * sw}]")
+            if label == "bf16 IN + ReLU":
+                log(f"    11h tiles cluster device / host / event ms a call ({sh}x{sw}, {label}): "
+                    + split_text(split_time_ms(lambda: kern(*sets[0]))))
+            if label == "bf16 IN + ReLU" and (sh, sw) == SP13_GRID:
+                names = kernels_launched(torch, lambda: kern(*sets[0]))
+                log(f"    one {sh}x{sw} cluster call launches {names or 'nothing recorded'} "
+                    "(torch.profiler)")
+                if len(names) > 1 or any("in_cluster_kernel" not in k for k in names):
+                    raise AssertionError(f"a cluster-form 11h tile call launches {names}")
+            if (sh, sw) == SP13_GRID and dt == torch.bfloat16:
+                results.append(dict(
+                    name=name, route="cuda", source="ircolor_tpu_torch/csrc/instance_norm.cu",
+                    replaces=f"ircolor_tpu/ops/pallas_kernels.py{line}", max_abs_err=err, ms=ms,
+                    plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
+            del wholes, sets, got, per, want, one
+    del xs32, rs
+    big = (16, 80, 128, K11H_PLANE[3])
+    if not tin.pallas_fits(big, torch.bfloat16):
+        raise AssertionError(f"{big}: no longer under kernel 11's gate")
+    x = randn(big, 3.0, 1.0).to(torch.bfloat16)
+    xs = _grid_cut(x, 4, 2)
+    flat = [t for row in xs for t in row]
+    plan = tin.tile_plan(tuple(t.shape[1] for t in flat), tuple(t.shape[2] for t in flat),
+                         big[3], torch.bfloat16, tuple(t.device for t in flat))
+    got = _grid_join(torch, tin.run_in_spatial(xs, True))
+    dev_1 = bf16_ulps(torch, got, tin.run_in(x, True))
+    same = bool(torch.equal(got, _grid_join(torch, tin._run_in_spatial(xs, True, None,
+                                                                       per_shard=True)[0])))
+    log(f"[11h tiles 4x2 on {big}] {plan.form}, {plan.slice_bytes}-byte slices, staged "
+        f"{plan.staged[0]} B a CTA ({plan.smem} B of shared memory, 8 CTAs a cluster): vs kernel "
+        f"11 {dev_1:.3g} bf16 ulps (tol 1), per-shard form bit-identical {same}")
+    if plan.form != "cluster" or dev_1 > 1 or not same:
+        raise AssertionError(f"11h tiles 4x2 on {big}: {plan.form}, {dev_1} ulps, same {same}")
+    del x, xs, got
+    torch.cuda.empty_cache()
+    LAUNCHES.update(before)
+
+
+def seam_ratio_2d(torch, pred_a, pred_b, sh: int, sw: int) -> float:
+    """``seam_ratio`` over an Sh × Sw grid of equal tiles: the mean uint8
+    |d| of the pixels within SEAM_BAND of a row or a column seam over the
+    mean of those at least SEAM_FAR from every seam."""
+    d = (pred_a.int() - pred_b.int()).abs().float().mean(dim=(0, 3))
+    h, w = d.shape
+
+    def dist(n, parts):
+        seams = torch.tensor([i * n // parts for i in range(1, parts)], device=d.device,
+                             dtype=torch.float32)
+        at = torch.arange(n, device=d.device, dtype=torch.float32) + 0.5
+        return (at[:, None] - seams[None, :]).abs().min(dim=1).values
+
+    near = torch.minimum(dist(h, sh)[:, None], dist(w, sw)[None, :])
+    band, far = float(d[near < SEAM_BAND].mean()), float(d[near >= SEAM_FAR].mean())
+    return band / far if far > 0 else (0.0 if band == 0 else float("inf"))
+
+
+def halo_column_fault(torch, g, infer, batch):
+    """A single wrong halo column: in the first block's conv1, tile (0,
+    1)'s left halo column (a column seam's) replaced by that tile's own
+    first column; every other halo column and row right."""
+    from ircolor_tpu_torch.parallel import spatial
+
+    blk = g.resblocks[0]
+    real_ex, real_conv, done = spatial.exchange_halo_rows, blk._conv_spatial, []
+
+    def wrong(xs, r, pad="reflect", axis=1):
+        halos = real_ex(xs, r, pad, axis)
+        if axis == 2 and not done[1:]:
+            done.append(1)
+            halos[1] = (xs[1][:, :, :r].contiguous(), halos[1][1])
+        return halos
+
+    def conv(layer, xs):
+        if done:
+            return real_conv(layer, xs)
+        done.append(1)
+        spatial.exchange_halo_rows = wrong
+        try:
+            return real_conv(layer, xs)
+        finally:
+            spatial.exchange_halo_rows = real_ex
+
+    blk._conv_spatial = conv
+    try:
+        return infer(*batch)
+    finally:
+        del blk._conv_spatial
+
+
+def sp2d_serving_phase(torch, np, counts: dict, noise_by_cell: dict) -> dict:
+    """Phase 13b and 13c (the script's docstring). Returns frames/s by run."""
+    import copy
+
+    from ircolor_tpu_torch.eval.runner import make_infer_fn, spatial_generator
+    from ircolor_tpu_torch.models.wrapper import IRColorizationModel
+
+    sh, sw = SP13_GRID
+    limit = SP_INT8_NOISE_K * noise_by_cell["int8"]["mean_d"]
+    summary, fps_by = [], {}
+    cells = [("int8", True, (H, W), SP13_GRID, True), ("float", False, (H, W), SP13_GRID, True),
+             ("float unequal", False, SP13_UNEQUAL[0], SP13_UNEQUAL[1], False)]
+    for cell, quant, hw, (gh, gw), one_d in cells:
+        size = {} if hw == (H, W) else dict(img_height=hw[0], img_width=hw[1])
+        cfg = serving_config(**size, **({} if quant else dict(quant_int8=False)))
+        if (cfg.resolved_test_batch_size, cfg.resolved_quant_int8) != (B, quant):
+            raise AssertionError(f"2-D {cell}: config no longer resolves to b{B} int8={quant}")
+        model = IRColorizationModel(cfg, "cuda")
+        batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+                   for ir, gt in synthetic_batches(2, B, hw)]
+        flat = copy.deepcopy(model.module)  # the 2-D rebuild's routing, unsharded
+        flat.pallas_norm_blur = flat.pallas_head = False
+        for block in flat.resblocks:
+            block.pallas_block = False
+        g2 = spatial_generator(cfg.replace(sp_devices=gh * gw, sp_w_devices=gw), model.module,
+                               "cuda:0")
+        per = {"conv3x3_int8": 24} if quant else {}
+        ref, fps1, _ = _timed_serving(torch, make_infer_fn(flat), batches,
+                                      f"2-D {cell} unsharded, blocks tails head off", per, counts,
+                                      B, hw)
+        if one_d:
+            g1 = spatial_generator(cfg.replace(sp_devices=4), model.module, "cuda:0")
+            # int8: the fused halo blocks' per-shard gate holds at 32 rows; float
+            # b32: it does not (no kernel on that route).
+            per1 = {"conv3x3_reflect_fused_q_halo": 18 * 4, "conv3x3_int8": 6 * 4} if quant else {}
+            _, fps_1d, _ = _timed_serving(torch, make_infer_fn(g1), batches, f"2-D {cell} 1-D sp4",
+                                          per1, counts, B, hw)
+            fps_by[f"{cell} 1-D sp4"] = fps_1d
+            del g1
+        sp = make_infer_fn(g2)
+        key = f"2-D {cell} tiles {gh}x{gw}"
+        got, fps2, peak2 = _timed_serving(torch, sp, batches, key,
+                                          {k: v * gh * gw for k, v in per.items()}, counts, B, hw)
+        fps_by[f"{cell} unsharded"], fps_by[f"{cell} tiles {gh}x{gw}"] = fps1, fps2
+        delta = route_delta(*got, *ref)
+        seam = seam_ratio_2d(torch, got[0], ref[0], gh, gw)
+        exact = True
+        if quant:  # the int8 conv's kernel equals its plain version bit for bit
+            with plain_kernels(("conv3x3_int8",)):
+                pred_i = sp(*batches[0])[0]
+            exact = bool(torch.equal(pred_i, got[0])) and bool(torch.equal(sp(*batches[0])[0],
+                                                                           got[0]))
+        ok = (within_budget(delta, uint8_bound=not quant) and seam <= SEAM_RATIO_MAX
+              and (not quant or delta["mean_d"] <= limit) and exact)
+        log(f"    tiles {gh}x{gw} against the unsharded step: {delta['text']}; seam (rows and "
+            f"columns)/interior mean |d| {seam:.4f} (tol {SEAM_RATIO_MAX})"
+            + (f"; uint8 mean |d| tol {SP_INT8_NOISE_K} x phase 8b's int8 noise "
+               f"{noise_by_cell['int8']['mean_d']:.4f} = {limit:.4f}; the int8 conv on its plain "
+               f"version, and a repeat: bit-identical {exact} (tol 0)" if quant else ""))
+        if not ok:
+            raise AssertionError(f"{key}: outside phase 8b's bounds")
+        if cell == "float":
+            fault_p, fault_m = halo_column_fault(torch, g2, sp, batches[0])
+            fault = route_delta(fault_p, fault_m, *ref)
+            seam_f = seam_ratio_2d(torch, fault_p, ref[0], gh, gw)
+            budget = not within_budget(fault, uint8_bound=True)
+            log(f"    one wrong halo column (block 0 conv1, tile (0, 1)'s left column its own "
+                f"first column): {fault['text']}; seam/interior mean |d| {seam_f:.4f}: the seam "
+                f"check flags it {seam_f > SEAM_RATIO_MAX}, the budget {budget}")
+            if not (seam_f > SEAM_RATIO_MAX or budget):
+                raise AssertionError(f"{key}: the checks missed a wrong halo column")
+            del fault_p
+        summary.append(f"{cell} {hw[0]}x{hw[1]} b{B}: unsharded {fps1:.2f}"
+                       + (f", 1-D sp4 {fps_by[f'{cell} 1-D sp4']:.2f}" if one_d else "")
+                       + f", tiles {gh}x{gw} {fps2:.2f} frames/s ({peak2:.2f} GiB)")
+        del model, flat, g2, sp, batches, ref, got
+        torch.cuda.empty_cache()
+
+    # 13c: use_pallas float at 256² b16 on 2×2 tiles: 11h's tile form 9 + 9
+    # a forward (a call is one cluster launch), against the unsharded
+    # use_pallas step (kernel 11 9 + 9 and the down1 tail).
+    cfg = serving_config(img_height=HW256[0], img_width=HW256[1], quant_int8=False,
+                         use_pallas=True)
+    if cfg.resolved_test_batch_size != B256:
+        raise AssertionError(f"256x256 use_pallas: config no longer resolves to b{B256}")
+    model = IRColorizationModel(cfg, "cuda")
+    batches = [(torch.from_numpy(ir).cuda(), torch.from_numpy(gt).cuda())
+               for ir, gt in synthetic_batches(6, B256, HW256)]
+    one = make_infer_fn(model.module)
+    sp = make_infer_fn(spatial_generator(cfg.replace(sp_devices=sh * sw, sp_w_devices=sw),
+                                         model.module, "cuda:0"))
+    k11 = {"fused_instance_norm": 9, "fused_instance_norm_residual": 9, "norm_relu_blur_down": 1}
+    k11t = {"fused_instance_norm_tile": 9, "fused_instance_norm_residual_tile": 9}
+    label = "256x256 float use_pallas"
+    ref, fps1, _ = _timed_serving(torch, one, batches, f"2-D {label} unsharded", k11, counts,
+                                  B256, HW256)
+    got, fps2, peak2 = _timed_serving(torch, sp, batches, f"2-D {label} tiles {sh}x{sw}", k11t,
+                                      counts, B256, HW256)
+    delta = route_delta(*got, *ref)
+    seam = seam_ratio_2d(torch, got[0], ref[0], sh, sw)
+    with plain_kernels():
+        plain = route_delta(*sp(*batches[0]), *got)
+    log(f"    tiles {sh}x{sw} against the unsharded use_pallas step: {delta['text']}; seam/"
+        f"interior mean |d| {seam:.4f} (tol {SEAM_RATIO_MAX})\n    against its own route with "
+        f"11h on its plain version: {plain['text']}")
+    if not (within_budget(delta) and within_budget(plain) and seam <= SEAM_RATIO_MAX):
+        raise AssertionError(f"2-D {label}: outside the serving budget or the seam bound")
+    fps_by[f"{label} unsharded"], fps_by[f"{label} tiles {sh}x{sw}"] = fps1, fps2
+    summary.append(f"{label} b{B256}: unsharded {fps1:.2f}, tiles {sh}x{sw} {fps2:.2f} frames/s "
+                   f"({peak2:.2f} GiB)")
+    del model, one, sp, batches, ref, got
+    torch.cuda.empty_cache()
+    log("[2-D serve] " + "; ".join(summary))
+    return fps_by
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3927,6 +4273,10 @@ def main() -> int:
     phase_done("phase 12b, 12c")
     sp_variant_train_phase(torch, np, counts, smi)
     phase_done("phase 12d, 12e")
+    check_instance_norm_tiles(torch, results)
+    phase_done("phase 13a")
+    sp2d_serving_phase(torch, np, counts, sp_noise)
+    phase_done("phase 13b, 13c")
 
     # The product's serving and training routes launch none of kernels
     # 7-10 (the JAX generator routes to none of them; expect_launches held
@@ -3956,6 +4306,10 @@ def main() -> int:
                 "fused_instance_norm_residual": "256x256 float use_pallas",
                 "fused_instance_norm_halo": f"spatial 256x256 float use_pallas sp{SP12_S}",
                 "fused_instance_norm_residual_halo": f"spatial 256x256 float use_pallas sp{SP12_S}",
+                "fused_instance_norm_tile": "2-D 256x256 float use_pallas tiles {}x{}".format(
+                    *SP13_GRID),
+                "fused_instance_norm_residual_tile": "2-D 256x256 float use_pallas tiles {}x{}".format(
+                    *SP13_GRID),
                 "conv3x3_dgrad_fused_seg": "train encdec",
                 "conv3x3_wgrad_fused_seg": "train encdec",
                 **{name: "slice 5" for name in slice5}}

@@ -8,7 +8,9 @@ cpu``, else spread over the visible cards); ``train --sp-devices S`` trains
 on S H-shards of every image (JAX's GSPMD step on a ``('data', 'sp')``
 mesh, every fused kernel off: ``train.loop``), all on the CPU with
 ``--device cpu``, else on cards 0..S-1 (with ``--dp-devices N`` too, rank
-r on cards r·S..r·S+S-1). Both spatial modes take every model variant
+r on cards r·S..r·S+S-1). ``test --sp-devices N --sp-w-devices W`` tiles
+each image over an (N / W) × W H×W mesh (as in JAX, ``train`` does not read
+``--sp-w-devices``). Both spatial modes take every model variant
 (``--norm``, ``--no-antialias``, ``--no-antialias-up``, ``--use-pallas``). ``--dp-devices N`` runs data
 parallelism: ``train`` over N ranks, one process each (``train.loop``),
 ``test`` over N chunks of each batch (``eval.runner.make_infer_fn``), on
@@ -89,7 +91,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     for name, desc in (("train", "Train on KAIST pairs (--dp-devices N: over N ranks; "
                                  "--sp-devices S: over S H-shards of each image)"),
                        ("test", "Run inference + metrics + exports (--sp-devices S: over "
-                                "S H-shards; --dp-devices N: N chunks a batch)"),
+                                "S H-shards, --sp-w-devices W too: over (S/W)×W H×W tiles; "
+                                "--dp-devices N: N chunks a batch)"),
                        ("export", "Write a torch.export serving artifact")):
         p = sub.add_parser(name, help=desc)
         p.add_argument("--config", default=None, help="JSON config file")

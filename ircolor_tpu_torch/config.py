@@ -5,11 +5,11 @@ so ``configs/*.json`` and the CLI flags mean the same thing in both packages
 
 Fields that select JAX-only machinery (meshes, XLA precision,
 lane-packing, the Pallas gates) are kept for that reason; the port reads
-the kernel gates exactly as the JAX generator does and rejects, at the use
-site, the one mode it has not ported yet, 2-D H×W tiling (``ROADMAP.md``).
-Every model variant (``norm``, ``no_antialias``, ``no_antialias_up``,
-``use_pallas``) runs on one device, over data-parallel ranks and over the
-1-D H mesh (``sp_devices``), in test mode and in training.
+the kernel gates exactly as the JAX generator does. Every model variant
+(``norm``, ``no_antialias``, ``no_antialias_up``, ``use_pallas``) runs on
+one device, over data-parallel ranks and over the 1-D H mesh
+(``sp_devices``), in test mode and in training, and over the 2-D H×W mesh
+(``sp_w_devices`` with ``sp_devices``) in test mode.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ class Config:
     batch_transport: str = "int"        # uint16/uint8 transport | "float"
     dp_devices: int = 0                 # data-parallel ranks; 0: every card, fit to the batch
     sp_devices: int = 1                 # >1: test mode and training on a 1-D H mesh
-    sp_w_devices: int = 1               # >1 (2-D H×W tiling): not ported (ROADMAP Queue 1)
+    sp_w_devices: int = 1               # >1: test mode on an (sp/sp_w)×sp_w H×W mesh; train ignores it
     dp_mode: str = "gspmd"
     resume: bool = False
     orbax_dir: str | None = None

@@ -23,6 +23,13 @@
 //     stats launch a shard writes its (mean, M2); the wrapper copies the S
 //     partials to each shard's card; each shard's apply launch merges them
 //     itself and normalizes.
+// The tile form (the plane held as a grid of Sh x Sw tiles, test mode's
+// 2-D H x W mesh) is the same two forms: a tile is a shard of rows x cols
+// pixels, contiguous as (B, rows, cols, C), and every cluster rank (every
+// per-shard launch) carries its tile's rows, columns and pointers, so one
+// cluster takes the Sh * Sw <= 8 tiles of one plane (2 x 2, 4 x 2). The
+// wrapper passes the tiles row by row, the one order of the merge; a 1-D
+// mesh is the Sw = 1 case, every shard the plane's width.
 //
 // Per image b and channel c, over the H*W plane, all in f32:
 //   mean = sum(x) / N
@@ -342,17 +349,18 @@ __device__ __forceinline__ void merge_parts(int S, Get get, float* mean, float* 
 // --- row 11h, the cluster form: every shard on this card, S <= 8 -----------
 
 struct Shard {
-  const void* x;  // (B, rows, W, C)
-  const void* r;  // (B, rows, W, C), MODE_RESIDUAL only
-  void* out;      // (B, rows, W, C)
+  const void* x;  // (B, rows, cols, C)
+  const void* r;  // (B, rows, cols, C), MODE_RESIDUAL only
+  void* out;      // (B, rows, cols, C)
   int rows;       // 0 for an empty shard
+  int cols;       // the plane's width, or the tile's columns
 };
 
 struct ClusterArgs {
   Shard shard[MAX_CLUSTER];
   float* mean;    // (B, C): the plane's mean, written by rank 0
   float* inv;     // (B, C): the plane's inverse std, written by rank 0
-  int S, W, C;
+  int S, C;
   int stage_cap;  // bytes of its shard's slice plane a CTA may stage
 };
 
@@ -369,7 +377,7 @@ __global__ void __launch_bounds__(NTHREADS)
   float* stat = s.red + NWARPS * CS;  // this shard's mean[CS], M2[CS]: the peers read them
   float* fin = stat + 2 * CS;         // the plane's mean[CS], inverse std[CS]
   const Shard& sh = a.shard[rank];
-  const int N = sh.rows * a.W;
+  const int N = sh.rows * sh.cols;
   // A shard slice over the launch's stage reads x again (uniform per CTA).
   const bool staged = (size_t)N * SB <= (size_t)a.stage_cap;
   const size_t base = s.base(b, N);
@@ -386,7 +394,7 @@ __global__ void __launch_bounds__(NTHREADS)
     merge_parts(
         a.S,
         [&](int j) {
-          const int nj = a.shard[j].rows * a.W;
+          const int nj = a.shard[j].rows * a.shard[j].cols;
           if (nj == 0) return Part{0.f, 0.f, 0.f};
           const float* peer = cluster.map_shared_rank(stat, j);
           return Part{(float)nj, peer[s.tid], peer[CS + s.tid]};
@@ -622,16 +630,17 @@ int ircolor_instance_norm_apply(int f32, int mode, int vec, int slice_bytes, con
   return SHARD_DISPATCH(Apply, slice_bytes, f32, vec, mode, a, B, stream);
 }
 
-// Row 11h's cluster form: the S <= 8 shards of one plane on this card, one
-// launch. xs, rs (or null), outs: each shard's tensors; rows: each shard's
-// height (0 for an empty one); mean, inv: the plane's (B, C) f32 out;
+// Row 11h's cluster form: the S <= 8 shards (or tiles, row by row) of one
+// plane on this card, one launch. xs, rs (or null), outs: each shard's
+// tensors; rows, cols: each shard's height (0 for an empty one) and width
+// (the plane's, or the tile's); mean, inv: the plane's (B, C) f32 out;
 // slice_bytes: a block's channel slice (32 or 64); stage_cap: the bytes of
 // a shard's slice plane a CTA stages (a larger one reads x again). Returns
 // NO_CLUSTER (-1) where no such cluster fits on the card.
 int ircolor_instance_norm_cluster(int f32, int mode, int vec, int slice_bytes, int S,
                                   const void* const* xs, const void* const* rs, void* const* outs,
-                                  const int* rows, float* mean, float* inv, int B, int W, int C,
-                                  int stage_cap, void* stream) {
+                                  const int* rows, const int* cols, float* mean, float* inv, int B,
+                                  int C, int stage_cap, void* stream) {
   using namespace ircolor;
   const int cs4 = slice_bytes / (f32 ? 4 : 2) * 4;  // a slice's f32 statistics, bytes
   if (S < 1 || S > MAX_CLUSTER || stage_cap < 0 ||
@@ -640,12 +649,11 @@ int ircolor_instance_norm_cluster(int f32, int mode, int vec, int slice_bytes, i
   }
   ClusterArgs a{};
   for (int j = 0; j < S; ++j) {
-    a.shard[j] = Shard{xs[j], rs ? rs[j] : nullptr, outs[j], rows[j]};
+    a.shard[j] = Shard{xs[j], rs ? rs[j] : nullptr, outs[j], rows[j], cols[j]};
   }
   a.mean = mean;
   a.inv = inv;
   a.S = S;
-  a.W = W;
   a.C = C;
   a.stage_cap = stage_cap;
   return SHARD_DISPATCH(Cluster, slice_bytes, f32, vec, mode, a, B, stream);

@@ -1,6 +1,7 @@
 """Test mode: the serving step plus metrics and artifact export
 (``ircolor_tpu/eval/runner.py``), on one device or, with ``sp_devices`` >
-1, with the image rows sharded over a 1-D H mesh (``spatial_generator``).
+1, with the image rows sharded over a 1-D H mesh, or with ``sp_w_devices``
+> 1 too, the image tiled over a 2-D H×W mesh (``spatial_generator``).
 
 ``make_infer_fn`` is the step a user pays for: it decodes the integer
 transport (uint16 or uint8 IR, uint8 GT) on the device, runs the generator,
@@ -16,8 +17,9 @@ Every generator variant of ``Config`` serves (``norm``, ``no_antialias``,
 on one device, data-parallel (``dp_devices`` > 1, ``make_infer_fn``'s
 ``dp_mesh``: each device serves whole images of the batch; exclusive with
 ``sp_devices``, as in JAX) or over the 1-D H mesh (``sp_devices`` > 1: the
-generator's spatial forward runs every variant on shards). 2-D H×W tiling
-is not ported yet, and ``reject_unported`` rejects it.
+generator's spatial forward runs every variant on shards) or the 2-D H×W
+mesh (``sp_w_devices`` > 1 too: on tiles). ``reject_unported`` refuses a W
+axis without an H one, as JAX's runner does.
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ from ircolor_tpu_torch.parallel.mesh import make_data_mesh
 from ircolor_tpu_torch.parallel.spatial import (
     check_stage_heights,
     gather_h,
+    gather_hw,
     make_spatial_mesh,
     shard_h,
+    shard_hw,
+    tiled,
 )
 from ircolor_tpu_torch.utils.logging import get_logger
 
@@ -63,24 +68,50 @@ def spatial_generator(cfg: Config, module: torch.nn.Module,
     (``"cpu"``, or ``"cuda:i"``), else (None or ``"cuda"``) the shards
     spread over the visible cards (raises where there are fewer). H must
     divide by the shard count, as in JAX, and the bottleneck (after the two
-    stride-2 stages) keep a row a shard."""
-    n = cfg.sp_devices
-    h = cfg.resolved_hw[0]
+    stride-2 stages) keep a row a shard.
+
+    With ``cfg.sp_w_devices`` > 1 the 2-D H×W mesh of ``sp_devices /
+    sp_w_devices`` rows of ``sp_w_devices`` devices (JAX's reshape), every
+    tile placed as the shards are; the fused blocks are off too (their
+    halo forms exchange rows only), as JAX's ``keep_block`` turns them off.
+    H must divide by the H-shard count and W by ``sp_w_devices`` (JAX's
+    checks and messages), and the bottleneck keep a row and a column a
+    tile."""
+    n, sw = cfg.sp_devices, cfg.sp_w_devices
+    h, w = cfg.resolved_hw
+    if sw > 1:
+        if h % (n // sw):
+            raise ValueError(f"img height {h} must divide by the H-shard count {n // sw} "
+                             f"(sp_devices={n} / sp_w_devices={sw})")
+        if w % sw:
+            raise ValueError(f"img width {w} must divide by sp_w_devices={sw}")
     try:
-        check_stage_heights(h, n, 2)
+        check_stage_heights(h, n // max(sw, 1), 2)
+        if sw > 1:
+            check_stage_heights(w, sw, 2, axis=2)
     except ValueError as exc:
-        raise ValueError(f"img height {h} with sp_devices={n}: {exc}") from None
+        what = f"img height {h}" if sw <= 1 else f"img {h}x{w}"
+        raise ValueError(f"{what} with sp_devices={n}"
+                         + (f", sp_w_devices={sw}" if sw > 1 else "") + f": {exc}") from None
     dev = None if device is None else torch.device(device)
     if dev is None or (dev.type == "cuda" and dev.index is None):
-        mesh = make_spatial_mesh(n)
+        mesh = make_spatial_mesh(n, w_devices=sw)
     else:
-        mesh = make_spatial_mesh(n, [dev] * n)
-    log.info("[TEST] spatial sharding: rebuilding generator with pallas_norm_blur=False / "
-             "pallas_head=False (in-kernel reflect halos are incompatible with image-axis "
-             "sharding); fused resblocks run their halo forms per shard where the per-shard "
-             "gate holds; H %d over %s", h, [str(d) for d in mesh])
+        mesh = make_spatial_mesh(n, [dev] * n, sw)
     spatial = copy.deepcopy(module)
     spatial.pallas_norm_blur = spatial.pallas_head = False
+    if tiled(mesh):
+        log.info("[TEST] 2-D spatial tiling: rebuilding generator with pallas_norm_blur=False / "
+                 "pallas_head=False / pallas_block=False (in-kernel reflect halos are "
+                 "incompatible with image-axis sharding); H %d x W %d over %s", h, w,
+                 [[str(d) for d in row] for row in mesh])
+        for block in spatial.resblocks:
+            block.pallas_block = False
+    else:
+        log.info("[TEST] spatial sharding: rebuilding generator with pallas_norm_blur=False / "
+                 "pallas_head=False (in-kernel reflect halos are incompatible with image-axis "
+                 "sharding); fused resblocks run their halo forms per shard where the per-shard "
+                 "gate holds; H %d over %s", h, [str(d) for d in mesh])
     spatial.spatial_mesh = mesh
     return spatial
 
@@ -93,9 +124,10 @@ def make_infer_fn(module: torch.nn.Module, dp_mesh: list[torch.device] | None = 
     float in [−1, 1]; ``gt01`` uint8 ``round(gt01·255)`` or float in [0, 1].
     The prediction arithmetic runs in the generator's compute dtype, as the
     JAX step's does. With the module's ``spatial_mesh`` set
-    (``spatial_generator``) the decoded batch is sharded over the mesh and
-    the prediction gathered onto shard 0's device before the uint8 step and
-    the metrics (SSIM's window crosses the seams).
+    (``spatial_generator``) the decoded batch is sharded over the mesh (a
+    2-D mesh: tiled) and the prediction gathered onto shard 0's device
+    before the uint8 step and the metrics (SSIM's window crosses the
+    seams).
 
     ``dp_mesh`` (data-parallel test mode, JAX's ``dp_mesh``; a list of
     devices, ``parallel.mesh.make_data_mesh``): the batch is split into
@@ -140,7 +172,8 @@ def make_infer_fn(module: torch.nn.Module, dp_mesh: list[torch.device] | None = 
         if mesh is None:
             fake = module(ir)                               # (B, H, W, 3) [-1, 1]
         else:
-            fake = gather_h(module(shard_h(ir, mesh)))
+            fake = (gather_hw(module(shard_hw(ir, mesh))) if tiled(mesh)
+                    else gather_h(module(shard_h(ir, mesh))))
             gt01 = gt01.to(fake.device)
         pred01q = quantize_to_uint8_01((fake + 1.0) / 2.0)
         pred_u8 = (pred01q * 255.0).to(torch.uint8)

@@ -34,7 +34,8 @@ kernel is the wrapper again.
     (also on H-shards, ``run_in_spatial``, counted apart as ``*_halo``:
     on one card one cluster launch a call, else a stats and an apply
     launch a shard, counted once a shard; what the JAX package's GSPMD
-    runs on the gathered plane)
+    runs on the gathered plane; and on a grid of tiles, the same two forms
+    counted apart as ``*_tile``)
   block.conv3x3_stats / conv3x3_norm_in_stats ← pallas_block.conv3x3_stats /
     conv3x3_norm_in_stats
   conv.conv3x3_valid_pallas(_v2)    ← pallas_conv.conv3x3_valid_pallas(_v2)
@@ -73,6 +74,8 @@ LAUNCHES: dict[str, int] = {
     "fused_instance_norm_residual": 0,
     "fused_instance_norm_halo": 0,
     "fused_instance_norm_residual_halo": 0,
+    "fused_instance_norm_tile": 0,
+    "fused_instance_norm_residual_tile": 0,
     "blur_downsample": 0,
     "conv3x3_valid": 0,
     "conv3x3_stats": 0,

@@ -34,6 +34,19 @@ shards, the plain versions. The kernels' merge is one ``__device__``
 function, and ``merge_shard_stats`` takes its steps in torch. The backward
 is the IN backward in plain torch with the two plane means (of g and of
 g·x̂) summed across the shards, from the forward's saved (mean, inv).
+
+Its tile form: the plane held as a grid of tiles (test mode's 2-D H×W mesh,
+``parallel/spatial.py``), Sh rows of Sw tiles, each tile its own rows and
+columns. A tile is a shard of rows·columns pixels: its (count, mean, M2)
+are the same passes over its own pixels, and the merge takes the tiles in
+one fixed order, row by row (``parallel.spatial.tiles``), in the kernels,
+in ``merge_shard_stats`` and in the plain version alike. Every cluster
+rank and every per-shard launch carries its tile's rows, columns and
+pointers, so the cluster form takes Sh·Sw ≤ 8 tiles of one plane on one
+card (2×2, 4×2) and the per-shard form any count. A 1-D mesh is the Sw = 1
+case, every shard the plane's width (``halo_plan`` is ``tile_plan`` with
+every shard's columns the plane's). The tile form has no backward: 2-D
+tiling serves only, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -54,7 +67,14 @@ from ircolor_tpu_torch.kernels import (
     stream_ptr,
 )
 from ircolor_tpu_torch.ops.norm import instance_norm, instance_norm_spatial
-from ircolor_tpu_torch.parallel.spatial import all_sum
+from ircolor_tpu_torch.parallel.spatial import (
+    all_sum,
+    image_shape,
+    on_shards,
+    regrid,
+    tiled,
+    tiles,
+)
 
 # The JAX kernel's budget: 12 double-buffered plane-equivalents (16 with a
 # residual) of one channel block within 30 MB of VMEM.
@@ -78,8 +98,8 @@ def _load():
         lib.ircolor_instance_norm_apply.argtypes = [i, i, i, i, p, p, p, ints, i, p, p, p, i, i, i,
                                                     i, p]
         lib.ircolor_instance_norm_apply.restype = i
-        lib.ircolor_instance_norm_cluster.argtypes = [i, i, i, i, i, ptrs, ptrs, ptrs, ints, p, p,
-                                                      i, i, i, i, p]
+        lib.ircolor_instance_norm_cluster.argtypes = [i, i, i, i, i, ptrs, ptrs, ptrs, ints, ints,
+                                                      p, p, i, i, i, p]
         lib.ircolor_instance_norm_cluster.restype = i
         _lib = lib
     return _lib
@@ -279,14 +299,15 @@ def _shard_head_bytes(dtype: torch.dtype, slice_bytes: int) -> int:
     return (_NWARPS + 4) * (slice_bytes // dtype.itemsize) * 4
 
 
-def _slice_bytes(heights: tuple, w: int, c: int, dtype: torch.dtype) -> int:
+def _slice_bytes(pixels: tuple, c: int, dtype: torch.dtype) -> int:
     """A shard form block's channel slice: 64 bytes where C holds that many
-    and the tallest shard's 64-byte slice plane fits in shared memory with
-    the head (on the H100 at the 16×64×64×256 bottleneck, S = 2: 0.036 ms
-    a cluster launch against 0.048 at 32 bytes, ``tools/in_halo_probe.py``:
-    one CTA a SM in two full waves), else 32. Both forms take the same, so
-    their sums run in the same order."""
-    fits = _shard_head_bytes(dtype, 64) + max(heights) * w * 64 <= _MAX_SMEM
+    and the largest shard's (of ``pixels`` each) 64-byte slice plane fits
+    in shared memory with the head (on the H100 at the 16×64×64×256
+    bottleneck, S = 2: 0.036 ms a cluster launch against 0.048 at 32
+    bytes, ``tools/in_halo_probe.py``: one CTA a SM in two full waves),
+    else 32. Both forms take the same, so their sums run in the same
+    order."""
+    fits = _shard_head_bytes(dtype, 64) + max(pixels) * 64 <= _MAX_SMEM
     return 64 if fits and c * dtype.itemsize >= 64 else 32
 
 
@@ -294,8 +315,9 @@ def _slice_bytes(heights: tuple, w: int, c: int, dtype: torch.dtype) -> int:
 class HaloPlan:
     """How a row-11h call runs. ``form``: "cluster" (one launch), "per_shard"
     (a stats and an apply launch a shard) or "plain"; ``cluster``: the
-    cluster size (S in the cluster form, else 0); ``starts`` / ``rows``:
-    each shard's first row and height in the plane; ``slice_bytes``: a
+    cluster size (S in the cluster form, else 0); ``starts`` / ``rows`` /
+    ``cols``: the rows before each shard in shard order (a 1-D mesh: its
+    first row in the plane), its rows and its columns; ``slice_bytes``: a
     block's channel slice in both kernel forms (0 for "plain"); in the
     cluster form ``staged``: each CTA's staged bytes (0: the CTA reads x
     again), ``stage_cap``: the launch's staging bytes (the largest of
@@ -310,12 +332,13 @@ class HaloPlan:
     staged: tuple = ()
     stage_cap: int = 0
     smem: int = 0
+    cols: tuple = ()
 
 
 def halo_form(devices, per_shard: bool = False) -> str:
-    """The form for shards on ``devices``: every one on the CPU → "plain";
-    every one on one card and at most ``CLUSTER_MAX`` → "cluster" (unless
-    ``per_shard``); any other CUDA layout → "per_shard"."""
+    """The form for shards (or tiles) on ``devices``: every one on the CPU →
+    "plain"; every one on one card and at most ``CLUSTER_MAX`` → "cluster"
+    (unless ``per_shard``); any other CUDA layout → "per_shard"."""
     kinds = {d.type for d in devices}
     if kinds == {"cpu"}:
         return "plain"
@@ -328,30 +351,32 @@ def halo_form(devices, per_shard: bool = False) -> str:
 
 
 @functools.lru_cache(maxsize=256)
+def tile_plan(heights: tuple, cols: tuple, c: int, dtype: torch.dtype, devices: tuple,
+              per_shard: bool = False) -> HaloPlan:
+    """The launch plan of a row-11h call on shards (or tiles, in tile
+    order) of ``heights`` rows and ``cols`` columns of a plane of ``c``
+    channels on ``devices``: the form, the cluster size, the shard table,
+    the channel slice, and each cluster CTA's staged bytes (its shard's
+    slice plane, rows·cols·slice bytes, where that fits in a block's
+    shared memory with the head; else 0)."""
+    form = halo_form(devices, per_shard)
+    table = (tuple(itertools.accumulate((0, *heights[:-1]))), tuple(heights))
+    if form == "plain":
+        return HaloPlan(form, 0, *table, cols=cols)
+    pixels = tuple(h * w for h, w in zip(heights, cols))
+    sb = _slice_bytes(pixels, c, dtype)
+    if form == "per_shard":
+        return HaloPlan(form, 0, *table, sb, cols=cols)
+    head = _shard_head_bytes(dtype, sb)
+    staged = tuple(n * sb if head + n * sb <= _MAX_SMEM else 0 for n in pixels)
+    return HaloPlan(form, len(heights), *table, sb, staged, max(staged), head + max(staged), cols)
+
+
 def halo_plan(heights: tuple, w: int, c: int, dtype: torch.dtype, devices: tuple,
               per_shard: bool = False) -> HaloPlan:
-    """The launch plan of a row-11h call on shards of ``heights`` rows of a
-    (B, ·, w, c) plane on ``devices``: the form, the cluster size, the
-    shard table's row starts and counts, the channel slice, and each
-    cluster CTA's staged bytes (its shard's slice plane, h·w·slice bytes,
-    where that fits in a block's shared memory with the head; else 0)."""
-    form = halo_form(devices, per_shard)
-    starts = tuple(itertools.accumulate((0, *heights[:-1])))
-    if form == "plain":
-        return HaloPlan(form, 0, starts, tuple(heights))
-    sb = _slice_bytes(heights, w, c, dtype)
-    if form == "per_shard":
-        return HaloPlan(form, 0, starts, tuple(heights), sb)
-    head = _shard_head_bytes(dtype, sb)
-    planes = [h * w * sb for h in heights]
-    staged = tuple(p if head + p <= _MAX_SMEM else 0 for p in planes)
-    return HaloPlan(form, len(heights), starts, tuple(heights), sb, staged, max(staged),
-                    head + max(staged))
-
-
-def _global_shape(xs) -> tuple:
-    b, _, w, c = xs[0].shape
-    return (b, sum(x.shape[1] for x in xs), w, c)
+    """``tile_plan`` of H-shards of ``heights`` rows of a (B, ·, w, c)
+    plane: every shard ``w`` columns."""
+    return tile_plan(tuple(heights), (w,) * len(heights), c, dtype, tuple(devices), per_shard)
 
 
 def shard_stats_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -418,11 +443,11 @@ def _vec_all(*groups) -> int:
 
 
 def _require_shards(xs, rs) -> None:
-    b, _, w, c = xs[0].shape
+    b, _, _, c = xs[0].shape
     if b > 65535:
         raise ValueError(f"fused IN kernel: batch {b} > 65535")
     for i, x in enumerate(xs):
-        require(x, f"x[{i}]", xs[0].dtype, (b, None, w, c))
+        require(x, f"x[{i}]", xs[0].dtype, (b, None, None, c))
         if rs is not None:
             require(rs[i], f"r[{i}]", x.dtype, tuple(x.shape))
 
@@ -433,16 +458,17 @@ def _ptrs(ts):
 
 @on_input_card
 def _launch_cluster(mode: str, xs, rs, plan: HaloPlan):
-    """The cluster form: one launch over every shard (all on this card)."""
+    """The cluster form: one launch over every shard or tile (all on this
+    card), each with its own rows and columns."""
     _require_shards(xs, rs)
-    b, _, w, c = xs[0].shape
+    b, _, _, c = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
     mean, inv = torch.empty((2, b, c), dtype=torch.float32, device=xs[0].device)
     err = _load().ircolor_instance_norm_cluster(
         int(xs[0].dtype == torch.float32), _MODES[mode], _vec_all(xs, rs, outs), plan.slice_bytes,
         len(xs), _ptrs(xs), None if rs is None else _ptrs(rs), _ptrs(outs),
-        (ctypes.c_int * len(xs))(*plan.rows), mean.data_ptr(), inv.data_ptr(), b, w, c,
-        plan.stage_cap, stream_ptr(xs[0]))
+        (ctypes.c_int * len(xs))(*plan.rows), (ctypes.c_int * len(xs))(*plan.cols),
+        mean.data_ptr(), inv.data_ptr(), b, c, plan.stage_cap, stream_ptr(xs[0]))
     if err == _NO_CLUSTER:
         raise RuntimeError(f"row 11h: no cluster of {plan.cluster} blocks with {plan.smem} bytes "
                            "of shared memory each fits the card")
@@ -483,21 +509,22 @@ def _launch_apply(mode: str, x: torch.Tensor, r, out: torch.Tensor, table: torch
 
 
 def _run_per_shard(mode: str, name: str, xs, rs, plan: HaloPlan):
-    """The per-shard form: a stats launch a non-empty shard, the S partials
-    copied to each shard's card, an apply launch a non-empty shard that
-    merges them itself (the first also writes the plane's (mean, inv))."""
+    """The per-shard form: a stats launch a non-empty shard (or tile), the
+    S partials copied to each shard's card, an apply launch a non-empty
+    shard that merges them itself (the first also writes the plane's
+    (mean, inv))."""
     if len(xs) > _MAX_SHARDS:
         raise ValueError(f"row 11h: {len(xs)} shards > {_MAX_SHARDS}")
     _require_shards(xs, rs)
-    b, _, w, c = xs[0].shape
+    b, _, _, c = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
     vec = _vec_all(xs, rs, outs)
-    parts = [_launch_stats(x, vec, plan.slice_bytes) if x.shape[1] else
+    parts = [_launch_stats(x, vec, plan.slice_bytes) if x.shape[1] * x.shape[2] else
              torch.zeros((2, b, c), dtype=torch.float32, device=x.device) for x in xs]
-    counts = (ctypes.c_int * len(xs))(*[x.shape[1] * w for x in xs])
+    counts = (ctypes.c_int * len(xs))(*[x.shape[1] * x.shape[2] for x in xs])
     tables, mean, inv = {}, None, None
     for i, x in enumerate(xs):
-        if not x.shape[1]:
+        if not x.shape[1] * x.shape[2]:
             continue
         if x.device not in tables:
             tables[x.device] = torch.stack([p.to(x.device) for p in parts])
@@ -519,42 +546,48 @@ def _run_plain_spatial(xs, relu: bool, residuals):
 
 
 def _run_in_spatial(xs, relu: bool, residuals, plain: bool = False, per_shard: bool = False):
-    """``run_in_spatial``'s shards and the plane's (mean, inv); with
-    ``plain`` every shard on the plain versions; with ``per_shard`` the
-    per-shard form also where the cluster form would run (so that tests
-    and ``chip_smoke.py`` can hold the two forms against each other)."""
-    _check_fits_shape(_global_shape(xs), xs[0].dtype, residuals is not None)
-    for x in xs:
+    """``run_in_spatial``'s shards (tiles, in the grid's shape) and the
+    plane's (mean, inv); with ``plain`` every shard on the plain versions;
+    with ``per_shard`` the per-shard form also where the cluster form would
+    run (so that tests and ``chip_smoke.py`` can hold the two forms against
+    each other). A grid runs as the list of its tiles in tile order."""
+    flat, rs = tiles(xs), None if residuals is None else tiles(residuals)
+    _check_fits_shape(image_shape(xs), flat[0].dtype, rs is not None)
+    for x in flat:
         _shard_dtype(x)
-    if plain:
-        return _run_plain_spatial(xs, relu, residuals)
-    plan = halo_plan(tuple(x.shape[1] for x in xs), xs[0].shape[2], xs[0].shape[3], xs[0].dtype,
-                     tuple(x.device for x in xs), per_shard)
-    if plan.form == "plain":
-        return _run_plain_spatial(xs, relu, residuals)
-    name = "fused_instance_norm_residual_halo" if residuals is not None else "fused_instance_norm_halo"
-    mode = "residual" if residuals is not None else ("relu" if relu else "plain")
-    if plan.form == "per_shard":
-        return _run_per_shard(mode, name, xs, residuals, plan)
-    outs, mean, inv = _launch_cluster(mode, xs, residuals, plan)
-    LAUNCHES[name] += 1
-    return outs, mean, inv
+    plan = None if plain else tile_plan(tuple(x.shape[1] for x in flat),
+                                        tuple(x.shape[2] for x in flat), flat[0].shape[3],
+                                        flat[0].dtype, tuple(x.device for x in flat), per_shard)
+    if plan is None or plan.form == "plain":
+        outs, mean, inv = _run_plain_spatial(flat, relu, rs)
+    else:
+        name = (f"fused_instance_norm{'_residual' if rs is not None else ''}"
+                f"_{'tile' if tiled(xs) else 'halo'}")
+        mode = "residual" if rs is not None else ("relu" if relu else "plain")
+        if plan.form == "per_shard":
+            outs, mean, inv = _run_per_shard(mode, name, flat, rs, plan)
+        else:
+            outs, mean, inv = _launch_cluster(mode, flat, rs, plan)
+            LAUNCHES[name] += 1
+    return regrid(outs, xs), mean, inv
 
 
-def run_in_spatial(xs, relu: bool = False, residuals=None) -> list[torch.Tensor]:
+def run_in_spatial(xs, relu: bool = False, residuals=None) -> list:
     """Row 11h: IN (+ ReLU, or + r) of the plane whose H-shards are ``xs``
     (bf16 or f32; a global shape ``pallas_fits`` admits), one output shard
-    each, with no gather. Every shard on one card and S ≤ ``CLUSTER_MAX``:
+    each, with no gather; of a grid of tiles, its tile form (module
+    docstring), one output tile each. Every shard on one card and S ≤ ``CLUSTER_MAX``:
     the cluster form, one launch, +1 to
     ``fused_instance_norm(_residual)_halo``; any other CUDA layout: the
     per-shard form, a stats and an apply launch a non-empty shard, +1 a
-    non-empty shard; CPU shards: the plain versions. Both kernel forms and
+    non-empty shard; CPU shards: the plain versions. The tile form counts
+    as ``fused_instance_norm(_residual)_tile``. Both kernel forms and
     the plain version merge the shards' statistics by the same steps
     (``merge_shard_stats``)."""
     return _run_in_spatial(xs, relu, residuals)[0]
 
 
-def run_in_spatial_plain(xs, relu: bool = False, residuals=None) -> list[torch.Tensor]:
+def run_in_spatial_plain(xs, relu: bool = False, residuals=None) -> list:
     """Plain version of ``run_in_spatial``, on any device: each shard's
     statistics and output by ``shard_stats_plain`` and
     ``shard_apply_plain``, the same merge."""
@@ -603,35 +636,49 @@ class _FusedINSpatial(torch.autograd.Function):
         return (None, None, *dxs, *drs)
 
 
-def fused_instance_norm_spatial(xs, relu: bool = False) -> list[torch.Tensor]:
-    """``fused_instance_norm`` of the plane whose H-shards are ``xs``
-    (row 11h); differentiable in every shard."""
-    if _needs_grad(*xs):
+def _differentiable(xs, rs=()) -> bool:
+    """Whether a row-11h call on shards must record its backward; a grid of
+    tiles never does (2-D tiling serves only, as the JAX package's does:
+    its training reads no W axis), and raises where it would."""
+    if not _needs_grad(*tiles(xs), *tiles(rs)):
+        return False
+    if tiled(xs):
+        raise NotImplementedError("row 11h's tile form has no backward: 2-D H×W tiling runs in "
+                                  "test mode only (run it under torch.inference_mode)")
+    return True
+
+
+def fused_instance_norm_spatial(xs, relu: bool = False) -> list:
+    """``fused_instance_norm`` of the plane whose H-shards (or tiles) are
+    ``xs`` (row 11h); differentiable in every H-shard."""
+    if _differentiable(xs):
         return list(_FusedINSpatial.apply(relu, False, *xs))
     return run_in_spatial(xs, relu)
 
 
-def fused_instance_norm_residual_spatial(xs, rs) -> list[torch.Tensor]:
-    """``fused_instance_norm_residual`` on H-shards: ``r + IN(x)`` shard by
-    shard with the plane's statistics; differentiable in x and r."""
-    if _needs_grad(*xs, *rs):
+def fused_instance_norm_residual_spatial(xs, rs) -> list:
+    """``fused_instance_norm_residual`` on H-shards (or tiles): ``r + IN(x)``
+    shard by shard with the plane's statistics; differentiable in x and r
+    on H-shards."""
+    if _differentiable(xs, rs):
         return list(_FusedINSpatial.apply(False, True, *xs, *rs))
     return run_in_spatial(xs, residuals=rs)
 
 
 def instance_norm_auto_spatial(xs, *, relu: bool = False, residuals=None,
                                use_pallas: bool = True) -> list[torch.Tensor]:
-    """``instance_norm_auto`` on H-shards: row 11h where ``pallas_fits``
-    admits the global shape (the shard heights summed), as the JAX
-    package's GSPMD gate sees it; else the two-pass plain ops across the
-    shards (``ops.norm.instance_norm_spatial``), then ReLU or + r."""
-    if use_pallas and pallas_fits(_global_shape(xs), xs[0].dtype, residuals is not None):
+    """``instance_norm_auto`` on H-shards (or tiles): row 11h where
+    ``pallas_fits`` admits the global shape (the shard heights summed, the
+    tile widths too), as the JAX package's GSPMD gate sees it; else the
+    two-pass plain ops across the shards (``ops.norm.instance_norm_spatial``),
+    then ReLU or + r."""
+    if use_pallas and pallas_fits(image_shape(xs), tiles(xs)[0].dtype, residuals is not None):
         if residuals is not None:
             return fused_instance_norm_residual_spatial(xs, residuals)
         return fused_instance_norm_spatial(xs, relu)
     ys = instance_norm_spatial(xs)
     if relu:
-        ys = [torch.relu(y) for y in ys]
+        ys = on_shards(torch.relu, ys)
     if residuals is not None:
-        ys = [y + r for y, r in zip(ys, residuals)]
+        ys = on_shards(torch.add, ys, residuals)
     return ys

@@ -22,6 +22,11 @@
   ``conv_nhwc_window_spatial`` at any kernel, stride and zero padding, on
   shards that may be unequal or empty (the discriminator, the VGG tower,
   the no_antialias down convs).
+
+Each ``_spatial`` form also takes the image as a grid of tiles (test mode's
+2-D H×W mesh, ``parallel/spatial.py``) and returns one in the same shape:
+each tile's conv over its rows, columns and their halos (corners too), the
+norms by the statistics of every tile in tile order.
 """
 
 from __future__ import annotations
@@ -42,7 +47,20 @@ from ircolor_tpu_torch.ops.norm import (
 )
 from ircolor_tpu_torch.ops.padding import pad2d_spatial
 from ircolor_tpu_torch.ops.quant import conv2d_int8, conv2d_int8_fixed, conv2d_int8_spatial
-from ircolor_tpu_torch.parallel.spatial import all_sum, exchange_halo_rows, window_slabs
+from ircolor_tpu_torch.parallel.spatial import (
+    all_sum,
+    as_grid,
+    columns,
+    exchange_halo_rows,
+    from_grid,
+    on_shards,
+    regrid,
+    tile_sizes,
+    tiled,
+    tiles,
+    window_heights,
+    window_slabs,
+)
 
 NORM_TYPES = ("instance", "batch", "none")
 
@@ -94,11 +112,12 @@ class BatchNorm(nn.Module):
     ``SyncBatchNorm`` does.
 
     ``forward_spatial`` is the same on an image held as a list of H-shards
-    (spatial training and test mode): the per-channel f32 sums, sums of
-    squares and counts of every shard added in shard order
-    (``parallel.spatial.all_sum``; an empty shard adds nothing), with
-    ``sync`` then all-reduced across the ranks, so the statistics are the
-    whole batch's; the running statistics move once a forward."""
+    (spatial training and test mode) or as a grid of tiles: the
+    per-channel f32 sums, sums of squares and counts of every shard added
+    in shard order (``parallel.spatial.all_sum``; an empty shard adds
+    nothing), with ``sync`` then all-reduced across the ranks, so the
+    statistics are the whole batch's; the running statistics move once a
+    forward."""
 
     update_stats = True
     sync = False
@@ -138,9 +157,11 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
                 self.num_batches_tracked += 1
 
-    def forward_spatial(self, xs) -> list[torch.Tensor]:
-        """``forward`` of the image whose H-shards are ``xs`` (class
-        docstring), one float32 shard each."""
+    def forward_spatial(self, xs) -> list:
+        """``forward`` of the image whose H-shards (or tiles) are ``xs``
+        (class docstring), one float32 shard each."""
+        if tiled(xs):
+            return regrid(self.forward_spatial(tiles(xs)), xs)
         x32 = [x.float() for x in xs]
         if self.training:
             c = x32[0].shape[-1]
@@ -259,72 +280,103 @@ def concat_conv3x3(
     return to_nhwc(y)
 
 
-def norm_nhwc_spatial(xs) -> list[torch.Tensor]:
-    """``norm_nhwc`` of the image whose H-shards are ``xs``."""
-    if xs[0].dtype == torch.bfloat16:
+def _cast(xs, dtype: torch.dtype):
+    """The H-shards (or tiles) ``xs`` in ``dtype``."""
+    return on_shards(lambda x: x.to(dtype), xs)
+
+
+def norm_nhwc_spatial(xs) -> list:
+    """``norm_nhwc`` of the image whose H-shards (or tiles) are ``xs``."""
+    if tiles(xs)[0].dtype == torch.bfloat16:
         return instance_norm_onepass_spatial(xs)
     return instance_norm_spatial(xs)
 
 
 def conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *, pad: int,
-                      pad_type: str) -> list[torch.Tensor]:
+                      pad_type: str) -> list:
     """``conv_nhwc`` (stride 1) of ``pad`` pixels of ``pad_type`` padding
-    and ``conv`` applied VALID, on the image whose H-shards are ``xs``: the
-    conv's own zero padding (down1, down2) or a pad module before it (inc,
-    outc, the resnet blocks' reflect pads)."""
-    out = []
-    for slab in pad2d_spatial([x.to(dtype) for x in xs], pad, pad_type):
+    and ``conv`` applied VALID, on the image whose H-shards (or tiles) are
+    ``xs``: the conv's own zero padding (down1, down2) or a pad module
+    before it (inc, outc, the resnet blocks' reflect pads)."""
+    def one(slab):
         dev = slab.device
         bias = None if conv.bias is None else conv.bias.to(dev, dtype)
-        out.append(to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias)))
-    return out
+        return to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias))
+
+    return on_shards(one, pad2d_spatial(_cast(xs, dtype), pad, pad_type))
 
 
-def conv_nhwc_window_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype) -> list[torch.Tensor]:
+def conv_nhwc_window_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype) -> list:
     """``conv_nhwc`` at the conv's own kernel, stride and zero padding (any
     of them: the discriminator's 4×4 convs at strides 2 and 1, the VGG
     tower's 3×3) on the image whose H-shards are ``xs``: each shard's
     output rows by ``parallel.spatial.window_heights``' owner rule, from its
-    slab of input rows (``window_slabs``); a shard that keeps no output row
-    gets an empty one. The shards may be unequal or empty."""
+    slab of input rows (``window_slabs``), the W padding the conv's own; a
+    shard that keeps no output row gets an empty one. The shards may be
+    unequal or empty. A grid of tiles (a square kernel, stride and
+    padding): the owner rule in both axes, each tile's 2-D slab
+    (``window_slabs``) convolved with no padding."""
     k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
-    w_out = (xs[0].shape[2] + 2 * conv.padding[1] - conv.kernel_size[1]) // conv.stride[1] + 1
-    out = []
-    for x, slab in zip(xs, window_slabs([x.to(dtype) for x in xs], k, s, p)):
+    hs = window_heights(tile_sizes(xs, 1), k, s, p)
+    if tiled(xs):
+        ws, w_pad = window_heights(tile_sizes(xs, 2), k, s, p), 0
+    else:
+        w_pad = conv.padding[1]
+        ws = [(xs[0].shape[2] + 2 * w_pad - conv.kernel_size[1]) // conv.stride[1] + 1]
+
+    def one(x, slab, n, m):
         if slab is None:
-            out.append(x.new_zeros((x.shape[0], 0, w_out, conv.out_channels), dtype=dtype))
-            continue
+            return x.new_zeros((x.shape[0], n, m, conv.out_channels), dtype=dtype)
         dev = slab.device
         bias = None if conv.bias is None else conv.bias.to(dev, dtype)
-        out.append(to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias,
-                                    stride=conv.stride, padding=(0, conv.padding[1]))))
-    return out
+        return to_nhwc(F.conv2d(to_nchw(slab), conv.weight.to(dev, dtype), bias,
+                                stride=conv.stride, padding=(0, w_pad)))
+
+    slabs = as_grid(window_slabs(_cast(xs, dtype), k, s, p))
+    return from_grid([[one(x, slab, n, m) for x, slab, m in zip(row, srow, ws)]
+                      for row, srow, n in zip(as_grid(xs), slabs, hs)], xs)
 
 
 def quant_conv_nhwc_spatial(conv: nn.Conv2d, xs, dtype: torch.dtype, *,
-                            pad: str = "zero") -> list[torch.Tensor]:
+                            pad: str = "zero") -> list:
     """``quant_conv_nhwc`` at the conv's stride (1, or 2 with zero padding)
-    on the image whose H-shards are ``xs`` (``ops.quant.conv2d_int8_spatial``)."""
+    on the image whose H-shards (or tiles) are ``xs``
+    (``ops.quant.conv2d_int8_spatial``)."""
     return conv2d_int8_spatial(xs, _hwio(conv), pad=pad, stride=conv.stride[0], bias=conv.bias,
                                out_dtype=dtype)
 
 
-def conv_transpose_spatial(layer: nn.ConvTranspose2d, xs, dtype: torch.dtype) -> list[torch.Tensor]:
+def _with_next(xs, axis: int) -> list:
+    """Each shard with the one row (``axis`` 2: column) after it: the next
+    shard's first, a zero row past the image."""
+    return [torch.cat([x, nxt], dim=axis)
+            for x, (_, nxt) in zip(xs, exchange_halo_rows(xs, 1, "zero", axis))]
+
+
+def conv_transpose_spatial(layer: nn.ConvTranspose2d, xs, dtype: torch.dtype) -> list:
     """The generator's ``no_antialias_up`` ConvTranspose (3×3, stride 2,
     pad 1, output_padding 1) in ``dtype`` on the image whose H-shards are
     ``xs``: input row i feeds output rows 2i − 1 … 2i + 1, so a shard of
     input rows [a, b) makes output rows [2a, 2b) from its rows and the one
     row below it (a zero row past the image, where output_padding's last
-    row reads nothing). Shard i's output is 2·its rows."""
-    out = []
-    for x, (_, bot) in zip(xs, exchange_halo_rows([x.to(dtype) for x in xs], 1, "zero")):
-        dev = x.device
+    row reads nothing). Shard i's output is 2·its rows. A grid of tiles:
+    the same in both axes, each tile with the column right of it, then
+    the row below (the corner too), 2·its rows × 2·its columns out."""
+    xs = _cast(xs, dtype)
+    if tiled(xs):
+        slabs = columns([_with_next(col, 1) for col in columns([_with_next(row, 2) for row in xs])])
+    else:
+        slabs = [[slab] for slab in _with_next(xs, 1)]
+
+    def one(x, slab):
+        dev = slab.device
         bias = None if layer.bias is None else layer.bias.to(dev, dtype)
-        slab = torch.cat([x.to(dtype), bot], dim=1)
         y = F.conv_transpose2d(to_nchw(slab), layer.weight.to(dev, dtype), bias, stride=2,
                                padding=1, output_padding=1)
-        out.append(to_nhwc(y[:, :, : 2 * x.shape[1]]))
-    return out
+        return to_nhwc(y[:, :, : 2 * x.shape[1], : 2 * x.shape[2]])
+
+    return from_grid([[one(x, slab) for x, slab in zip(row, srow)]
+                      for row, srow in zip(as_grid(xs), slabs)], xs)
 
 
 def concat_conv3x3_spatial(conv: nn.Conv2d, as_, bs, dtype: torch.dtype,
@@ -336,7 +388,7 @@ def concat_conv3x3_spatial(conv: nn.Conv2d, as_, bs, dtype: torch.dtype,
     both are always off (``check_spatial_compat``), so an int8 generator's
     ``quant_convs`` holds and its route is always ``"dynamic"``, whatever
     the variant."""
-    ca = as_[0].shape[-1]
+    ca = tiles(as_)[0].shape[-1]
     if quant == "dynamic":
         k = _hwio(conv)
         ya = conv2d_int8_spatial(as_, k[:, :, :ca], out_dtype=torch.float32)
@@ -344,15 +396,15 @@ def concat_conv3x3_spatial(conv: nn.Conv2d, as_, bs, dtype: torch.dtype,
     if quant is not None:
         raise NotImplementedError(f"the spatial concat conv takes quant None or 'dynamic', "
                                   f"got {quant!r}")
-    out = []
-    for sa, sb in zip(pad2d_spatial([a.to(dtype) for a in as_], 1, "zero"),
-                      pad2d_spatial([b.to(dtype) for b in bs], 1, "zero")):
+    def one(sa, sb):
         w = conv.weight.to(sa.device, dtype)
         y = F.conv2d(to_nchw(sa), w[:, :ca]) + F.conv2d(to_nchw(sb), w[:, ca:])
         if conv.bias is not None:
             y = y + conv.bias.to(sa.device, dtype)[None, :, None, None]
-        out.append(to_nhwc(y))
-    return out
+        return to_nhwc(y)
+
+    return on_shards(one, pad2d_spatial(_cast(as_, dtype), 1, "zero"),
+                     pad2d_spatial(_cast(bs, dtype), 1, "zero"))
 
 
 def init_norm_(bn: BatchNorm, gain: float, gen: torch.Generator) -> None:

@@ -88,6 +88,19 @@ dropout (the mask drawn in the whole activation's shape, each shard its
 rows) and ``use_pallas`` (every instance norm through row 11h, kernel
 11's shard form, where ``pallas_fits`` admits the global shape). The fused
 halo blocks keep JAX's gate: instance norm, reflect pads, no dropout.
+
+With a 2-D H×W mesh (``spatial_mesh`` a list of rows of devices; test mode's
+``sp_w_devices``) the forward takes and returns a grid of tiles: equal
+tiles in, and after each stride-2 stage the owner rule in both axes
+(``parallel/spatial.py``), so H need only divide by the mesh's rows and W
+by its columns, while the bottleneck keeps a row and a column a tile. Every
+op above runs on the tiles with halo rows, columns and corners (halo
+columns first, then rows, as GSPMD exchanges them), every reduction over
+every tile in tile order, each upsample cut as its skip's tiles, and every
+variant as on the 1-D mesh, with ``use_pallas`` through row 11h's tile
+form. The fused blocks, the tails and the head stay off, as JAX's runner
+turns them off on a 2-D mesh (``check_spatial_compat``); int8 serving runs
+the int8 conv at every enc/dec and block conv site on 2-D slabs.
 """
 
 from __future__ import annotations
@@ -137,9 +150,17 @@ from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
 from ircolor_tpu_torch.ops.padding import pad2d, reflect_pad2d
 from ircolor_tpu_torch.ops.resize import bilinear_align_corners, bilinear_align_corners_spatial
 from ircolor_tpu_torch.parallel.spatial import (
+    as_grid,
     check_spatial_compat,
     check_stage_heights,
-    reshard_rows,
+    from_grid,
+    image_shape,
+    on_shards,
+    reshard_hw,
+    tile_sizes,
+    tile_starts,
+    tiled,
+    tiles,
 )
 
 
@@ -373,18 +394,15 @@ class ResnetBlock(nn.Module):
     def _dropout(self, hs: list) -> list:
         """Dropout of the activation held as the H-shards ``hs`` (one shard:
         the whole tensor) in training: one mask in the whole shape, each
-        shard its rows, the kept values × 2; the identity in eval."""
+        shard its rows (each tile of a grid its rows and columns), the kept
+        values × 2; the identity in eval."""
         if not (self.use_dropout and self.training):
             return hs
-        b, _, w, c = hs[0].shape
-        keep = dropout_keep((b, sum(h.shape[1] for h in hs), w, c), hs[0].device,
-                            self.dropout_generator)
-        out, start = [], 0
-        for h in hs:
-            k = keep[:, start : start + h.shape[1]].to(h.device)
-            out.append(h * k.to(h.dtype) * (1.0 / (1.0 - _DROP)))
-            start += h.shape[1]
-        return out
+        keep = dropout_keep(image_shape(hs), tiles(hs)[0].device, self.dropout_generator)
+        out = [[h * keep[:, r : r + h.shape[1], c : c + h.shape[2]].to(h.device).to(h.dtype)
+                * (1.0 / (1.0 - _DROP)) for h, c in zip(row, tile_starts(hs, 2))]
+               for row, r in zip(as_grid(hs), tile_starts(hs, 1))]
+        return from_grid(out, hs)
 
     def _conv_spatial(self, layer: nn.Conv2d, xs: list) -> list:
         if self.quant:
@@ -396,8 +414,10 @@ class ResnetBlock(nn.Module):
         the JAX gate holds per shard on equal shards (instance norm,
         reflect, no dropout), else ``forward``'s unfused route on shards:
         its pads as halo rows, its norm across the shards (row 11h under
-        ``use_pallas``), dropout's rows of one mask."""
-        if all(x.shape[1] == xs[0].shape[1] for x in xs) and self.fused(xs[0], len(xs)):
+        ``use_pallas``), dropout's rows of one mask. A grid of tiles takes
+        the unfused route (the halo forms exchange rows only)."""
+        if (not tiled(xs) and all(x.shape[1] == xs[0].shape[1] for x in xs)
+                and self.fused(xs[0], len(xs))):
             k1, k2 = _hwio(self.conv1, self.dtype), _hwio(self.conv2, self.dtype)
             blk = resnet_block_pallas_q_spatial if self.quant else resnet_block_pallas_spatial
             return blk(xs, k1, k2)
@@ -405,9 +425,9 @@ class ResnetBlock(nn.Module):
             h = instance_norm_auto_spatial(self._conv_spatial(self.conv1, xs), relu=True)
             return instance_norm_auto_spatial(self._conv_spatial(self.conv2, h), residuals=xs)
         n1, n2 = self._norms
-        h = self._dropout([torch.relu(t) for t in
-                           apply_norm_spatial(n1, self._conv_spatial(self.conv1, xs))])
-        return [x + y for x, y in zip(xs, apply_norm_spatial(n2, self._conv_spatial(self.conv2, h)))]
+        h = self._dropout(on_shards(torch.relu,
+                                    apply_norm_spatial(n1, self._conv_spatial(self.conv1, xs))))
+        return on_shards(torch.add, xs, apply_norm_spatial(n2, self._conv_spatial(self.conv2, h)))
 
 
 class ResnetUNetGenerator(nn.Module):
@@ -466,8 +486,8 @@ class ResnetUNetGenerator(nn.Module):
         self.quant_int8 = quant_int8
         self.quant_fixed_u2 = quant_fixed_u2
         self.quant_head = quant_head
-        # A 1-D H mesh (parallel.spatial.make_spatial_mesh): the forward
-        # takes and returns H-shards (module docstring).
+        # A 1-D H mesh or a 2-D H×W mesh (parallel.spatial.make_spatial_mesh):
+        # the forward takes and returns H-shards or tiles (module docstring).
         self.spatial_mesh = spatial_mesh
 
         def norm_relu(c):
@@ -655,7 +675,7 @@ class ResnetUNetGenerator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """IR (B, H, W, input_nc) in [-1, 1] → RGB (B, H, W, output_nc) in
         [-1, 1], in the compute dtype; with ``spatial_mesh`` set, ``x`` and
-        the result are lists of H-shards."""
+        the result are lists of H-shards (a 2-D mesh: grids of tiles)."""
         if self.spatial_mesh is not None:
             return self._forward_spatial(x)
         dt = self.dtype
@@ -705,25 +725,38 @@ class ResnetUNetGenerator(nn.Module):
                              "must be off (train.state.train_config turns them off)")
 
     def _check_spatial(self, xs: list) -> None:
-        """What the spatial forward runs: the 1-D mesh's shard count, equal
-        input shards, no fused kernel in training (``check_spatial_variants``).
-        The stage rule is the blur-pool's for the stride-2 convs too: both
-        give shard i the output rows r with 2r among its rows."""
-        check_spatial_compat(self, self.spatial_mesh)
-        if len(xs) != len(self.spatial_mesh):
-            raise ValueError(f"{len(xs)} shards for a mesh of {len(self.spatial_mesh)} devices")
+        """What the spatial forward runs: the mesh's shard count (a 2-D
+        mesh's grid), equal input shards (tiles), no fused kernel in
+        training (``check_spatial_variants``). The stage rule is the
+        blur-pool's for the stride-2 convs too: both give shard i the output
+        rows r with 2r among its rows (a tile, the columns c with 2c among
+        its columns too)."""
+        mesh = self.spatial_mesh
+        check_spatial_compat(self, mesh)
+        grid = [len(row) for row in mesh] if tiled(mesh) else None
+        if ([len(row) for row in xs] if tiled(xs) else None) != grid:
+            raise ValueError(f"the spatial forward takes a grid of tiles exactly where the mesh "
+                             f"is 2-D (mesh rows {grid})")
+        if len(xs) != len(mesh):
+            raise ValueError(f"{len(xs)} shards for a mesh of {len(mesh)} devices")
         self.check_spatial_variants()
-        h = xs[0].shape[1]
-        if any(x.shape[1] != h for x in xs):
+        rows = [row[0] for row in xs] if grid else xs
+        h = rows[0].shape[1]
+        if any(x.shape[1] != h for x in rows):
             raise ValueError("the spatial forward takes equal H-shards (parallel.spatial.shard_h)")
-        check_stage_heights(h * len(xs), len(xs), 2)  # down1, down2: a row a shard
+        check_stage_heights(h * len(rows), len(rows), 2)  # down1, down2: a row a shard
+        if grid:
+            w = xs[0][0].shape[2]
+            if any(x.shape[1:3] != (h, w) for row in xs for x in row):
+                raise ValueError("the spatial forward takes equal tiles (parallel.spatial.shard_hw)")
+            check_stage_heights(w * grid[0], grid[0], 2, axis=2)  # a column a tile
 
     def _norm_relu_spatial(self, ys: list, layer: nn.Module) -> list:
         """``_norm_relu`` on shards: row 11h under ``use_pallas`` (instance
         norm), else the stage's norm layer across the shards, then ReLU."""
         if self.norm == "instance" and self.use_pallas:
             return instance_norm_auto_spatial(ys, relu=True)
-        return [torch.relu(y) for y in apply_norm_spatial(layer, ys)]
+        return on_shards(torch.relu, apply_norm_spatial(layer, ys))
 
     def _down_spatial(self, seq: nn.Sequential, xs: list, quant: bool) -> list:
         conv = seq[0]
@@ -737,32 +770,34 @@ class ResnetUNetGenerator(nn.Module):
         return ys if self.no_antialias else blur_downsample_spatial(ys)
 
     def _up_spatial(self, layer: nn.Module, ys: list, skips: list) -> list:
-        """``_up`` on shards, cut as the skip's shards. The AA upsample gives
-        the skip's rows where the planes match (every even stage height),
-        else its own; the ConvTranspose gives 2·each shard's rows, re-cut to
-        the skip's where the planes match; elsewhere the bilinear fix-up
-        resizes across the shards."""
-        sizes = [s.shape[1] for s in skips]
-        rows_match = 2 * sum(y.shape[1] for y in ys) == sum(sizes)
+        """``_up`` on shards (or tiles), cut as the skip's shards (tiles).
+        Per axis: where the planes match (2 × the rows, or the columns, sum
+        to the skip's; every even stage size) the AA upsample gives the
+        skip's cut itself and the ConvTranspose's 2·each shard's is re-cut
+        to it; elsewhere the bilinear fix-up resizes across the shards."""
+        heights, widths = tile_sizes(skips, 1), tile_sizes(skips, 2)
+        rows_match = 2 * sum(tile_sizes(ys, 1)) == sum(heights)
+        cols_match = 2 * sum(tile_sizes(ys, 2)) == sum(widths)
         if self.no_antialias_up:
             ys = conv_transpose_spatial(layer, ys, self.dtype)
-            if rows_match and ys[0].shape[2] == skips[0].shape[2]:
-                return reshard_rows(ys, sizes)
+            if rows_match and cols_match:
+                return from_grid(reshard_hw(as_grid(ys), heights, widths), ys)
         else:
-            ys = blur_upsample_aa_spatial(ys, out_heights=sizes if rows_match else None)
-        if not rows_match or ys[0].shape[2] != skips[0].shape[2]:
-            ys = bilinear_align_corners_spatial(ys, sizes, skips[0].shape[2])
+            ys = blur_upsample_aa_spatial(ys, out_heights=heights if rows_match else None,
+                                          out_widths=widths if cols_match else None)
+        if not (rows_match and cols_match):
+            ys = bilinear_align_corners_spatial(ys, heights, out_widths=widths)
         return ys
 
     def _forward_spatial(self, xs: list) -> list:
         """The forward over the H-shards ``xs`` (module docstring): the plain
         route's ops and, in inference, the fused blocks, shard by shard,
         with their halos and cross-shard reductions; autograd of the shard
-        ops is the training backward."""
+        ops is the training backward. A grid of tiles: the same ops tile by
+        tile."""
         self._check_spatial(xs)
         dt = self.dtype
-        b, w = xs[0].shape[0], xs[0].shape[2]
-        gh = sum(x.shape[1] for x in xs)
+        b, gh, w, _ = image_shape(xs)
         quant_convs = self._quant_convs(torch.empty((b, gh, w, 1), device="meta"))
         dec_quant = "dynamic" if quant_convs else None
 
@@ -784,5 +819,5 @@ class ResnetUNetGenerator(nn.Module):
         y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(self.up2_up, y, x0), x0, dt,
                                    dec_quant)
         y = self._norm_relu_spatial(y, self.up2_conv[1])
-        return [torch.tanh(o) for o in conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
-                                                         pad_type="reflect")]
+        return on_shards(torch.tanh, conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
+                                                       pad_type="reflect"))

@@ -44,12 +44,13 @@ def resolve_precision(cfg: Config) -> bool | None:
 
 
 def reject_unported(cfg: Config) -> None:
-    """Raise on what the port does not run: ``ValueError`` for the config
-    the JAX runner refuses (a W mesh axis without an H one), else
-    ``NotImplementedError`` for the mode not ported yet: 2-D H×W spatial
-    tiling. Data parallelism (``dp_devices``) and the 1-D H mesh
-    (``sp_devices > 1``) in test mode and in training run, with every
-    model variant."""
+    """Raise ``ValueError`` for the config the JAX runner refuses: a W mesh
+    axis without an H one (``runner.py:179-184``). Every mode of the JAX
+    package runs: data parallelism (``dp_devices``), the 1-D H mesh
+    (``sp_devices > 1``) in test mode and in training, and 2-D H×W tiling
+    (``sp_w_devices > 1`` with it) in test mode, with every model variant;
+    training does not read ``sp_w_devices``, as in JAX
+    (``train.state.without_sp_w``)."""
     if cfg.sp_w_devices > 1 and cfg.sp_devices <= 1:
         raise ValueError(
             f"sp_w_devices={cfg.sp_w_devices} requires sp_devices > 1 "
@@ -57,9 +58,6 @@ def reject_unported(cfg: Config) -> None:
             "total devices tiled (sp_devices/sp_w_devices)×sp_w_devices); "
             "set --sp-devices as well"
         )
-    if cfg.sp_w_devices > 1:
-        raise NotImplementedError("sp_w_devices > 1 (2-D H×W spatial tiling) is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
 
 
 def generator_from_config(cfg: Config) -> ResnetUNetGenerator:

@@ -9,31 +9,34 @@
 Plain ``F.pad`` + grouped ``F.conv2d``: the JAX package's matmul and
 shift-add forms are TPU layout devices for the same math.
 
-The ``_spatial`` forms take an image as a list of H-shards of any heights
-(``parallel/spatial.py``) and return its output's shards: a shard's output
-rows are those of the whole image's output, at their global positions
-(the stride-2 phase and the upsample's grid stay global).
+The ``_spatial`` forms take an image as a list of H-shards of any heights,
+or as a grid of tiles (``parallel/spatial.py``), and return its output in
+the same form: a shard's output rows, and a tile's columns, are those of
+the whole image's output at their global positions (the stride-2 phase
+and the upsample's grid stay global). One body serves both forms, a list
+of H-shards being the grid of one tile column.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
-
 import torch
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.ops.filters import binomial_filter_2d
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
-from ircolor_tpu_torch.ops.padding import _pad_w, pad2d, pad2d_spatial
-from ircolor_tpu_torch.ops.resize import (
-    _align_corners_grid,
-    _interp_axis,
-    bilinear_align_corners,
-    interp_rows,
+from ircolor_tpu_torch.ops.padding import pad2d, pad2d_spatial
+from ircolor_tpu_torch.ops.resize import bilinear_align_corners, resize_shard
+from ircolor_tpu_torch.parallel.spatial import (
+    as_grid,
+    columns,
+    from_grid,
+    stride2_heights,
+    tile_sizes,
+    tile_starts,
+    tiles,
 )
-from ircolor_tpu_torch.parallel.spatial import gather_rows, row_starts, stride2_heights
 
 
 def _blur_pad_sizes(filt_size: int, pad_off: int = 0) -> tuple[int, int, int, int]:
@@ -84,52 +87,58 @@ def _check_spatial(filt_size: int, pad_type: str) -> int:
 
 
 def blur_downsample_spatial(xs, *, filt_size: int = 3, stride: int = 2,
-                            pad_type: str = "reflect") -> list[torch.Tensor]:
-    """``blur_downsample`` (stride 2) of the image whose H-shards are
-    ``xs``: shard i gives the output rows r with 2r among its rows
-    (``stride2_heights``), each from its rows and a halo of the filter's
-    padding; raises where a shard would give none."""
+                            pad_type: str = "reflect") -> list:
+    """``blur_downsample`` (stride 2) of the image whose H-shards (or
+    tiles) are ``xs``: shard i gives the output rows r with 2r among its
+    rows (``stride2_heights``; a tile, the columns c with 2c among its
+    columns too), each from its rows and a halo of the filter's padding;
+    raises where a shard would give none."""
     p = _check_spatial(filt_size, pad_type)
     if stride != 2:
         raise NotImplementedError("the spatial blur_downsample takes stride 2")
-    heights = stride2_heights([x.shape[1] for x in xs])
-    if min(heights) < 1:
-        raise ValueError(f"the spatial blur_downsample leaves a shard no row (shard rows "
-                         f"{[x.shape[1] for x in xs]} -> {heights})")
-    out = []
-    for slab, start, n in zip(pad2d_spatial(xs, p, pad_type), row_starts(xs), heights):
-        # Slab row 0 is global row start - p; output row r reads rows 2r - p ..
-        # 2r + p, so the shard's first, r = ceil(start / 2), from slab row 2r - start.
-        first = 2 * -(-start // 2) - start
-        out.append(_depthwise_blur(slab[:, first:], filt_size, stride)[:, :n])
-    return out
+    heights, widths = (stride2_heights(tile_sizes(xs, a)) for a in (1, 2))
+    if min(heights) < 1 or min(widths) < 1:
+        raise ValueError(f"the spatial blur_downsample leaves a shard no row or column (shard "
+                         f"rows {tile_sizes(xs, 1)} -> {heights}, columns {tile_sizes(xs, 2)} -> "
+                         f"{widths})")
+    # Slab row 0 is global row start - p; output row r reads rows 2r - p ..
+    # 2r + p, so the shard's first, r = ceil(start / 2), from slab row
+    # 2r - start (and the same in columns).
+    firsts = [[2 * -(-start // 2) - start for start in tile_starts(xs, axis)] for axis in (1, 2)]
+    out = [[_depthwise_blur(slab[:, r0:, c0:], filt_size, stride)[:, :n, :m]
+            for slab, c0, m in zip(row, firsts[1], widths)]
+           for row, r0, n in zip(as_grid(pad2d_spatial(xs, p, pad_type)), firsts[0], heights)]
+    return from_grid(out, xs)
 
 
 def blur_upsample_aa_spatial(xs, *, filt_size: int = 3, stride: int = 2,
-                             pad_type: str = "reflect", out_heights=None) -> list[torch.Tensor]:
-    """``blur_upsample_aa`` of the image whose H-shards are ``xs``, as
-    shards of ``out_heights`` rows (by default ``stride`` × each shard's;
-    they must sum to ``stride`` × the image's rows), shard i on ``xs[i]``'s
-    device. A shard's upsampled rows, and the filter's padding rows beyond
-    them (reflected at the image's edges), take their sources and weights
-    from their global positions, gathered from the shards that hold them."""
+                             pad_type: str = "reflect", out_heights=None,
+                             out_widths=None) -> list:
+    """``blur_upsample_aa`` of the image whose H-shards (or tiles) are
+    ``xs``, as shards of ``out_heights`` rows (by default ``stride`` × each
+    shard's; they must sum to ``stride`` × the image's rows) and tiles of
+    ``out_widths`` columns (likewise), each on its input's device. Each
+    tile's upsampled rows, and the filter's padding rows beyond them
+    (reflected at the image's edges), take their sources and weights from
+    their global positions, gathered from the shards that hold them
+    (``resize_shard`` along H over its tile column); then those rows'
+    upsampled columns with the padding columns, along W over its tile row
+    (a list of H-shards: its one tile, the image's width); then the blur,
+    VALID. A tile row at a time, so that one row's float32 planes are held
+    at once."""
     p = _check_spatial(filt_size, pad_type)
-    w = xs[0].shape[2]
-    gh = sum(x.shape[1] for x in xs)
-    oh = gh * stride
-    out_heights = [x.shape[1] * stride for x in xs] if out_heights is None else list(out_heights)
-    if len(out_heights) != len(xs) or sum(out_heights) != oh or min(out_heights) < 1:
-        raise ValueError(f"out_heights {out_heights} must give each of the {len(xs)} shards rows "
-                         f"of the {oh} upsampled ones")
-    lo, hi, _ = _align_corners_grid(gh, oh)
-    out, start = [], 0
-    for x, n in zip(xs, out_heights):
-        rows = np.abs(np.arange(start - p, start + n + p))
-        rows = np.where(rows >= oh, 2 * oh - 2 - rows, rows)
-        first, last = int(lo[rows].min()), int(hi[rows].max())
-        slab = gather_rows(xs, range(first, last + 1), x.device)
-        y = interp_rows(slab.float(), rows, gh, oh, first)
-        y = _interp_axis(y, 2, w, w * stride).to(slab.dtype)
-        out.append(_depthwise_blur(_pad_w(y, p, pad_type), filt_size, 1))
-        start += n
-    return out
+    cuts = []
+    for axis, cut in ((1, out_heights), (2, out_widths)):
+        have = tile_sizes(xs, axis)
+        cut = [n * stride for n in have] if cut is None else list(cut)
+        if len(cut) != len(have) or sum(cut) != stride * sum(have) or min(cut) < 1:
+            raise ValueError(f"the upsample's cut {cut} along axis {axis} must give each of the "
+                             f"{len(have)} shards some of the {stride * sum(have)} upsampled ones")
+        cuts.append(cut)
+    cols, dtype = columns(as_grid(xs)), tiles(xs)[0].dtype
+    out = []
+    for i in range(len(cuts[0])):  # a tile row at a time: one row's float32 planes at once
+        row = [resize_shard(col, 1, cuts[0], i, p) for col in cols]
+        out.append([_depthwise_blur(resize_shard(row, 2, cuts[1], j, p).to(dtype), filt_size, 1)
+                    for j in range(len(row))])
+    return from_grid(out, xs)

@@ -4,16 +4,16 @@
 eps 1e-5, statistics in float32 whatever the compute dtype. The f32 parity
 path uses two-pass statistics; the bf16 path the one-pass E[x²]−μ² form,
 whose moments are also what the normalize-on-load kernels consume.
-The ``_spatial`` forms normalize an image held as a list of H-shards
-(``parallel/spatial.py``) by its global statistics: the per-shard sums are
-added across shards.
+The ``_spatial`` forms normalize an image held as a list of H-shards, or
+as a grid of tiles (``parallel/spatial.py``), by its global statistics: the
+per-shard (per-tile) sums are added across shards in shard (tile) order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ircolor_tpu_torch.parallel.spatial import all_sum
+from ircolor_tpu_torch.parallel.spatial import all_sum, regrid, tiled, tiles
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -51,13 +51,15 @@ def instance_norm_vjp(g: torch.Tensor, yhat: torch.Tensor, inv: torch.Tensor) ->
 
 
 def _pixels(xs) -> int:
-    return sum(x.shape[1] for x in xs) * xs[0].shape[2]
+    return sum(x.shape[1] * x.shape[2] for x in xs)
 
 
-def instance_norm_spatial(xs, eps: float = 1e-5) -> list[torch.Tensor]:
-    """``instance_norm`` of the image whose H-shards are ``xs``: two
-    passes over the shards, the global mean, then the global centred sum
-    of squares."""
+def instance_norm_spatial(xs, eps: float = 1e-5) -> list:
+    """``instance_norm`` of the image whose H-shards (or tiles) are ``xs``:
+    two passes over the shards, the global mean, then the global centred
+    sum of squares."""
+    if tiled(xs):
+        return regrid(instance_norm_spatial(tiles(xs), eps), xs)
     n = _pixels(xs)
     x32 = [x.float() for x in xs]
     means = [s / n for s in all_sum([x.sum(dim=(1, 2), keepdim=True) for x in x32])]
@@ -69,7 +71,8 @@ def instance_norm_spatial(xs, eps: float = 1e-5) -> list[torch.Tensor]:
 def instance_norm_stats_spatial(xs, eps: float = 1e-5) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """``instance_norm_stats`` of the image whose H-shards are ``xs``, one
     (mean, inv_std) per shard on its device: one pass, Σx and Σx² added
-    across shards."""
+    across shards (a grid's tiles: one a tile, in ``tiles`` order)."""
+    xs = tiles(xs)
     n = _pixels(xs)
     sums = all_sum([torch.stack([x.float().sum(dim=(1, 2)), x.float().square().sum(dim=(1, 2))])
                     for x in xs])
@@ -80,6 +83,6 @@ def instance_norm_stats_spatial(xs, eps: float = 1e-5) -> list[tuple[torch.Tenso
     return out
 
 
-def instance_norm_onepass_spatial(xs, eps: float = 1e-5) -> list[torch.Tensor]:
-    return [((x.float() - m[:, None, None, :]) * i[:, None, None, :]).to(x.dtype)
-            for x, (m, i) in zip(xs, instance_norm_stats_spatial(xs, eps))]
+def instance_norm_onepass_spatial(xs, eps: float = 1e-5) -> list:
+    return regrid([((x.float() - m[:, None, None, :]) * i[:, None, None, :]).to(x.dtype)
+                   for x, (m, i) in zip(tiles(xs), instance_norm_stats_spatial(xs, eps))], xs)

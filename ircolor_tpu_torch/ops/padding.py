@@ -2,7 +2,8 @@
 
 PyTorch reflection padding excludes the edge pixel; replication repeats it.
 ``pad2d_spatial`` pads a list of H-shards (``parallel/spatial.py``): the
-rows from the neighbour shards, the image's own padding at its edges.
+rows from the neighbour shards, the image's own padding at its edges; or
+a grid of tiles, whose columns come from the neighbour tiles too.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ircolor_tpu_torch.ops.layout import to_nchw, to_nhwc
-from ircolor_tpu_torch.parallel.spatial import halo_slabs
+from ircolor_tpu_torch.parallel.spatial import halo_slabs, tiled
 
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate", "zero": "constant"}
 
@@ -49,10 +50,15 @@ def _pad_w(x: torch.Tensor, r: int, pad_type: str) -> torch.Tensor:
     return x.index_select(2, i)
 
 
-def pad2d_spatial(xs, r: int, pad_type: str = "reflect") -> list[torch.Tensor]:
+def pad2d_spatial(xs, r: int, pad_type: str = "reflect") -> list:
     """``pad2d(x, r, pad_type)`` of the image whose H-shards are ``xs``,
     per shard: (B, h + 2r, W + 2r, C) slabs, each holding its neighbours'
-    ``r`` edge rows (``pad_type`` rows at the image's top and bottom)."""
+    ``r`` edge rows (``pad_type`` rows at the image's top and bottom). Of a
+    grid of tiles: per tile (B, h + 2r, w + 2r, C), its neighbours' edge
+    rows, columns and corners (``pad_type`` at the image's edges), in the
+    grid's shape."""
     if pad_type not in _PAD_MODES:
         raise NotImplementedError(f"pad type [{pad_type}] not implemented")
+    if tiled(xs):
+        return halo_slabs(xs, r, pad_type)
     return [_pad_w(s, r, pad_type) for s in halo_slabs(xs, r, pad_type)]

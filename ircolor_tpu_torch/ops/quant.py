@@ -25,7 +25,7 @@ import torch
 
 from ircolor_tpu_torch.kernels.conv_int8 import conv3x3_int8
 from ircolor_tpu_torch.ops.padding import _pad_w, pad2d_spatial
-from ircolor_tpu_torch.parallel.spatial import all_max, window_slabs
+from ircolor_tpu_torch.parallel.spatial import all_max, regrid, tiled, tiles, window_slabs
 
 # Smallest amax: keeps an all-zero tensor from producing an inf scale.
 _AMAX_FLOOR = 1e-12
@@ -55,7 +55,10 @@ def quantize_dynamic(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def quantize_dynamic_spatial(xs) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """``quantize_dynamic`` of the image whose H-shards are ``xs``, one
-    (int8 shard, (B, 1, 1, 1) scale) per shard, from the global amax."""
+    (int8 shard, (B, 1, 1, 1) scale) per shard, from the global amax (a
+    grid's tiles: one a tile in ``tiles`` order, the amax over every tile
+    before any tile quantizes)."""
+    xs = tiles(xs)
     amax = all_max([x.float().abs().amax(dim=(1, 2, 3), keepdim=True) for x in xs])
     out = []
     for x, a in zip(xs, amax):
@@ -101,7 +104,7 @@ def conv2d_int8_fixed(x, kernel, *, clip: float = _QCLIP, pad: str = "zero", str
 
 
 def conv2d_int8_spatial(xs, kernel, *, pad: str = "zero", stride: int = 1, bias=None,
-                        addends=None, out_dtype=None) -> list[torch.Tensor]:
+                        addends=None, out_dtype=None) -> list:
     """``conv2d_int8`` of the image whose H-shards are ``xs``, one output
     shard each: quantized from the global amax, then each shard padded by
     its int8 halo rows (``pad`` at the image's edges) and ``pad`` columns
@@ -111,23 +114,31 @@ def conv2d_int8_spatial(xs, kernel, *, pad: str = "zero", stride: int = 1, bias=
     they need (``window_slabs``: a halo row above where its first row is
     even, below where its last row is), its columns zero-padded by a copy;
     every shard must keep an output row (the generator's stage rule).
-    ``addends``: one float32 term per shard."""
+    ``addends``: one float32 term per shard. A grid of tiles: the same on
+    2-D int8 slabs, halo rows and columns from the neighbours (``pad`` at
+    the image's edges) and at stride 2 the owner rule in both axes, so the
+    zero columns are only the image's left and right edges'; one output
+    tile each, in the grid's shape."""
     q = quantize_dynamic_spatial(xs)
     wq, sw = quantize_weight_per_channel(kernel)
+    xq = regrid([a for a, _ in q], xs)
     if stride == 1:
-        slabs = pad2d_spatial([xq for xq, _ in q], 1, pad)
+        slabs = pad2d_spatial(xq, 1, pad)
+    elif pad == "zero" and tiled(xs):
+        slabs = window_slabs(xq, 3, stride, 1)
     elif pad == "zero":
-        slabs = [_pad_w(s, 1, "zero") for s in window_slabs([xq for xq, _ in q], 3, stride, 1)]
+        slabs = [_pad_w(s, 1, "zero") for s in window_slabs(xq, 3, stride, 1)]
     else:
         raise NotImplementedError(f"the spatial int8 conv at stride {stride} takes zero "
                                   f"padding, got {pad!r}")
+    flat, adds = tiles(xs), None if addends is None else tiles(addends)
     out = []
-    for i, (slab, (_, sx)) in enumerate(zip(slabs, q)):
+    for i, (slab, (_, sx)) in enumerate(zip(tiles(slabs), q)):
         dev = slab.device
         sc = (sx.reshape(-1, 1) * sw.to(dev)[None, :]).contiguous()
         b = None if bias is None else bias.to(dev)
         out.append(conv3x3_int8(slab, wq.to(dev), sc, pad="valid", stride=stride,
                                 bias=_float_or_none(b),
-                                addend=None if addends is None else addends[i],
-                                out_dtype=out_dtype or xs[i].dtype))
-    return out
+                                addend=None if adds is None else adds[i],
+                                out_dtype=out_dtype or flat[i].dtype))
+    return regrid(out, xs)

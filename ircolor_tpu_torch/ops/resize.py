@@ -4,9 +4,9 @@ Sample grid ``src = dst · (in − 1)/(out − 1)``, with the per-axis indices a
 weights computed once in float64 numpy, then a gather + lerp per axis in
 float32 — the same math as the JAX package's gather path.
 
-The grid is not shift-invariant, so an H-shard's rows take their sources
-and weights from their global positions (``interp_rows``,
-``bilinear_align_corners_spatial``).
+The grid is not shift-invariant, so an H-shard's rows, and a W-tile's
+columns, take their sources and weights from their global positions
+(``interp_rows``, ``resize_shard`` along either axis).
 """
 
 from __future__ import annotations
@@ -14,7 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ircolor_tpu_torch.parallel.spatial import gather_rows
+from ircolor_tpu_torch.parallel.spatial import (
+    as_grid,
+    columns,
+    from_grid,
+    gather_rows,
+    tile_sizes,
+    tiles,
+)
 
 
 def _align_corners_grid(in_size: int, out_size: int):
@@ -42,17 +49,37 @@ def _interp_axis(x: torch.Tensor, axis: int, in_size: int, out_size: int) -> tor
     return _lerp(x, axis, *_align_corners_grid(in_size, out_size))
 
 
-def interp_rows(x: torch.Tensor, rows, in_size: int, out_size: int, first: int) -> torch.Tensor:
+def interp_rows(x: torch.Tensor, rows, in_size: int, out_size: int, first: int,
+                axis: int = 1) -> torch.Tensor:
     """Rows ``rows`` (global output indices) of the align-corners resize
     along H from ``in_size`` to ``out_size`` rows, of float ``x`` whose row
     0 is global input row ``first``: the rows and weights of the whole
     image's grid, the gather + lerp of ``_interp_axis``. Raises where a row
-    reads outside ``x``."""
+    reads outside ``x``. ``axis`` 2: columns, along W."""
     lo, hi, w = (a[np.asarray(rows)] for a in _align_corners_grid(in_size, out_size))
     lo, hi = lo - first, hi - first
-    if lo.min() < 0 or hi.max() >= x.shape[1]:
+    if lo.min() < 0 or hi.max() >= x.shape[axis]:
         raise ValueError(f"rows {rows[0]}..{rows[-1]} read outside the slab's rows")
-    return _lerp(x, 1, lo, hi, w)
+    return _lerp(x, axis, lo, hi, w)
+
+
+def resize_shard(xs, axis: int, out_sizes, i: int, halo: int = 0) -> torch.Tensor:
+    """Along ``axis`` (1: over the H-shards ``xs``; 2: over the W-tiles of
+    one tile row), output shard ``i`` of the align-corners resize of the
+    image to ``sum(out_sizes)`` cut as ``out_sizes``, with ``halo`` more on
+    both sides (the output indices past the image's edges reflected: the
+    padding of a filter that follows), in float32 on ``xs[i]``'s device,
+    from its global sources and weights gathered from the shards that hold
+    them. One shard a call, so that a caller holds one shard's float32
+    rows at a time."""
+    gin, gout = sum(x.shape[axis] for x in xs), sum(out_sizes)
+    lo, hi, _ = _align_corners_grid(gin, gout)
+    start = sum(out_sizes[:i])
+    idx = np.abs(np.arange(start - halo, start + out_sizes[i] + halo))
+    idx = np.where(idx >= gout, 2 * gout - 2 - idx, idx)
+    first, last = int(lo[idx].min()), int(hi[idx].max())
+    slab = gather_rows(xs, range(first, last + 1), xs[i].device, axis)
+    return interp_rows(slab.float(), idx, gin, gout, first, axis)
 
 
 def bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -64,23 +91,24 @@ def bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Te
     return y.to(x.dtype).contiguous()
 
 
-def bilinear_align_corners_spatial(xs, out_heights, out_w: int) -> list[torch.Tensor]:
+def bilinear_align_corners_spatial(xs, out_heights, out_w: int | None = None, *,
+                                   out_widths=None) -> list:
     """``bilinear_align_corners`` of the image whose H-shards are ``xs`` to
     ``sum(out_heights)`` × ``out_w``, as shards of ``out_heights`` rows,
-    shard i on ``xs[i]``'s device: each output row from its global sources
-    and weights, gathered from the shards that hold them; where the rows
-    already match shard for shard, each shard's columns alone."""
-    heights = [x.shape[1] for x in xs]
-    if list(out_heights) == heights:
-        return [bilinear_align_corners(x, (x.shape[1], out_w)) for x in xs]
-    gh, oh, w = sum(heights), sum(out_heights), xs[0].shape[2]
-    lo, hi, _ = _align_corners_grid(gh, oh)
-    out, start = [], 0
-    for x, n in zip(xs, out_heights):
-        rows = np.arange(start, start + n)
-        first, last = int(lo[rows].min()), int(hi[rows].max())
-        slab = gather_rows(xs, range(first, last + 1), x.device)
-        y = _interp_axis(interp_rows(slab.float(), rows, gh, oh, first), 2, w, out_w)
-        out.append(y.to(x.dtype).contiguous())
-        start += n
-    return out
+    shard i on ``xs[i]``'s device; of a grid of tiles, to the tiles of
+    ``out_heights`` × ``out_widths``. Along H over each tile column, then
+    along W over each tile row (``resize_shard``), a tile row at a time:
+    each output row (column) from its global sources and weights, gathered
+    from the shards (tiles) that hold them; an axis whose cut already
+    matches is left as it is."""
+    grid, dtype = as_grid(xs), tiles(xs)[0].dtype
+    out_heights = list(out_heights)
+    out_widths = [out_w] if out_widths is None else list(out_widths)
+    rows_match, cols_match = tile_sizes(xs, 1) == out_heights, tile_sizes(xs, 2) == out_widths
+    out = []
+    for i in range(len(out_heights)):
+        row = grid[i] if rows_match else [resize_shard(col, 1, out_heights, i)
+                                          for col in columns(grid)]
+        out.append([(t if cols_match else resize_shard(row, 2, out_widths, j)).to(dtype)
+                    .contiguous() for j, t in enumerate(row)])
+    return from_grid(out, xs)

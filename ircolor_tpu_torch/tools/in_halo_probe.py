@@ -77,8 +77,8 @@ def _bind(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     ints, ptrs = ctypes.POINTER(i), ctypes.POINTER(p)
-    lib.ircolor_instance_norm_cluster.argtypes = [i, i, i, i, i, ptrs, ptrs, ptrs, ints, p, p, i,
-                                                  i, i, i, p]
+    lib.ircolor_instance_norm_cluster.argtypes = [i, i, i, i, i, ptrs, ptrs, ptrs, ints, ints, p,
+                                                  p, i, i, i, p]
     lib.ircolor_instance_norm.argtypes = [i, i, i, p, p, p, i, i, i, i, p]
     lib.ircolor_instance_norm_stats.argtypes = [i, i, i, p, p, p, i, i, i, i, p]
     return lib
@@ -173,6 +173,7 @@ def main() -> int:
 
         args = [(arr(sh), arr(o)) for sh, o in zip(shards, outs)]
         row_arr = (ctypes.c_int * s)(*([rows] * s))
+        col_arr = (ctypes.c_int * s)(*([w] * s))
 
         sb = tin.halo_plan((rows,) * s, w, c, torch.bfloat16, (planes[0].device,) * s).slice_bytes
 
@@ -184,8 +185,8 @@ def main() -> int:
             def run(k):
                 xa, oa = args[k % 4]
                 err = lib.ircolor_instance_norm_cluster(
-                    0, 1, 1, slice_bytes, s, xa, None, oa, row_arr, stats[0].data_ptr(),
-                    stats[1].data_ptr(), b, w, c, cap, stream)
+                    0, 1, 1, slice_bytes, s, xa, None, oa, row_arr, col_arr, stats[0].data_ptr(),
+                    stats[1].data_ptr(), b, c, cap, stream)
                 if err:
                     raise RuntimeError(f"cluster launch: CUDA error {err}")
             return run

@@ -50,12 +50,7 @@ from ircolor_tpu_torch.config import Config
 from ircolor_tpu_torch.data.kaist import KAISTPairDataset, scan_kaist_pairs, split_train_val
 from ircolor_tpu_torch.data.pipeline import BatchLoader
 from ircolor_tpu_torch.losses.vgg import load_vgg16
-from ircolor_tpu_torch.models.wrapper import (
-    _DTYPES,
-    load_state_permissive,
-    reject_unported,
-    resolve_device,
-)
+from ircolor_tpu_torch.models.wrapper import _DTYPES, load_state_permissive, resolve_device
 from ircolor_tpu_torch.parallel.launch import spawn
 from ircolor_tpu_torch.parallel.mesh import (
     initialize_multihost,
@@ -74,7 +69,7 @@ from ircolor_tpu_torch.train.checkpoint import (
     save_netg_export,
 )
 from ircolor_tpu_torch.train.schedule import linear_decay_factor
-from ircolor_tpu_torch.train.state import create_train_state
+from ircolor_tpu_torch.train.state import create_train_state, without_sp_w
 from ircolor_tpu_torch.train.step import METRIC_KEYS, make_train_step, make_val_sum_step
 from ircolor_tpu_torch.train.step_shardmap import (
     broadcast_replicas,
@@ -190,8 +185,9 @@ def train_kaist(
     process a rank is spawned (``parallel.launch``) and rank 0's summary is
     returned without ``state`` (the checkpoints hold it), after checking that
     every rank's agrees. Under a launcher's environment with ``sp_devices``
-    > 1 a rank's shards share its device."""
-    reject_unported(cfg)
+    > 1 a rank's shards share its device. ``sp_w_devices`` is not read,
+    as in JAX (``train.state.without_sp_w``, logged)."""
+    cfg = without_sp_w(cfg)
     if cfg.sp_devices > 1 and cfg.dp_mode != "gspmd":
         raise ValueError("spatially-sharded training (--sp-devices > 1) requires "
                          "dp_mode='gspmd' — the shard_map step partitions the batch axis only")

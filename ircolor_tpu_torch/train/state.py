@@ -47,6 +47,19 @@ SPATIAL_OFF = ("pallas_block_train", "pallas_norm_blur", "pallas_head", "pallas_
                "blur_matmul_bwd")
 
 
+def without_sp_w(cfg: Config) -> Config:
+    """``cfg`` with ``sp_w_devices`` 1, logged where it was more: training
+    builds its mesh from ``dp_devices`` and ``sp_devices`` alone, as the
+    JAX package's does (``ircolor_tpu/train/loop.py:135-143``), so the W
+    axis shards nothing there, with or without ``sp_devices``."""
+    if cfg.sp_w_devices <= 1:
+        return cfg
+    log.info("[TRAIN] sp_w_devices=%d is not used by training (its mesh is dp_devices × "
+             "sp_devices, as in the JAX package); sp_devices=%d", cfg.sp_w_devices,
+             cfg.sp_devices)
+    return cfg.replace(sp_w_devices=1)
+
+
 def train_config(cfg: Config) -> Config:
     """The JAX package's training flag forcing: int8 off (rounding has no
     gradient); the fused tails and head off unless their ``*_train`` flags
@@ -65,7 +78,9 @@ def train_config(cfg: Config) -> Config:
     ``blur_matmul_bwd``, as ``ircolor_tpu/train/state.py:108-121`` does:
     the kernels' halo forms have no backward (logged). ``use_pallas``
     stays on, as in JAX: its instance norms run row 11h on the shards,
-    whose backward is plain torch."""
+    whose backward is plain torch. ``sp_w_devices`` is dropped
+    (``without_sp_w``)."""
+    cfg = without_sp_w(cfg)
     if cfg.sp_devices > 1:
         off = {f: False for f in SPATIAL_OFF if getattr(cfg, f)}
         if off:

@@ -708,6 +708,83 @@ def test_instance_norm_shard_form_across_cards(cuda, heights):
     assert torch.cuda.current_device() == current
 
 
+def _tiles(t, rows, cols):
+    """NHWC ``t`` as a grid of contiguous tiles of ``rows`` × ``cols``."""
+    return [[p.contiguous() for p in r.split(list(cols), 2)] for r in t.split(list(rows), 1)]
+
+
+def _join(grid):
+    return torch.cat([torch.cat(row, 2) for row in grid], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols,form", [
+    ((32, 32), (32, 32), "cluster"),            # the 256² bottleneck on a 2×2 grid
+    ((16, 16, 16, 16), (32, 32), "cluster"),    # 4×2: a cluster of 8
+    ((9, 7), (5, 1, 6), "cluster"),             # unequal tiles, a 1-column tile
+    ((36, 28), (40, 24), "cluster"),            # 64×64 cut unequally
+    ((8, 8, 8), (16, 16, 16, 16), "per_shard"),  # 12 tiles: over the cluster size
+])
+def test_instance_norm_tile_form_matches_plain_on_card(cuda, rows, cols, form, dtype):
+    """Row 11h's tile form: the tiles of one plane on one card, each
+    cluster rank its tile's rows, columns and pointers. Against its plain
+    version and kernel 11 on the gathered plane (one bf16 ulp, f32 1e-5
+    relative); the per-shard form bit-identical to the cluster form, its
+    saved (mean, inv) too; a bit-exact repeat; counted as ``*_tile``, the
+    shard form's counts untouched."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.randn(2, sum(rows), sum(cols), 256, device=cuda, generator=g) * 3 + 1).to(dtype)
+    r = torch.randn(*x.shape, device=cuda, generator=g).to(dtype)
+    xs, rs = _tiles(x, rows, cols), _tiles(r, rows, cols)
+    flat = [t for row in xs for t in row]
+    plan = tin.tile_plan(tuple(t.shape[1] for t in flat), tuple(t.shape[2] for t in flat), 256,
+                         dtype, tuple(t.device for t in flat))
+    assert plan.form == form
+    before = dict(LAUNCHES)
+    n = len(flat)
+    got, mean, inv = tin._run_in_spatial(xs, True, None)
+    got = _join(got)
+    assert _in_close(got, _join(tin.run_in_spatial_plain(xs, True)))
+    assert _in_close(got, tin.run_in(x.contiguous(), True))
+    assert torch.equal(got, _join(tin.run_in_spatial(xs, True)))
+    per, pmean, pinv = tin._run_in_spatial(xs, True, None, per_shard=True)
+    assert torch.equal(got, _join(per)) and torch.equal(mean, pmean) and torch.equal(inv, pinv)
+    res = tin.pallas_fits(x.shape, dtype, True)
+    if res:
+        got_r = _join(tin.run_in_spatial(xs, residuals=rs))
+        assert _in_close(got_r, _join(tin.run_in_spatial_plain(xs, residuals=rs)))
+        assert _in_close(got_r, tin.run_in_res(x.contiguous(), r.contiguous()))
+        assert torch.equal(got_r, _join(tin._run_in_spatial(xs, False, rs, per_shard=True)[0]))
+    one = 1 if form == "cluster" else n
+    assert LAUNCHES["fused_instance_norm_tile"] - before["fused_instance_norm_tile"] == 2 * one + n
+    assert (LAUNCHES["fused_instance_norm_residual_tile"]
+            - before["fused_instance_norm_residual_tile"]) == (one + n) * res
+    assert LAUNCHES["fused_instance_norm_halo"] == before["fused_instance_norm_halo"]
+
+
+@pytest.mark.cuda
+def test_instance_norm_tile_form_across_cards(cuda):
+    """Row 11h's tile form with the 2×2 tiles on cuda:0..3 (a node with 4
+    cards): the per-shard form over the cards bit-identical to the tiles
+    on cuda:0 (the cluster form), each output on its tile's card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards for tiles on distinct cards")
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = (torch.randn(2, 64, 64, 256, device=cuda, generator=g) * 3 + 1).to(torch.bfloat16)
+    r = torch.randn(*x.shape, device=cuda, generator=g).to(torch.bfloat16)
+    one, rs1 = _tiles(x, (32, 32), (32, 32)), _tiles(r, (32, 32), (32, 32))
+    cards = [[t.to(f"cuda:{2 * i + j}") for j, t in enumerate(row)] for i, row in enumerate(one)]
+    rsc = [[t.to(f"cuda:{2 * i + j}") for j, t in enumerate(row)] for i, row in enumerate(rs1)]
+    for relu, res in ((True, False), (False, True)):
+        got = tin.run_in_spatial(cards, relu, rsc if res else None)
+        want = tin.run_in_spatial(one, relu, rs1 if res else None)
+        for i in range(2):
+            for j in range(2):
+                assert got[i][j].device == cards[i][j].device
+                assert torch.equal(got[i][j].cpu(), want[i][j].cpu()), (relu, i, j)
+
+
 def _seg_inputs(g, b, h, w, c, cin):
     p, comp = _bf16(g, b, h, w, c), _bf16(g, b, h, w, c)
     z = _bf16(g, b, h, w, cin)

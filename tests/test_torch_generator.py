@@ -160,19 +160,21 @@ def test_weights_cross_both_ways(tmp_path):
 
 
 def test_unported_modes_raise():
-    """Only 2-D H×W tiling is left unported among the multi-device modes
-    (spatial test mode and training, data parallelism run); the variants
-    under ``sp_devices`` build spatial training's state with their flags
-    kept (``use_pallas`` too, as in JAX); the variants the JAX ``Config``
-    reaches build (``tests/test_torch_variants.py`` holds them against
-    JAX), and an unknown norm raises as in JAX."""
+    """Every multi-device mode builds (2-D H×W tiling too: its model, and
+    in training, as in JAX, ``sp_w_devices`` is not read, so the state is
+    the H-sharded one); the variants under ``sp_devices`` build spatial
+    training's state with their flags kept (``use_pallas`` too, as in
+    JAX); the variants the JAX ``Config`` reaches build
+    (``tests/test_torch_variants.py`` holds them against JAX), and an
+    unknown norm raises as in JAX."""
     from ircolor_tpu_torch.train.state import create_train_state
 
     assert IRColorizationModel(Config(ngf=8, n_blocks=1, dp_devices=2), "cpu").module
-    with pytest.raises(NotImplementedError, match="sp_w_devices"):
-        IRColorizationModel(Config(sp_devices=2, sp_w_devices=2), "cpu")
-    with pytest.raises(NotImplementedError, match="sp_w_devices"):
-        create_train_state(Config(sp_devices=2, sp_w_devices=2), steps_per_epoch=1, device="cpu")
+    assert IRColorizationModel(Config(ngf=8, n_blocks=1, sp_devices=2, sp_w_devices=2),
+                               "cpu").module.spatial_mesh is None  # the runner tiles a copy
+    g2 = create_train_state(Config(sp_devices=2, sp_w_devices=2, ngf=8, n_blocks=1),
+                            steps_per_epoch=1, device="cpu").g
+    assert g2.spatial_mesh == [torch.device("cpu")] * 2
     state = create_train_state(Config(sp_devices=2, ngf=8, n_blocks=1), steps_per_epoch=1,
                                device="cpu")  # spatial training builds, its kernels off
     assert state.g.spatial_mesh == [torch.device("cpu")] * 2 and state.g.training

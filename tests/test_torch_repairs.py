@@ -85,15 +85,16 @@ def test_unknown_conv_precision_raises(tf32_flags):
 
 def test_sp_w_devices_without_sp_devices_raises(tmp_path):
     """JAX's ``run_test`` refuses ``sp_w_devices > 1`` with ``sp_devices <=
-    1`` (``ValueError``); so do the port's entry points, before they build
-    anything."""
+    1`` (``ValueError``); so do the port's test-mode entry points, before
+    they build anything. Training does not read the flag, as JAX's
+    (``train/loop.py:135-143``): the state is the unsharded one. With
+    ``sp_devices`` the 2-D generator builds."""
     cfg = Config(ngf=8, n_blocks=1, sp_w_devices=2, output_dir=str(tmp_path / "out"),
                  test_roots=(str(tmp_path / "none"),))
     for call in (lambda: wrapper.generator_from_config(cfg),
-                 lambda: run_test(cfg, device="cpu"),
-                 lambda: create_train_state(cfg, steps_per_epoch=1, device="cpu")):
+                 lambda: run_test(cfg, device="cpu")):
         with pytest.raises(ValueError, match="sp_w_devices=2 requires sp_devices > 1"):
             call()
     assert not (tmp_path / "out").exists()
-    with pytest.raises(NotImplementedError, match="sp_w_devices"):  # 2-D H×W: not ported yet
-        wrapper.generator_from_config(cfg.replace(sp_devices=4))
+    assert create_train_state(cfg, steps_per_epoch=1, device="cpu").g.spatial_mesh is None
+    assert wrapper.generator_from_config(cfg.replace(sp_devices=4)).spatial_mesh is None

@@ -108,14 +108,24 @@ def test_cli_test_mode_writes_artifacts(kaist_tree, tmp_path):
     [("train", ["--device", "cpu", "--sp-devices", "2", "--sp-w-devices", "2"])],
     ids=["train"],
 )
-def test_cli_unported_modes_raise(mode, extra):
-    """2-D H×W tiling (``export`` is ported: tests/test_torch_export.py;
-    data-parallel training: tests/test_torch_dp_run.py; spatial training:
-    tests/test_torch_sp_train_loop.py)."""
+def test_cli_unported_modes_raise(mode, extra, tmp_path, caplog):
+    """No mode is left unported: ``train --sp-w-devices`` is read as JAX's
+    training reads it, not at all (one log line), so the run goes on
+    H-sharded over ``--sp-devices`` and stops only at the missing dataset
+    (``export``: tests/test_torch_export.py; data-parallel training:
+    tests/test_torch_dp_run.py; spatial training:
+    tests/test_torch_sp_train_loop.py; 2-D tiling in test mode:
+    tests/test_torch_sp2d.py)."""
+    import logging
+
     from ircolor_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main([mode, *extra])
+    caplog.set_level(logging.INFO)
+    with pytest.raises(RuntimeError, match="No IR-RGB pairs"):
+        main([mode, *extra, "--train-roots", str(tmp_path / "none"),
+              "--save-dir", str(tmp_path / "ckpt")])
+    assert "sp_w_devices=2 is not used by training" in caplog.text
+    assert "H over 2 shards" in caplog.text
 
 
 def test_import_leaves_jax_cv2_pil_triton_out():

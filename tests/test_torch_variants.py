@@ -422,18 +422,17 @@ def test_int8_variant_routes_match_jax_bf16(variant, strides, perturb, monkeypat
 
 
 def test_variant_configs_build_serve_and_train_on_cpu():
-    """Through the entry points: ``reject_unported`` refuses only 2-D H×W
-    tiling among the multi-device modes; batch norm, no norm,
+    """Through the entry points: ``reject_unported`` refuses only a W axis
+    without an H one among the multi-device modes; batch norm, no norm,
     no_antialias(_up) and remat build, serve (eval, running statistics)
     and take a train step with finite losses; spatial training builds
     with each variant (``tests/test_torch_sp_variants*.py`` hold them
     against JAX)."""
     for ok in (dict(norm="batch"), dict(norm="none"), dict(no_antialias=True),
                dict(no_antialias_up=True), dict(remat=True), dict(sp_devices=2),
-               dict(dp_devices=2)):
+               dict(dp_devices=2), dict(sp_devices=2, sp_w_devices=2)):
         reject_unported(Config(**ok))
-    for bad, exc in ((dict(sp_devices=2, sp_w_devices=2), NotImplementedError),
-                     (dict(sp_w_devices=2), ValueError)):
+    for bad, exc in ((dict(sp_w_devices=2), ValueError),):
         with pytest.raises(exc):
             reject_unported(Config(**bad))
     # Spatial training builds with each variant; the shard_map mode stays
