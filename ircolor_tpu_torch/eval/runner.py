@@ -25,6 +25,7 @@ axis without an H one, as JAX's runner does.
 from __future__ import annotations
 
 import copy
+import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -51,6 +52,7 @@ from ircolor_tpu_torch.parallel.spatial import (
     tiled,
 )
 from ircolor_tpu_torch.utils.logging import get_logger
+from ircolor_tpu_torch.utils.timing import span
 
 log = get_logger(__name__)
 
@@ -135,7 +137,12 @@ def make_infer_fn(module: torch.nn.Module, dp_mesh: list[torch.device] | None = 
     step (decode, generator, uint8, metrics) on a replica of the module on
     that entry's device (one replica a distinct device), routed by the
     gates at the chunk's batch; the outputs are concatenated in order on
-    the first entry's device. The batch must divide by the mesh size."""
+    the first entry's device. The batch must divide by the mesh size.
+
+    Spans (``utils.timing.span``, while a profiler records): the step is
+    ``serve.step#<n>``, n counting the calls of this step (of each replica's
+    step under ``dp_mesh``), over ``serve.decode``, ``serve.generator``,
+    ``serve.uint8`` and ``serve.metrics``."""
     mesh = getattr(module, "spatial_mesh", None)
     if dp_mesh is not None:
         home = next(module.parameters()).device
@@ -161,23 +168,30 @@ def make_infer_fn(module: torch.nn.Module, dp_mesh: list[torch.device] | None = 
 
         return infer_dp
 
+    steps = itertools.count()
+
     @torch.inference_mode()
     def infer(ir: torch.Tensor, gt01: torch.Tensor):
-        if ir.dtype == torch.uint16:
-            ir = ir.float() / 65535.0 * 2.0 - 1.0
-        elif ir.dtype == torch.uint8:
-            ir = ir.float() / 255.0 * 2.0 - 1.0
-        if gt01.dtype == torch.uint8:
-            gt01 = gt01.float() / 255.0
-        if mesh is None:
-            fake = module(ir)                               # (B, H, W, 3) [-1, 1]
-        else:
-            fake = (gather_hw(module(shard_hw(ir, mesh))) if tiled(mesh)
-                    else gather_h(module(shard_h(ir, mesh))))
-            gt01 = gt01.to(fake.device)
-        pred01q = quantize_to_uint8_01((fake + 1.0) / 2.0)
-        pred_u8 = (pred01q * 255.0).to(torch.uint8)
-        return pred_u8, batched_metrics(pred01q, gt01)
+        with span("serve.step", next(steps)):
+            with span("serve.decode"):
+                if ir.dtype == torch.uint16:
+                    ir = ir.float() / 65535.0 * 2.0 - 1.0
+                elif ir.dtype == torch.uint8:
+                    ir = ir.float() / 255.0 * 2.0 - 1.0
+                if gt01.dtype == torch.uint8:
+                    gt01 = gt01.float() / 255.0
+            with span("serve.generator"):
+                if mesh is None:
+                    fake = module(ir)                       # (B, H, W, 3) [-1, 1]
+                else:
+                    fake = (gather_hw(module(shard_hw(ir, mesh))) if tiled(mesh)
+                            else gather_h(module(shard_h(ir, mesh))))
+                    gt01 = gt01.to(fake.device)
+            with span("serve.uint8"):
+                pred01q = quantize_to_uint8_01((fake + 1.0) / 2.0)
+                pred_u8 = (pred01q * 255.0).to(torch.uint8)
+            with span("serve.metrics"):
+                return pred_u8, batched_metrics(pred01q, gt01)
 
     return infer
 

@@ -5,7 +5,9 @@ device of its input alone: a CPU tensor runs the plain PyTorch version in
 the same module; a CUDA tensor launches the kernel (built from ``csrc/`` at
 first use) or raises — no fallback, no silent move to the CPU — on the
 tensor's own card and its current stream (``on_input_card``). The wrapper
-adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else.
+adds one to its entry in ``LAUNCHES`` where it launches, and nowhere else;
+while a profiler records, all it enqueues there runs under the span
+``kernel.<that entry>`` (``utils.timing.span``).
 Inside a ``torch.export`` trace the serving wrappers call their
 ``torch.library`` op instead (``library.py``, ``exported_op``), whose CUDA
 kernel is the wrapper again.

@@ -24,6 +24,7 @@ from ircolor_tpu_torch.kernels import (
 )
 from ircolor_tpu_torch.ops.blurpool import blur_downsample
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
+from ircolor_tpu_torch.utils.timing import span
 
 _lib = None
 
@@ -82,10 +83,11 @@ def blur_downsample_pallas(x):
     require(x, "x", torch.bfloat16, (None, None, None, None))
     if c % 8:
         raise ValueError(f"blur_downsample kernel: C={c} (needs C % 8 == 0)")
-    out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    err = _load().ircolor_blur_down(x.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x))
-    build.check(err, "blur_downsample")
-    LAUNCHES["blur_downsample"] += 1
+    with span("kernel.blur_downsample"):
+        out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+        err = _load().ircolor_blur_down(x.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x))
+        build.check(err, "blur_downsample")
+        LAUNCHES["blur_downsample"] += 1
     return out
 
 
@@ -107,13 +109,14 @@ def norm_relu_blur_down_pallas(x, mean, inv):
             f"norm_relu_blur_down kernel: unsupported shape {tuple(x.shape)} "
             "(needs even H and W, C % 8 == 0)"
         )
-    out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    err = _load().ircolor_norm_relu_blur_down(
-        x.data_ptr(), mean.data_ptr(), inv.data_ptr(), out.data_ptr(),
-        b, h, w, c, stream_ptr(x),
-    )
-    build.check(err, "norm_relu_blur_down")
-    LAUNCHES["norm_relu_blur_down"] += 1
+    with span("kernel.norm_relu_blur_down"):
+        out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+        err = _load().ircolor_norm_relu_blur_down(
+            x.data_ptr(), mean.data_ptr(), inv.data_ptr(), out.data_ptr(),
+            b, h, w, c, stream_ptr(x),
+        )
+        build.check(err, "norm_relu_blur_down")
+        LAUNCHES["norm_relu_blur_down"] += 1
     return out
 
 

@@ -45,6 +45,7 @@ from ircolor_tpu_torch.kernels import (
     require,
     stream_ptr,
 )
+from ircolor_tpu_torch.utils.timing import span
 
 _PADS = ("zero", "reflect", "valid")
 _STRIDES = (1, 2)
@@ -236,8 +237,10 @@ def conv3x3_int8(xq, wq, sc, *, pad="zero", stride=1, bias=None, addend=None,
     if any(t.data_ptr() % 16 for t in (xq, addend) if t is not None):
         raise ValueError("conv3x3_int8: xq and addend must start on 16-byte boundaries "
                          "(TMA and the epilogue read them in 16- and 8-byte units)")
-    plan = _plan(b, ho, wo, c, cout, pad, stride)
-    src = _source(xq, pad)
-    out = _gemm(src, _rb()._q_weights(wq, plan), sc, plan, bias, addend, out_dtype)
-    LAUNCHES["conv3x3_int8_s2" if stride == 2 else "conv3x3_int8"] += 1
+    name = "conv3x3_int8_s2" if stride == 2 else "conv3x3_int8"
+    with span("kernel." + name):
+        plan = _plan(b, ho, wo, c, cout, pad, stride)
+        src = _source(xq, pad)
+        out = _gemm(src, _rb()._q_weights(wq, plan), sc, plan, bias, addend, out_dtype)
+        LAUNCHES[name] += 1
     return out

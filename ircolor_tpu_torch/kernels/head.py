@@ -28,6 +28,7 @@ from ircolor_tpu_torch.kernels import (
 from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_stats, instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _QCLIP, quantize_weight_per_channel
+from ircolor_tpu_torch.utils.timing import span
 
 _KS = 7
 _SMEM_LIMIT = 227 * 1024
@@ -201,24 +202,25 @@ def conv7x7_head_pallas(x, mean, inv, kernel, *, quant: bool = False):
     plan = check_shape(b, h, w, c, tuple(kernel.shape), quant)
     if x.data_ptr() % 16:
         raise ValueError("conv7x7 head kernel: x must start on a 16-byte boundary (cp.async)")
-    if quant:  # the generator passes an HWIO view of its OIHW weight
-        wt, sc = _quantize_head_weight(kernel)
-        wt = wt.contiguous()
-        require(wt, "kernel", torch.int8, (_KS, _KS, c, 3))
-        sc_ptr = sc.contiguous().data_ptr()
-    else:
-        wt, sc_ptr = kernel.to(torch.bfloat16).contiguous(), None
-        require(wt, "kernel", torch.bfloat16, (_KS, _KS, c, 3))
-    bidx = _head_index_on(c, plan.kst, plan.nchunk, quant, x.device)
-    out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
     name = "conv7x7_head_q" if quant else "conv7x7_head"
-    err = _load().ircolor_conv7x7_head(
-        x.data_ptr(), mean.data_ptr(), inv.data_ptr(), wt.data_ptr(), bidx.data_ptr(),
-        sc_ptr, out.data_ptr(), b, h, w, c, int(quant), plan.kst, plan.th, plan.nchunk,
-        plan.smem, stream_ptr(x),
-    )
-    build.check(err, name)
-    LAUNCHES[name] += 1
+    with span("kernel." + name):
+        if quant:  # the generator passes an HWIO view of its OIHW weight
+            wt, sc = _quantize_head_weight(kernel)
+            wt = wt.contiguous()
+            require(wt, "kernel", torch.int8, (_KS, _KS, c, 3))
+            sc_ptr = sc.contiguous().data_ptr()
+        else:
+            wt, sc_ptr = kernel.to(torch.bfloat16).contiguous(), None
+            require(wt, "kernel", torch.bfloat16, (_KS, _KS, c, 3))
+        bidx = _head_index_on(c, plan.kst, plan.nchunk, quant, x.device)
+        out = torch.empty((b, h, w, 3), dtype=x.dtype, device=x.device)
+        err = _load().ircolor_conv7x7_head(
+            x.data_ptr(), mean.data_ptr(), inv.data_ptr(), wt.data_ptr(), bidx.data_ptr(),
+            sc_ptr, out.data_ptr(), b, h, w, c, int(quant), plan.kst, plan.th, plan.nchunk,
+            plan.smem, stream_ptr(x),
+        )
+        build.check(err, name)
+        LAUNCHES[name] += 1
     return out
 
 

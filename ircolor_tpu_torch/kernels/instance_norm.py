@@ -75,6 +75,7 @@ from ircolor_tpu_torch.parallel.spatial import (
     tiled,
     tiles,
 )
+from ircolor_tpu_torch.utils.timing import span
 
 # The JAX kernel's budget: 12 double-buffered plane-equivalents (16 with a
 # residual) of one channel block within 30 MB of VMEM.
@@ -168,16 +169,17 @@ def _launch(mode: str, x: torch.Tensor, r: torch.Tensor | None) -> torch.Tensor:
         require(r, "r", x.dtype, (b, h, w, c))
     if b > 65535:
         raise ValueError(f"fused IN kernel: batch {b} > 65535")
-    out = torch.empty_like(x)
-    ptrs = [t.data_ptr() for t in (x, r, out) if t is not None]
-    vec = int(c % (16 // x.itemsize) == 0 and all(p % 16 == 0 for p in ptrs))
-    err = _load().ircolor_instance_norm(
-        int(x.dtype == torch.float32), _MODES[mode], vec, x.data_ptr(),
-        None if r is None else r.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x),
-    )
     name = "fused_instance_norm_residual" if r is not None else "fused_instance_norm"
-    build.check(err, name)
-    LAUNCHES[name] += 1
+    with span("kernel." + name):
+        out = torch.empty_like(x)
+        ptrs = [t.data_ptr() for t in (x, r, out) if t is not None]
+        vec = int(c % (16 // x.itemsize) == 0 and all(p % 16 == 0 for p in ptrs))
+        err = _load().ircolor_instance_norm(
+            int(x.dtype == torch.float32), _MODES[mode], vec, x.data_ptr(),
+            None if r is None else r.data_ptr(), out.data_ptr(), b, h, w, c, stream_ptr(x),
+        )
+        build.check(err, name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -564,11 +566,12 @@ def _run_in_spatial(xs, relu: bool, residuals, plain: bool = False, per_shard: b
         name = (f"fused_instance_norm{'_residual' if rs is not None else ''}"
                 f"_{'tile' if tiled(xs) else 'halo'}")
         mode = "residual" if rs is not None else ("relu" if relu else "plain")
-        if plan.form == "per_shard":
-            outs, mean, inv = _run_per_shard(mode, name, flat, rs, plan)
-        else:
-            outs, mean, inv = _launch_cluster(mode, flat, rs, plan)
-            LAUNCHES[name] += 1
+        with span("kernel." + name):
+            if plan.form == "per_shard":
+                outs, mean, inv = _run_per_shard(mode, name, flat, rs, plan)
+            else:
+                outs, mean, inv = _launch_cluster(mode, flat, rs, plan)
+                LAUNCHES[name] += 1
     return regrid(outs, xs), mean, inv
 
 

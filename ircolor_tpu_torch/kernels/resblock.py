@@ -52,6 +52,7 @@ from ircolor_tpu_torch.kernels.conv_int8 import int_conv_exact
 from ircolor_tpu_torch.ops.norm import instance_norm_vjp
 from ircolor_tpu_torch.ops.quant import _AMAX_FLOOR, _QCLIP, quantize_weight_per_channel
 from ircolor_tpu_torch.parallel.spatial import all_max, all_sum, exchange_halo_rows
+from ircolor_tpu_torch.utils.timing import span
 
 _EPS = 1e-5
 _BN = 128  # output channels per block of the conv kernels
@@ -545,14 +546,15 @@ def _launch_bf16(name: str, halo: str, legs, kernels, *, mean=None, inv=None,
         require(mean, "mean", torch.float32, (b, x0.shape[-1]))
         require(inv, "inv", torch.float32, (b, x0.shape[-1]))
     spatial = halo in ("provided", "separate")
-    plan = _conv_plan(b, h, w, tuple(x.shape[-1] for x in legs), cout,
-                      "reflect" if spatial else halo, norm=mean is not None)
-    out, s = _conv_fwd(legs, kernels, plan, mean, inv, halo=halo if spatial else "reflect",
-                       halo_rows=halo_rows, stats=stats or sums)
-    LAUNCHES[name] += 1
-    if not (stats or sums):
-        return out
-    return (out, *_stats_out(s, h * w, sums))
+    with span("kernel." + name):
+        plan = _conv_plan(b, h, w, tuple(x.shape[-1] for x in legs), cout,
+                          "reflect" if spatial else halo, norm=mean is not None)
+        out, s = _conv_fwd(legs, kernels, plan, mean, inv, halo=halo if spatial else "reflect",
+                           halo_rows=halo_rows, stats=stats or sums)
+        LAUNCHES[name] += 1
+        if not (stats or sums):
+            return out
+        return (out, *_stats_out(s, h * w, sums))
 
 
 def _check_sum_fused(inputs, kernels, pad: str, tile_h: int) -> None:
@@ -876,15 +878,17 @@ def conv3x3_reflect_fused_q(x, kq, sc, *, qscale=None, mean=None, inv=None, halo
     require(sc, "sc", torch.float32, (b, cout))
     if qscale is not None:
         require(qscale, "qscale", torch.float32, (b,))
-    if packed is None:
-        packed = q_pack(kq)
-    elif packed.device != x.device:
+    if packed is not None and packed.device != x.device:
         raise ValueError(f"packed: expected a tensor on {x.device}")
-    require(packed, "packed", torch.int8, (3, 3, cout, c))
-    plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
-    out, s = _q_fused(x, packed, sc, plan, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
-    LAUNCHES["conv3x3_reflect_fused_q" + ("" if halo == "reflect" else "_halo")] += 1
-    return (out, *_stats_out(s, h * w, sums))
+    name = "conv3x3_reflect_fused_q" + ("" if halo == "reflect" else "_halo")
+    with span("kernel." + name):
+        if packed is None:
+            packed = q_pack(kq)
+        require(packed, "packed", torch.int8, (3, 3, cout, c))
+        plan = _conv_plan(b, h, w, (c,), cout, "reflect", s8=True)
+        out, s = _q_fused(x, packed, sc, plan, qscale, mean, inv, halo=halo, halo_rows=halo_rows)
+        LAUNCHES[name] += 1
+        return (out, *_stats_out(s, h * w, sums))
 
 
 def q_pack(kq: torch.Tensor) -> torch.Tensor:
@@ -1163,16 +1167,17 @@ def conv3x3_dgrad_fused(p, comp, aux, kernel_fwd, m, inv, gm, gy, mask_stats=Non
     if mask_stats is not None:
         require(mask_stats[0], "mm", torch.float32, (b, cin))
         require(mask_stats[1], "mi", torch.float32, (b, cin))
-    plan = _dgrad_plan(b, h, w, c, cin, pad)
-    dy = _dgrad_pass(p, comp, m, inv, gm, gy, mask_p)
-    fold = _dgrad_fold(dy, kernel_fwd) if plan.fold else None
-    out, partial = _dgrad_gemm(dy, _dgrad_kernel(kernel_fwd), plan, aux, mask_stats, fold)
     name = "conv3x3_dgrad_fused" + ("_seg" if _is_segment(pad, mask_p, aux is None) else "")
-    LAUNCHES[name] += 1
-    dy_out = dy if emit_dy else None
-    if mask_stats is None:
-        return out, dy_out
-    return out, dy_out, partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
+    with span("kernel." + name):
+        plan = _dgrad_plan(b, h, w, c, cin, pad)
+        dy = _dgrad_pass(p, comp, m, inv, gm, gy, mask_p)
+        fold = _dgrad_fold(dy, kernel_fwd) if plan.fold else None
+        out, partial = _dgrad_gemm(dy, _dgrad_kernel(kernel_fwd), plan, aux, mask_stats, fold)
+        LAUNCHES[name] += 1
+        dy_out = dy if emit_dy else None
+        if mask_stats is None:
+            return out, dy_out
+        return out, dy_out, partial.sum(dim=1)  # fixed-order reduce of the per-tile partials
 
 
 def conv3x3_wgrad_fused_plain(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect",
@@ -1224,11 +1229,12 @@ def conv3x3_wgrad_fused(z, p, comp, m, inv, gm, gy, znorm=None, *, pad="reflect"
     if znorm is not None:
         require(znorm[0], "zm", torch.float32, (b, cz))
         require(znorm[1], "zi", torch.float32, (b, cz))
-    zsrc, dy = _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm, pad=pad, mask_p=mask_p)
-    ws = _wgrad_gemm(zsrc, dy, _wgrad_plan(b, h, w, cz, co), pad=pad)
     name = "conv3x3_wgrad_fused" + ("_seg" if _is_segment(pad, mask_p) else "")
-    LAUNCHES[name] += 1
-    return ws.sum(dim=0).reshape(3, 3, cz, co)  # fixed-order reduce of the slots
+    with span("kernel." + name):
+        zsrc, dy = _wgrad_transform(z, p, comp, m, inv, gm, gy, znorm, pad=pad, mask_p=mask_p)
+        ws = _wgrad_gemm(zsrc, dy, _wgrad_plan(b, h, w, cz, co), pad=pad)
+        LAUNCHES[name] += 1
+        return ws.sum(dim=0).reshape(3, 3, cz, co)  # fixed-order reduce of the slots
 
 
 # The wgrad GEMM's K chunk: TR × TC pixels of one image (csrc/wgrad.cu's

@@ -101,6 +101,11 @@ variant as on the 1-D mesh, with ``use_pallas`` through row 11h's tile
 form. The fused blocks, the tails and the head stay off, as JAX's runner
 turns them off on a 2-D mesh (``check_spatial_compat``); int8 serving runs
 the int8 conv at every enc/dec and block conv site on 2-D slabs.
+
+Both forwards mark their stages as spans while a profiler records
+(``utils.timing.span``): ``g.inc``, ``g.down1``, ``g.down2``, ``g.blocks``,
+``g.up1``, ``g.up2`` and ``g.head`` (up2's norm and ReLU, fused into the
+head kernel or not, the 7×7 conv and tanh).
 """
 
 from __future__ import annotations
@@ -162,6 +167,7 @@ from ircolor_tpu_torch.parallel.spatial import (
     tiled,
     tiles,
 )
+from ircolor_tpu_torch.utils.timing import span
 
 
 def _fused_dtype_ok(dtype) -> bool:
@@ -682,33 +688,40 @@ class ResnetUNetGenerator(nn.Module):
         quant_convs = self._quant_convs(x)
         dec_quant = "dynamic" if quant_convs else None
 
-        x0 = conv_nhwc(self.inc[1], reflect_pad2d(x.to(dt), 3), dt)
-        x0 = self._norm_relu(x0, self.inc[2])                  # (B, H, W, 64)
-        x1 = self._down(self.down1, x0, quant_convs)            # (B, H/2, W/2, 128)
-        x2 = self._down(self.down2, x1, quant_convs)            # (B, H/4, W/4, 256)
-        h = self._blocks(x2)
+        with span("g.inc"):
+            x0 = conv_nhwc(self.inc[1], reflect_pad2d(x.to(dt), 3), dt)
+            x0 = self._norm_relu(x0, self.inc[2])              # (B, H, W, 64)
+        with span("g.down1"):
+            x1 = self._down(self.down1, x0, quant_convs)        # (B, H/2, W/2, 128)
+        with span("g.down2"):
+            x2 = self._down(self.down2, x1, quant_convs)        # (B, H/4, W/4, 256)
+        with span("g.blocks"):
+            h = self._blocks(x2)
 
-        y = self._up(self.up1_up, h, x1)
-        seg = self._encdec_seg((y, x1), self.up1_conv[0].out_channels, quant_convs)
-        if seg is not None:
-            y = conv_in_relu_fused(seg, (y, x1), _hwio(self.up1_conv[0], dt))
-        else:
-            y = self._norm_relu(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant),
-                                self.up1_conv[1])
+        with span("g.up1"):
+            y = self._up(self.up1_up, h, x1)
+            seg = self._encdec_seg((y, x1), self.up1_conv[0].out_channels, quant_convs)
+            if seg is not None:
+                y = conv_in_relu_fused(seg, (y, x1), _hwio(self.up1_conv[0], dt))
+            else:
+                y = self._norm_relu(concat_conv3x3(self.up1_conv[0], y, x1, dt, dec_quant),
+                                    self.up1_conv[1])
 
-        y = self._up(self.up2_up, y, x0)
-        # The fixed-scale int8 up2 conv only where the fused kernels took
-        # the dynamic int8 route off the decoder (the JAX ``quant_fixed``).
-        if self.quant and not quant_convs and self.quant_fixed_u2:
-            dec_quant = "fixed"
-        y = concat_conv3x3(self.up2_conv[0], y, x0, dt, dec_quant)
+        with span("g.up2"):
+            y = self._up(self.up2_up, y, x0)
+            # The fixed-scale int8 up2 conv only where the fused kernels took
+            # the dynamic int8 route off the decoder (the JAX ``quant_fixed``).
+            if self.quant and not quant_convs and self.quant_fixed_u2:
+                dec_quant = "fixed"
+            y = concat_conv3x3(self.up2_conv[0], y, x0, dt, dec_quant)
 
-        outc = self.outc[1]
-        if self._head_ok(y):
-            head = outc_head_q if self.quant and self.quant_head else outc_head
-            return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
-        y = self._norm_relu(y, self.up2_conv[1])
-        return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))
+        with span("g.head"):  # up2's norm + ReLU, the 7×7 conv, tanh
+            outc = self.outc[1]
+            if self._head_ok(y):
+                head = outc_head_q if self.quant and self.quant_head else outc_head
+                return torch.tanh(head(y, _hwio(outc, dt)) + outc.bias.to(dt))
+            y = self._norm_relu(y, self.up2_conv[1])
+            return torch.tanh(conv_nhwc(outc, reflect_pad2d(y, 3), dt))
 
     # --- spatial test mode ---------------------------------------------------
 
@@ -801,23 +814,30 @@ class ResnetUNetGenerator(nn.Module):
         quant_convs = self._quant_convs(torch.empty((b, gh, w, 1), device="meta"))
         dec_quant = "dynamic" if quant_convs else None
 
-        x0 = self._norm_relu_spatial(conv_nhwc_spatial(self.inc[1], xs, dt, pad=3,
-                                                       pad_type="reflect"), self.inc[2])
-        x1 = self._down_spatial(self.down1, x0, quant_convs)
-        x2 = self._down_spatial(self.down2, x1, quant_convs)
-        h = x2
-        for block in self.resblocks:
-            if self.remat and torch.is_grad_enabled():  # as ``_blocks``
-                h = list(checkpoint(lambda *shards, b=block: tuple(b.forward_spatial(list(shards))),
-                                    *h, use_reentrant=False,
-                                    context_fn=lambda b=block: remat_contexts(b)))
-            else:
-                h = block.forward_spatial(h)
-        y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(self.up1_up, h, x1), x1, dt,
-                                   dec_quant)
-        y = self._norm_relu_spatial(y, self.up1_conv[1])
-        y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(self.up2_up, y, x0), x0, dt,
-                                   dec_quant)
-        y = self._norm_relu_spatial(y, self.up2_conv[1])
-        return on_shards(torch.tanh, conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
-                                                       pad_type="reflect"))
+        with span("g.inc"):
+            x0 = self._norm_relu_spatial(conv_nhwc_spatial(self.inc[1], xs, dt, pad=3,
+                                                           pad_type="reflect"), self.inc[2])
+        with span("g.down1"):
+            x1 = self._down_spatial(self.down1, x0, quant_convs)
+        with span("g.down2"):
+            x2 = self._down_spatial(self.down2, x1, quant_convs)
+        with span("g.blocks"):
+            h = x2
+            for block in self.resblocks:
+                if self.remat and torch.is_grad_enabled():  # as ``_blocks``
+                    h = list(checkpoint(
+                        lambda *shards, b=block: tuple(b.forward_spatial(list(shards))),
+                        *h, use_reentrant=False, context_fn=lambda b=block: remat_contexts(b)))
+                else:
+                    h = block.forward_spatial(h)
+        with span("g.up1"):
+            y = concat_conv3x3_spatial(self.up1_conv[0], self._up_spatial(self.up1_up, h, x1),
+                                       x1, dt, dec_quant)
+            y = self._norm_relu_spatial(y, self.up1_conv[1])
+        with span("g.up2"):
+            y = concat_conv3x3_spatial(self.up2_conv[0], self._up_spatial(self.up2_up, y, x0),
+                                       x0, dt, dec_quant)
+        with span("g.head"):
+            y = self._norm_relu_spatial(y, self.up2_conv[1])
+            return on_shards(torch.tanh, conv_nhwc_spatial(self.outc[1], y, dt, pad=3,
+                                                           pad_type="reflect"))

@@ -54,6 +54,7 @@ from ircolor_tpu_torch.parallel.spatial import (
     sharded,
 )
 from ircolor_tpu_torch.train.state import TrainState
+from ircolor_tpu_torch.utils.timing import span
 
 METRIC_KEYS = ("loss_D", "loss_G", "loss_G_GAN", "loss_G_L1", "loss_G_perc",
                "loss_G_TV", "loss_G_SSIM")
@@ -91,23 +92,24 @@ def composite_g_losses(
     TV's seams) and every mean is over the whole image's count."""
     zero = torch.zeros((), dtype=torch.float32, device=first_shard(fake).device)
     fake32, rgb32 = on_shards(torch.Tensor.float, fake), on_shards(torch.Tensor.float, rgb)
-    loss_l1 = (global_mean(on_shards(_l1, fake32, rgb32)) * cfg.lambda_L1
-               if cfg.lambda_L1 != 0.0 else zero)
+    loss_l1 = loss_perc = loss_tv = loss_ssim = zero
+    if cfg.lambda_L1 != 0.0:
+        with span("loss.l1"):
+            loss_l1 = global_mean(on_shards(_l1, fake32, rgb32)) * cfg.lambda_L1
     if cfg.lambda_perc != 0.0:
-        feat_fake, feat_real = vgg(fake), vgg(rgb)
-        loss_perc = global_mean(on_shards(_l1, feat_fake, feat_real)) * cfg.lambda_perc
-    else:
-        loss_perc = zero
-    loss_tv = tv_loss(fake32) * cfg.lambda_tv if cfg.lambda_tv != 0.0 else zero
+        with span("loss.vgg"):
+            feat_fake, feat_real = vgg(fake), vgg(rgb)
+            loss_perc = global_mean(on_shards(_l1, feat_fake, feat_real)) * cfg.lambda_perc
+    if cfg.lambda_tv != 0.0:
+        with span("loss.tv"):
+            loss_tv = tv_loss(fake32) * cfg.lambda_tv
 
     def to01(t: torch.Tensor) -> torch.Tensor:
         return (t + 1.0) / 2.0
 
-    loss_ssim = (
-        ssim_loss(on_shards(to01, fake32), on_shards(to01, rgb32)) * cfg.lambda_ssim
-        if cfg.lambda_ssim != 0.0
-        else zero
-    )
+    if cfg.lambda_ssim != 0.0:
+        with span("loss.ssim"):
+            loss_ssim = ssim_loss(on_shards(to01, fake32), on_shards(to01, rgb32)) * cfg.lambda_ssim
     total = cfg.lambda_gan * loss_gan + loss_l1 + loss_perc + loss_tv + loss_ssim
     return total, {
         "loss_G": total,
@@ -149,51 +151,69 @@ def make_train_step(
 
     has_bn = cfg.norm == "batch"
 
+    def _reduce(net: torch.nn.Module) -> None:
+        if reduce_grads is not None:
+            with span("train.allreduce"):
+                reduce_grads(net)
+
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
+        with span("train.step", state.step):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict[str, torch.Tensor]):
         g, d = state.g, state.d
-        ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
-        if has_bn:
-            with torch.no_grad():
-                fake_detached = g(ir)
-        else:
-            fake = g(ir)
-            fake_detached = on_shards(torch.Tensor.detach, fake)
+        with span("train.decode"):
+            ir, rgb = _decode_transport(batch["ir"], batch["rgb"])
+        with span("train.g_forward"):
+            if has_bn:
+                with torch.no_grad():
+                    fake_detached = g(ir)
+            else:
+                fake = g(ir)
+                fake_detached = on_shards(torch.Tensor.detach, fake)
 
         if update_d:
             d.requires_grad_(True)
-            if cfg.d_concat and not has_bn:
-                b = first_shard(ir).shape[0]
-                pred = d(on_shards(_real_fake, ir, rgb, fake_detached))
-                loss_d = hinge_d_loss(on_shards(lambda p: p[:b], pred),
-                                      on_shards(lambda p: p[b:], pred))
-            else:
-                loss_d = hinge_d_loss(d(on_shards(_d_input, ir, rgb)),
-                                      d(on_shards(_d_input, ir, fake_detached)))
-            state.opt_d.zero_grad(set_to_none=True)
-            loss_d.backward()
-            if reduce_grads is not None:
-                reduce_grads(d)
-            _adam_step(state.opt_d, state.sched_d(state.step))
+            with span("train.d_forward"):
+                if cfg.d_concat and not has_bn:
+                    b = first_shard(ir).shape[0]
+                    pred = d(on_shards(_real_fake, ir, rgb, fake_detached))
+                    loss_d = hinge_d_loss(on_shards(lambda p: p[:b], pred),
+                                          on_shards(lambda p: p[b:], pred))
+                else:
+                    loss_d = hinge_d_loss(d(on_shards(_d_input, ir, rgb)),
+                                          d(on_shards(_d_input, ir, fake_detached)))
+            with span("train.d_backward"):
+                state.opt_d.zero_grad(set_to_none=True)
+                loss_d.backward()
+            _reduce(d)
+            with span("train.d_adam"):
+                _adam_step(state.opt_d, state.sched_d(state.step))
         else:
             loss_d = torch.zeros((), dtype=torch.float32, device=first_shard(ir).device)
 
         # G phase against the updated D; D's parameters take no gradient.
         if has_bn:
-            fake = g(ir)
+            with span("train.g_forward"):
+                fake = g(ir)
         d.requires_grad_(False)
         try:
-            if cfg.lambda_gan != 0.0:
-                loss_gan = hinge_g_loss(d(on_shards(_d_input, ir, fake)))
-            else:
-                loss_gan = torch.zeros((), dtype=torch.float32, device=first_shard(fake).device)
-            total, metrics = composite_g_losses(cfg, vgg, fake, rgb, loss_gan)
-            state.opt_g.zero_grad(set_to_none=True)
-            total.backward()
+            with span("train.g_gan"):
+                if cfg.lambda_gan != 0.0:
+                    loss_gan = hinge_g_loss(d(on_shards(_d_input, ir, fake)))
+                else:
+                    loss_gan = torch.zeros((), dtype=torch.float32,
+                                           device=first_shard(fake).device)
+            with span("train.losses"):
+                total, metrics = composite_g_losses(cfg, vgg, fake, rgb, loss_gan)
+            with span("train.g_backward"):
+                state.opt_g.zero_grad(set_to_none=True)
+                total.backward()
         finally:
             d.requires_grad_(True)
-        if reduce_grads is not None:
-            reduce_grads(g)
-        _adam_step(state.opt_g, state.sched_g(state.step))
+        _reduce(g)
+        with span("train.g_adam"):
+            _adam_step(state.opt_g, state.sched_g(state.step))
         state.step += 1
         return state, {"loss_D": loss_d.detach(), **{k: v.detach() for k, v in metrics.items()}}
 

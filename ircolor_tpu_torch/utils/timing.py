@@ -1,26 +1,52 @@
-"""Wall-clock timing, throughput meters and profiler traces
-(``ircolor_tpu/utils/timing.py``).
+"""Synchronizing with the card, spans of the program's own phases, and
+profiler traces (``ircolor_tpu/utils/timing.py``).
 
-The meters synchronize with the card (``torch.cuda.synchronize``) where the
-JAX package blocks until its arrays are ready, so that a rate covers the
-device's work and not only its enqueue. ``profiler_trace`` /
-``ProfilerTrace`` capture a ``torch.profiler`` trace (the host, and the
-card where there is one) as a Chrome trace (chrome://tracing, Perfetto).
+``span(name)`` marks a phase of the serving step, the generator or the
+training step, and each kernel wrapper's launch, as a profiler range named
+``ircolor.<name>``, but only while a ``torch.profiler`` profile records: on
+the same clock as the card's activity in that profile (Kineto's), with
+nothing kept anywhere else. The range is a ``RecordFunction`` at an op's
+scope (``torch._C._profiler._RecordFunctionFast``), a host-side event like
+any op's, where ``torch.profiler.record_function``'s user scope would also
+give the card a ``gpu_user_annotation`` event over the kernels under it: in
+a profile whose events carry no activity type (torch 2.11) such an event
+reads as device work. With no profiler recording a span is one test of the
+profiler's flag and a shared no-op context: no range is made and no clock
+is read, so the step, and a ``torch.export`` trace of it, run as without
+it. ``ProfilerTrace`` records such a profile (the host, and the card where
+there is one) as a Chrome trace (chrome://tracing, Perfetto).
 
-Not ported: the JAX package's ``start_transfer_warmup`` and
-``time_chained_fn``, helpers for a remotely attached TPU's transport (its
-first device→host handshake; in-graph chained timing around its dispatch
-latency). The port times kernels with CUDA events (``chip_smoke.py``).
+Not ported: the JAX package's ``Timer``, ``ThroughputMeter``,
+``profiler_trace`` (nothing of the port read them), ``start_transfer_warmup``
+and ``time_chained_fn`` (a remotely attached TPU's transport). The port
+times kernels with CUDA events (``chip_smoke.py``) and its steps by the
+benchmark (``portbench/``; ``portbench/spans.py`` reads these spans from a
+profiled window).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Any, Iterator
+from typing import Any
 
 import torch
+import torch.autograd.profiler as _profiler
+
+SPAN_PREFIX = "ircolor."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, ordinal: int | None = None):
+    """A profiler range ``ircolor.<name>`` (``ircolor.<name>#<ordinal>``
+    where an ordinal is given: a step's number, which groups one batch's
+    spans) while a ``torch.profiler`` profile records; otherwise a shared
+    no-op context."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    if ordinal is not None:
+        name = f"{name}#{ordinal}"
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
 
 def synchronize(on: Any = None) -> None:
@@ -31,55 +57,6 @@ def synchronize(on: Any = None) -> None:
     dev = on.device if isinstance(on, torch.Tensor) else torch.device(on)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-class Timer:
-    """Accumulating wall-clock timer. ``with timer: ...``."""
-
-    def __init__(self) -> None:
-        self.total = 0.0
-        self.count = 0
-        self._t0: float | None = None
-
-    def __enter__(self) -> "Timer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc: Any) -> None:
-        if self._t0 is None:
-            raise RuntimeError("Timer exited without being entered")
-        self.total += time.perf_counter() - self._t0
-        self.count += 1
-        self._t0 = None
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count, 1)
-
-
-class ThroughputMeter:
-    """Items/s over a window, synchronized with the card of ``sync_on`` at
-    its ends."""
-
-    def __init__(self) -> None:
-        self._t0: float | None = None
-        self.items = 0
-
-    def start(self, sync_on: Any = None) -> None:
-        synchronize(sync_on)
-        self.items = 0
-        self._t0 = time.perf_counter()
-
-    def add(self, n: int) -> None:
-        self.items += n
-
-    def stop(self, sync_on: Any = None) -> float:
-        """Items/s since ``start()``."""
-        synchronize(sync_on)
-        if self._t0 is None:
-            raise RuntimeError("ThroughputMeter stopped without being started")
-        dt = time.perf_counter() - self._t0
-        return self.items / dt if dt > 0 else float("inf")
 
 
 class ProfilerTrace:
@@ -113,18 +90,3 @@ class ProfilerTrace:
         path = os.path.join(self.logdir, "trace.json")
         prof.export_chrome_trace(path)
         return path
-
-
-@contextlib.contextmanager
-def profiler_trace(logdir: str | None) -> Iterator[None]:
-    """Trace the block into ``<logdir>/trace.json`` (nothing if None), and
-    write it also when the block raises."""
-    if logdir is None:
-        yield
-        return
-    trace = ProfilerTrace(logdir)
-    trace.start()
-    try:
-        yield
-    finally:
-        trace.stop()

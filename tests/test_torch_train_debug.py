@@ -1,7 +1,7 @@
 """The training diagnostics of the port on the CPU: ``profile_dir`` (a
-``torch.profiler`` trace of the first steps, stopped also when a step
-raises), ``debug_nans`` (the first module whose output is not finite, named)
-and ``utils/timing.py``."""
+``torch.profiler`` trace of the first steps, with the step's spans, stopped
+also when a step raises) and ``debug_nans`` (the first module whose output
+is not finite, named)."""
 
 import json
 import os
@@ -13,7 +13,6 @@ from ircolor_tpu_torch.config import Config
 from ircolor_tpu_torch.models.wrapper import IRColorizationModel
 from ircolor_tpu_torch.train import loop
 from ircolor_tpu_torch.train.checkpoint import save_netg_pth
-from ircolor_tpu_torch.utils import timing
 from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
@@ -35,6 +34,7 @@ def test_profile_dir_writes_a_trace(kaist_tree, tmp_path):
                      max_steps_per_epoch=2)
     names = {e.get("name", "") for e in _trace_events(logdir)}
     assert any("conv" in n for n in names)
+    assert any(n.startswith("ircolor.train.step#") for n in names)
     assert not torch.autograd.profiler._is_profiler_enabled
 
 
@@ -81,25 +81,3 @@ def test_debug_nans_names_the_first_module(kaist_tree, tmp_path):
     summary = loop.train_kaist(cfg, device="cpu", max_steps_per_epoch=1)
     state = summary["state"]
     assert not state.g._forward_pre_hooks and not state.d._forward_hooks
-
-
-def test_timing_meters():
-    t = timing.Timer()
-    for _ in range(2):
-        with t:
-            pass
-    assert t.count == 2 and t.mean >= 0.0
-    meter = timing.ThroughputMeter()
-    meter.start(torch.zeros(1))
-    meter.add(8)
-    assert meter.stop("cpu") > 0
-    with pytest.raises(RuntimeError):
-        timing.ThroughputMeter().stop()
-
-
-def test_profiler_trace_context(tmp_path):
-    with timing.profiler_trace(str(tmp_path)):
-        torch.ones(4).sum()
-    assert os.path.isfile(tmp_path / "trace.json")
-    with timing.profiler_trace(None):
-        pass
